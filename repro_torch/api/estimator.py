@@ -1,0 +1,177 @@
+"""``KMedoids`` — the scikit-learn-style facade (counterpart of
+``repro.api.KMedoids``)::
+
+    from repro_torch.api import KMedoids
+
+    est = KMedoids(k=5, solver="banditpam", metric="l2", seed=0)  # on the card
+    est.fit(X)                      # X: [n, d] numpy or tensor
+    est.medoids_, est.labels_, est.loss_, est.report_
+    est.predict(X_new)              # [m] nearest-medoid labels
+    est.transform(X_new)            # [m, k] dissimilarities
+
+``device=None`` means the card and raises without one; ``device="cpu"``
+runs the plain PyTorch path.  ``labels_`` come from one top-2 pass (the
+``top2`` kernel on the card); ``transform`` from the pairwise path (the
+``pairwise`` kernel) and ``predict`` is its first-index argmin.
+
+``KMedoids.from_fitted(X, medoids, metric)`` builds a fitted estimator
+from given medoid indices, e.g. medoids fitted by the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.device import DeviceLike, resolve_device
+from ..core.distances import resolve_metric
+from ..core.engine import medoid_cache, resolve_stats_backend
+from .predict import DEFAULT_CHUNK, medoid_distances_t
+from .registry import get_solver, solver_accepts_backend
+
+
+class KMedoids:
+    """k-medoids clustering through the solver registry.
+
+    Args:
+      k: number of medoids.
+      solver: registered solver name (``"banditpam"`` on this slice).
+      metric: ``"l2"``, ``"l2sq"``, ``"l1"`` or ``"cosine"``.
+      seed: seeds the default reference-permutation source (a
+        ``torch.Generator``; not the JAX package's draws).
+      backend: stats backend of the fit (``"auto"``, ``"cuda"``,
+        ``"torch"``).
+      predict_backend: backend of ``predict``/``transform``.
+      predict_chunk: query rows per pairwise call in predict/transform.
+      device: ``None`` (the card), ``"cuda"`` or ``"cpu"``.
+      **solver_params: passed to the solver.
+    """
+
+    def __init__(self, k: int, solver: str = "banditpam", metric="l2",
+                 seed: int = 0, backend: str = "auto",
+                 predict_backend: str = "auto",
+                 predict_chunk: int = DEFAULT_CHUNK,
+                 device: DeviceLike = None, **solver_params):
+        if int(k) < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        self.k = int(k)
+        self.solver = solver
+        self.metric = metric
+        self.seed = int(seed)
+        self.backend = backend
+        self.predict_backend = predict_backend
+        self.predict_chunk = int(predict_chunk)
+        self.device = device
+        self.solver_params = dict(solver_params)
+        self.report_ = None
+        self.medoids_ = None
+        self.labels_ = None
+        self.loss_ = None
+
+    def __repr__(self):
+        extra = "".join(f", {k}={v!r}" for k, v in self.solver_params.items())
+        return (f"KMedoids(k={self.k}, solver={self.solver!r}, "
+                f"metric={self.metric!r}, seed={self.seed}{extra})")
+
+    def _data(self, X, dev: torch.device) -> torch.Tensor:
+        data = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
+        if data.ndim != 2:
+            raise ValueError(f"expected [n, d] data, got shape "
+                             f"{tuple(data.shape)}")
+        return data
+
+    def _set_fitted(self, data: torch.Tensor, medoids: np.ndarray,
+                    metric_name: str) -> None:
+        dev = data.device
+        med_t = torch.as_tensor(medoids, dtype=torch.int64, device=dev)
+        # In-sample labels (and the loss) under the fit's metric: one
+        # top-2 pass.
+        d1, _, assign = medoid_cache(
+            data, med_t, metric=metric_name,
+            backend=resolve_stats_backend(self.backend, metric_name, dev))
+        self.loss_ = float(torch.sum(d1))
+        self.medoids_ = medoids
+        self.labels_ = assign.cpu().numpy()
+        self._metric_name = metric_name
+        self._medoid_points = data[med_t].contiguous()
+        self.n_features_in_ = data.shape[1]
+
+    # -- fitting ---------------------------------------------------------
+    def fit(self, X, layouts=None) -> "KMedoids":
+        """Fit on ``X``; ``layouts`` (``repro_torch.core.rng``) replaces
+        the default permutation source, e.g. with the JAX chain's."""
+        solver_fn = get_solver(self.solver)
+        if "warm_start" in self.solver_params:
+            raise NotImplementedError(
+                "warm_start is not ported to repro_torch yet (ROADMAP A11)")
+        metric_name = resolve_metric(self.metric)
+        dev = resolve_device(self.device)
+        data = self._data(X, dev)
+        if data.shape[0] <= self.k:
+            raise ValueError(f"need n > k, got n={data.shape[0]}, k={self.k}")
+        params = dict(self.solver_params)
+        if solver_accepts_backend(self.solver):
+            params.setdefault("backend", self.backend)
+        elif self.backend != "auto":
+            raise ValueError(f"solver {self.solver!r} does not take a stats "
+                             f"backend")
+        report = solver_fn(data, self.k, metric=metric_name, seed=self.seed,
+                           device=dev, layouts=layouts, **params)
+        medoids = np.asarray(report.medoids).astype(np.int64)
+        self._set_fitted(data, medoids, metric_name)
+        report.labels = self.labels_
+        report.solver = self.solver
+        report.metric = metric_name
+        self.report_ = report
+        self.loss_ = float(report.loss)
+        return self
+
+    def fit_batch(self, X_batch, seeds=None):
+        raise NotImplementedError(
+            "fit_batch is not ported to repro_torch yet (ROADMAP A10)")
+
+    @classmethod
+    def from_fitted(cls, X, medoids, metric: str = "l2", *,
+                    device: DeviceLike = None, **kw) -> "KMedoids":
+        """A fitted estimator for given medoid indices into ``X``;
+        ``loss_`` is their total nearest-medoid dissimilarity."""
+        medoids = np.asarray(medoids, np.int64).ravel()
+        est = cls(k=medoids.shape[0], metric=metric, device=device, **kw)
+        metric_name = resolve_metric(metric)
+        dev = resolve_device(device)
+        est._set_fitted(est._data(X, dev), medoids, metric_name)
+        return est
+
+    def _check_fitted(self):
+        if self.medoids_ is None:
+            raise ValueError("this KMedoids instance is not fitted yet; "
+                             "call fit(X) first")
+
+    # -- inference -------------------------------------------------------
+    def _transform_t(self, X, backend: Optional[str]) -> torch.Tensor:
+        self._check_fitted()
+        if len(X.shape) != 2 or X.shape[1] != self.n_features_in_:
+            raise ValueError(f"queries must be [m, {self.n_features_in_}], "
+                             f"got shape {tuple(X.shape)}")
+        return medoid_distances_t(
+            X, self._medoid_points, self._metric_name,
+            backend=self.predict_backend if backend is None else backend,
+            chunk=self.predict_chunk)
+
+    def transform(self, X, backend: Optional[str] = None) -> np.ndarray:
+        """Dissimilarities from each query row to the medoids, [m, k]."""
+        return self._transform_t(X, backend).cpu().numpy()
+
+    def predict(self, X, backend: Optional[str] = None) -> np.ndarray:
+        """Nearest-medoid label (0..k-1) per query row; ties go to the
+        lowest index."""
+        return torch.argmin(self._transform_t(X, backend),
+                            dim=1).cpu().numpy()
+
+    def fit_predict(self, X, layouts=None) -> np.ndarray:
+        return self.fit(X, layouts=layouts).labels_
+
+    def fit_transform(self, X, layouts=None) -> np.ndarray:
+        return self.fit(X, layouts=layouts).transform(X)

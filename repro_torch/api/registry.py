@@ -1,0 +1,66 @@
+"""Solver registry for the ``KMedoids`` facade (counterpart of
+``repro.api.registry``).
+
+Solver contract::
+
+    fn(data, k, *, metric: str, seed: int, device, layouts=None, **params)
+        -> FitReport
+
+This slice ports ``banditpam``.  The JAX package's other solvers are
+known by name and raise ``NotImplementedError`` with their ROADMAP item,
+so a caller learns that the solver exists but is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from ..core.banditpam import BanditPAM
+from ..core.report import FitReport
+
+Solver = Callable[..., FitReport]
+
+_SOLVERS: Dict[str, Solver] = {}
+_ACCEPTS_BACKEND: set = set()
+
+# Solvers of the JAX package that later slices port, by ROADMAP item.
+NOT_PORTED = {"banditpam_pp": "A9", "banditpam_dist": "A13", "pam": "A8",
+              "fastpam1": "A8", "fasterpam": "A8", "clara": "A8",
+              "clarans": "A8", "voronoi": "A8", "onebatchpam": "A8"}
+
+
+def register_solver(name: str, fn: Solver, *,
+                    accepts_backend: bool = False) -> None:
+    """Register ``fn`` under ``name``; ``accepts_backend=True`` declares
+    that it takes the ``backend=`` stats-backend kwarg."""
+    _SOLVERS[name] = fn
+    if accepts_backend:
+        _ACCEPTS_BACKEND.add(name)
+    else:
+        _ACCEPTS_BACKEND.discard(name)
+
+
+def get_solver(name: str) -> Solver:
+    if name not in _SOLVERS:
+        if name in NOT_PORTED:
+            raise NotImplementedError(
+                f"solver {name!r} is not ported to repro_torch yet "
+                f"(ROADMAP {NOT_PORTED[name]})")
+        raise KeyError(f"unknown solver {name!r}; have {sorted(_SOLVERS)}")
+    return _SOLVERS[name]
+
+
+def available_solvers():
+    return sorted(_SOLVERS)
+
+
+def solver_accepts_backend(name: str) -> bool:
+    return name in _ACCEPTS_BACKEND
+
+
+def _banditpam(data, k, *, metric, seed, device, layouts=None, **params):
+    return BanditPAM(k, metric=metric, seed=seed, device=device,
+                     **params).fit(data, layouts=layouts)
+
+
+register_solver("banditpam", _banditpam, accepts_backend=True)

@@ -1,0 +1,31 @@
+"""Carry the JAX package's state across to the port (numpy in, no JAX).
+
+BanditPAM has no weights; what a fit depends on besides the data is its
+random draws, and what predict depends on is the fitted medoids:
+
+* :func:`layouts_from_reference` wraps the JAX chain's per-search
+  reference permutations (``[k, n]`` BUILD, ``[T, n]`` SWAP — e.g. from
+  ``repro.core.banditpam._batch_rng_chains`` and ``_batch_perms``) as a
+  layout source, so ``BanditPAM.fit(X, layouts=...)`` walks exactly the
+  JAX fit's batches;
+* a fitted JAX estimator crosses as its medoid indices, through
+  ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .core import rng
+
+
+def layouts_from_reference(build_perms, swap_perms) -> rng.ArrayLayouts:
+    """The JAX fit's reference permutations as a layout source."""
+    b = np.asarray(build_perms)
+    s = np.asarray(swap_perms)
+    for name, p in (("build", b), ("swap", s)):
+        if p.ndim == 2 and not np.all(np.sort(p, axis=1)
+                                      == np.arange(p.shape[1])):
+            raise ValueError(f"{name} rows are not permutations of "
+                             f"range({p.shape[1]})")
+    return rng.from_numpy(b, s)

@@ -1,0 +1,243 @@
+"""StatsBackend — the seam between the bandit fit loop and the
+g-statistics compute paths (counterpart of ``repro.core.engine``).
+
+Two backends, registered by name:
+
+* ``"torch"`` — the plain PyTorch versions (the Eq. 6 / Eq. 12 math
+  below over materialised ``[n, B]`` blocks); any kernel metric, any
+  device.  On the CPU it is what the tests hold against the JAX
+  package's ``"jnp"`` backend.
+* ``"cuda"`` — the port's hand-written kernels (``repro_torch.kernels``):
+  fused distance + statistics for BUILD and SWAP rounds, the top-2 pass
+  behind the medoid cache, the loss and the labels, and the pairwise
+  tile for the BUILD ``d_near`` update and predict.  CUDA tensors only.
+
+``resolve_stats_backend`` picks ``"cuda"`` on a CUDA device for the
+kernel metrics and ``"torch"`` on the CPU.  The registry stays open
+(``register_stats_backend``).
+
+Backend contract (every method takes and returns tensors on the data's
+device)::
+
+    pairwise(x, y, *, metric)                          -> [m, r]
+    build_stats(data, ref_idx, dnear_b, w, *, metric)  -> (Σg, Σg², cross) [n]
+    swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, *, metric)
+                                                       -> 3 × [k·n]
+    top2(x, med_pts, *, metric)                        -> (d1, d2, assign)
+
+Arm ``(medoid c, candidate x)`` of the SWAP statistics sits at flat
+index ``c·n + x``, the JAX package's order.  The leader cross-sum is
+zeros on this slice (``baseline="leader"`` is ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .distances import pairwise
+
+_EXACT_CHUNK = 512  # row tile of the top-2 / loss walks
+
+
+# ---------------------------------------------------------------------------
+# g-statistics math (the Eq. 6 / Eq. 12 forms shared by every caller)
+# ---------------------------------------------------------------------------
+
+def _build_g(dxy: torch.Tensor, dnear_b: torch.Tensor) -> torch.Tensor:
+    """Eq. 6 with the Eq. 4 special case for the first assignment."""
+    dn = dnear_b[None, :]
+    return torch.where(torch.isinf(dn), dxy, torch.clamp_max(dxy - dn, 0.0))
+
+
+def _swap_terms(dxy: torch.Tensor, d1_b: torch.Tensor, d2_b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    m1 = torch.minimum(dxy, d1_b[None, :])
+    base = m1 - d1_b[None, :]
+    corr = torch.minimum(dxy, d2_b[None, :]) - m1
+    return base, corr
+
+
+def _swap_batch_stats(dxy, d1_b, d2_b, a_b, w, k: int, lead_g=None):
+    """Per-arm sums, square-sums and leader cross-sums over a reference
+    batch, each ``[k, n]``.
+
+    g = base + 1[assign==c]·corr  ⇒
+      Σ g        = Σ base + Σ_{y∈C_c} corr
+      Σ g²       = Σ base² + Σ_{y∈C_c} (2·base·corr + corr²)
+      Σ g·g_lead = Σ base·g_lead + Σ_{y∈C_c} corr·g_lead
+    The C_c-restricted sums are one-hot products; weights are {0,1}.
+    """
+    base, corr = _swap_terms(dxy, d1_b, d2_b)
+    base = base * w[None, :]
+    onehot = (torch.nn.functional.one_hot(a_b.long(), k).to(dxy.dtype)
+              * w[:, None])                                       # [B, k]
+    sums = torch.sum(base, dim=1)[None, :] + (corr @ onehot).T    # [k, n]
+    sq_cross = 2.0 * base * corr + corr * corr
+    sqsums = torch.sum(base * base, dim=1)[None, :] + (sq_cross @ onehot).T
+    if lead_g is None:
+        return sums, sqsums, torch.zeros_like(sums)
+    lg = lead_g * w
+    cross = (base @ lg)[None, :] + ((corr * lg[None, :]) @ onehot).T
+    return sums, sqsums, cross
+
+
+def _top2_block(dmat: torch.Tensor):
+    """Nearest / second-nearest of one distance block: d1 the minimum,
+    assign the FIRST index attaining it, d2 the minimum over the other
+    columns (+inf when k == 1)."""
+    assign = torch.argmin(dmat, dim=1)
+    d1 = torch.gather(dmat, 1, assign[:, None])[:, 0]
+    cols = torch.arange(dmat.shape[1], device=dmat.device)
+    d2 = torch.min(torch.where(cols[None, :] == assign[:, None],
+                               float("inf"), dmat), dim=1).values
+    return d1, d2, assign.to(torch.int32)
+
+
+def _stream_top2(x, med_pts, metric: str, tile: int = _EXACT_CHUNK):
+    """Top-2 over row tiles: only one ``[tile, k]`` block is live."""
+    n = x.shape[0]
+    d1 = torch.empty((n,), dtype=torch.float32, device=x.device)
+    d2 = torch.empty_like(d1)
+    assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+    for lo in range(0, n, tile):
+        d1[lo:lo + tile], d2[lo:lo + tile], assign[lo:lo + tile] = (
+            _top2_block(pairwise(x[lo:lo + tile], med_pts, metric=metric)))
+    return d1, d2, assign
+
+
+def medoid_cache(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
+                 backend: str = "torch"):
+    """d1 (nearest-medoid dist), d2 (second nearest), assignment; [n]
+    each — one top-2 pass through the backend."""
+    return get_stats_backend(backend).top2(data, data[medoids],
+                                           metric=metric)
+
+
+def total_loss(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
+               backend: str = "torch") -> torch.Tensor:
+    """Sum of nearest-medoid dissimilarities, a 0-d float32 tensor on the
+    data's device.  The final sum runs over the intact ``[n]`` vector, as
+    in the JAX package."""
+    d1, _, _ = medoid_cache(data, medoids, metric=metric, backend=backend)
+    return torch.sum(d1)
+
+
+# ---------------------------------------------------------------------------
+# StatsBackend implementations
+# ---------------------------------------------------------------------------
+
+class TorchStatsBackend:
+    """Plain PyTorch statistics: any kernel metric, any device."""
+
+    name = "torch"
+
+    def pairwise(self, x, y, *, metric):
+        return pairwise(x, y, metric=metric)
+
+    def build_stats(self, data, ref_idx, dnear_b, w, *, metric):
+        g = _build_g(pairwise(data, data[ref_idx], metric=metric),
+                     dnear_b) * w[None, :]
+        return (torch.sum(g, dim=1), torch.sum(g * g, dim=1),
+                torch.zeros((g.shape[0],), dtype=g.dtype, device=g.device))
+
+    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, *,
+                   metric):
+        s, q, c = _swap_batch_stats(
+            pairwise(data, data[ref_idx], metric=metric), d1_b, d2_b,
+            assign_b, w, k)
+        return s.reshape(-1), q.reshape(-1), c.reshape(-1)
+
+    def top2(self, x, med_pts, *, metric):
+        return _stream_top2(x, med_pts, metric)
+
+
+class CudaStatsBackend:
+    """The hand-written kernels: ``build_g`` / ``swap_g`` for the bandit
+    rounds, ``top2`` for the medoid cache, loss and labels, ``pairwise``
+    for the BUILD ``d_near`` update and predict.  CUDA tensors only."""
+
+    name = "cuda"
+
+    @staticmethod
+    def _ops(t: torch.Tensor):
+        if not t.is_cuda:
+            raise ValueError(f"the 'cuda' stats backend takes CUDA tensors, "
+                             f"got {t.device}; use backend='torch'")
+        from ..kernels import ops
+        return ops
+
+    def pairwise(self, x, y, *, metric):
+        return self._ops(x).pairwise_distance(x, y, metric)
+
+    def build_stats(self, data, ref_idx, dnear_b, w, *, metric):
+        return self._ops(data).build_g_stats(data, data[ref_idx], dnear_b, w,
+                                             metric=metric)
+
+    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, *,
+                   metric):
+        s, q, c = self._ops(data).swap_g_stats(
+            data, data[ref_idx], d1_b, d2_b, assign_b, w, k, metric=metric)
+        return s.reshape(-1), q.reshape(-1), c.reshape(-1)
+
+    def top2(self, x, med_pts, *, metric):
+        return self._ops(x).stream_top2(x, med_pts, metric=metric)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_BACKENDS: Dict[str, Any] = {}
+
+
+def register_stats_backend(name: str, backend) -> None:
+    """Register a stats backend instance under ``name``."""
+    _BACKENDS[name] = backend
+
+
+def get_stats_backend(name: str):
+    if name not in _BACKENDS:
+        raise KeyError(f"unknown stats backend {name!r}; "
+                       f"have {sorted(_BACKENDS)}")
+    return _BACKENDS[name]
+
+
+def available_stats_backends():
+    return sorted(_BACKENDS)
+
+
+register_stats_backend("torch", TorchStatsBackend())
+register_stats_backend("cuda", CudaStatsBackend())
+
+
+def resolve_stats_backend(backend: Optional[str], metric: str,
+                          device: torch.device) -> str:
+    """Normalise a ``backend=`` argument to a registered name.
+
+    ``"auto"`` (or None) picks the kernels on a CUDA device and the plain
+    versions on the CPU.  A metric without a kernel on a CUDA device
+    raises on this slice (ROADMAP: non-kernel metrics on CUDA), and an
+    explicit ``"cuda"`` off a CUDA device or with such a metric is an
+    error.
+    """
+    from ..kernels.ops import KERNEL_METRICS
+    on_cuda = torch.device(device).type == "cuda"
+    if backend in (None, "auto"):
+        if not on_cuda:
+            return "torch"
+        if metric not in KERNEL_METRICS:
+            raise NotImplementedError(
+                f"metric {metric!r} has no kernel; non-kernel metrics on "
+                f"CUDA are not ported yet (ROADMAP)")
+        return "cuda"
+    get_stats_backend(backend)  # raises KeyError for unknown names
+    if backend == "cuda":
+        if not on_cuda:
+            raise ValueError(f"backend='cuda' needs a CUDA device, got "
+                             f"{device}; use backend='torch'")
+        if metric not in KERNEL_METRICS:
+            raise ValueError(f"metric {metric!r} has no kernel (kernel "
+                             f"metrics: {list(KERNEL_METRICS)})")
+    return backend

@@ -1,0 +1,52 @@
+"""The fit report, field for field the JAX package's ``FitReport``.
+
+Ledger semantics:
+
+* ``distance_evals`` — FRESH pairwise dissimilarity evaluations the
+  algorithm paid for, exactly as the paper counts them.
+* ``cached_evals`` — evaluations served from a distance cache; zero until
+  the PIC engine is ported (ROADMAP A9).
+* ``evals_by_phase`` — the itemised split (``build``, ``swap``; keys
+  ending in ``_cached`` are excluded from ``distance_evals``).
+
+The port keeps every count as a Python int (the device tallies are
+int64).  The JAX package's per-search count is uint32 and would wrap
+past 2**32 evaluations in one search at large n; the port's does not.
+
+``wall_by_phase`` holds seconds per phase, measured on the host around
+work that ends in a device synchronisation.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+
+@dataclass
+class FitReport:
+    medoids: np.ndarray
+    loss: float
+    n_swaps: int = 0
+    converged: bool = False
+    distance_evals: int = 0
+    evals_by_phase: Dict[str, int] = field(default_factory=dict)
+    swap_history: List[Tuple[int, int, float]] = field(default_factory=list)
+    build_rounds: List[int] = field(default_factory=list)
+    swap_exact_fallbacks: int = 0
+    cached_evals: int = 0
+    labels: Optional[np.ndarray] = None
+    solver: str = ""
+    metric: str = ""
+    wall_by_phase: Dict[str, float] = field(default_factory=dict)
+    dispatches_by_phase: Dict[str, int] = field(default_factory=dict)
+
+    def ledger(self) -> Dict[str, object]:
+        """The fresh/cached distance-evaluation ledger as one dict."""
+        return {
+            "fresh": int(self.distance_evals),
+            "cached": int(self.cached_evals),
+            "by_phase": {k: int(v) for k, v in self.evals_by_phase.items()},
+        }

@@ -1,0 +1,145 @@
+"""Public wrappers around the port's CUDA kernels.
+
+Counterpart of ``repro.kernels.ops``.  Each wrapper checks device, dtype,
+shape and contiguity and raises on what its kernel does not take; the GPU
+needs none of the TPU wrappers' 128-padding.  Dispatch is by the device
+of the tensors alone:
+
+* CUDA tensors go to the kernel (or the wrapper raises — there is no
+  fallback);
+* CPU tensors take the kernel's plain PyTorch version, which is how the
+  CPU tests reach this module.
+
+``launch_counts()`` / ``reset_launch_counts()`` read and clear the
+per-kernel launch counters, which show that a run went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import build_g as _build_g
+from . import pairwise as _pairwise
+from . import stream_g as _stream_g
+from . import swap_g as _swap_g
+
+# Metrics implemented by the kernels (the registry-facing names).
+KERNEL_METRICS = ("l2", "l2sq", "l1", "cosine")
+
+_KERNELS = {"pairwise": _pairwise, "build_g": _build_g, "swap_g": _swap_g,
+            "top2": _stream_g}
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0
+
+
+def _on_cuda(what: str, metric: str, *tensors: torch.Tensor) -> bool:
+    """Validate a call; True for the kernel, False for the plain version."""
+    if metric not in KERNEL_METRICS:
+        raise ValueError(f"{what}: metric {metric!r} has no kernel "
+                         f"(kernel metrics: {list(KERNEL_METRICS)})")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: expects contiguous tensors")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {dev}")
+
+
+def _check(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def _f32(what: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        _check(t.dtype == torch.float32, what, f"expects float32, got {t.dtype}")
+
+
+def pairwise_distance(x: torch.Tensor, y: torch.Tensor,
+                      metric: str = "l2") -> torch.Tensor:
+    """``[m, d] x [r, d] -> [m, r]`` dissimilarities."""
+    what = "pairwise_distance"
+    cuda = _on_cuda(what, metric, x, y)
+    _f32(what, x, y)
+    _check(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1], what,
+           f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    if cuda:
+        return _pairwise.launch(x, y, metric)
+    return _pairwise.pairwise_torch(x, y, metric=metric)
+
+
+def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
+                  w: torch.Tensor, lead_g: Optional[torch.Tensor] = None,
+                  *, metric: str = "l2") -> Stats:
+    """Fused BUILD statistics: (Σg, Σg², Σg·g_lead) per arm, [m] each."""
+    what = "build_g_stats"
+    if lead_g is None:
+        lead_g = torch.zeros_like(dnear_b)
+    cuda = _on_cuda(what, metric, x, y, dnear_b, w, lead_g)
+    _f32(what, x, y, dnear_b, w, lead_g)
+    b = y.shape[0]
+    _check(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1], what,
+           f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    _check(dnear_b.shape == (b,) and w.shape == (b,) and lead_g.shape == (b,),
+           what, "dnear_b, w and lead_g must be [B]")
+    if cuda:
+        return _build_g.launch(x, y, dnear_b, w, lead_g, metric)
+    return _build_g.build_g_torch(x, y, dnear_b, w, lead_g, metric)
+
+
+def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
+                 d2_b: torch.Tensor, assign_b: torch.Tensor, w: torch.Tensor,
+                 k: int, lead_g: Optional[torch.Tensor] = None,
+                 *, metric: str = "l2") -> Stats:
+    """Fused SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
+    ``[k, m]``: arm (medoid c, candidate x) lives at ``[c, x]``."""
+    what = "swap_g_stats"
+    if lead_g is None:
+        lead_g = torch.zeros_like(d1_b)
+    cuda = _on_cuda(what, metric, x, y, d1_b, d2_b, assign_b, w, lead_g)
+    _f32(what, x, y, d1_b, d2_b, w, lead_g)
+    _check(assign_b.dtype == torch.int32, what,
+           f"assign_b must be int32, got {assign_b.dtype}")
+    b = y.shape[0]
+    _check(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1], what,
+           f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    _check(all(t.shape == (b,) for t in (d1_b, d2_b, assign_b, w, lead_g)),
+           what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
+    _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    if cuda:
+        return _swap_g.launch(x, y, d1_b, d2_b, assign_b, w, int(k), lead_g,
+                              metric)
+    return _swap_g.swap_g_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
+                                lead_g, metric)
+
+
+def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,
+                metric: str = "l2") -> Stats:
+    """Nearest / second-nearest medoid: ``[n, d]`` × ``[k, d]`` →
+    (d1 [n], d2 [n], assign [n] int32); ties go to the lowest index."""
+    what = "stream_top2"
+    cuda = _on_cuda(what, metric, x, med_pts)
+    _f32(what, x, med_pts)
+    _check(x.ndim == 2 and med_pts.ndim == 2
+           and x.shape[1] == med_pts.shape[1] and med_pts.shape[0] >= 1,
+           what, f"shapes {tuple(x.shape)} x {tuple(med_pts.shape)}")
+    if cuda:
+        return _stream_g.launch(x, med_pts, metric)
+    return _stream_g.top2_torch(x, med_pts, metric)

@@ -1,0 +1,43 @@
+"""Pairwise dissimilarity ``[m, d] x [r, d] -> [m, r]``.
+
+Replaces the TPU kernel ``src/repro/kernels/pairwise.py:74``
+(``pairwise_kernel``, body ``dist_tile`` at ``:34``) with the CUDA kernel
+``csrc/pairwise.cu`` over the shared device routine ``csrc/dist_tile.cuh``.
+On the H100 it is memory-bound at the predict shapes (queries against k
+medoid columns: x is read once, the [m, k] block written once) and
+compute-bound once r is large; the design (one block per [64, 64] tile,
+features staged through shared memory, coalesced stores from a
+shared-memory tile) is described in the source.  There is no
+feature-axis split (the TPU kernel's ``DK_MAX``): the tile loops over any
+d.
+
+``pairwise_torch`` is the plain version: the registry metric of
+``repro_torch.core.distances``.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.distances import pairwise as pairwise_torch
+from . import build as _build
+
+METRIC_IDS = {"l2": 0, "l2sq": 1, "cosine": 2, "l1": 3}
+
+launches = 0
+
+__all__ = ["METRIC_IDS", "launch", "launches", "pairwise_torch"]
+
+
+def launch(x: torch.Tensor, y: torch.Tensor, metric: str) -> torch.Tensor:
+    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
+    global launches
+    m, d = x.shape
+    r = y.shape[0]
+    out = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    code = _build.lib().rt_pairwise(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), m, r, d,
+        METRIC_IDS[metric], torch.cuda.current_stream(x.device).cuda_stream)
+    launches += 1
+    _build.check(code, "pairwise kernel")
+    return out

@@ -1,0 +1,229 @@
+"""The port's BanditPAM fit and KMedoids facade held against the JAX
+package on the CPU, with the JAX chain's reference permutations injected
+through the layout seam (``repro_torch.convert``).
+
+Medoids, swap history, ledger, build rounds, swap count and convergence
+must be equal; losses agree to rtol 1e-5 (float32 summation order of the
+final loss sum).  Inputs are ``mnist_like`` data made with numpy.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import KMedoids as JKMedoids
+from repro.api import predict as jpredict
+from repro.core import BanditPAM as JBanditPAM
+from repro.core import datasets as jdatasets
+from repro.core.banditpam import _batch_perms, _batch_rng_chains
+from repro_torch import convert
+from repro_torch.api import KMedoids, assign_medoids, predict
+from repro_torch.core import BanditPAM, datasets, rng
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FIXTURES = [(300, 3, "l2"), (650, 5, "l2"), (650, 4, "l1")]
+
+
+def jax_layouts(seed: int, n: int, k: int):
+    """The JAX fit's per-search permutations: k BUILD, 4k+10 SWAP."""
+    _, _, _, bpk, spk = _batch_rng_chains(jnp.asarray([seed]), k=k,
+                                          T=4 * k + 10)
+    return (np.asarray(_batch_perms(bpk[0], n=n)),
+            np.asarray(_batch_perms(spk[0], n=n)))
+
+
+def _same_fit(got, want):
+    assert got.medoids.tolist() == np.asarray(want.medoids).tolist()
+    assert ([h[:2] for h in got.swap_history]
+            == [tuple(h[:2]) for h in want.swap_history])
+    assert got.evals_by_phase == want.evals_by_phase
+    assert got.build_rounds == want.build_rounds
+    assert got.n_swaps == want.n_swaps
+    assert got.converged == want.converged
+    assert got.distance_evals == want.distance_evals
+    assert abs(got.loss - want.loss) <= 1e-5 * abs(want.loss)
+    for (_, _, lg), (_, _, lw) in zip(got.swap_history, want.swap_history):
+        assert abs(lg - lw) <= 1e-5 * abs(lw)
+
+
+@pytest.mark.parametrize("n,k,metric", FIXTURES)
+def test_fit_matches_jax_reference(n, k, metric):
+    X = jdatasets.mnist_like(n, seed=1)
+    want = JBanditPAM(k, metric=metric, seed=0, backend="jnp").fit(X)
+    layouts = convert.layouts_from_reference(*jax_layouts(0, n, k))
+    got = BanditPAM(k, metric=metric, device="cpu").fit(X, layouts=layouts)
+    _same_fit(got, want)
+    assert got.wall_by_phase.keys() == {"build", "swap"}
+
+
+def test_kmedoids_labels_predict_transform_match_jax():
+    n, k = 300, 3
+    X = jdatasets.mnist_like(n, seed=1)
+    Q = jdatasets.mnist_like(120, seed=9)
+    jest = JKMedoids(k=k, solver="banditpam", metric="l2", seed=0,
+                     backend="jnp", predict_backend="jnp").fit(X)
+    est = KMedoids(k=k, solver="banditpam", metric="l2", device="cpu").fit(
+        X, layouts=convert.layouts_from_reference(*jax_layouts(0, n, k)))
+    assert est.medoids_.tolist() == jest.medoids_.tolist()
+    np.testing.assert_array_equal(est.labels_, jest.labels_)
+    assert est.report_.labels is est.labels_
+    assert abs(est.loss_ - jest.loss_) <= 1e-5 * abs(jest.loss_)
+    # predict/transform on medoids carried over from the JAX fit
+    ref = KMedoids.from_fitted(X, jest.medoids_, "l2", device="cpu")
+    t = ref.transform(Q)
+    jt = jest.transform(Q)
+    np.testing.assert_allclose(t, jt, rtol=1e-5, atol=1e-5 * np.abs(jt).max())
+    np.testing.assert_array_equal(ref.predict(Q), jest.predict(Q))
+    np.testing.assert_array_equal(ref.labels_, jest.labels_)
+    assert abs(ref.loss_ - jest.loss_) <= 1e-5 * abs(jest.loss_)
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1", "cosine", "l2sq"])
+def test_assign_and_distances_match_jax(metric):
+    X = jdatasets.mnist_like(200, seed=4)
+    med = X[[3, 50, 77, 120]]
+    jl, jd = jpredict.assign_medoids(X, jnp.asarray(med), metric,
+                                     backend="jnp")
+    tl, td = assign_medoids(X, med, metric, device="cpu")
+    np.testing.assert_array_equal(tl, jl)
+    jm = jpredict.medoid_distances(X, jnp.asarray(med), metric,
+                                   backend="jnp", chunk=64)
+    tm = predict.medoid_distances(X, med, metric, device="cpu", chunk=64)
+    # rtol 1e-5 plus atol 1e-5·max|d|; for l2 the medoid rows' own
+    # distance is the square root of l2sq summation noise (worst case
+    # d·2^-24 relative over d features), hence the extra term.
+    dmax = float(np.abs(jm).max())
+    atol = 1e-5 * dmax
+    if metric == "l2":
+        atol += np.sqrt(X.shape[1] * 2.0 ** -24) * dmax
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(tm, jm, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("m", [0, 1, 2, 3, 100, 1000, 8191, 8192, 9000])
+def test_row_buckets_match_jax(m):
+    for chunk in (64, 8192):
+        assert predict.bucket_rows(m, chunk) == jpredict.bucket_rows(m, chunk)
+    assert predict.assign_rows(m) == jpredict.assign_rows(m)
+
+
+def test_datasets_copy_is_bit_identical():
+    np.testing.assert_array_equal(datasets.mnist_like(257, seed=3, d=40),
+                                  jdatasets.mnist_like(257, seed=3, d=40))
+
+
+def test_default_device_is_the_card():
+    """device=None means CUDA; without a card every entry point raises."""
+    X = datasets.mnist_like(50, seed=0, d=16)
+    if torch.cuda.is_available():
+        est = KMedoids(k=2).fit(X)
+        assert est._medoid_points.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BanditPAM(2).fit(X)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KMedoids(k=2).fit(X)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        assign_medoids(X, X[:2], "l2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict.medoid_distances(X, X[:2], "l2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KMedoids.from_fitted(X, [0, 1])
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    X = datasets.mnist_like(50, seed=0, d=16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        BanditPAM(2, backend="cuda", device="cpu").fit(X)
+    with pytest.raises(KeyError):
+        BanditPAM(2, backend="nope", device="cpu").fit(X)
+
+
+@pytest.mark.parametrize("kw", [
+    {"sampling": "replacement"}, {"baseline": "leader"},
+    {"reuse": "pic"}, {"cache_cols": 200}, {"fused": False},
+    {"swap_early_stop": True}, {"cache_width": 400},
+    {"metric": "precomputed"}, {"metric": lambda x, y: x @ y.T},
+])
+def test_unported_knobs_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BanditPAM(3, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("solver", ["banditpam_pp", "pam", "fasterpam",
+                                    "clara", "onebatchpam", "banditpam_dist"])
+def test_unported_solvers_raise(solver):
+    X = datasets.mnist_like(40, seed=0, d=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        KMedoids(k=2, solver=solver, device="cpu").fit(X)
+
+
+def test_unported_entry_points_raise():
+    X = datasets.mnist_like(40, seed=0, d=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        BanditPAM(2, device="cpu").fit(X, warm_start=[0, 1])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        BanditPAM(2, device="cpu").fit_batch([X, X])
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        KMedoids(k=2, device="cpu").fit_batch([X, X])
+    with pytest.raises(KeyError):
+        KMedoids(k=2, solver="nope", device="cpu").fit(X)
+
+
+def test_generator_layouts_are_seeded_and_ordered():
+    X = datasets.mnist_like(220, seed=0, d=16)
+    a = BanditPAM(3, seed=5, device="cpu").fit(X)
+    b = BanditPAM(3, seed=5, device="cpu").fit(X)
+    assert a.medoids.tolist() == b.medoids.tolist()
+    assert a.evals_by_phase == b.evals_by_phase
+    src = rng.from_generator(0, "cpu")
+    src.build_perm(0, 10)
+    with pytest.raises(ValueError, match="fit order"):
+        src.build_perm(2, 10)
+
+
+def test_array_layouts_validate():
+    with pytest.raises(ValueError, match="permutations"):
+        convert.layouts_from_reference(np.zeros((2, 5), int),
+                                       np.zeros((2, 5), int))
+    src = rng.from_numpy(np.tile(np.arange(5), (2, 1)),
+                         np.tile(np.arange(5), (1, 1)))
+    with pytest.raises(ValueError, match="only 1"):
+        src.swap_perm(1, 5)
+    with pytest.raises(ValueError, match="has 6"):
+        src.build_perm(0, 6)
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference_package():
+    files = sorted((ROOT / "repro_torch").rglob("*.py")) + [ROOT /
+                                                           "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (f, mod)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.convert, "
+            "repro_torch.kernels.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

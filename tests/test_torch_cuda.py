@@ -1,0 +1,181 @@
+"""The port's CUDA kernels against their plain versions, and the
+``cuda`` stats backend against ``torch``, on the card.
+
+Marked ``gpu``; the ``cuda`` fixture skips every test where there is no
+CUDA device (decided inside the fixture, never at import).  Run on the
+card with ``python -m pytest -m gpu tests/test_torch_*.py``.
+
+Tolerance: kernel and plain version sum their dot products and
+abs-sums in different orders; over d features the relative error of
+such a sum is at most d·2^-24, so distances may differ by
+``dtol = d·2^-24·max|d|`` (and by sqrt of that scale near 0 for l2) and
+the B-term statistics by B times that (times max|d| for the squared and
+cross sums).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import BanditPAM, datasets, rng
+from repro_torch.kernels import build_g, ops, pairwise, stream_g, swap_g
+
+pytestmark = pytest.mark.gpu
+
+METRICS = ["l2", "l2sq", "l1", "cosine"]
+B = 100
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _x(n, d, seed, dev):
+    return torch.from_numpy(datasets.mnist_like(n, seed=seed, d=d)).to(dev)
+
+
+def _dtol(metric, dmax, d):
+    e = d * 2.0 ** -24
+    return (np.sqrt(e) if metric == "l2" else e) * dmax
+
+
+def _close(got, want, atol, rtol=1e-5):
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("m,r,d", [(1000, 10, 784), (130, 300, 33),
+                                   (7, 65, 12)])
+def test_pairwise_kernel_matches_plain(cuda, metric, m, r, d):
+    x, y = _x(m + r, d, 0, cuda).split([m, r])
+    x, y = x.contiguous(), y.contiguous()
+    before = pairwise.launches
+    got = ops.pairwise_distance(x, y, metric)
+    torch.cuda.synchronize()
+    assert pairwise.launches == before + 1
+    want = pairwise.pairwise_torch(x, y, metric=metric)
+    _close(got, want, _dtol(metric, float(want.abs().max()), d))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_build_g_kernel_matches_plain(cuda, metric):
+    n, d = 1300, 64
+    x = _x(n, d, 1, cuda)
+    g = torch.Generator().manual_seed(0)
+    y = x[torch.randperm(n, generator=g)[:B].to(cuda)].contiguous()
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    dn = torch.rand(B, generator=g).to(cuda) * dmax
+    dn[::7] = float("inf")
+    w = torch.ones(B, device=cuda)
+    w[::9] = 0.0
+    lg = torch.randn(B, generator=g).to(cuda)
+    got = ops.build_g_stats(x, y, dn, w, lg, metric=metric)
+    want = build_g.build_g_torch(x, y, dn, w, lg, metric)
+    tol = _dtol(metric, dmax, d)
+    lgm = float(lg.abs().max())
+    for a, b, at in zip(got, want, (B * tol, 2 * B * dmax * tol,
+                                    B * lgm * tol)):
+        _close(a, b, at)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_swap_g_kernel_matches_plain(cuda, metric, k):
+    n, d = 1300, 64
+    x = _x(n, d, 2, cuda)
+    g = torch.Generator().manual_seed(k)
+    y = x[torch.randperm(n, generator=g)[:B].to(cuda)].contiguous()
+    med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = stream_g.top2_torch(y, med, metric)
+    d2 = torch.where(torch.isinf(d2), d1 * 2, d2)
+    w = torch.ones(B, device=cuda)
+    w[-13:] = 0.0
+    lg = torch.randn(B, generator=g).to(cuda)
+    got = ops.swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric)
+    want = swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg, metric)
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    tol = _dtol(metric, dmax, d)
+    lgm = float(lg.abs().max())
+    for a_, b_, at in zip(got, want, (2 * B * tol, 4 * B * dmax * tol,
+                                      2 * B * lgm * tol)):
+        assert a_.shape == (k, n)
+        _close(a_, b_, at)
+
+
+def test_swap_g_refuses_k_past_its_bins(cuda):
+    x = _x(200, 16, 3, cuda)
+    k = swap_g.k_max() + 1
+    z = torch.zeros(B, device=cuda)
+    with pytest.raises(ValueError, match="k cap"):
+        ops.swap_g_stats(x, x[:B].contiguous(), z, z,
+                         torch.zeros(B, dtype=torch.int32, device=cuda),
+                         z + 1, k)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_top2_kernel_matches_plain(cuda, metric, k):
+    n, d = 2000, 48
+    x = _x(n, d, 4, cuda)
+    med = x[torch.arange(0, 17 * k, 17, device=cuda)].contiguous()
+    if k > 1:
+        med[-1] = med[0]                     # duplicate rows: d2 == d1
+    got = ops.stream_top2(x, med, metric=metric)
+    want = stream_g.top2_torch(x, med, metric)
+    dmax = float(want[0].max())
+    tol = _dtol(metric, dmax, d)
+    _close(got[0], want[0], tol)
+    _close(got[1], want[1], tol)
+    clear = (want[1] - want[0]) > 2 * tol
+    assert torch.equal(got[2][clear], want[2][clear])
+    if k > 1:
+        on0 = got[2] == 0
+        assert torch.equal(got[1][on0], got[0][on0])
+
+
+def test_cuda_tensor_never_falls_back(cuda):
+    x = _x(50, 16, 5, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.pairwise_distance(x.double(), x.double())
+    with pytest.raises(ValueError):
+        ops.pairwise_distance(x, x.cpu())
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_cuda_fit_matches_torch_fit_on_card(cuda, metric):
+    """Same permutations, kernels vs plain versions on the card.
+
+    The fits must pick the same medoids through the same swaps.  The
+    ledgers may differ by single arm-rounds: the kill rule compares
+    confidence bounds in float32, and the kernels' distances differ from
+    cuBLAS's in the last bits, so an arm on an exact margin can survive
+    one round longer (seen at n=1500, l2: BUILD 2459700 vs 2459800
+    evaluations).  Hence the 0.1 % ledger tolerance here; chip_smoke.py
+    holds the ledgers exactly equal at its own fixture.
+    """
+    n, k = 1500, 4
+    X = datasets.mnist_like(n, seed=6)
+    p = np.random.default_rng(0)
+    perms = (np.stack([p.permutation(n) for _ in range(k)]),
+             np.stack([p.permutation(n) for _ in range(4 * k + 10)]))
+    ops.reset_launch_counts()
+    a = BanditPAM(k, metric=metric, backend="cuda", device=cuda).fit(
+        X, layouts=rng.from_numpy(*perms))
+    counts = ops.launch_counts()
+    b = BanditPAM(k, metric=metric, backend="torch", device=cuda).fit(
+        X, layouts=rng.from_numpy(*perms))
+    assert counts["build_g"] > 0 and counts["swap_g"] > 0
+    assert counts["top2"] > 0
+    assert counts["pairwise"] == k           # one d_near update per pick
+    assert a.medoids.tolist() == b.medoids.tolist()
+    assert [h[:2] for h in a.swap_history] == [h[:2] for h in b.swap_history]
+    assert (a.n_swaps, a.converged) == (b.n_swaps, b.converged)
+    assert a.evals_by_phase.keys() == b.evals_by_phase.keys()
+    for ph, v in b.evals_by_phase.items():
+        assert abs(a.evals_by_phase[ph] - v) <= 1e-3 * v, ph
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)

@@ -1,0 +1,203 @@
+"""The port's kernel plain versions against the JAX package's Pallas
+kernels (interpret mode, as tests/test_kernels.py runs them) and against
+both packages' oracles, plus the engine's medoid cache and loss.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: rtol 1e-5 and atol 1e-5·max|d| for distances; the statistics
+sum B terms of size up to max|d| (Σg) or max|d|² (Σg², Σg·g_lead), so
+their atol carries a factor B and the matching power of max|d|.  Both
+are float32 summation-order noise between XLA's and PyTorch's CPU
+kernels.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import engine as jengine
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import engine as tengine
+from repro_torch.kernels import ops, ref
+
+METRICS = ["l2", "l2sq", "l1", "cosine"]
+B = 100
+
+
+def _data(m, r, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, d)).astype(np.float32),
+            rng.standard_normal((r, d)).astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, want, atol, rtol=1e-5):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", [(130, 100, 17), (64, 300, 129),
+                                   (7, 5, 3)])
+def test_pairwise_plain_matches_jax_kernel(metric, shape):
+    m, r, d = shape
+    x, y = _data(m, r, d)
+    got = ops.pairwise_distance(_t(x), _t(y), metric).numpy()
+    want = np.asarray(jops.pairwise_distance(jnp.asarray(x), jnp.asarray(y),
+                                             metric, interpret=True))
+    atol = 1e-5 * np.abs(want).max()
+    _close(got, want, atol)
+    _close(got, np.asarray(jref.pairwise_ref(jnp.asarray(x), jnp.asarray(y),
+                                             metric)), atol)
+    _close(got, ref.pairwise_ref(_t(x), _t(y), metric).numpy(), atol)
+
+
+def _build_inputs(m, d, seed):
+    x, y = _data(m, B, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    dn = (rng.uniform(0.5, 3.0, B) * np.sqrt(d)).astype(np.float32)
+    dn[rng.choice(B, 17, replace=False)] = np.inf      # first-assignment refs
+    w = np.ones(B, np.float32)
+    w[rng.choice(B, 9, replace=False)] = 0.0           # padded slots
+    lg = rng.standard_normal(B).astype(np.float32)
+    return x, y, dn, w, lg
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_build_g_plain_matches_jax_kernel(metric):
+    x, y, dn, w, lg = _build_inputs(130, 33, seed=3)
+    got = [a.numpy() for a in ops.build_g_stats(
+        _t(x), _t(y), _t(dn), _t(w), _t(lg), metric=metric)]
+    want = [np.asarray(a) for a in jops.build_g_stats(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(dn), jnp.asarray(w),
+        jnp.asarray(lg), metric=metric, interpret=True)]
+    dmax = float(ref.pairwise_ref(_t(x), _t(y), metric).abs().max())
+    atols = (1e-5 * dmax * B, 1e-5 * dmax ** 2 * B,
+             1e-5 * dmax * np.abs(lg).max() * B)
+    for g, wv, a in zip(got, want, atols):
+        _close(g, wv, a)
+    # the two-output oracles of both packages
+    osum, osq = ref.build_g_ref(_t(x), _t(y), _t(dn), _t(w), metric)
+    _close(got[0], osum.numpy(), atols[0])
+    _close(got[1], osq.numpy(), atols[1])
+    jsum, _ = jref.build_g_ref(jnp.asarray(x), jnp.asarray(y),
+                               jnp.asarray(dn), jnp.asarray(w), metric)
+    _close(got[0], np.asarray(jsum), atols[0])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [3, 5])
+def test_swap_g_plain_matches_jax_kernel(metric, k):
+    x, y = _data(130, B, 33, seed=5)
+    rng = np.random.default_rng(k)
+    d1 = (rng.uniform(0.0, 2.0, B) * 6).astype(np.float32)
+    d2 = d1 + (rng.uniform(0.0, 2.0, B) * 6).astype(np.float32)
+    a = rng.integers(0, k, B).astype(np.int32)
+    w = np.ones(B, np.float32)
+    w[-11:] = 0.0
+    lg = rng.standard_normal(B).astype(np.float32)
+    got = [t.numpy() for t in ops.swap_g_stats(
+        _t(x), _t(y), _t(d1), _t(d2), _t(a), _t(w), k, _t(lg), metric=metric)]
+    want = [np.asarray(t) for t in jops.swap_g_stats(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(d1), jnp.asarray(d2),
+        jnp.asarray(a), jnp.asarray(w), k, jnp.asarray(lg), metric=metric,
+        interpret=True)]
+    dmax = max(float(ref.pairwise_ref(_t(x), _t(y), metric).abs().max()),
+               float(d2.max()))
+    atols = (1e-5 * dmax * B, 1e-5 * dmax ** 2 * B,
+             1e-5 * dmax * np.abs(lg).max() * B)
+    for g, wv, at in zip(got, want, atols):
+        assert g.shape == (k, 130)
+        _close(g, wv, at)
+    osum, osq = ref.swap_g_ref(_t(x), _t(y), _t(d1), _t(d2), _t(a), _t(w), k,
+                               metric)
+    _close(got[0], osum.numpy(), atols[0])
+    _close(got[1], osq.numpy(), atols[1])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [3, 5])
+def test_top2_plain_matches_jax_kernel(metric, k):
+    x, med = _data(650, k, 33, seed=7)
+    med[-1] = med[0]                       # duplicate medoid rows: d2 == d1
+    got = [t.numpy() for t in ops.stream_top2(_t(x), _t(med), metric=metric)]
+    want = [np.asarray(t) for t in jops.stream_top2(
+        jnp.asarray(x), jnp.asarray(med), metric=metric, interpret=True)]
+    atol = 1e-5 * float(np.abs(want[1]).max())
+    _close(got[0], want[0], atol)
+    _close(got[1], want[1], atol)
+    assert got[2].dtype == np.int32
+    np.testing.assert_array_equal(got[2], want[2])
+    # The tie rule: rows nearest to the duplicated medoid take index 0,
+    # and their runner-up is the duplicate itself.
+    tie = got[2] == 0
+    assert tie.any()
+    np.testing.assert_array_equal(got[1][tie], got[0][tie])
+    o1, o2, oa = ref.top2_ref(_t(x), _t(med), metric)
+    _close(got[0], o1.numpy(), atol)
+    _close(got[1], o2.numpy(), atol)
+    np.testing.assert_array_equal(got[2], oa.numpy())
+
+
+def test_top2_single_medoid_has_infinite_runner_up():
+    x, med = _data(40, 1, 8, seed=2)
+    d1, d2, a = ops.stream_top2(_t(x), _t(med), metric="l2")
+    assert torch.isinf(d2).all() and (a == 0).all()
+
+
+@pytest.mark.parametrize("n", [300, 650])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_medoid_cache_and_loss_match_jax_engine(n, metric):
+    """Past the 512-row tile (n=650) and with B not dividing n."""
+    rng = np.random.default_rng(n)
+    X = rng.standard_normal((n, 24)).astype(np.float32)
+    meds = rng.choice(n, 5, replace=False).astype(np.int32)
+    want = [np.asarray(t) for t in jengine.medoid_cache(
+        jnp.asarray(X), jnp.asarray(meds), metric=metric)]
+    got = [t.numpy() for t in tengine.medoid_cache(
+        _t(X), torch.as_tensor(meds, dtype=torch.int64), metric=metric)]
+    dmax = float(np.abs(want[1]).max())
+    atol = 1e-5 * dmax
+    if metric == "l2":
+        # The medoid rows' own distance is 0 up to the l2sq summation
+        # noise (worst case d·2^-24 relative over d features), which the
+        # square root lifts to sqrt(d·2^-24)·max|d|.
+        atol += np.sqrt(X.shape[1] * 2.0 ** -24) * dmax
+    _close(got[0], want[0], atol)
+    _close(got[1], want[1], atol)
+    np.testing.assert_array_equal(got[2], want[2])
+    jl = float(jengine.total_loss(jnp.asarray(X), jnp.asarray(meds),
+                                  metric=metric))
+    tl = tengine.total_loss(_t(X), torch.as_tensor(meds, dtype=torch.int64),
+                            metric=metric)
+    assert tl.dtype == torch.float32 and tl.ndim == 0
+    assert abs(float(tl) - jl) <= 1e-5 * abs(jl)
+
+
+def test_wrappers_validate_inputs():
+    x, y = _data(10, 6, 4)
+    with pytest.raises(ValueError, match="float32"):
+        ops.pairwise_distance(_t(x).double(), _t(y).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.pairwise_distance(_t(x).T, _t(y).T)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.pairwise_distance(_t(x), _t(y), "hamming")
+    with pytest.raises(ValueError, match="int32"):
+        ops.swap_g_stats(_t(x), _t(y), torch.ones(6), torch.ones(6),
+                         torch.zeros(6, dtype=torch.int64), torch.ones(6), 2)
+    with pytest.raises(ValueError, match=r"\[B\]"):
+        ops.build_g_stats(_t(x), _t(y), torch.ones(5), torch.ones(6))
+
+
+def test_plain_path_never_counts_launches():
+    ops.reset_launch_counts()
+    x, y = _data(20, 6, 4)
+    ops.pairwise_distance(_t(x), _t(y))
+    ops.stream_top2(_t(x), _t(y))
+    assert ops.launch_counts() == {"pairwise": 0, "build_g": 0, "swap_g": 0,
+                                   "top2": 0}
