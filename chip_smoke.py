@@ -15,14 +15,34 @@ Phases, each of which raises (exit code != 0) on any failure:
    main path's shapes on MNIST-sized data (plus the other metrics at a
    smaller n), with the tolerance stated below, the kernel's time, the
    plain version's time, the library call's time where there is one,
-   and the bound;
+   and the bound.  The two streaming kernels (``stream_build_g``,
+   ``stream_swap_g``) are checked at the exact pass's full shape
+   (m = r = 60,000, d = 784, k = 10, l2) and at ``N_SMALL`` for l2sq, l1
+   and cosine, with a non-zero leader row, weight-0 slots, a finite and
+   an all-inf ``dnear`` and r not a multiple of 512; being 0.5 s a
+   launch, they are timed over fewer repetitions;
 4. fit parity on the card: ``backend="cuda"`` against ``backend="torch"``
-   on the same permutations must give identical medoids, swap history,
-   ledger and build rounds, and a loss within rtol 1e-5;
+   on the same draws must give identical medoids, swap history and
+   build rounds, and a loss within rtol 1e-5, for the default fit
+   (permutation sampling: the ledger equal too), for
+   ``sampling="replacement", baseline="leader"`` and for
+   ``sampling="replacement", swap_early_stop=True`` (exact-fallback
+   counts equal; the ledger within rtol 1e-3, since the leader's
+   differenced σ is a difference of batch sums whose float32 rounding
+   differs between the kernels and cuBLAS, which can move a kill on an
+   exact margin by a round; whether it is exactly equal is printed);
+   and PAM (``pam(backend="cuda")`` against ``"torch"``: identical
+   medoids, swaps and ledger);
 5. the main path at full size: ``KMedoids(k=10, solver="banditpam",
    metric="l2").fit`` on 60,000 MNIST-like points of d=784, then
    ``predict`` on 10,000 more, with every kernel's launch count from that
-   run, which must be >= 1.
+   run, which must be >= 1; then the exact paths on the same rows,
+   counted on their own: ``KMedoids(k=10, sampling="replacement",
+   baseline="leader").fit`` and ``KMedoids(k=10, solver="pam").fit``,
+   with wall by phase, ledger, fallbacks, launches (each streaming
+   kernel >= 1) and peak memory, whether each BanditPAM fit's medoids
+   equal PAM's (the paper's claim, measured and not asserted) and the
+   loss ratios; PAM's loss is checked against a plain ``total_loss``.
 
 The last two lines are one JSON object per kernel and the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -38,7 +58,8 @@ by ``dtol = 1e-2·dmax`` for l2.  Distances are then held to
 (Σg², Σg·g_lead for BUILD) and ``4B·dmax·dtol`` (SWAP, where g adds two
 terms), and the top-2 labels must agree wherever the two nearest
 distances are more than ``2·dtol`` apart (for l2: their squares more than
-``2·1e-4·dmax²``, the l2sq tolerance).
+``2·1e-4·dmax²``, the l2sq tolerance).  The streaming kernels sum r
+terms, so they are held to the same limits with B replaced by r.
 """
 
 from __future__ import annotations
@@ -58,6 +79,9 @@ B = 100                     # reference batch (BanditPAM's default)
 N_FIT, N_QUERY = 60000, 10000   # MNIST's train / test split
 N_SMALL = 8192              # rows for the other metrics' checks
 N_PARITY = 4096             # rows of the cuda-vs-torch fit parity
+# The kernels of the default fit + predict; the streaming kernels run on
+# the exact paths (replacement sampling's fallback, PAM).
+MAIN_KERNELS = ("pairwise", "build_g", "swap_g", "top2")
 
 
 def log(*a):
@@ -71,10 +95,11 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean ms of ``fn`` over ``reps`` launches, CUDA events, warmed up."""
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean ms of ``fn`` over ``reps`` launches, CUDA events, after
+    ``warm`` warm-up launches."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -262,10 +287,85 @@ def time_rows(torch, res, q, med, pairwise_err):
     return rows
 
 
+def stream_checks(torch, X, dev):
+    """Phase 3, streaming kernels: each against its plain version at the
+    exact pass's shapes (x = yref = the data); returns their timing rows
+    (l2 at full size, the main path's metric)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops, pairwise, stream_g
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    rows = []
+    for metric, n, r in (("l2", N_FIT, N_FIT), ("l2sq", N_SMALL, N_SMALL - 37),
+                         ("l1", N_SMALL, N_SMALL - 37),
+                         ("cosine", N_SMALL, N_SMALL - 37)):
+        x = X[:n].contiguous()
+        y = x if r == n else X[:r].contiguous()
+        k = 10
+        med = x[torch.randperm(n, generator=gen)[:k].to(dev)].contiguous()
+        d1, d2, a = ops.stream_top2(y, med, metric=metric)
+        dmax = float(pairwise.pairwise_torch(x[:2048], y, metric=metric).max())
+        tol = dist_tol(metric, dmax)
+        w = torch.ones(r, device=dev)
+        w[::97] = 0.0                                   # weight-0 slots
+        lead = int(torch.randint(n, (1,), generator=gen))
+        dl = ops.pairwise_distance(x[lead:lead + 1], y, metric)[0]
+        errs = {}
+        for label, dn in (("inf", torch.full((r,), float("inf"), device=dev)),
+                          ("finite", d1)):
+            lg = engine._build_g(dl[None, :], dn)[0] * w   # a leader's g-row
+            args = (x, y, dn, w, lg)
+            got = ops.stream_build_g_stats(*args, metric=metric)
+            want = stream_g.stream_build_g_torch(*args, metric)
+            errs[f"build/{label}"] = max(
+                check_close(f"stream_build_g[{metric},{label}] {nm}", g, wv, at)
+                for nm, g, wv, at in zip(("sums", "sq", "cross"), got, want,
+                                         (r * tol, 2 * r * dmax * tol,
+                                          2 * r * dmax * tol)))
+        lg = engine._swap_lead_g(dl, d1, d2, a, 3)      # arm (medoid 3, lead)
+        sargs = (x, y, d1, d2, a, w, k, lg)
+        got = ops.stream_swap_g_stats(*sargs, metric=metric)
+        want = stream_g.stream_swap_g_torch(*sargs, metric)
+        errs["swap"] = max(
+            check_close(f"stream_swap_g[{metric}] {nm}", g, wv, at)
+            for nm, g, wv, at in zip(("sums", "sq", "cross"), got, want,
+                                     (2 * r * tol, 4 * r * dmax * tol,
+                                      4 * r * dmax * tol)))
+        log(f"[kernel] {metric}: stream kernels within tolerance over r={r} "
+            f"(distance tolerance {tol:.3e})")
+        if metric != "l2":
+            continue
+        d = x.shape[1]
+        fl = 2.0 * n * r * d
+        by_x = 4.0 * n * d                              # x, also yref here
+        for name, src, rep, err, kern, plain, by in (
+                ("stream_build_g", "repro_torch/kernels/csrc/stream_stats.cu",
+                 "src/repro/kernels/stream_g.py:65",
+                 max(errs["build/inf"], errs["build/finite"]),
+                 lambda: ops.stream_build_g_stats(*args, metric="l2"),
+                 lambda: stream_g.stream_build_g_torch(*args, "l2"),
+                 by_x + 4.0 * (3 * r + 3 * n)),
+                ("stream_swap_g", "repro_torch/kernels/csrc/stream_stats.cu",
+                 "src/repro/kernels/stream_g.py:115", errs["swap"],
+                 lambda: ops.stream_swap_g_stats(*sargs, metric="l2"),
+                 lambda: stream_g.stream_swap_g_torch(*sargs, "l2"),
+                 by_x + 4.0 * (5 * r + 3 * k * n))):
+            ms = time_ms(kern, reps=3, warm=1)
+            pms = time_ms(plain, reps=3, warm=1)
+            bms, bby = bound_ms(fl, by)
+            log(f"[time] {name:14s} kernel {ms:.3f} ms  plain {pms:.3f} ms  "
+                f"library -  bound {bms:.3f} ms ({bby})  share of bound "
+                f"{bms / ms:.3f}")
+            rows.append({"name": name, "route": "cuda", "source": src,
+                         "replaces": rep, "launches": 0, "max_abs_err": err,
+                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                         "bound_by": bby, "library_ms": None})
+    return rows
+
+
 def fit_parity(torch, X, dev):
     """Phase 4: backend="cuda" against backend="torch" on the card."""
     import numpy as np
-    from repro_torch.core import BanditPAM, rng
+    from repro_torch.core import BanditPAM, pam, rng
     n, k = N_PARITY, 5
     data = X[:n].contiguous()
     prng = np.random.default_rng(1)
@@ -289,6 +389,51 @@ def fit_parity(torch, X, dev):
         raise AssertionError("cuda and torch fits differ")
     log("[parity] cuda == torch: medoids, swap history, ledger, build rounds, "
         f"n_swaps, converged; loss rel diff {abs(a.loss - b.loss) / abs(b.loss):.2e}")
+    # The exact paths: replacement sampling (leader, early stop) and PAM.
+    r = -(-n // B)
+    draws = (prng.integers(0, n, (k, r, B)),
+             prng.integers(0, n, (4 * k + 10, r, B)))
+    for kw in ({"sampling": "replacement", "baseline": "leader"},
+               {"sampling": "replacement", "swap_early_stop": True}):
+        for be in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            fits[be] = BanditPAM(k, metric="l2", backend=be, device=dev,
+                                 **kw).fit(data, layouts=rng.from_numpy(
+                                     build_draws=draws[0],
+                                     swap_draws=draws[1]))
+            log(f"[parity] {kw} backend={be:5s} medoids "
+                f"{fits[be].medoids.tolist()} swaps {fits[be].n_swaps} "
+                f"fallbacks {fits[be].swap_exact_fallbacks} evals "
+                f"{fits[be].evals_by_phase} rounds {fits[be].build_rounds} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        same_fit(fits["cuda"], fits["torch"], str(kw), ledger_rtol=1e-3)
+    for be in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        fits[be] = pam(data, k, metric="l2", backend=be, device=dev)
+        log(f"[parity] pam backend={be:5s} medoids {fits[be].medoids.tolist()}"
+            f" swaps {fits[be].n_swaps} evals {fits[be].evals_by_phase} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    same_fit(fits["cuda"], fits["torch"], "pam", ledger_rtol=0.0)
+
+
+def same_fit(a, b, what, ledger_rtol):
+    """Raise unless two fits agree: medoids, swap history, build rounds,
+    fallbacks, swaps and convergence equal, the ledger within
+    ``ledger_rtol``, the loss within rtol 1e-5."""
+    same = (a.medoids.tolist() == b.medoids.tolist()
+            and [h[:2] for h in a.swap_history] == [h[:2] for h in b.swap_history]
+            and a.build_rounds == b.build_rounds
+            and a.swap_exact_fallbacks == b.swap_exact_fallbacks
+            and a.n_swaps == b.n_swaps and a.converged == b.converged
+            and a.evals_by_phase.keys() == b.evals_by_phase.keys()
+            and all(abs(a.evals_by_phase[p] - v) <= ledger_rtol * v
+                    for p, v in b.evals_by_phase.items()))
+    if not same or abs(a.loss - b.loss) > 1e-5 * abs(b.loss):
+        raise AssertionError(f"{what}: cuda and torch fits differ")
+    log(f"[parity] {what}: cuda == torch (medoids, swaps, build rounds, "
+        f"fallbacks); ledger exactly equal: "
+        f"{a.evals_by_phase == b.evals_by_phase}; loss rel diff "
+        f"{abs(a.loss - b.loss) / abs(b.loss):.2e}")
 
 
 def main_path(torch, X, dev, Xnp):
@@ -318,7 +463,7 @@ def main_path(torch, X, dev, Xnp):
     log(f"[main] predict {N_QUERY} rows {predict_ms:.3f} ms; peak device memory "
         f"{peak} bytes")
     log(f"[main] kernel launches {counts}")
-    if min(counts.values()) < 1:
+    if min(counts[k] for k in MAIN_KERNELS) < 1:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
     # Output checks: shapes, finiteness, the loss against a plain pass, the
     # labels against the plain argmin off near-ties.
@@ -339,6 +484,54 @@ def main_path(torch, X, dev, Xnp):
         raise AssertionError("predict labels differ from the plain argmin")
     log(f"[main] predict labels == plain argmin on {int(clear.sum())} of "
         f"{N_QUERY} rows (the rest are near-ties)")
+    return counts, r
+
+
+def exact_paths(torch, X, dev, Xnp, perm_fit):
+    """Phase 5, the exact paths at full size: the paper's literal
+    Algorithm 1 (replacement sampling, leader baseline) and PAM on the
+    main path's rows; returns their launch counts."""
+    import numpy as np
+    from repro_torch.api import KMedoids
+    from repro_torch.core import total_loss
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fits = {}
+    for name, kw in (("replacement+leader",
+                      dict(solver="banditpam", sampling="replacement",
+                           baseline="leader")),
+                     ("pam", dict(solver="pam"))):
+        t0 = time.perf_counter()
+        est = KMedoids(k=10, metric="l2", seed=0, **kw).fit(Xnp[:N_FIT])
+        r = est.report_
+        fits[name] = r
+        log(f"[exact] {name}: medoids {r.medoids.tolist()}")
+        log(f"[exact] {name}: loss {r.loss!r} n_swaps {r.n_swaps} converged "
+            f"{r.converged} swap_exact_fallbacks {r.swap_exact_fallbacks}")
+        log(f"[exact] {name}: evals_by_phase {r.evals_by_phase} build_rounds "
+            f"{r.build_rounds}")
+        log(f"[exact] {name}: wall_by_phase {r.wall_by_phase} fit "
+            f"{time.perf_counter() - t0:.3f} s (data upload included)")
+    counts = ops.launch_counts()
+    log(f"[exact] kernel launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    if counts["stream_build_g"] < 1 or counts["stream_swap_g"] < 1:
+        raise AssertionError(f"a streaming kernel never ran: {counts}")
+    p = fits["pam"]
+    if len(set(p.medoids.tolist())) != 10:
+        raise AssertionError("bad PAM medoids")
+    data = X[:N_FIT].contiguous()
+    med_t = torch.as_tensor(p.medoids, device=dev)
+    plain_loss = float(total_loss(data, med_t, metric="l2", backend="torch"))
+    if not np.isfinite(p.loss) or abs(plain_loss - p.loss) > 1e-5 * abs(plain_loss):
+        raise AssertionError(f"PAM loss {p.loss} != plain {plain_loss}")
+    for name, r in (("permutation", perm_fit),
+                    ("replacement+leader", fits["replacement+leader"])):
+        log(f"[claim] BanditPAM ({name}) medoids == PAM's: "
+            f"{sorted(r.medoids.tolist()) == sorted(p.medoids.tolist())}; "
+            f"loss / PAM loss {r.loss / p.loss!r}")
     return counts
 
 
@@ -368,11 +561,14 @@ def main() -> int:
     X = torch.from_numpy(Xnp).to(dev)
     log(f"[data] mnist_like({N_FIT + N_QUERY}, d=784) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    rows = kernel_checks(torch, X, dev)
+    rows = kernel_checks(torch, X, dev) + stream_checks(torch, X, dev)
     fit_parity(torch, X, dev)
-    counts = main_path(torch, X, dev, Xnp)
+    counts, perm_fit = main_path(torch, X, dev, Xnp)
+    counts_exact = exact_paths(torch, X, dev, Xnp, perm_fit)
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        # Each kernel's launches come from the run of its own path.
+        row["launches"] = (counts_exact if row["name"].startswith("stream_")
+                           else counts)[row["name"]]
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -6,9 +6,12 @@ Solver contract::
     fn(data, k, *, metric: str, seed: int, device, layouts=None, **params)
         -> FitReport
 
-This slice ports ``banditpam``.  The JAX package's other solvers are
-known by name and raise ``NotImplementedError`` with their ROADMAP item,
-so a caller learns that the solver exists but is not ported yet.
+Ported: ``banditpam``, and the exact oracles ``pam`` (PAM's k·n² SWAP
+accounting) and ``fastpam1`` (n² per SWAP step; the same medoids), which
+run through the stats backend and so take ``backend=``.  The JAX
+package's other solvers are known by name and raise
+``NotImplementedError`` with their ROADMAP item, so a caller learns that
+the solver exists but is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ..core.banditpam import BanditPAM
+from ..core.pam import pam
 from ..core.report import FitReport
 
 Solver = Callable[..., FitReport]
@@ -24,9 +28,9 @@ _SOLVERS: Dict[str, Solver] = {}
 _ACCEPTS_BACKEND: set = set()
 
 # Solvers of the JAX package that later slices port, by ROADMAP item.
-NOT_PORTED = {"banditpam_pp": "A9", "banditpam_dist": "A13", "pam": "A8",
-              "fastpam1": "A8", "fasterpam": "A8", "clara": "A8",
-              "clarans": "A8", "voronoi": "A8", "onebatchpam": "A8"}
+NOT_PORTED = {"banditpam_pp": "A9", "banditpam_dist": "A13",
+              "fasterpam": "A8", "clara": "A8", "clarans": "A8",
+              "voronoi": "A8", "onebatchpam": "A8"}
 
 
 def register_solver(name: str, fn: Solver, *,
@@ -63,4 +67,18 @@ def _banditpam(data, k, *, metric, seed, device, layouts=None, **params):
                      **params).fit(data, layouts=layouts)
 
 
+def _pam(data, k, *, metric, seed, device, layouts=None, **params):
+    # Deterministic: seed and layouts intentionally unused.
+    return pam(data, k, metric=metric, fastpam1=False, device=device,
+               **params)
+
+
+def _fastpam1(data, k, *, metric, seed, device, layouts=None, **params):
+    # Identical medoids to PAM; n² (not k·n²) SWAP accounting.
+    return pam(data, k, metric=metric, fastpam1=True, device=device,
+               **params)
+
+
 register_solver("banditpam", _banditpam, accepts_backend=True)
+register_solver("pam", _pam, accepts_backend=True)
+register_solver("fastpam1", _fastpam1, accepts_backend=True)

@@ -8,6 +8,12 @@ random draws, and what predict depends on is the fitted medoids:
   ``repro.core.banditpam._batch_rng_chains`` and ``_batch_perms``) as a
   layout source, so ``BanditPAM.fit(X, layouts=...)`` walks exactly the
   JAX fit's batches;
+* :func:`draws_from_reference` does the same for replacement sampling:
+  the JAX chain's per-round batches, ``[k, R, B]`` BUILD and
+  ``[T, R, B]`` SWAP with ``R = ceil(n/B)``.  Search ``s`` of the JAX fit
+  (its key is ``_batch_rng_chains``' ``subs[s]``: k BUILD keys, then T
+  SWAP keys) draws round ``r`` as ``key, sub = split(key);
+  randint(sub, (B,), 0, n)``;
 * a fitted JAX estimator crosses as its medoid indices, through
   ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``.
 """
@@ -29,3 +35,9 @@ def layouts_from_reference(build_perms, swap_perms) -> rng.ArrayLayouts:
             raise ValueError(f"{name} rows are not permutations of "
                              f"range({p.shape[1]})")
     return rng.from_numpy(b, s)
+
+
+def draws_from_reference(build_draws, swap_draws) -> rng.ArrayLayouts:
+    """The JAX fit's replacement draws (``[k, R, B]`` BUILD, ``[T, R, B]``
+    SWAP) as a layout source for ``sampling="replacement"``."""
+    return rng.from_numpy(build_draws=build_draws, swap_draws=swap_draws)

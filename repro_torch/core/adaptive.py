@@ -1,35 +1,56 @@
-"""Algorithm 1 of the paper: Adaptive-Search, permutation sampling.
+"""Algorithm 1 of the paper: Adaptive-Search, in PyTorch.
 
-Counterpart of ``repro.core.adaptive.adaptive_search`` for its default
-mode (``sampling="permutation"``, ``baseline="none"``, no cache): a
-batched UCB / successive-elimination best-arm search whose batches are
-consecutive slices of one random permutation of the reference set
-(paper Appendix 2.2).  Carried over exactly:
+Counterpart of ``repro.core.adaptive.adaptive_search`` for a search
+without a distance cache: a batched UCB / successive-elimination
+best-arm search.  Two sampling modes, chosen by the batch source:
 
-* the cyclic tiling of the permutation to ``ceil(n/B)·B`` slots, with
-  weight 0 on the slots past ``n`` (``perm_w``);
-* σ from the first batch (Eq. 11) plus ``SIGMA_FLOOR``;
-* the finite-population factor ``sqrt(max(1 − n_used/n, 0))``;
-* the kill rule ``lcb > min(ucb)`` over the active arms;
-* the evaluation count ``count_fn(active_before_round) · b_eff``;
-* the final pick: the FIRST index minimising the running mean over the
-  survivors (at full budget the running mean is the exact mean).
+* permutation sampling (``perm=``, paper Appendix 2.2): the batches are
+  consecutive slices of one random permutation of the reference set,
+  tiled cyclically to ``ceil(n/B)·B`` slots with weight 0 on the slots
+  past ``n``; the CI carries the finite-population factor
+  ``sqrt(max(1 − n_used/n, 0))``, so at full budget the running mean is
+  the exact mean and the survivors resolve without an exact pass;
+* replacement sampling (``draw=``, the paper's §3.2 as printed): each
+  round's batch is B i.i.d. uniform draws (``draw(rnd)``), every weight
+  1, no finite-population factor.  When the budget (n_used ≥ n) runs out
+  with more than one survivor, the survivors are resolved exactly by
+  ``exact_fn()`` (Algorithm 1, lines 13–15), which costs
+  ``count_fn(survivors)·n`` evaluations and sets ``used_exact``.
+
+Carried over exactly from the JAX package: σ from the first batch
+(Eq. 11) plus ``SIGMA_FLOOR``; the kill rule ``lcb > min(ucb)`` over the
+active arms; the evaluation count ``count_fn(active_before_round) · b``;
+the final pick, the FIRST index minimising the mean over the survivors;
+and two options beyond the paper:
+
+* ``baseline="leader"``: after the pilot round fixes a leader (the
+  argmin of the round-1 means over the arms active in round 1), every
+  later round also tracks the differenced statistics ``g_x − g_lead``
+  (CI without the finite-population factor) and kills on either rule.
+  The differenced kill must clear ``LEAD_TIE_REL`` of the arm's raw
+  confidence width, and the leader is never killed by its own
+  (structurally zero) differenced margin.  ``stats_fn`` gets the leader
+  from round 2 on, ``None`` before.
+* ``stop_when_positive`` (SWAP): the search also stops once every
+  surviving arm's lower bound ``mu − σ·sqrt(log(1/δ)/n_used)`` (no
+  finite-population factor) is positive, since no arm can then be an
+  improving swap.
 
 Every arm quantity stays in float32 on the data's device, and every
 division is tensor by tensor, so the card's and the CPU's arithmetic is
 the JAX package's.  The loop runs on the host with one device read per
-round: the survivor count that decides whether to go on.  The batch
-weights, and hence ``n_used``, are known on the host from the tiling.
+round, which carries the survivor count, the early-stop verdict and, in
+round 1 of a leader search, the pilot leader.
 
 ``n_evals`` is tallied in int64 on the device.  The JAX package keeps it
-in uint32, which would wrap past 2**32 evaluations in one search at
-large n; the port's does not.  Replacement sampling, the leader baseline
-and cache-seeded searches are ROADMAP A7/A9.
+in uint32, which wraps past 2**32 evaluations in one search at large n
+(a SWAP fallback alone adds up to ``n·n`` at n = 60,000); the port's
+does not.  Cache-seeded searches are ROADMAP A9.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,9 +58,16 @@ import torch
 # first-batch returns are constant (e.g. duplicated points).
 SIGMA_FLOOR = 1e-8
 
-StatsFn = Callable[[torch.Tensor, torch.Tensor],
+# Deterministic tie-break of the differenced (leader) kill: the margin must
+# clear this fraction of the arm's RAW confidence width, so that last-bit
+# differences between stats backends cannot decide kills.
+LEAD_TIE_REL = 1e-2
+
+StatsFn = Callable[[torch.Tensor, torch.Tensor, Optional[int]],
                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 CountFn = Callable[[torch.Tensor], torch.Tensor]
+DrawFn = Callable[[int], torch.Tensor]
+ExactFn = Callable[[], torch.Tensor]
 
 
 class SearchResult(NamedTuple):
@@ -47,6 +75,7 @@ class SearchResult(NamedTuple):
     n_evals: int         # fresh algorithmic distance evaluations
     rounds: int          # bandit rounds executed
     n_survivors: int     # surviving arms at loop exit
+    used_exact: bool     # the survivors were resolved by exact_fn
 
 
 def log_term_f32(delta: float, device) -> torch.Tensor:
@@ -71,42 +100,78 @@ def tile_perm(perm: torch.Tensor, n_ref: int, batch_size: int
     return perm_idx, perm_w
 
 
-def adaptive_search(*, stats_fn: StatsFn, perm: torch.Tensor, n_arms: int,
-                    n_ref: int, batch_size: int, log_term: torch.Tensor,
+def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
+                    batch_size: int, log_term: torch.Tensor,
                     active_init: torch.Tensor,
-                    count_fn: CountFn = default_count) -> SearchResult:
+                    perm: Optional[torch.Tensor] = None,
+                    draw: Optional[DrawFn] = None,
+                    exact_fn: Optional[ExactFn] = None,
+                    count_fn: CountFn = default_count,
+                    baseline: str = "none",
+                    stop_when_positive: bool = False) -> SearchResult:
     """Run one best-arm identification (one BUILD assignment or one SWAP
-    pick) over the reference permutation ``perm`` ([n_ref] int64).
+    pick).
 
-    ``stats_fn(ref_idx[B], w[B]) -> (sums, sqsums, cross)`` returns the
-    per-arm weighted batch sums of g and g² (cross is unused here).
-    ``count_fn`` gives the distance evaluations per reference point as a
-    function of the survivor mask (BUILD: #active arms; SWAP: #distinct
-    active candidates).
+    Give ``perm`` ([n_ref] int64, permutation sampling) or ``draw``
+    (``rnd -> [B]`` int64 indices, replacement sampling, with
+    ``exact_fn() -> [n_arms]`` exact means for the fallback).
+    ``stats_fn(ref_idx[B], w[B], lead) -> (sums, sqsums, cross)`` returns
+    the per-arm weighted batch sums of g, g² and g·g_lead (``lead`` is
+    the leader arm, or None when no cross-sum is needed).  ``count_fn``
+    gives the distance evaluations per reference point as a function of
+    the survivor mask (BUILD: #active arms; SWAP: #distinct active
+    candidates).
     """
+    if (perm is None) == (draw is None):
+        raise ValueError("give exactly one of perm (permutation sampling) "
+                         "and draw (replacement sampling)")
+    if draw is not None and exact_fn is None:
+        raise ValueError("replacement sampling needs exact_fn for the "
+                         "exact fallback")
+    if baseline not in ("none", "leader"):
+        raise ValueError(f"unknown baseline mode {baseline!r}")
+    use_perm = perm is not None
+    use_lead = baseline == "leader"
     dev = active_init.device
     B = int(batch_size)
-    perm_idx, perm_w = tile_perm(perm, n_ref, B)
     f32 = dict(dtype=torch.float32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
 
     def scalar(v: float) -> torch.Tensor:
         return torch.full((), float(v), **f32)   # on-device fill, no copy
 
-    n_eff_f = scalar(n_ref)
+    if use_perm:
+        perm_idx, perm_w = tile_perm(perm, n_ref, B)
+        n_eff_f = scalar(n_ref)
+    else:
+        ones = torch.ones((B,), **f32)
     active = active_init.clone()
     sums = torch.zeros((n_arms,), **f32)
     sigma = torch.full((n_arms,), float("inf"), **f32)
-    n_evals = torch.zeros((), dtype=torch.int64, device=dev)
+    n_evals = torch.zeros((), **i64)
+    lead = None                       # host int once the pilot round ran
+    if use_lead:
+        arms = torch.arange(n_arms, device=dev)
+        d_sums = torch.zeros((n_arms,), **f32)
+        sigma_d = torch.full((n_arms,), float("inf"), **f32)
+        n_post = 0
     n_used = 0
     rounds = 0
     n_active = int(torch.sum(active).item())
-    while n_used < n_ref and n_active > 1:
-        lo = rounds * B
-        ref_idx = perm_idx[lo:lo + B]
-        w = perm_w[lo:lo + B]
-        b_eff = min(B, n_ref - lo)
-        sums_b, sq_b, _ = stats_fn(ref_idx, w)
+    go = True                          # the early stop's verdict
+    while n_used < n_ref and n_active > 1 and go:
+        if use_perm:
+            lo = rounds * B
+            ref_idx = perm_idx[lo:lo + B]
+            w = perm_w[lo:lo + B]
+            b_eff = min(B, n_ref - lo)
+        else:
+            ref_idx = draw(rounds)
+            w = ones
+            b_eff = B
+        sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead)
 
+        # ---- raw statistics (paper) ----
         sums = sums + sums_b
         n_new = n_used + b_eff
         n_new_f = scalar(n_new)
@@ -117,21 +182,64 @@ def adaptive_search(*, stats_fn: StatsFn, perm: torch.Tensor, n_arms: int,
             batch_var = torch.clamp_min(
                 sq_b / b_eff_f - batch_mean * batch_mean, 0.0)
             sigma = torch.sqrt(batch_var) + SIGMA_FLOOR
-        fpc = torch.sqrt(torch.clamp_min(1.0 - n_new_f / n_eff_f, 0.0))
-        ci = sigma * torch.sqrt(log_term / n_new_f) * fpc
+        ci = sigma * torch.sqrt(log_term / n_new_f)
+        if use_perm:
+            ci = ci * torch.sqrt(torch.clamp_min(1.0 - n_new_f / n_eff_f,
+                                                 0.0))
         ucb = torch.where(active, mu_hat + ci, float("inf"))
         lcb = mu_hat - ci
         kill = lcb > torch.min(ucb)
 
+        # ---- differenced statistics vs the pilot leader ----
+        reads = []
+        if use_lead and lead is None:
+            reads.append(torch.argmin(torch.where(active, mu_hat,
+                                                  float("inf"))))
+        elif use_lead:
+            d_b = sums_b - sums_b[lead]
+            dsq_b = sq_b - 2.0 * cross_b + sq_b[lead]
+            d_sums = d_sums + d_b
+            if n_post == 0:
+                d_mean = d_b / b_eff_f
+                sigma_d = torch.sqrt(torch.clamp_min(
+                    dsq_b / b_eff_f - d_mean * d_mean, 0.0)) + SIGMA_FLOOR
+            n_post += b_eff
+            n_post_f = scalar(n_post)
+            mu_d = d_sums / n_post_f
+            root = torch.sqrt(log_term / n_post_f)
+            ci_d = sigma_d * root
+            ucb_d = torch.where(active, mu_d + ci_d, float("inf"))
+            eps_d = LEAD_TIE_REL * sigma * root
+            kill_d = (mu_d - ci_d) > torch.min(ucb_d) + eps_d
+            kill = kill | (kill_d & (arms != lead))
+
         n_evals = n_evals + count_fn(active) * b_eff
-        active = torch.logical_and(active, torch.logical_not(kill))
+        active = active & ~kill
         n_used = n_new
         rounds += 1
-        n_active = int(torch.sum(active).item())   # the round's one sync
+        # The round's one device read: survivors, pilot leader, verdict.
+        reads.insert(0, torch.sum(active, dtype=torch.int64))
+        if stop_when_positive:
+            n_used_f = scalar(max(n_used, 1))
+            lcb_es = sums / n_used_f - sigma * torch.sqrt(log_term / n_used_f)
+            lcb_min = torch.min(torch.where(active, lcb_es, float("inf")))
+            reads.append((lcb_min <= 0.0).to(torch.int64))
+        vals = torch.stack(reads).tolist()
+        n_active = vals[0]
+        if use_lead and lead is None:
+            lead = vals[1]
+        if stop_when_positive:
+            go = bool(vals[-1])
 
-    mu_final = sums / scalar(max(n_used, 1))
-    mu_sel = torch.where(active, mu_final, float("inf"))
+    used_exact = not use_perm and n_active > 1
+    if used_exact:
+        mu_sel = torch.where(active, exact_fn(), float("inf"))
+        n_evals = n_evals + count_fn(active) * n_ref
+    else:
+        mu_sel = torch.where(active, sums / scalar(max(n_used, 1)),
+                             float("inf"))
     best = torch.argmin(mu_sel)
     best_h, n_evals_h = torch.stack([best, n_evals]).tolist()
     return SearchResult(best=int(best_h), n_evals=int(n_evals_h),
-                        rounds=rounds, n_survivors=n_active)
+                        rounds=rounds, n_survivors=n_active,
+                        used_exact=used_exact)

@@ -1,9 +1,8 @@
 """BanditPAM: BUILD + SWAP driven by Algorithm 1, in PyTorch.
 
-Counterpart of ``repro.core.banditpam.BanditPAM.fit`` on its default
-path (``sampling="permutation"``, ``baseline="none"``, ``reuse="none"``,
-``cache_cols=0``, ``fused=True``: the JAX package's ``FitContext(mode=
-"none")``):
+Counterpart of ``repro.core.banditpam.BanditPAM.fit`` without a distance
+cache (``reuse="none"``, ``cache_cols=0``: the JAX package's
+``FitContext(mode="none")``), for every sampling mode and baseline:
 
 * BUILD (Eq. 6): k adaptive searches over the candidate points, each
   against ``d_near`` (the nearest chosen medoid per reference point,
@@ -14,19 +13,29 @@ path (``sampling="permutation"``, ``baseline="none"``, ``reuse="none"``,
   (medoid, candidate) arms (δ = 1/(1000·k·n)), scores the winner's swap
   with the exact loss and accepts it by the JAX package's float32 rule
   ``new < prev − 1e-7·max(1, |prev|)``, computed on the device; at most
-  ``4k + 10`` iterations.
+  ``4k + 10`` iterations.  ``swap_early_stop`` ends a search once no
+  surviving arm can be an improving swap.
+* ``sampling="replacement"`` draws i.i.d. batches and resolves a search
+  that ends with several survivors exactly (``engine.exact_build_means``
+  / ``exact_swap_means``: one streaming pass, the ``stream_build_g`` /
+  ``stream_swap_g`` kernels on the card); ``swap_exact_fallbacks``
+  counts the SWAP searches that did.  ``baseline="leader"`` adds the
+  differenced kill rule (``adaptive.py``).
 * The ledger is the paper's: each round pays #active arms × B in BUILD
-  and #distinct active candidates × B in SWAP; BUILD adds n·k for the
-  d_near updates, every SWAP iteration 2·n·k for the cache and the loss.
+  and #distinct active candidates × B in SWAP, an exact fallback
+  #survivors (distinct candidates) × n; BUILD adds n·k for the d_near
+  updates, every SWAP iteration 2·n·k for the cache and the loss.
 
-The statistics run through a stats backend (``repro_torch.core.engine``):
-the hand-written kernels on the card, the plain versions on the CPU.
+The port has one host-driven fit loop (one device read per bandit
+round), so ``fused=False`` (the JAX package's stepped fit loop) runs the
+same code and gives the identical report.
 
-Random draws: every search takes its reference permutation from a layout
-source (``repro_torch.core.rng``).  The default draws from a
-``torch.Generator`` seeded with ``seed``, so the same seed does NOT give
-the JAX package's medoids; pass ``layouts=rng.from_numpy(...)`` with the
-JAX chain's permutations to replay a JAX fit exactly.
+Random draws: every search takes its reference permutation, or in
+replacement mode its per-round batches, from a layout source
+(``repro_torch.core.rng``).  The default draws from a ``torch.Generator``
+seeded with ``seed``, so the same seed does NOT give the JAX package's
+medoids; pass ``layouts=`` built by ``repro_torch.convert`` from the JAX
+chain's draws to replay a JAX fit exactly.
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ import torch
 from .adaptive import adaptive_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import resolve_metric
-from .engine import (get_stats_backend, medoid_cache, resolve_stats_backend,
-                     total_loss)
+from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
+                     medoid_cache, resolve_stats_backend, total_loss)
 from .report import FitReport
 from . import rng as _rng
 
@@ -77,14 +86,6 @@ class BanditPAM:
             raise ValueError(f"unknown baseline mode {baseline!r}")
         if reuse not in ("none", "pic"):
             raise ValueError(f"unknown reuse mode {reuse!r}")
-        if sampling == "replacement":
-            raise _not_ported('sampling="replacement"', "A7")
-        if baseline == "leader":
-            raise _not_ported('baseline="leader"', "A7")
-        if swap_early_stop:
-            raise _not_ported("swap_early_stop=True", "A7")
-        if not fused:
-            raise _not_ported("fused=False (the stepped fit loop)", "A7")
         if reuse == "pic" or cache_width is not None:
             raise _not_ported('reuse="pic"', "A9")
         if cache_cols > 0:
@@ -95,8 +96,25 @@ class BanditPAM:
         self.delta = delta
         self.max_swaps = max_swaps if max_swaps is not None else 4 * self.k + 10
         self.seed = seed
+        self.sampling = sampling
+        self.baseline = baseline
+        self.swap_early_stop = bool(swap_early_stop)
         self.backend = backend
+        self.fused = bool(fused)
         self.device = device
+
+    def _search_kw(self, layouts, phase: str, s: int, n: int, dev) -> dict:
+        """The batch source of search ``s`` of ``phase``: its permutation,
+        or its per-round draws; and the baseline."""
+        kw = dict(baseline=self.baseline)
+        if self.sampling == "permutation":
+            perm = getattr(layouts, f"{phase}_perm")(s, n)
+            kw["perm"] = _rng.as_device_index(perm, dev)
+        else:
+            draw = getattr(layouts, f"{phase}_draw")
+            kw["draw"] = lambda rnd: _rng.as_device_index(
+                draw(s, rnd, n, self.batch_size), dev)
+        return kw
 
     # -- BUILD ----------------------------------------------------------
     def _build(self, data, be_name, layouts, res: FitReport):
@@ -110,15 +128,18 @@ class BanditPAM:
         med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
         medoids, evals = [], 0
         for i in range(self.k):
-            def stats_fn(ref_idx, w):
-                return be.build_stats(data, ref_idx, dnear[ref_idx], w,
+            def stats_fn(ref_idx, w, lead):
+                return be.build_stats(data, ref_idx, dnear[ref_idx], w, lead,
                                       metric=self.metric)
 
+            def exact_fn():
+                return exact_build_means(be, data, dnear, metric=self.metric)
+
             sr = adaptive_search(
-                stats_fn=stats_fn,
-                perm=_rng.as_device_perm(layouts.build_perm(i, n), dev),
+                stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=n, n_ref=n, batch_size=self.batch_size,
-                log_term=log_term, active_init=torch.logical_not(med_mask))
+                log_term=log_term, active_init=torch.logical_not(med_mask),
+                **self._search_kw(layouts, "build", i, n, dev))
             m = sr.best
             medoids.append(m)
             med_mask[m] = True
@@ -155,18 +176,23 @@ class BanditPAM:
             d1, d2, assign = medoid_cache(data, med_t, metric=self.metric,
                                           backend=be_name)
 
-            def stats_fn(ref_idx, w):
+            def stats_fn(ref_idx, w, lead):
                 return be.swap_stats(data, ref_idx, d1[ref_idx], d2[ref_idx],
-                                     assign[ref_idx], w, k,
+                                     assign[ref_idx], w, k, lead,
                                      metric=self.metric)
 
+            def exact_fn():
+                return exact_swap_means(be, data, d1, d2, assign, k,
+                                        metric=self.metric)
+
             sr = adaptive_search(
-                stats_fn=stats_fn,
-                perm=_rng.as_device_perm(layouts.swap_perm(t, n), dev),
+                stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=k * n, n_ref=n, batch_size=self.batch_size,
                 log_term=log_term,
                 active_init=torch.logical_not(med_mask).repeat(k),
-                count_fn=count_fn)
+                count_fn=count_fn, stop_when_positive=self.swap_early_stop,
+                **self._search_kw(layouts, "swap", t, n, dev))
+            res.swap_exact_fallbacks += int(sr.used_exact)
             m_idx, x_idx = divmod(sr.best, n)
             cand = med_t.clone()
             cand[m_idx] = x_idx
@@ -197,8 +223,9 @@ class BanditPAM:
         """Fit medoids on ``data`` ([n, d], numpy or tensor).
 
         ``layouts`` is the source of the per-search reference
-        permutations (``repro_torch.core.rng``); by default a
-        ``torch.Generator`` seeded with ``self.seed`` on the fit's device.
+        permutations or replacement draws (``repro_torch.core.rng``); by
+        default a ``torch.Generator`` seeded with ``self.seed`` on the
+        fit's device.
         """
         if warm_start is not None:
             raise _not_ported("warm_start", "A11")

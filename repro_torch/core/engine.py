@@ -19,15 +19,23 @@ kernel metrics and ``"torch"`` on the CPU.  The registry stays open
 Backend contract (every method takes and returns tensors on the data's
 device)::
 
-    pairwise(x, y, *, metric)                          -> [m, r]
-    build_stats(data, ref_idx, dnear_b, w, *, metric)  -> (Σg, Σg², cross) [n]
-    swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, *, metric)
-                                                       -> 3 × [k·n]
-    top2(x, med_pts, *, metric)                        -> (d1, d2, assign)
+    pairwise(x, y, *, metric)                               -> [m, r]
+    build_stats(data, ref_idx, dnear_b, w, lead, *, metric) -> 3 × [n]
+    swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *, metric)
+                                                            -> 3 × [k·n]
+    stream_build_sums(data, dnear, *, metric)               -> [n]
+    stream_swap_sums(data, d1, d2, assign, k, *, metric)    -> [k·n]
+    top2(x, med_pts, *, metric)                    -> (d1, d2, assign)
 
-Arm ``(medoid c, candidate x)`` of the SWAP statistics sits at flat
-index ``c·n + x``, the JAX package's order.  The leader cross-sum is
-zeros on this slice (``baseline="leader"`` is ROADMAP A7).
+The round statistics are (Σg, Σg², Σg·g_lead) over the batch, where
+``lead`` is the leader arm of ``baseline="leader"`` (None: the cross-sum
+is zeros and costs nothing).  Arm ``(medoid c, candidate x)`` of the
+SWAP statistics sits at flat index ``c·n + x``, the JAX package's order,
+so a SWAP leader ``lead`` is medoid ``lead // n`` and candidate
+``lead % n``.  The streaming sums are Σg over the WHOLE dataset, walked
+in ``_EXACT_CHUNK``-column reference tiles added in walk order: the
+exact passes behind replacement sampling's fallback and behind PAM
+(:func:`exact_build_means`, :func:`exact_swap_means`).
 """
 
 from __future__ import annotations
@@ -38,7 +46,11 @@ import torch
 
 from .distances import pairwise
 
-_EXACT_CHUNK = 512  # row tile of the top-2 / loss walks
+_EXACT_CHUNK = 512  # row tile of the top-2 / loss walks, reference tile
+#                    of the exact streaming passes (the JAX REF_TILE)
+# Rows per strip of the plain streaming walks.  It only bounds the live
+# [rows, _EXACT_CHUNK] block: each row's sums are independent of it.
+_STREAM_ROWS = 16 * _EXACT_CHUNK
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +93,89 @@ def _swap_batch_stats(dxy, d1_b, d2_b, a_b, w, k: int, lead_g=None):
     lg = lead_g * w
     cross = (base @ lg)[None, :] + ((corr * lg[None, :]) @ onehot).T
     return sums, sqsums, cross
+
+
+def _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l: int) -> torch.Tensor:
+    """The SWAP leader arm's g-row over a batch from its distance row
+    ``dl``: ``base + 1[assign == m_l]·corr`` (unweighted)."""
+    base, corr = _swap_terms(dl[None, :], d1_b, d2_b)
+    return base[0] + (assign_b == m_l).to(dl.dtype) * corr[0]
+
+
+def _ref_chunks(n_ref: int, chunk: int, device):
+    """Index/weight tiling of [0, n_ref) into equal chunks; the tail is
+    padded with index n_ref − 1 at weight 0 (the JAX ``_ref_chunks``)."""
+    n_chunks = -(-n_ref // chunk)
+    idx = torch.arange(n_chunks * chunk, device=device)
+    w = (idx < n_ref).to(torch.float32)
+    idx = torch.clamp_max(idx, n_ref - 1)
+    return idx.view(n_chunks, chunk), w.view(n_chunks, chunk)
+
+
+def _stream_walk(x, y, w, tile_fn, out_shape, tile: int = _EXACT_CHUNK):
+    """Walk the reference rows ``y`` in ``tile``-row tiles (tail padded at
+    weight 0, folded with the caller's weights ``w``) for every strip of
+    ``_STREAM_ROWS`` rows of ``x``; each tile's three statistics
+    ``tile_fn(x_strip, tile_idx, tile_w)`` are added to the strip's
+    running sums in walk order."""
+    m = x.shape[0]
+    idx, wt = _ref_chunks(y.shape[0], tile, x.device)
+    if w is not None:
+        wt = wt * w[idx]
+    outs = [torch.empty(out_shape(m), dtype=torch.float32, device=x.device)
+            for _ in range(3)]
+    for r0 in range(0, m, _STREAM_ROWS):
+        xt = x[r0:r0 + _STREAM_ROWS]
+        acc = None
+        for c in range(idx.shape[0]):
+            part = tile_fn(xt, idx[c], wt[c])
+            acc = part if acc is None else [a + p for a, p in zip(acc, part)]
+        for o, a in zip(outs, acc):
+            o[..., r0:r0 + _STREAM_ROWS] = a
+    return tuple(outs)
+
+
+def _stream_build_stats(x, y, dnear, w, lead_g, metric: str):
+    """Streaming BUILD statistics over the whole reference set ``y``:
+    (Σg, Σg², Σg·g_lead), [m] each, only one [strip, tile] block live."""
+    def tile_fn(xt, i, wc):
+        g = _build_g(pairwise(xt, y[i], metric=metric), dnear[i]) * wc[None, :]
+        cross = (torch.zeros((xt.shape[0],), dtype=g.dtype, device=g.device)
+                 if lead_g is None else g @ lead_g[i])
+        return [torch.sum(g, dim=1), torch.sum(g * g, dim=1), cross]
+    return _stream_walk(x, y, w, tile_fn, lambda m: (m,))
+
+
+def _stream_swap_stats(x, y, d1, d2, assign, w, k: int, lead_g,
+                       metric: str):
+    """Streaming SWAP statistics over the whole reference set ``y``:
+    (Σg, Σg², Σg·g_lead), [k, m] each, one [strip, tile] block live."""
+    def tile_fn(xt, i, wc):
+        return list(_swap_batch_stats(
+            pairwise(xt, y[i], metric=metric), d1[i], d2[i], assign[i], wc,
+            k, None if lead_g is None else lead_g[i]))
+    return _stream_walk(x, y, w, tile_fn, lambda m: (k, m))
+
+
+def exact_build_means(be, data, dnear, *, metric: str) -> torch.Tensor:
+    """Exact BUILD objective over the full reference set (Algorithm 1
+    lines 13–15, and PAM's BUILD step): per-arm mean g, [n].  One
+    streaming pass through the backend; the division is tensor by
+    tensor."""
+    n = data.shape[0]
+    return be.stream_build_sums(data, dnear, metric=metric) / torch.full(
+        (), float(n), dtype=torch.float32, device=data.device)
+
+
+def exact_swap_means(be, data, d1, d2, assign, k: int, *, metric: str
+                     ) -> torch.Tensor:
+    """Exact SWAP objective over the flattened (medoid, candidate) arm
+    set: per-arm mean g, [k·n]; the same streaming form as
+    :func:`exact_build_means`."""
+    n = data.shape[0]
+    return be.stream_swap_sums(data, d1, d2, assign, k,
+                               metric=metric) / torch.full(
+        (), float(n), dtype=torch.float32, device=data.device)
 
 
 def _top2_block(dmat: torch.Tensor):
@@ -136,18 +231,31 @@ class TorchStatsBackend:
     def pairwise(self, x, y, *, metric):
         return pairwise(x, y, metric=metric)
 
-    def build_stats(self, data, ref_idx, dnear_b, w, *, metric):
+    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric):
+        # The leader's g-row is a row of the g block (the jnp backend's
+        # ``g @ g[lead]``).
         g = _build_g(pairwise(data, data[ref_idx], metric=metric),
                      dnear_b) * w[None, :]
-        return (torch.sum(g, dim=1), torch.sum(g * g, dim=1),
-                torch.zeros((g.shape[0],), dtype=g.dtype, device=g.device))
+        cross = (torch.zeros((g.shape[0],), dtype=g.dtype, device=g.device)
+                 if lead is None else g @ g[lead])
+        return torch.sum(g, dim=1), torch.sum(g * g, dim=1), cross
 
-    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, *,
-                   metric):
-        s, q, c = _swap_batch_stats(
-            pairwise(data, data[ref_idx], metric=metric), d1_b, d2_b,
-            assign_b, w, k)
+    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
+                   *, metric):
+        dxy = pairwise(data, data[ref_idx], metric=metric)
+        lead_g = None
+        if lead is not None:
+            m_l, x_l = divmod(lead, data.shape[0])
+            lead_g = _swap_lead_g(dxy[x_l], d1_b, d2_b, assign_b, m_l)
+        s, q, c = _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
+
+    def stream_build_sums(self, data, dnear, *, metric):
+        return _stream_build_stats(data, data, dnear, None, None, metric)[0]
+
+    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric):
+        return _stream_swap_stats(data, data, d1, d2, assign, None, k, None,
+                                  metric)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
         return _stream_top2(x, med_pts, metric)
@@ -155,8 +263,15 @@ class TorchStatsBackend:
 
 class CudaStatsBackend:
     """The hand-written kernels: ``build_g`` / ``swap_g`` for the bandit
-    rounds, ``top2`` for the medoid cache, loss and labels, ``pairwise``
-    for the BUILD ``d_near`` update and predict.  CUDA tensors only."""
+    rounds, ``stream_build_g`` / ``stream_swap_g`` for the exact passes,
+    ``top2`` for the medoid cache, loss and labels, ``pairwise`` for the
+    BUILD ``d_near`` update, the leader's distance row and predict.  CUDA
+    tensors only.
+
+    The kernels take the leader's g-row as an input, so under
+    ``baseline="leader"`` it comes from one extra pairwise row of the
+    leader against the batch (the Pallas backend's way): an O(B·d) add
+    that the ledger does not count, as in the JAX package."""
 
     name = "cuda"
 
@@ -171,15 +286,35 @@ class CudaStatsBackend:
     def pairwise(self, x, y, *, metric):
         return self._ops(x).pairwise_distance(x, y, metric)
 
-    def build_stats(self, data, ref_idx, dnear_b, w, *, metric):
-        return self._ops(data).build_g_stats(data, data[ref_idx], dnear_b, w,
-                                             metric=metric)
+    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric):
+        ops = self._ops(data)
+        y = data[ref_idx]
+        lead_g = None
+        if lead is not None:
+            dl = ops.pairwise_distance(data[lead:lead + 1], y, metric)[0]
+            lead_g = _build_g(dl[None, :], dnear_b)[0] * w
+        return ops.build_g_stats(data, y, dnear_b, w, lead_g, metric=metric)
 
-    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, *,
-                   metric):
-        s, q, c = self._ops(data).swap_g_stats(
-            data, data[ref_idx], d1_b, d2_b, assign_b, w, k, metric=metric)
+    def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
+                   *, metric):
+        ops = self._ops(data)
+        y = data[ref_idx]
+        lead_g = None
+        if lead is not None:
+            m_l, x_l = divmod(lead, data.shape[0])
+            dl = ops.pairwise_distance(data[x_l:x_l + 1], y, metric)[0]
+            lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l)
+        s, q, c = ops.swap_g_stats(data, y, d1_b, d2_b, assign_b, w, k,
+                                   lead_g, metric=metric)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
+
+    def stream_build_sums(self, data, dnear, *, metric):
+        return self._ops(data).stream_build_g_stats(data, data, dnear,
+                                                    metric=metric)[0]
+
+    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric):
+        return self._ops(data).stream_swap_g_stats(
+            data, data, d1, d2, assign, k=k, metric=metric)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
         return self._ops(x).stream_top2(x, med_pts, metric=metric)

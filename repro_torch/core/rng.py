@@ -1,23 +1,34 @@
-"""The random-draw seam: where a fit takes its reference permutations.
+"""The random-draw seam: where a fit takes its reference batches.
 
-Permutation sampling (paper Appendix 2.2) gives every adaptive search one
-random permutation of the reference set; the fit consumes them in a
-fixed order: one per BUILD selection (``build_perm(i)``, i < k), then one
-per SWAP iteration (``build_perm`` first, ``swap_perm(t)`` after).
+Every adaptive search draws its reference batches from a layout source,
+in a fixed order: the k BUILD searches first (``i < k``), then one SWAP
+search per iteration (``t``).  Two sampling modes draw differently:
 
-The JAX package draws them from its threefry chain (``PRNGKey(seed)`` →
-one subkey per search → ``jax.random.permutation``).  ``torch.Generator``
-cannot reproduce those bits, so the same seed gives the two packages
-different permutations — and hence, in general, different medoids.  A
-layout source decouples the fit loop from where the permutations come
-from:
+* permutation sampling (paper Appendix 2.2, the default) gives each
+  search one random permutation of the reference set
+  (``build_perm(i, n)`` / ``swap_perm(t, n)``), which the search tiles
+  into consecutive batches;
+* replacement sampling (the paper's §3.2) draws each round's batch
+  i.i.d. uniform over ``[0, n)`` (``build_draw(i, rnd, n, B)`` /
+  ``swap_draw(t, rnd, n, B)``), round by round.  A search runs at most
+  ``R = ceil(n/B)`` rounds, since every round consumes B of its n-point
+  budget.
 
-* :func:`from_generator` (the default) draws ``torch.randperm(n)`` from
-  one seeded ``torch.Generator`` on the fit's device, in the order the
-  fit consumes them;
+The JAX package draws from its threefry chain: ``PRNGKey(seed)`` → one
+subkey per search → ``jax.random.permutation`` of a split of it, or, in
+replacement mode, ``key, sub = split(key); randint(sub, (B,), 0, n)``
+each round.  ``torch.Generator`` cannot reproduce those bits, so the
+same seed gives the two packages different draws — and hence, in
+general, different medoids.  A layout source decouples the fit loop
+from where the draws come from:
+
+* :func:`from_generator` (the default) draws ``torch.randperm(n)`` or
+  ``torch.randint(0, n, (B,))`` from one seeded ``torch.Generator`` on
+  the fit's device, in the order the fit consumes them;
 * :func:`from_numpy` replays given ``[k, n]`` BUILD and ``[T, n]`` SWAP
-  permutations — the parity tests fill it from the JAX chain, and then
-  both packages walk identical layouts.
+  permutations and/or ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP draws —
+  the parity tests fill it from the JAX chain, and then both packages
+  walk identical batches.
 
 A torch replica of threefry, which would make the seeds compatible, is
 ROADMAP A12.
@@ -25,58 +36,103 @@ ROADMAP A12.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 
 class GeneratorLayouts:
-    """Permutations drawn from one seeded ``torch.Generator``.  Draws are
-    sequential, so the searches must ask in the fit's order."""
+    """Draws from one seeded ``torch.Generator``.  Draws are sequential,
+    so the searches must ask in the fit's order: every search once, BUILD
+    before SWAP, and a replacement search round by round."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
         self.drawn = {"build": 0, "swap": 0}
+        self._round = None   # (phase, search, last round) of the open search
 
-    def _draw(self, phase: str, i: int, n: int) -> torch.Tensor:
-        # All BUILD draws come before the first SWAP draw, each in order.
+    def _open(self, phase: str, i: int) -> None:
+        # All BUILD searches come before the first SWAP search, each in order.
         if i != self.drawn[phase] or (phase == "build" and self.drawn["swap"]):
             raise ValueError(f"layouts must be drawn in fit order; asked "
                              f"for {phase}[{i}] after {self.drawn}")
         self.drawn[phase] += 1
+
+    def _perm(self, phase: str, i: int, n: int) -> torch.Tensor:
+        self._open(phase, i)
+        self._round = None
         return torch.randperm(n, generator=self.gen, device=self.device)
 
+    def _draw(self, phase: str, i: int, rnd: int, n: int,
+              b: int) -> torch.Tensor:
+        if rnd == 0:
+            self._open(phase, i)
+        elif self._round != (phase, i, rnd - 1):
+            raise ValueError(f"layouts must be drawn in fit order; asked "
+                             f"for {phase}[{i}] round {rnd} after "
+                             f"{self._round}")
+        self._round = (phase, i, rnd)
+        return torch.randint(0, n, (b,), generator=self.gen,
+                             device=self.device)
+
     def build_perm(self, i: int, n: int) -> torch.Tensor:
-        return self._draw("build", i, n)
+        return self._perm("build", i, n)
 
     def swap_perm(self, t: int, n: int) -> torch.Tensor:
-        return self._draw("swap", t, n)
+        return self._perm("swap", t, n)
+
+    def build_draw(self, i: int, rnd: int, n: int, b: int) -> torch.Tensor:
+        return self._draw("build", i, rnd, n, b)
+
+    def swap_draw(self, t: int, rnd: int, n: int, b: int) -> torch.Tensor:
+        return self._draw("swap", t, rnd, n, b)
 
 
 class ArrayLayouts:
-    """Permutations given up front: ``build[k, n]`` and ``swap[T, n]``."""
+    """Draws given up front: permutations ``build[k, n]`` and
+    ``swap[T, n]``, and/or replacement draws ``build_draws[k, R, B]`` and
+    ``swap_draws[T, R, B]`` with ``R = ceil(n/B)``."""
 
-    def __init__(self, build: np.ndarray, swap: np.ndarray):
-        self.build = _check_perms(build, "build")
-        self.swap = _check_perms(swap, "swap")
+    def __init__(self, build: Optional[np.ndarray] = None,
+                 swap: Optional[np.ndarray] = None,
+                 build_draws: Optional[np.ndarray] = None,
+                 swap_draws: Optional[np.ndarray] = None):
+        self.build = _check(build, "build permutations", 2)
+        self.swap = _check(swap, "swap permutations", 2)
+        self.build_draws = _check(build_draws, "build draws", 3)
+        self.swap_draws = _check(swap_draws, "swap draws", 3)
 
     def build_perm(self, i: int, n: int) -> np.ndarray:
-        return _row(self.build, i, n, "build")
+        return _perm_row(self.build, i, n, "build")
 
     def swap_perm(self, t: int, n: int) -> np.ndarray:
-        return _row(self.swap, t, n, "swap")
+        return _perm_row(self.swap, t, n, "swap")
+
+    def build_draw(self, i: int, rnd: int, n: int, b: int) -> np.ndarray:
+        return _draw_row(self.build_draws, i, rnd, n, b, "build")
+
+    def swap_draw(self, t: int, rnd: int, n: int, b: int) -> np.ndarray:
+        return _draw_row(self.swap_draws, t, rnd, n, b, "swap")
 
 
-def _check_perms(p, what: str) -> np.ndarray:
+def _check(p, what: str, ndim: int) -> Optional[np.ndarray]:
+    if p is None:
+        return None
     p = np.asarray(p)
-    if p.ndim != 2 or not np.issubdtype(p.dtype, np.integer):
-        raise ValueError(f"{what} permutations must be an integer [count, n] "
-                         f"array, got {p.dtype} {p.shape}")
+    if p.ndim != ndim or not np.issubdtype(p.dtype, np.integer):
+        raise ValueError(f"{what} must be an integer {ndim}-d array, got "
+                         f"{p.dtype} {p.shape}")
     return p.astype(np.int64)
 
 
-def _row(p: np.ndarray, i: int, n: int, what: str) -> np.ndarray:
+def _perm_row(p: Optional[np.ndarray], i: int, n: int, what: str
+              ) -> np.ndarray:
+    if p is None:
+        raise ValueError(f"no {what} permutations were given (this source "
+                         f"holds replacement draws only)")
     if i >= p.shape[0]:
         raise ValueError(f"the fit asked for {what} permutation {i}; only "
                          f"{p.shape[0]} were given")
@@ -86,14 +142,36 @@ def _row(p: np.ndarray, i: int, n: int, what: str) -> np.ndarray:
     return p[i]
 
 
+def _draw_row(p: Optional[np.ndarray], i: int, rnd: int, n: int, b: int,
+              what: str) -> np.ndarray:
+    if p is None:
+        raise ValueError(f"no {what} replacement draws were given (this "
+                         f"source holds permutations only)")
+    if i >= p.shape[0]:
+        raise ValueError(f"the fit asked for {what} search {i}'s draws; "
+                         f"only {p.shape[0]} searches were given")
+    if rnd >= p.shape[1]:
+        raise ValueError(f"the fit asked for {what}[{i}] round {rnd}; only "
+                         f"{p.shape[1]} rounds were given")
+    if p.shape[2] != b:
+        raise ValueError(f"{what} draws hold batches of {p.shape[2]}; the "
+                         f"fit's batch size is {b}")
+    row = p[i, rnd]
+    if row.min() < 0 or row.max() >= n:
+        raise ValueError(f"{what}[{i}] round {rnd} draws lie outside "
+                         f"[0, {n})")
+    return row
+
+
 def from_generator(seed: int, device) -> GeneratorLayouts:
     return GeneratorLayouts(seed, device)
 
 
-def from_numpy(build_perms, swap_perms) -> ArrayLayouts:
-    return ArrayLayouts(build_perms, swap_perms)
+def from_numpy(build_perms=None, swap_perms=None, build_draws=None,
+               swap_draws=None) -> ArrayLayouts:
+    return ArrayLayouts(build_perms, swap_perms, build_draws, swap_draws)
 
 
-def as_device_perm(perm, device: torch.device) -> torch.Tensor:
-    """A drawn permutation as an int64 tensor on ``device``."""
-    return torch.as_tensor(perm, dtype=torch.int64).to(device)
+def as_device_index(idx, device: torch.device) -> torch.Tensor:
+    """A drawn permutation or batch as an int64 tensor on ``device``."""
+    return torch.as_tensor(idx, dtype=torch.int64).to(device)

@@ -44,6 +44,10 @@ SIGNATURES = {
                   _I, _P],
     "rt_swap_g_k_max": [],
     "rt_top2": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "rt_stream_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                          _P],
+    "rt_stream_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                         _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -29,19 +29,25 @@ from . import swap_g as _swap_g
 # Metrics implemented by the kernels (the registry-facing names).
 KERNEL_METRICS = ("l2", "l2sq", "l1", "cosine")
 
-_KERNELS = {"pairwise": _pairwise, "build_g": _build_g, "swap_g": _swap_g,
-            "top2": _stream_g}
+# Kernel name -> (module, its launch counter).
+_KERNELS = {"pairwise": (_pairwise, "launches"),
+            "build_g": (_build_g, "launches"),
+            "swap_g": (_swap_g, "launches"),
+            "top2": (_stream_g, "top2_launches"),
+            "stream_build_g": (_stream_g, "stream_build_launches"),
+            "stream_swap_g": (_stream_g, "stream_swap_launches")}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def _on_cuda(what: str, metric: str, *tensors: torch.Tensor) -> bool:
@@ -141,5 +147,63 @@ def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,
            and x.shape[1] == med_pts.shape[1] and med_pts.shape[0] >= 1,
            what, f"shapes {tuple(x.shape)} x {tuple(med_pts.shape)}")
     if cuda:
-        return _stream_g.launch(x, med_pts, metric)
+        return _stream_g.launch_top2(x, med_pts, metric)
     return _stream_g.top2_torch(x, med_pts, metric)
+
+
+def stream_build_g_stats(x: torch.Tensor, yref: torch.Tensor,
+                         dnear: torch.Tensor, w: Optional[torch.Tensor] = None,
+                         lead_g: Optional[torch.Tensor] = None,
+                         *, metric: str = "l2") -> Stats:
+    """Streaming BUILD statistics (Σg, Σg², Σg·g_lead) per arm, [m] each,
+    over the WHOLE reference set ``yref`` [r, d] (r unbounded): one
+    launch walks it in 512-column tiles.  ``w`` defaults to ones and
+    ``lead_g`` to zeros."""
+    what = "stream_build_g_stats"
+    if w is None:
+        w = torch.ones_like(dnear)
+    if lead_g is None:
+        lead_g = torch.zeros_like(dnear)
+    cuda = _on_cuda(what, metric, x, yref, dnear, w, lead_g)
+    _f32(what, x, yref, dnear, w, lead_g)
+    r = yref.shape[0]
+    _check(x.ndim == 2 and yref.ndim == 2 and x.shape[1] == yref.shape[1],
+           what, f"shapes {tuple(x.shape)} x {tuple(yref.shape)}")
+    _check(dnear.shape == (r,) and w.shape == (r,) and lead_g.shape == (r,),
+           what, "dnear, w and lead_g must be [r]")
+    _check(r >= 1, what, "the reference set is empty")
+    if cuda:
+        return _stream_g.launch_stream_build(x, yref, dnear, w, lead_g, metric)
+    return _stream_g.stream_build_g_torch(x, yref, dnear, w, lead_g, metric)
+
+
+def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
+                        d1: torch.Tensor, d2: torch.Tensor,
+                        assign: torch.Tensor, w: Optional[torch.Tensor] = None,
+                        k: int = 1, lead_g: Optional[torch.Tensor] = None,
+                        *, metric: str = "l2") -> Stats:
+    """Streaming SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
+    ``[k, m]``, over the WHOLE reference set ``yref`` [r, d]: arm
+    (medoid c, candidate x) at ``[c, x]``.  ``w`` defaults to ones and
+    ``lead_g`` to zeros."""
+    what = "stream_swap_g_stats"
+    if w is None:
+        w = torch.ones_like(d1)
+    if lead_g is None:
+        lead_g = torch.zeros_like(d1)
+    cuda = _on_cuda(what, metric, x, yref, d1, d2, assign, w, lead_g)
+    _f32(what, x, yref, d1, d2, w, lead_g)
+    _check(assign.dtype == torch.int32, what,
+           f"assign must be int32, got {assign.dtype}")
+    r = yref.shape[0]
+    _check(x.ndim == 2 and yref.ndim == 2 and x.shape[1] == yref.shape[1],
+           what, f"shapes {tuple(x.shape)} x {tuple(yref.shape)}")
+    _check(all(t.shape == (r,) for t in (d1, d2, assign, w, lead_g)),
+           what, "d1, d2, assign, w and lead_g must be [r]")
+    _check(r >= 1, what, "the reference set is empty")
+    _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    if cuda:
+        return _stream_g.launch_stream_swap(x, yref, d1, d2, assign, w,
+                                            int(k), lead_g, metric)
+    return _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
+                                         lead_g, metric)

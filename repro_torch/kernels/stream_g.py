@@ -1,29 +1,43 @@
-"""Nearest / second-nearest medoid per row (top-2).
+"""The streaming kernels: top-2, and the exact BUILD / SWAP statistics.
 
-Replaces the TPU kernel ``src/repro/kernels/stream_g.py:165``
-(``stream_top2_kernel``) with the CUDA kernel ``csrc/stream_g.cu``.  In
-the port it carries the SWAP loop's medoid cache and candidate loss and
-the fit's labels as well as assignment.  On the H100 it is memory-bound
-(n=60000, k=10, d=784: 0.94 GFLOP against 188 MB of x, about 56 us);
-the design stages the k medoid rows through shared memory in a narrow
-[128, 16] tile and scans each row's columns in index order, so the
-first-index tie rule holds and the [n, k] block never reaches device
-memory.
+* ``top2`` replaces the TPU kernel ``src/repro/kernels/stream_g.py:165``
+  (``stream_top2_kernel``) with the CUDA kernel ``csrc/stream_g.cu``.  In
+  the port it carries the SWAP loop's medoid cache and candidate loss and
+  the fit's labels as well as assignment.  On the H100 it is
+  memory-bound (n=60000, k=10, d=784: 0.94 GFLOP against 188 MB of x,
+  about 56 us); the design stages the k medoid rows through shared
+  memory in a narrow [128, 16] tile and scans each row's columns in
+  index order, so the first-index tie rule holds and the [n, k] block
+  never reaches device memory.
+* ``stream_build_g`` and ``stream_swap_g`` replace the TPU kernels
+  ``src/repro/kernels/stream_g.py:65`` (``stream_build_g_kernel``) and
+  ``:115`` (``stream_swap_g_kernel``) with the CUDA kernels of
+  ``csrc/stream_stats.cu``: build_g's and swap_g's statistics over the
+  WHOLE reference set (r unbounded), walked in 512-column tiles whose
+  sums are added in walk order.  They carry the exact passes: the
+  replacement-sampling fallback and every step of PAM.  At m = r =
+  60,000, d = 784 a pass is 2·m·r·d = 5.6 TFLOP of float32 distance work
+  against 376 MB of reads: compute-bound, 84 ms at 67 TFLOP/s.
 
-``top2_torch`` is the plain version (``engine._top2_block`` over
-512-row tiles).  ``launches`` counts kernel launches.  The streaming
-BUILD/SWAP kernels of the TPU module (exact fallback) are ROADMAP B7/B8.
+Each kernel has its plain version here (``top2_torch``,
+``stream_build_g_torch``, ``stream_swap_g_torch``: the engine's walks)
+and its own launch counter (``top2_launches``,
+``stream_build_launches``, ``stream_swap_launches``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.engine import _stream_top2
+from ..core.engine import (_stream_build_stats, _stream_swap_stats,
+                           _stream_top2)
 from . import build as _build
 from .pairwise import METRIC_IDS
+from .swap_g import k_max
 
-launches = 0
+top2_launches = 0
+stream_build_launches = 0
+stream_swap_launches = 0
 
 
 def top2_torch(x, med, metric: str):
@@ -32,9 +46,27 @@ def top2_torch(x, med, metric: str):
     return _stream_top2(x, med, metric)
 
 
-def launch(x, med, metric: str):
-    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
-    global launches
+def stream_build_g_torch(x, yref, dnear, w, lead_g, metric: str):
+    """Plain version: ``(Σg, Σg², Σg·g_lead)`` over all of ``yref``,
+    ``[m]`` each, walked in 512-column tiles (tail padded at weight 0)
+    added in walk order (``engine._stream_build_stats``)."""
+    return _stream_build_stats(x, yref, dnear, w, lead_g, metric)
+
+
+def stream_swap_g_torch(x, yref, d1, d2, assign, w, k: int, lead_g,
+                        metric: str):
+    """Plain version: ``(Σg, Σg², Σg·g_lead)`` over all of ``yref``,
+    ``[k, m]`` each, the same walk (``engine._stream_swap_stats``)."""
+    return _stream_swap_stats(x, yref, d1, d2, assign, w, k, lead_g, metric)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def launch_top2(x, med, metric: str):
+    """Run the top-2 kernel on validated CUDA tensors (see ``ops``)."""
+    global top2_launches
     n, d = x.shape
     k = med.shape[0]
     d1 = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -42,8 +74,45 @@ def launch(x, med, metric: str):
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
     code = _build.lib().rt_top2(
         x.data_ptr(), med.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-        assign.data_ptr(), n, k, d, METRIC_IDS[metric],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    launches += 1
+        assign.data_ptr(), n, k, d, METRIC_IDS[metric], _stream(x))
+    top2_launches += 1
     _build.check(code, "top2 kernel")
     return d1, d2, assign
+
+
+def launch_stream_build(x, yref, dnear, w, lead_g, metric: str):
+    """Run the streaming BUILD kernel on validated CUDA tensors."""
+    global stream_build_launches
+    m, d = x.shape
+    r = yref.shape[0]
+    sums, sq, cross = (torch.empty((m,), dtype=torch.float32,
+                                   device=x.device) for _ in range(3))
+    code = _build.lib().rt_stream_build_g(
+        x.data_ptr(), yref.data_ptr(), dnear.data_ptr(), w.data_ptr(),
+        lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
+        m, r, d, METRIC_IDS[metric], _stream(x))
+    stream_build_launches += 1
+    _build.check(code, "stream_build_g kernel")
+    return sums, sq, cross
+
+
+def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
+                       metric: str):
+    """Run the streaming SWAP kernel on validated CUDA tensors."""
+    global stream_swap_launches
+    if k > k_max():
+        raise ValueError(f"stream_swap_g kernel holds at most k={k_max()} "
+                         f"medoid bins in shared memory, got k={k} "
+                         f"(ROADMAP: lift the swap_g k cap)")
+    m, d = x.shape
+    r = yref.shape[0]
+    sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
+                                   device=x.device) for _ in range(3))
+    code = _build.lib().rt_stream_swap_g(
+        x.data_ptr(), yref.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        assign.data_ptr(), w.data_ptr(), lead_g.data_ptr(), sums.data_ptr(),
+        sq.data_ptr(), cross.data_ptr(), m, r, d, k, METRIC_IDS[metric],
+        _stream(x))
+    stream_swap_launches += 1
+    _build.check(code, "stream_swap_g kernel")
+    return sums, sq, cross

@@ -12,6 +12,7 @@ import pathlib
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +37,27 @@ def jax_layouts(seed: int, n: int, k: int):
                                           T=4 * k + 10)
     return (np.asarray(_batch_perms(bpk[0], n=n)),
             np.asarray(_batch_perms(spk[0], n=n)))
+
+
+def jax_draws(seed: int, n: int, k: int, batch_size: int = 100):
+    """The JAX fit's replacement draws, [k, R, B] BUILD and [T, R, B]
+    SWAP with R = ceil(n/B): search s (key ``subs[s]`` of the chain)
+    draws round r as ``key, sub = split(key); randint(sub, (B,), 0, n)``.
+    """
+    _, bsub, ssub, _, _ = _batch_rng_chains(jnp.asarray([seed]), k=k,
+                                            T=4 * k + 10)
+    n_rounds = -(-n // batch_size)
+
+    @jax.jit
+    def rounds(keys):
+        def one(key):
+            def body(key, _):
+                key, sub = jax.random.split(key)
+                return key, jax.random.randint(sub, (batch_size,), 0, n)
+            return jax.lax.scan(body, key, None, length=n_rounds)[1]
+        return jax.vmap(one)(keys)
+
+    return np.asarray(rounds(bsub[0])), np.asarray(rounds(ssub[0]))
 
 
 def _same_fit(got, want):
@@ -146,9 +168,7 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    {"sampling": "replacement"}, {"baseline": "leader"},
-    {"reuse": "pic"}, {"cache_cols": 200}, {"fused": False},
-    {"swap_early_stop": True}, {"cache_width": 400},
+    {"reuse": "pic"}, {"cache_cols": 200}, {"cache_width": 400},
     {"metric": "precomputed"}, {"metric": lambda x, y: x @ y.T},
 ])
 def test_unported_knobs_raise(kw):
@@ -156,8 +176,8 @@ def test_unported_knobs_raise(kw):
         BanditPAM(3, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("solver", ["banditpam_pp", "pam", "fasterpam",
-                                    "clara", "onebatchpam", "banditpam_dist"])
+@pytest.mark.parametrize("solver", ["banditpam_pp", "fasterpam", "clara",
+                                    "onebatchpam", "banditpam_dist"])
 def test_unported_solvers_raise(solver):
     X = datasets.mnist_like(40, seed=0, d=16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -10,14 +10,14 @@ abs-sums in different orders; over d features the relative error of
 such a sum is at most d·2^-24, so distances may differ by
 ``dtol = d·2^-24·max|d|`` (and by sqrt of that scale near 0 for l2) and
 the B-term statistics by B times that (times max|d| for the squared and
-cross sums).
+cross sums).  The streaming kernels sum r terms, so r takes B's place.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BanditPAM, datasets, rng
+from repro_torch.core import BanditPAM, datasets, pam, rng
 from repro_torch.kernels import build_g, ops, pairwise, stream_g, swap_g
 
 pytestmark = pytest.mark.gpu
@@ -179,3 +179,117 @@ def test_cuda_fit_matches_torch_fit_on_card(cuda, metric):
     for ph, v in b.evals_by_phase.items():
         assert abs(a.evals_by_phase[ph] - v) <= 1e-3 * v, ph
     assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)
+
+
+def _stream_inputs(cuda, seed, n=1300, r=1100, d=64):
+    """x [n, d] and a reference set y [r, d] (r not a multiple of 512),
+    weight-0 slots and a non-zero leader row."""
+    x = _x(n, d, seed, cuda)
+    g = torch.Generator().manual_seed(seed)
+    y = x[torch.randperm(n, generator=g)[:r].to(cuda)].contiguous()
+    w = torch.ones(r, device=cuda)
+    w[::13] = 0.0
+    lg = torch.randn(r, generator=g).to(cuda)
+    return x, y, w, lg, g
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("dnear_kind", ["finite", "inf"])
+def test_stream_build_g_kernel_matches_plain(cuda, metric, dnear_kind):
+    x, y, w, lg, g = _stream_inputs(cuda, 7)
+    r, d = y.shape
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    dn = torch.rand(r, generator=g).to(cuda) * dmax
+    if dnear_kind == "inf":
+        dn[:] = float("inf")
+    before = stream_g.stream_build_launches
+    got = ops.stream_build_g_stats(x, y, dn, w, lg, metric=metric)
+    torch.cuda.synchronize()
+    assert stream_g.stream_build_launches == before + 1
+    want = stream_g.stream_build_g_torch(x, y, dn, w, lg, metric)
+    tol = _dtol(metric, dmax, d)
+    lgm = float(lg.abs().max())
+    for a, b, at in zip(got, want, (r * tol, 2 * r * dmax * tol,
+                                    r * lgm * tol)):
+        _close(a, b, at)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [1, 3, 10])
+def test_stream_swap_g_kernel_matches_plain(cuda, metric, k):
+    x, y, w, lg, g = _stream_inputs(cuda, 8 + k)
+    r, d = y.shape
+    med = x[torch.randperm(x.shape[0], generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = stream_g.top2_torch(y, med, metric)
+    d2 = torch.where(torch.isinf(d2), d1 * 2, d2)
+    before = stream_g.stream_swap_launches
+    got = ops.stream_swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric)
+    torch.cuda.synchronize()
+    assert stream_g.stream_swap_launches == before + 1
+    want = stream_g.stream_swap_g_torch(x, y, d1, d2, a, w, k, lg, metric)
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    tol = _dtol(metric, dmax, d)
+    lgm = float(lg.abs().max())
+    for a_, b_, at in zip(got, want, (2 * r * tol, 4 * r * dmax * tol,
+                                      2 * r * lgm * tol)):
+        assert a_.shape == (k, x.shape[0])
+        _close(a_, b_, at)
+
+
+def test_stream_swap_g_refuses_k_past_its_bins(cuda):
+    x = _x(200, 16, 3, cuda)
+    k = swap_g.k_max() + 1
+    z = torch.zeros(200, device=cuda)
+    with pytest.raises(ValueError, match="k cap"):
+        ops.stream_swap_g_stats(x, x, z, z,
+                                torch.zeros(200, dtype=torch.int32,
+                                            device=cuda), k=k)
+
+
+def _same_fit(a, b, ledger_rtol=0.0):
+    assert a.medoids.tolist() == b.medoids.tolist()
+    assert [h[:2] for h in a.swap_history] == [h[:2] for h in b.swap_history]
+    assert (a.n_swaps, a.converged) == (b.n_swaps, b.converged)
+    assert a.swap_exact_fallbacks == b.swap_exact_fallbacks
+    assert a.evals_by_phase.keys() == b.evals_by_phase.keys()
+    for ph, v in b.evals_by_phase.items():
+        assert abs(a.evals_by_phase[ph] - v) <= ledger_rtol * v, ph
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)
+
+
+def test_cuda_fit_matches_torch_fit_replacement_leader(cuda):
+    """Replacement sampling with the leader baseline, the same draws,
+    kernels vs plain versions on the card.  The exact fallbacks run the
+    streaming kernels.  The ledger tolerance is the one of
+    ``test_cuda_fit_matches_torch_fit_on_card`` (single arm-rounds on an
+    exact float32 margin)."""
+    n, k, b = 1500, 4, 100
+    X = datasets.mnist_like(n, seed=6)
+    p = np.random.default_rng(1)
+    r = -(-n // b)
+    draws = (p.integers(0, n, (k, r, b)),
+             p.integers(0, n, (4 * k + 10, r, b)))
+    kw = dict(sampling="replacement", baseline="leader")
+    ops.reset_launch_counts()
+    a = BanditPAM(k, backend="cuda", device=cuda, **kw).fit(
+        X, layouts=rng.from_numpy(build_draws=draws[0], swap_draws=draws[1]))
+    counts = ops.launch_counts()
+    b_ = BanditPAM(k, backend="torch", device=cuda, **kw).fit(
+        X, layouts=rng.from_numpy(build_draws=draws[0], swap_draws=draws[1]))
+    assert counts["stream_build_g"] >= 1 and counts["stream_swap_g"] >= 1
+    assert counts["build_g"] > 0 and counts["swap_g"] > 0
+    assert counts["pairwise"] > k            # d_near updates + leader rows
+    assert a.build_rounds == b_.build_rounds
+    _same_fit(a, b_, ledger_rtol=1e-3)
+
+
+def test_pam_cuda_matches_torch_on_card(cuda):
+    n, k = 1500, 4
+    X = datasets.mnist_like(n, seed=7)
+    ops.reset_launch_counts()
+    a = pam(X, k, backend="cuda", device=cuda)
+    counts = ops.launch_counts()
+    b = pam(X, k, backend="torch", device=cuda)
+    assert counts["stream_build_g"] == k
+    assert counts["stream_swap_g"] == a.n_swaps + (1 if a.converged else 0)
+    _same_fit(a, b)

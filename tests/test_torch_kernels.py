@@ -199,5 +199,10 @@ def test_plain_path_never_counts_launches():
     x, y = _data(20, 6, 4)
     ops.pairwise_distance(_t(x), _t(y))
     ops.stream_top2(_t(x), _t(y))
+    ones = torch.ones(6)
+    ops.stream_build_g_stats(_t(x), _t(y), ones)
+    ops.stream_swap_g_stats(_t(x), _t(y), ones, ones,
+                            torch.zeros(6, dtype=torch.int32), k=2)
     assert ops.launch_counts() == {"pairwise": 0, "build_g": 0, "swap_g": 0,
-                                   "top2": 0}
+                                   "top2": 0, "stream_build_g": 0,
+                                   "stream_swap_g": 0}
