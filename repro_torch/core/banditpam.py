@@ -100,7 +100,6 @@ class BanditPAM:
         self.baseline = baseline
         self.swap_early_stop = bool(swap_early_stop)
         self.backend = backend
-        self.fused = bool(fused)
         self.device = device
 
     def _search_kw(self, layouts, phase: str, s: int, n: int, dev) -> dict:

@@ -23,6 +23,11 @@
 #include <math.h>
 #include <stdint.h>
 
+// Most medoid bins the SWAP kernels (swap_g.cu, stream_stats.cu) hold in
+// shared memory: 3*k*256 floats; their C entries refuse larger k
+// (ROADMAP: lift the swap_g k cap).
+#define RT_SWAP_K_MAX 64
+
 namespace rt {
 
 enum Metric : int { L2 = 0, L2SQ = 1, COSINE = 2, L1 = 3 };

@@ -32,10 +32,9 @@
 // folds the bins at the end of every 512-column tile and adds the tile
 // sums to the [k, m] outputs, which only this block writes.  The bins
 // take 3*k*256 floats of dynamic shared memory, which caps k at
-// RT_SWAP_K_MAX = 64, swap_g.cu's cap; the C entry refuses larger k.
+// RT_SWAP_K_MAX (dist_tile.cuh), swap_g.cu's cap; the C entry refuses
+// larger k.
 #include "dist_tile.cuh"
-
-#define RT_STREAM_SWAP_K_MAX 64
 
 namespace {
 
@@ -193,7 +192,7 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
                                 const float* lg, float* sums, float* sq,
                                 float* cross, int64_t m, int64_t r, int d,
                                 int k, int metric, void* stream) {
-  if (k < 1 || k > RT_STREAM_SWAP_K_MAX || r < 1)
+  if (k < 1 || k > RT_SWAP_K_MAX || r < 1)
     return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
   const unsigned grid = (unsigned)((m + TM - 1) / TM);

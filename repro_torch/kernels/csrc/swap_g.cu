@@ -21,10 +21,8 @@
 // bins are added in a fixed order at the end: the same function with k
 // times less work than the one-hot product, the same bits on every run.
 // The bins take 3*k*256 floats of dynamic shared memory, which caps k at
-// RT_SWAP_K_MAX; the wrapper refuses larger k (ROADMAP: lift the cap).
+// RT_SWAP_K_MAX (dist_tile.cuh); the wrapper refuses larger k.
 #include "dist_tile.cuh"
-
-#define RT_SWAP_K_MAX 64
 
 namespace {
 

@@ -9,14 +9,16 @@ history, ``evals_by_phase``, ``build_rounds`` and
 ``swap_exact_fallbacks`` must be equal; the loss agrees to rtol 1e-5.
 
 One exception, ``baseline="leader"`` under permutation sampling: there
-the ledger is held to rtol 1e-3 (the rest exactly).  The differenced
-kill rule's σ comes from ``Σg² − 2·Σg·g_lead + Σg_lead²`` over one
-batch, a difference of sums of size ~B·max|g|² whose float32 rounding
-depends on the summation order; an arm whose differenced margin sits
-within that noise of the ``LEAD_TIE_REL`` threshold dies a round
-earlier or later.  The JAX package disagrees with itself there: at
-(650, 5, l2) its jitted fit and the same fit under
-``jax.disable_jit()`` pay different BUILD ledgers.
+each phase's ledger is held to within 4 arm-rounds (4·B evaluations) of
+the JAX fit's, the rest exactly.  The differenced kill rule's σ comes
+from ``Σg² − 2·Σg·g_lead + Σg_lead²`` over one batch, a difference of
+sums whose float32 rounding depends on the summation order, so an arm
+whose differenced margin sits within that noise of the ``LEAD_TIE_REL``
+threshold dies a round earlier or later.  ``test_torch_leader.py`` holds
+the parts exactly: the port's search pays the JAX search's ledger
+exactly on bit-identical statistics, the cross-sums agree to float32
+rounding, and the JAX package's own jitted and op-by-op fits pay
+different BUILD ledgers at (650, 5, l2).
 """
 
 import numpy as np
@@ -76,7 +78,7 @@ def check_mode_against_jax(n, k, metric, mode, monkeypatch):
     if mode == "leader":
         assert got.evals_by_phase.keys() == want.evals_by_phase.keys()
         for ph, v in want.evals_by_phase.items():
-            assert abs(got.evals_by_phase[ph] - v) <= 1e-3 * v, ph
+            assert abs(got.evals_by_phase[ph] - v) <= 4 * 100, ph
     else:
         assert got.evals_by_phase == want.evals_by_phase
         assert got.distance_evals == want.distance_evals
