@@ -20,7 +20,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    (m = r = 60,000, d = 784, k = 10, l2) and at ``N_SMALL`` for l2sq, l1
    and cosine, with a non-zero leader row, weight-0 slots, a finite and
    an all-inf ``dnear`` and r not a multiple of 512; being 0.5 s a
-   launch, they are timed over fewer repetitions;
+   launch, they are timed over fewer repetitions.  ``swap_g_from_cache``
+   is checked at a PIC fit's cached round (m = 60,000, B = 100, k = 10),
+   on a column slice of the default ring (row stride != B), at k = 1 and
+   64 and at the carried-moment repair's shape (the whole 3,200-column
+   ring, 5 % of the weights set), and timed over the full 60,000-column
+   ring as well (``cached_checks``);
 4. fit parity on the card: ``backend="cuda"`` against ``backend="torch"``
    on the same draws must give identical medoids, swap history and
    build rounds, and a loss within rtol 1e-5, for the default fit
@@ -31,8 +36,16 @@ Phases, each of which raises (exit code != 0) on any failure:
    evaluations: the kernels and cuBLAS round their float32 batch sums
    differently, which can move a kill on an exact margin by a round;
    whether the ledger is exactly equal is printed);
-   and PAM (``pam(backend="cuda")`` against ``"torch"``: identical
-   medoids, swaps and ledger);
+   PAM (``pam(backend="cuda")`` against ``"torch"``: identical
+   medoids, swaps and ledger); and five cache configurations over one
+   fixed permutation (``reuse="pic"`` at the default ring, at
+   ``cache_width=200`` and at the full width n, ``reuse="pic",
+   cache_cols=1000``, and the warm block ``cache_cols=1000``): every
+   ledger entry within two rounds at full width, 2·n·B evaluations
+   (a kill on an exact float32 margin can end a search a round later,
+   which moves one round of fresh columns, n·B, one round of cached
+   reads, at most n·B, or one round of the carried prefix, at most B
+   repaired points at n each);
 5. the main path at full size: ``KMedoids(k=10, solver="banditpam",
    metric="l2").fit`` on 60,000 MNIST-like points of d=784, then
    ``predict`` on 10,000 more, with every kernel's launch count from that
@@ -45,11 +58,15 @@ Phases, each of which raises (exit code != 0) on any failure:
    fallbacks, launches and peak memory, whether each BanditPAM fit's
    medoids equal PAM's (the paper's claim, measured and not asserted)
    and the loss ratios; PAM's loss is checked against a plain
-   ``total_loss``.
+   ``total_loss``; then BanditPAM++ (``pic_paths``): the default ring
+   and the full 60,000-column ring with a warm block, each counted on
+   its own, each launching ``swap_g_from_cache``, the full ring running
+   the carried-moment repair.
 
 The ``kernels`` line takes pairwise/build_g/swap_g/top2's launches from
-the default fit + predict and the streaming kernels' from the
-replacement + leader fit; PAM's streaming launches are printed above it.
+the default fit + predict, the streaming kernels' from the replacement
++ leader fit and ``swap_g_from_cache``'s from the full-ring PIC fit;
+PAM's and the default-ring PIC fit's are printed above it.
 
 The last two lines are one JSON object per kernel and the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -73,6 +90,9 @@ terms), with ``L`` the limit on the row's summed distance error:
 plain distances (sqrt's residue sqrt(e) is paid only where a distance
 is near 0; ``sum_err_limit``).  At the streaming kernels' full shape
 this is far below one skipped 64- or 512-column tile's share of Σg.
+``swap_g_from_cache`` and its plain version read the same distances, so
+they differ only in summation order: ``2·B·2^-24·Σ_j|t_j|`` per row and
+arm, ``t_j`` the plain version's terms (``swap_abs_sums``).
 """
 
 from __future__ import annotations
@@ -148,7 +168,10 @@ def check_close(name, got, want, atol, rtol=1e-5):
     a = torch.as_tensor(atol, dtype=torch.float64,
                         device=want.device).expand(want.shape)[fin]
     err = (g - w).abs()
-    ratio = float((err / (a + rtol * w.abs())).max()) if err.numel() else 0.0
+    # An exact match passes a zero limit (0/0 would read as NaN, which
+    # max() propagates and no comparison catches).
+    ratio = (float(torch.where(err == 0, 0.0, err / (a + rtol * w.abs()))
+                   .max()) if err.numel() else 0.0)
     worst = float(err.max()) if err.numel() else 0.0
     lim = (f"{float(a.min()):.3e}..{float(a.max()):.3e}" if a.numel()
            else "-")
@@ -404,6 +427,146 @@ def stream_checks(torch, X, dev):
     return rows
 
 
+def swap_abs_sums(dxy, d1, d2, a, w, k, lg):
+    """Per row and arm, the sums of the magnitudes of the plain version's
+    terms (``Σ_j |t_j|``) for Σg, Σg² and Σg·g_lead, each [k, m]: the
+    scale of their float32 summation error."""
+    import torch
+    from repro_torch.core import engine
+    base, corr = engine._swap_terms(dxy, d1, d2)
+    base = base * w[None, :]
+    oh = torch.nn.functional.one_hot(a.long(), k).to(torch.float32)
+    oh = oh * w[:, None]
+    ab, ac = base.abs(), corr.abs()
+    s = ab.sum(dim=1)[None, :] + (ac @ oh).T
+    q = (base * base).sum(dim=1)[None, :] + (
+        (2.0 * base * corr + corr * corr).abs() @ oh).T
+    lga = lg.abs()
+    c = (ab @ lga)[None, :] + ((ac * lga[None, :]) @ oh).T
+    return s, q, c
+
+
+def cached_checks(torch, X, dev):
+    """Phase 3, ``swap_g_from_cache`` against its plain version on the
+    card: at a fit's cached round (m = 60,000, B = 100, k = 10, l2
+    distances of the data; a leader row and weight-0 slots), on a column
+    slice of the default PIC ring (row stride 3,200 != B), at the
+    carried-moment repair's shape (the whole default ring, B = 3,200,
+    about 5 % of the weights set) and at k = 1 and k = 64.  Both read the
+    same distances, so they differ only in summation order: each sum is
+    held to ``2·B·2^-24·Σ_j|t_j|`` per row and arm, ``t_j`` the plain
+    version's terms.  Also times the kernel over the full 60,000-column
+    ring of fit (b) below (14.4 GB, the repair's real width) and
+    ``pairwise`` at a PIC round's fresh shape [60,000 × 100] beside
+    ``torch.cdist``.  Returns the kernel's timing row (the cached-round
+    slice, the shape of most of its launches)."""
+    from repro_torch.kernels import ops, swap_g
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    x = X[:N_FIT].contiguous()
+    n = x.shape[0]
+    width = 32 * B                                  # the default ring
+    refs = x[torch.randperm(n, generator=gen)[:width].to(dev)].contiguous()
+    ring = ops.pairwise_distance(x, refs, "l2")
+    med = x[torch.randperm(n, generator=gen)[:64].to(dev)].contiguous()
+
+    def vectors(lo, b, k, w_share=1.0):
+        d1, d2, a = ops.stream_top2(refs[lo:lo + b].contiguous(), med[:k],
+                                    metric="l2")
+        w = (torch.rand(b, generator=gen) < w_share).float().to(dev)
+        w[-7:] = 0.0                                # padded slots
+        lg = (torch.randn(b, generator=gen) * 3).to(dev)
+        return d1, d2, a, w, lg
+
+    def case(name, dxy, k, w_share=1.0, lo=0):
+        b = dxy.shape[1]
+        d1, d2, a, w, lg = vectors(lo, b, k, w_share)
+        got = ops.swap_g_stats_cached(dxy, d1, d2, a, w, k, lg)
+        want = swap_g.swap_g_from_cache_torch(dxy, d1, d2, a, w, k, lg)
+        lim = swap_abs_sums(dxy, d1, d2, a, w, k, lg)
+        err = max(check_close(f"swap_g_from_cache[{name}] {nm}", g, wv,
+                              2 * b * 2.0 ** -24 * at, rtol=0.0)
+                  for nm, g, wv, at in zip(("sums", "sq", "cross"), got,
+                                           want, lim))
+        return err, (dxy, d1, d2, a, w, k, lg)
+
+    lo = 5 * B
+    fresh = ops.pairwise_distance(x, refs[lo:lo + B].contiguous(), "l2")
+    errs = {}
+    errs["round"], _ = case("round,k=10", fresh, 10, lo=lo)
+    errs["slice"], sl_args = case("ring slice,k=10", ring[:, lo:lo + B], 10,
+                                  lo=lo)
+    errs["k1"], _ = case("ring slice,k=1", ring[:, lo:lo + B], 1, lo=lo)
+    errs["k64"], _ = case("ring slice,k=64", ring[:, lo:lo + B], 64, lo=lo)
+    errs["repair"], rp_args = case("repair,B=3200,k=10", ring, 10,
+                                   w_share=0.05)
+    # The fused kernel on the same batch, fed the points: the shared
+    # column routine should give the cached kernel's bits.
+    d1, d2, a, w, lg = sl_args[1:5] + sl_args[6:]
+    same = all(torch.equal(f, c) for f, c in zip(
+        ops.swap_g_stats(x, refs[lo:lo + B].contiguous(), d1, d2, a, w, 10,
+                         lg, metric="l2"),
+        ops.swap_g_stats_cached(fresh, d1, d2, a, w, 10, lg)))
+    log(f"[kernel] swap_g_from_cache within tolerance at every shape; on the "
+        f"pairwise kernel's distances it equals swap_g bit for bit: {same}")
+
+    def bytes_of(dxy, w, k):
+        # The block's columns that the run's weights need, each read once,
+        # the [B] vectors once, three [k, m] outputs written once.
+        m, b = dxy.shape
+        cols = float((w != 0).sum())
+        return 4.0 * (m * cols + 5 * b + 3 * k * m)
+
+    row = None
+    for label, args in (("ring slice B=100", sl_args),
+                        ("repair B=3200, 5% w", rp_args)):
+        dxy, d1, d2, a, w, k, lg = args
+        ms = time_ms(lambda: ops.swap_g_stats_cached(dxy, d1, d2, a, w, k,
+                                                     lg))
+        pms = time_ms(lambda: swap_g.swap_g_from_cache_torch(
+            dxy, d1, d2, a, w, k, lg), reps=5, warm=1)
+        bms, bby = bound_ms(0.0, bytes_of(dxy, w, k))
+        log(f"[time] swap_g_from_cache {label}: kernel {ms:.4f} ms  plain "
+            f"{pms:.4f} ms  library -  bound {bms * 1e3:.1f} us ({bby})  "
+            f"share of bound {bms / ms:.3f}")
+        if row is None:
+            row = {"name": "swap_g_from_cache", "route": "cuda",
+                   "source": "repro_torch/kernels/csrc/swap_g.cu",
+                   "replaces": "src/repro/kernels/swap_g.py:118",
+                   "launches": 0, "max_abs_err": max(errs.values()),
+                   "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                   "bound_by": bby, "library_ms": None}
+    # The repair's real width: fit (b)'s 60,000-column ring, filled with
+    # copies of the default ring (the plain version's [m, B] temporaries
+    # would not fit beside it).
+    full = torch.empty((n, n), dtype=torch.float32, device=dev)
+    for j in range(0, n, width):
+        full[:, j:j + width] = ring[:, :min(width, n - j)]
+    idx = torch.arange(n, device=dev) % width
+    d1, d2, a, _, _ = vectors(0, width, 10)
+    d1, d2, a = d1[idx].contiguous(), d2[idx].contiguous(), a[idx].contiguous()
+    w = (torch.rand(n, generator=gen) < 0.05).float().to(dev)
+    ms = time_ms(lambda: ops.swap_g_stats_cached(full, d1, d2, a, w, 10),
+                 reps=5, warm=1)
+    bms, bby = bound_ms(0.0, bytes_of(full, w, 10))
+    bfull, _ = bound_ms(0.0, 4.0 * n * n)
+    log(f"[time] swap_g_from_cache repair B=60000, 5% w: kernel {ms:.4f} ms  "
+        f"plain - (no room)  bound {bms:.4f} ms ({bby}; {bfull:.4f} ms to "
+        f"read the whole ring)  share of bound {bms / ms:.3f}")
+    del full
+    # pairwise at a PIC round's fresh shape.
+    y = refs[:B].contiguous()
+    ms = time_ms(lambda: ops.pairwise_distance(x, y, "l2"))
+    lms = time_ms(lambda: torch.cdist(x, y))
+    d = x.shape[1]
+    bms, bby = bound_ms(2.0 * n * B * d, 4.0 * (n * d + B * d + n * B))
+    log(f"[time] pairwise [60000 x 100] (a PIC round's fresh block): kernel "
+        f"{ms:.4f} ms  torch.cdist {lms:.4f} ms  bound {bms * 1e3:.1f} us "
+        f"({bby})")
+    del ring
+    torch.cuda.empty_cache()
+    return [row]
+
+
 def fit_parity(torch, X, dev):
     """Phase 4: backend="cuda" against backend="torch" on the card."""
     import numpy as np
@@ -456,6 +619,25 @@ def fit_parity(torch, X, dev):
             f" swaps {fits[be].n_swaps} evals {fits[be].evals_by_phase} "
             f"({time.perf_counter() - t0:.2f} s)")
     same_fit(fits["cuda"], fits["torch"], "pam", ledger_slack=0)
+    # The cache regimes, over one fixed permutation: the default ring
+    # (41 rounds > 32: it recycles), a narrow one, the full ring (the
+    # carried-moment repair runs), the ring's warm block, and warm mode.
+    fixed = prng.permutation(n)
+    for kw in ({"reuse": "pic"}, {"reuse": "pic", "cache_width": 200},
+               {"reuse": "pic", "cache_width": n},
+               {"reuse": "pic", "cache_cols": 1000},
+               {"reuse": "none", "cache_cols": 1000}):
+        for be in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            fits[be] = BanditPAM(k, metric="l2", backend=be, device=dev,
+                                 **kw).fit(data, layouts=rng.from_numpy(
+                                     fixed_perm=fixed))
+            log(f"[parity] {kw} backend={be:5s} medoids "
+                f"{fits[be].medoids.tolist()} swaps {fits[be].n_swaps} evals "
+                f"{fits[be].evals_by_phase} rounds {fits[be].build_rounds} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        same_fit(fits["cuda"], fits["torch"], str(kw),
+                 ledger_slack=2 * n * B)
 
 
 def same_fit(a, b, what, ledger_slack):
@@ -587,6 +769,80 @@ def exact_paths(torch, X, dev, Xnp, perm_fit):
         log(f"[claim] BanditPAM ({name}) medoids == PAM's: "
             f"{sorted(r.medoids.tolist()) == sorted(p.medoids.tolist())}; "
             f"loss / PAM loss {r.loss / p.loss!r}")
+    return counts, p
+
+
+def pic_paths(torch, X, dev, Xnp, pam_fit):
+    """Phase 5, BanditPAM++ at full size on the main path's rows, each
+    fit with the launch counts set to 0 just before it and read just
+    after: (a) ``KMedoids(k=10, reuse="pic")``, the default ring of 32
+    rounds (768 MB), which recycles, so every SWAP search starts cold;
+    (b) ``KMedoids(k=10, reuse="pic", cache_width=60000,
+    cache_cols=3200)``, the full 60,000 × 60,000 ring (14.4 GB) with a
+    32-round warm block: no round is recycled, so the carried-moment
+    repair (``_carry_delta``, two full-ring passes of
+    ``swap_g_from_cache``) runs in every SWAP iteration after the first.
+    The repairs are counted by wrapping ``banditpam._carry_delta``.  Each
+    fit must launch ``swap_g_from_cache``; (b) must report a non-zero
+    ``swap_cached`` and at least one repair.  Returns the counts."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import banditpam, total_loss
+    from repro_torch.kernels import ops
+    repairs = []
+    orig = banditpam._carry_delta
+
+    def counted(*a, **kw):
+        out = orig(*a, **kw)
+        repairs.append(out[2])
+        return out
+
+    counts, fits = {}, {}
+    banditpam._carry_delta = counted
+    try:
+        for name, kw in (("pic", dict(reuse="pic")),
+                         ("pic_full", dict(reuse="pic", cache_width=N_FIT,
+                                           cache_cols=32 * B))):
+            repairs.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            est = KMedoids(k=10, metric="l2", seed=0, **kw).fit(Xnp[:N_FIT])
+            fit_s = time.perf_counter() - t0
+            counts[name] = ops.launch_counts()
+            r = fits[name] = est.report_
+            changed = [int(v) for v in repairs]
+            log(f"[pic] {name} {kw}: medoids {r.medoids.tolist()}")
+            log(f"[pic] {name}: loss {r.loss!r} n_swaps {r.n_swaps} "
+                f"converged {r.converged}")
+            log(f"[pic] {name}: evals_by_phase {r.evals_by_phase} fresh "
+                f"{r.distance_evals} cached {r.cached_evals} build_rounds "
+                f"{r.build_rounds}")
+            log(f"[pic] {name}: wall_by_phase {r.wall_by_phase} fit "
+                f"{fit_s:.3f} s (data upload and cache set-up included)")
+            log(f"[pic] {name}: carried-moment repairs {len(changed)}, "
+                f"changed points {changed}")
+            log(f"[pic] {name}: kernel launches {counts[name]}; peak device "
+                f"memory {torch.cuda.max_memory_allocated()} bytes")
+            if counts[name]["swap_g_from_cache"] < 1:
+                raise AssertionError(f"{name} never launched "
+                                     f"swap_g_from_cache: {counts[name]}")
+            if len(set(r.medoids.tolist())) != 10:
+                raise AssertionError(f"bad {name} medoids")
+            data = X[:N_FIT].contiguous()
+            med_t = torch.as_tensor(r.medoids, device=dev)
+            plain = float(total_loss(data, med_t, metric="l2",
+                                     backend="torch"))
+            if abs(plain - r.loss) > 1e-5 * abs(plain):
+                raise AssertionError(f"{name} loss {r.loss} != plain {plain}")
+            log(f"[claim] BanditPAM++ ({name}) medoids == PAM's: "
+                f"{sorted(r.medoids.tolist()) == sorted(pam_fit.medoids.tolist())}"
+                f"; loss / PAM loss {r.loss / pam_fit.loss!r}")
+            if name == "pic_full" and not (
+                    r.evals_by_phase["swap_cached"] > 0 and changed):
+                raise AssertionError("the full ring ran no carried repair")
+    finally:
+        banditpam._carry_delta = orig
     return counts
 
 
@@ -616,21 +872,29 @@ def main() -> int:
     X = torch.from_numpy(Xnp).to(dev)
     log(f"[data] mnist_like({N_FIT + N_QUERY}, d=784) made in "
         f"{time.perf_counter() - t0:.1f} s")
-    rows = kernel_checks(torch, X, dev) + stream_checks(torch, X, dev)
+    rows = (kernel_checks(torch, X, dev) + stream_checks(torch, X, dev)
+            + cached_checks(torch, X, dev))
     fit_parity(torch, X, dev)
     counts, perm_fit = main_path(torch, X, dev, Xnp)
-    counts_exact = exact_paths(torch, X, dev, Xnp, perm_fit)
+    counts_exact, pam_fit = exact_paths(torch, X, dev, Xnp, perm_fit)
+    counts_pic = pic_paths(torch, X, dev, Xnp, pam_fit)
     # Each kernel's launches come from one run of its own path: the
-    # default fit + predict, or (streaming kernels) the replacement +
-    # leader fit; PAM's own counts are printed beside them.
+    # default fit + predict, (streaming kernels) the replacement + leader
+    # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
+    # default-ring PIC fit's counts are printed beside them.
     for row in rows:
-        row["launches"] = (counts_exact["replacement+leader"]
-                           if row["name"].startswith("stream_")
-                           else counts)[row["name"]]
+        src = (counts_exact["replacement+leader"]
+               if row["name"].startswith("stream_")
+               else counts_pic["pic_full"]
+               if row["name"] == "swap_g_from_cache" else counts)
+        row["launches"] = src[row["name"]]
     log("[launches] kernels line: fit + predict (pairwise, build_g, swap_g, "
-        "top2); replacement+leader fit (stream_build_g, stream_swap_g); PAM: "
+        "top2); replacement+leader fit (stream_build_g, stream_swap_g); "
+        "full-ring PIC fit (swap_g_from_cache); PAM: "
         + ", ".join(f"{nm} {counts_exact['pam'][nm]}"
-                    for nm in ("stream_build_g", "stream_swap_g")))
+                    for nm in ("stream_build_g", "stream_swap_g"))
+        + "; default-ring PIC fit: swap_g_from_cache "
+        + str(counts_pic["pic"]["swap_g_from_cache"]))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ Solver contract::
     fn(data, k, *, metric: str, seed: int, device, layouts=None, **params)
         -> FitReport
 
-Ported: ``banditpam``, and the exact oracles ``pam`` (PAM's k·n² SWAP
+Ported: ``banditpam`` (its knobs, the cache regimes ``reuse`` /
+``cache_width`` / ``cache_cols`` included, reach the fit as solver
+params), ``banditpam_pp`` (BanditPAM++: ``banditpam`` with
+``reuse="pic"`` by default), and the exact oracles ``pam`` (PAM's k·n² SWAP
 accounting) and ``fastpam1`` (n² per SWAP step; the same medoids), which
 run through the stats backend and so take ``backend=``.  The JAX
 package's other solvers are known by name and raise
@@ -28,7 +31,7 @@ _SOLVERS: Dict[str, Solver] = {}
 _ACCEPTS_BACKEND: set = set()
 
 # Solvers of the JAX package that later slices port, by ROADMAP item.
-NOT_PORTED = {"banditpam_pp": "A9", "banditpam_dist": "A13",
+NOT_PORTED = {"banditpam_dist": "A13",
               "fasterpam": "A8", "clara": "A8", "clarans": "A8",
               "voronoi": "A8", "onebatchpam": "A8"}
 
@@ -67,6 +70,14 @@ def _banditpam(data, k, *, metric, seed, device, layouts=None, **params):
                      **params).fit(data, layouts=layouts)
 
 
+def _banditpam_pp(data, k, *, metric, seed, device, layouts=None,
+                  **params):
+    # BanditPAM++: the SWAP-phase reuse engine over the PIC column ring.
+    params.setdefault("reuse", "pic")
+    return _banditpam(data, k, metric=metric, seed=seed, device=device,
+                      layouts=layouts, **params)
+
+
 def _pam(data, k, *, metric, seed, device, layouts=None, **params):
     # Deterministic: seed and layouts intentionally unused.
     return pam(data, k, metric=metric, fastpam1=False, device=device,
@@ -80,5 +91,6 @@ def _fastpam1(data, k, *, metric, seed, device, layouts=None, **params):
 
 
 register_solver("banditpam", _banditpam, accepts_backend=True)
+register_solver("banditpam_pp", _banditpam_pp, accepts_backend=True)
 register_solver("pam", _pam, accepts_backend=True)
 register_solver("fastpam1", _fastpam1, accepts_backend=True)

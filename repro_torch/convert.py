@@ -14,6 +14,11 @@ random draws, and what predict depends on is the fitted medoids:
   (its key is ``_batch_rng_chains``' ``subs[s]``: k BUILD keys, then T
   SWAP keys) draws round ``r`` as ``key, sub = split(key);
   randint(sub, (B,), 0, n)``;
+* ``layouts_from_reference(fixed_perm=...)`` carries the one fixed
+  permutation of a fit with a distance cache (``reuse="pic"``, or
+  ``cache_cols > 0`` under permutation sampling):
+  ``jax.random.permutation(ckey, n)`` with ``ckey`` the first output of
+  ``_batch_rng_chains``;
 * a fitted JAX estimator crosses as its medoid indices, through
   ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``.
 """
@@ -25,16 +30,23 @@ import numpy as np
 from .core import rng
 
 
-def layouts_from_reference(build_perms, swap_perms) -> rng.ArrayLayouts:
-    """The JAX fit's reference permutations as a layout source."""
-    b = np.asarray(build_perms)
-    s = np.asarray(swap_perms)
-    for name, p in (("build", b), ("swap", s)):
-        if p.ndim == 2 and not np.all(np.sort(p, axis=1)
-                                      == np.arange(p.shape[1])):
+def layouts_from_reference(build_perms=None, swap_perms=None, *,
+                           fixed_perm=None) -> rng.ArrayLayouts:
+    """The JAX fit's reference permutations as a layout source: per
+    search (``[k, n]`` BUILD, ``[T, n]`` SWAP) and/or the fixed one
+    (``[n]``)."""
+    perms = {name: None if p is None else np.asarray(p)
+             for name, p in (("build", build_perms), ("swap", swap_perms),
+                             ("fixed", fixed_perm))}
+    for name, p in perms.items():
+        if p is None or p.ndim not in (1, 2):
+            continue                       # rng.from_numpy rejects the rest
+        rows = np.atleast_2d(p)
+        if not np.all(np.sort(rows, axis=1) == np.arange(rows.shape[1])):
             raise ValueError(f"{name} rows are not permutations of "
-                             f"range({p.shape[1]})")
-    return rng.from_numpy(b, s)
+                             f"range({rows.shape[1]})")
+    return rng.from_numpy(perms["build"], perms["swap"],
+                          fixed_perm=perms["fixed"])
 
 
 def draws_from_reference(build_draws, swap_draws) -> rng.ArrayLayouts:

@@ -1,8 +1,8 @@
 """Algorithm 1 of the paper: Adaptive-Search, in PyTorch.
 
-Counterpart of ``repro.core.adaptive.adaptive_search`` for a search
-without a distance cache: a batched UCB / successive-elimination
-best-arm search.  Two sampling modes, chosen by the batch source:
+Counterpart of ``repro.core.adaptive.adaptive_search``: a batched UCB /
+successive-elimination best-arm search.  Two sampling modes, chosen by
+the batch source:
 
 * permutation sampling (``perm=``, paper Appendix 2.2): the batches are
   consecutive slices of one random permutation of the reference set,
@@ -42,15 +42,34 @@ the JAX package's.  The loop runs on the host with one device read per
 round, which carries the survivor count, the early-stop verdict and, in
 round 1 of a leader search, the pilot leader.
 
-``n_evals`` is tallied in int64 on the device.  The JAX package keeps it
-in uint32, which wraps past 2**32 evaluations in one search at large n
-(a SWAP fallback alone adds up to ``n·n`` at n = 60,000); the port's
-does not.  Cache-seeded searches are ROADMAP A9.
+Cache-seeded searches (BanditPAM++ and the paper's App 2.2 warm block),
+permutation sampling over a FIXED permutation shared by every search:
+
+* ``free_rounds`` / ``free_lo``: rounds in ``[free_lo, free_rounds)``
+  are served from the caller's distance cache; their evaluations go to
+  ``n_evals_cached`` instead of ``n_evals`` (at the same
+  ``count_fn·b`` rate);
+* ``init_sums`` / ``init_sqsums`` / ``init_rounds``: per-arm Σg / Σg²
+  carried over the permutation's first ``init_rounds`` rounds by an
+  earlier search (and repaired by the caller, ``banditpam._carry_delta``)
+  seed this one, which resumes at round ``init_rounds`` with
+  ``n_used`` = Σ ``perm_w`` over that prefix and σ from the carried
+  moments;
+* ``aux``: the caller's state (the fit's ``FitContext``, holding the PIC
+  ring), handed to ``stats_fn`` with the round index; being host state,
+  the ring is updated in place.
+
+``SearchResult`` returns the final ``sums`` / ``sqsums`` for the next
+search's carry.  ``n_evals`` and ``n_evals_cached`` are tallied in int64
+on the device.  The JAX package keeps them in uint32, which wraps past
+2**32 evaluations in one search at large n (a SWAP fallback alone adds
+up to ``n·n``, a cache-served search up to ``n·n`` cached reads, at
+n = 60,000); the port's do not.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -63,8 +82,7 @@ SIGMA_FLOOR = 1e-8
 # differences between stats backends cannot decide kills.
 LEAD_TIE_REL = 1e-2
 
-StatsFn = Callable[[torch.Tensor, torch.Tensor, Optional[int]],
-                   Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+StatsFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 CountFn = Callable[[torch.Tensor], torch.Tensor]
 DrawFn = Callable[[int], torch.Tensor]
 ExactFn = Callable[[], torch.Tensor]
@@ -73,9 +91,12 @@ ExactFn = Callable[[], torch.Tensor]
 class SearchResult(NamedTuple):
     best: int            # index into the (flattened) arm set
     n_evals: int         # fresh algorithmic distance evaluations
-    rounds: int          # bandit rounds executed
+    rounds: int          # bandit rounds executed (absolute, incl. carried)
     n_survivors: int     # surviving arms at loop exit
     used_exact: bool     # the survivors were resolved by exact_fn
+    n_evals_cached: int = 0                 # evaluations served by a cache
+    sums: Optional[torch.Tensor] = None     # [arms] final Σg (prefix)
+    sqsums: Optional[torch.Tensor] = None   # [arms] final Σg² (prefix)
 
 
 def log_term_f32(delta: float, device) -> torch.Tensor:
@@ -108,7 +129,11 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
                     exact_fn: Optional[ExactFn] = None,
                     count_fn: CountFn = default_count,
                     baseline: str = "none",
-                    stop_when_positive: bool = False) -> SearchResult:
+                    stop_when_positive: bool = False,
+                    free_rounds: int = 0, free_lo: int = 0,
+                    init_sums: Optional[torch.Tensor] = None,
+                    init_sqsums: Optional[torch.Tensor] = None,
+                    init_rounds: int = 0, aux: Any = None) -> SearchResult:
     """Run one best-arm identification (one BUILD assignment or one SWAP
     pick).
 
@@ -120,7 +145,9 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     the leader arm, or None when no cross-sum is needed).  ``count_fn``
     gives the distance evaluations per reference point as a function of
     the survivor mask (BUILD: #active arms; SWAP: #distinct active
-    candidates).
+    candidates).  With ``aux`` given, ``stats_fn`` is called as
+    ``stats_fn(ref_idx, w, lead, rnd, aux)``, ``rnd`` the round index.
+    The cache seeds (``free_*``, ``init_*``) are in the module docstring.
     """
     if (perm is None) == (draw is None):
         raise ValueError("give exactly one of perm (permutation sampling) "
@@ -130,6 +157,11 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
                          "exact fallback")
     if baseline not in ("none", "leader"):
         raise ValueError(f"unknown baseline mode {baseline!r}")
+    if (init_sums is None) != (init_sqsums is None):
+        raise ValueError("init_sums and init_sqsums must be given together")
+    if init_sums is not None and perm is None:
+        raise ValueError("carried statistics require permutation sampling "
+                         "over a fixed perm")
     use_perm = perm is not None
     use_lead = baseline == "leader"
     dev = active_init.device
@@ -146,19 +178,35 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     else:
         ones = torch.ones((B,), **f32)
     active = active_init.clone()
-    sums = torch.zeros((n_arms,), **f32)
-    sigma = torch.full((n_arms,), float("inf"), **f32)
     n_evals = torch.zeros((), **i64)
+    n_cached = torch.zeros((), **i64)
     lead = None                       # host int once the pilot round ran
     if use_lead:
         arms = torch.arange(n_arms, device=dev)
         d_sums = torch.zeros((n_arms,), **f32)
         sigma_d = torch.full((n_arms,), float("inf"), **f32)
         n_post = 0
-    n_used = 0
-    rounds = 0
-    n_active = int(torch.sum(active).item())
-    go = True                          # the early stop's verdict
+    rounds = int(init_rounds) if init_sums is not None else 0
+    # Σ perm_w over the carried prefix, for the cyclic tiling.
+    n_used = min(rounds * B, n_ref)
+    reads = [torch.sum(active, dtype=torch.int64)]
+    if init_sums is None:
+        sums = torch.zeros((n_arms,), **f32)
+        sqsums = torch.zeros((n_arms,), **f32)
+        sigma = torch.full((n_arms,), float("inf"), **f32)
+    else:
+        # σ from the carried moments (every arm has n_used samples).
+        sums, sqsums = init_sums, init_sqsums
+        n0_f = scalar(max(n_used, 1))
+        mu0 = sums / n0_f
+        sigma = torch.sqrt(torch.clamp_min(sqsums / n0_f - mu0 * mu0,
+                                           0.0)) + SIGMA_FLOOR
+        if stop_when_positive:
+            reads.append(_may_improve(sums, sigma, active, log_term,
+                                           scalar(max(n_used, 1))))
+    vals = torch.stack(reads).tolist()
+    n_active = vals[0]
+    go = bool(vals[1]) if len(vals) > 1 else True    # early-stop verdict
     while n_used < n_ref and n_active > 1 and go:
         if use_perm:
             lo = rounds * B
@@ -169,10 +217,14 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
             ref_idx = draw(rounds)
             w = ones
             b_eff = B
-        sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead)
+        if aux is None:
+            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead)
+        else:
+            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead, rounds, aux)
 
         # ---- raw statistics (paper) ----
         sums = sums + sums_b
+        sqsums = sqsums + sq_b
         n_new = n_used + b_eff
         n_new_f = scalar(n_new)
         b_eff_f = scalar(b_eff)
@@ -213,17 +265,19 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
             kill_d = (mu_d - ci_d) > torch.min(ucb_d) + eps_d
             kill = kill | (kill_d & (arms != lead))
 
-        n_evals = n_evals + count_fn(active) * b_eff
+        cost = count_fn(active) * b_eff
+        if free_lo <= rounds < free_rounds:
+            n_cached = n_cached + cost
+        else:
+            n_evals = n_evals + cost
         active = active & ~kill
         n_used = n_new
         rounds += 1
         # The round's one device read: survivors, pilot leader, verdict.
         reads.insert(0, torch.sum(active, dtype=torch.int64))
         if stop_when_positive:
-            n_used_f = scalar(max(n_used, 1))
-            lcb_es = sums / n_used_f - sigma * torch.sqrt(log_term / n_used_f)
-            lcb_min = torch.min(torch.where(active, lcb_es, float("inf")))
-            reads.append((lcb_min <= 0.0).to(torch.int64))
+            reads.append(_may_improve(sums, sigma, active, log_term,
+                                           scalar(max(n_used, 1))))
         vals = torch.stack(reads).tolist()
         n_active = vals[0]
         if use_lead and lead is None:
@@ -239,7 +293,20 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
         mu_sel = torch.where(active, sums / scalar(max(n_used, 1)),
                              float("inf"))
     best = torch.argmin(mu_sel)
-    best_h, n_evals_h = torch.stack([best, n_evals]).tolist()
+    best_h, n_evals_h, n_cached_h = torch.stack(
+        [best, n_evals, n_cached]).tolist()
     return SearchResult(best=int(best_h), n_evals=int(n_evals_h),
                         rounds=rounds, n_survivors=n_active,
-                        used_exact=used_exact)
+                        used_exact=used_exact,
+                        n_evals_cached=int(n_cached_h), sums=sums,
+                        sqsums=sqsums)
+
+
+def _may_improve(sums, sigma, active, log_term, n_used_f):
+    """The early stop's verdict as an int64 0-d tensor: 1 while some
+    surviving arm's lower bound ``mu − σ·sqrt(log(1/δ)/n_used)`` is not
+    positive (the search goes on), 0 once none can be an improving
+    swap."""
+    lcb = sums / n_used_f - sigma * torch.sqrt(log_term / n_used_f)
+    lcb_min = torch.min(torch.where(active, lcb, float("inf")))
+    return (lcb_min <= 0.0).to(torch.int64)

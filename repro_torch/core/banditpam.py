@@ -1,8 +1,7 @@
 """BanditPAM: BUILD + SWAP driven by Algorithm 1, in PyTorch.
 
-Counterpart of ``repro.core.banditpam.BanditPAM.fit`` without a distance
-cache (``reuse="none"``, ``cache_cols=0``: the JAX package's
-``FitContext(mode="none")``), for every sampling mode and baseline:
+Counterpart of ``repro.core.banditpam.BanditPAM.fit`` for every sampling
+mode, baseline and cache regime:
 
 * BUILD (Eq. 6): k adaptive searches over the candidate points, each
   against ``d_near`` (the nearest chosen medoid per reference point,
@@ -25,6 +24,30 @@ cache (``reuse="none"``, ``cache_cols=0``: the JAX package's
   and #distinct active candidates × B in SWAP, an exact fallback
   #survivors (distinct candidates) × n; BUILD adds n·k for the d_near
   updates, every SWAP iteration 2·n·k for the cache and the loss.
+
+The distance caches (``engine.FitContext``), both over ONE fixed
+reference permutation walked by every search (``layouts.fixed_perm``):
+
+* ``cache_cols=C > 0`` with ``reuse="none"`` and permutation sampling:
+  the paper's App 2.2 warm block, the columns of the first ``C // B``
+  rounds computed once up front (``cache_warm`` = n·C in the ledger);
+  those rounds are served from it in every search.
+* ``reuse="pic"`` (BanditPAM++): the bounded column ring of
+  ``core.pic_cache`` (``cache_width`` columns, default 32 rounds), written
+  through by every round that computes its block fresh, so later
+  searches replay it; with ``cache_cols`` the ring's first rounds are
+  warmed up front (clamped to the ring).  Virtual arms: each SWAP search
+  hands its per-arm Σg / Σg² to the next, which :func:`_carry_delta`
+  repairs only at the reference points whose (d1, d2, assign) the
+  accepted swap moved, from the ring; it runs while no round has been
+  recycled (``pic_cache.carry_valid``), and otherwise the search starts
+  cold.  The ledger splits: fresh pays n per position whose column was
+  computed (``build``, ``swap``, ``cache_warm``), cached tallies the
+  rounds served from the ring and the repairs, n per changed point
+  (``build_cached``, ``swap_cached``).  The SWAP rounds from the ring and
+  the repairs run through the ``swap_g_from_cache`` kernel on the card.
+  ``sampling="replacement"`` refuses ``reuse="pic"`` and ignores
+  ``cache_cols``, as in the JAX package.
 
 The port has one host-driven fit loop (one device read per bandit
 round), so ``fused=False`` (the JAX package's stepped fit loop) runs the
@@ -49,8 +72,11 @@ import torch
 from .adaptive import adaptive_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import resolve_metric
-from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
-                     medoid_cache, resolve_stats_backend, total_loss)
+from .engine import (FitContext, exact_build_means, exact_swap_means,
+                     get_stats_backend, medoid_cache, resolve_stats_backend,
+                     stream_columns, total_loss)
+from .pic_cache import (cache_read_or_write, carry_valid, fresh_positions,
+                        make_cache, resolve_cache_rounds)
 from .report import FitReport
 from . import rng as _rng
 
@@ -62,14 +88,48 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP {item})")
 
 
+def _carry_delta(be, cols, pidx, pw, n_prefix: int, d1o, d2o, ao, d1n, d2n,
+                 an, sums, sqsums, k: int):
+    """Re-validate carried SWAP arm statistics after an accepted swap.
+
+    The carried Σg / Σg² over the permutation prefix ``[0, n_prefix)``
+    were summed under the previous (d1, d2, assign).  With
+    ``g = base_x + 1[y ∈ C_m]·corr_x``, the swap changes g only at the
+    reference points y whose (d1, d2, assign) moved; their old
+    contributions are taken out and the new ones put in by two passes of
+    the backend's cache-served SWAP statistics over the WHOLE ring
+    ``cols`` [n, W·B] with weight ``pw·in_prefix·changed`` (the
+    ``swap_g_from_cache`` kernel on the card), so the repair costs no
+    fresh evaluation.  Exact comparison finds the changed points: an
+    unchanged entry of the medoid cache is a bit-identical recomputation.
+    The caller guarantees ``n_prefix ≤ W·B`` and that no round was
+    recycled, so ring slots are the identity map of positions.
+
+    Returns ``(sums', sqsums', n_changed)``, ``n_changed`` a 0-d int64
+    tensor (positions repaired).
+    """
+    width = cols.shape[1]
+    in_prefix = (torch.arange(width, device=cols.device)
+                 < n_prefix).to(torch.float32)
+    b1, b2, ba = d1o[pidx], d2o[pidx], ao[pidx]
+    c1, c2, ca = d1n[pidx], d2n[pidx], an[pidx]
+    changed = ((b1 != c1) | (b2 != c2) | (ba != ca)).to(torch.float32)
+    w = pw * in_prefix * changed
+    s_old, q_old, _ = be.swap_stats_from_d(cols, b1, b2, ba, w, k, None)
+    s_new, q_new, _ = be.swap_stats_from_d(cols, c1, c2, ca, w, k, None)
+    return (sums - s_old + s_new, sqsums - q_old + q_new,
+            torch.count_nonzero(w))
+
+
 class BanditPAM:
     """k-medoids via adaptive sampling; same medoids as PAM w.h.p.
 
     ``device=None`` runs on the card and raises without one; pass
     ``device="cpu"`` for the plain path.  ``backend`` is ``"auto"``,
-    ``"cuda"``, ``"torch"`` or any registered stats backend.  The knobs of
-    the JAX estimator that this package does not port yet raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``"cuda"``, ``"torch"`` or any registered stats backend.
+    ``cache_width`` caps the ``reuse="pic"`` ring in reference columns
+    (rounded down to whole rounds; ``None``: 32 rounds); ``cache_width=n``
+    holds an n × n float32 ring.  ``cache_cols`` is the warm block.
     """
 
     def __init__(self, k: int, metric: str = "l2", batch_size: int = 100,
@@ -86,10 +146,9 @@ class BanditPAM:
             raise ValueError(f"unknown baseline mode {baseline!r}")
         if reuse not in ("none", "pic"):
             raise ValueError(f"unknown reuse mode {reuse!r}")
-        if reuse == "pic" or cache_width is not None:
-            raise _not_ported('reuse="pic"', "A9")
-        if cache_cols > 0:
-            raise _not_ported("cache_cols > 0 (the warm block)", "A9")
+        if reuse == "pic" and sampling != "permutation":
+            raise ValueError('reuse="pic" requires sampling="permutation" '
+                             "(the cache is keyed by a fixed permutation)")
         self.k = int(k)
         self.metric = resolve_metric(metric)
         self.batch_size = int(batch_size)
@@ -99,14 +158,79 @@ class BanditPAM:
         self.sampling = sampling
         self.baseline = baseline
         self.swap_early_stop = bool(swap_early_stop)
+        self.cache_cols = int(cache_cols)
+        self.reuse = reuse
+        self.cache_width = cache_width
         self.backend = backend
         self.device = device
 
-    def _search_kw(self, layouts, phase: str, s: int, n: int, dev) -> dict:
-        """The batch source of search ``s`` of ``phase``: its permutation,
-        or its per-round draws; and the baseline."""
+    # -- per-fit context -------------------------------------------------
+    def _make_context(self, data, be_name: str, layouts,
+                      res: FitReport) -> FitContext:
+        """The fit's cache regime and buffers (``engine.FitContext``)."""
+        n = data.shape[0]
+        be = get_stats_backend(be_name)
+        B = self.batch_size
+        dev = data.device
+        if self.reuse == "pic":
+            perm = _rng.as_device_index(layouts.fixed_perm(n), dev)
+            W = resolve_cache_rounds(-(-n // B), B, self.cache_width)
+            width = W * B
+            # The cyclic tiling's prefix at the ring's width; positions
+            # past n are weight-0 padding.
+            perm_idx = perm.repeat(-(-width // n))[:width]
+            perm_w = (torch.arange(width, device=dev) < n).to(torch.float32)
+            cache = make_cache(n, B, W, dev)
+            warm = min(min(self.cache_cols, n) // B, W)
+            if warm > 0:
+                # The warm block fills the ring's first rounds up front.
+                stream_columns(be, data, data[perm_idx[:warm * B]],
+                               metric=self.metric,
+                               out=cache.cols[:, :warm * B])
+                cache.hw, cache.fresh_pos = warm, warm * B
+                res.evals_by_phase["cache_warm"] = n * warm * B
+            return FitContext(mode="pic", backend=be_name, perm=perm,
+                              perm_idx=perm_idx, perm_w=perm_w, cache=cache)
+        c = (min(self.cache_cols, n) // B) * B
+        if c > 0 and self.sampling == "permutation":
+            # Paper App 2.2: the first C columns of one fixed permutation.
+            perm = _rng.as_device_index(layouts.fixed_perm(n), dev)
+            dwarm = stream_columns(be, data, data[perm[:c]],
+                                   metric=self.metric)
+            res.evals_by_phase["cache_warm"] = n * c
+            return FitContext(mode="warm", backend=be_name, perm=perm,
+                              dwarm=dwarm, free_rounds=c // B)
+        return FitContext(mode="none", backend=be_name)
+
+    def _cached_block(self, be, data, ref_idx, rnd: int, ctx: FitContext):
+        """Round ``rnd``'s ``[n, B]`` distance block from the context's
+        cache (PIC: from the ring, or fresh and written through), or
+        None for a fresh fused round (warm mode past the warm block)."""
+        B = self.batch_size
+        if ctx.mode == "warm":
+            if rnd >= ctx.free_rounds:
+                return None
+            return ctx.dwarm[:, rnd * B:(rnd + 1) * B]
+        n = data.shape[0]
+        dxy, _ = cache_read_or_write(be, data, ref_idx, metric=self.metric,
+                                     batch_size=B, rnd=rnd,
+                                     b_eff=min(B, n - rnd * B),
+                                     cache=ctx.cache)
+        return dxy
+
+    def _search_kw(self, layouts, phase: str, s: int, n: int, dev,
+                   ctx: FitContext) -> dict:
+        """The batch source of search ``s`` of ``phase`` (its permutation,
+        the fit's fixed one, or its per-round draws), the baseline, and
+        the rounds the context's cache serves."""
         kw = dict(baseline=self.baseline)
-        if self.sampling == "permutation":
+        if ctx.mode == "pic":
+            W = ctx.cache.rounds_cap(self.batch_size)
+            kw.update(perm=ctx.perm, aux=ctx, free_rounds=ctx.cache.hw,
+                      free_lo=max(ctx.cache.hw - W, 0))
+        elif ctx.mode == "warm":
+            kw.update(perm=ctx.perm, aux=ctx, free_rounds=ctx.free_rounds)
+        elif self.sampling == "permutation":
             perm = getattr(layouts, f"{phase}_perm")(s, n)
             kw["perm"] = _rng.as_device_index(perm, dev)
         else:
@@ -116,55 +240,71 @@ class BanditPAM:
         return kw
 
     # -- BUILD ----------------------------------------------------------
-    def _build(self, data, be_name, layouts, res: FitReport):
+    def _build(self, data, ctx: FitContext, layouts, res: FitReport):
         n = data.shape[0]
-        be = get_stats_backend(be_name)
+        be = get_stats_backend(ctx.backend)
         dev = data.device
+        pic = ctx.mode == "pic"
         delta = self.delta if self.delta is not None else 1.0 / (1000.0 * n)
         log_term = log_term_f32(delta, dev)
         dnear = torch.full((n,), float("inf"), dtype=torch.float32,
                            device=dev)
         med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-        medoids, evals = [], 0
+        medoids, evals, cached = [], 0, 0
         for i in range(self.k):
-            def stats_fn(ref_idx, w, lead):
-                return be.build_stats(data, ref_idx, dnear[ref_idx], w, lead,
-                                      metric=self.metric)
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
+                dxy = (None if aux is None
+                       else self._cached_block(be, data, ref_idx, rnd, aux))
+                if dxy is None:
+                    return be.build_stats(data, ref_idx, dnear[ref_idx], w,
+                                          lead, metric=self.metric)
+                return be.build_stats_from_d(dxy, dnear[ref_idx], w, lead)
 
             def exact_fn():
                 return exact_build_means(be, data, dnear, metric=self.metric)
 
+            fresh0 = ctx.cache.fresh_pos if pic else 0
             sr = adaptive_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=n, n_ref=n, batch_size=self.batch_size,
                 log_term=log_term, active_init=torch.logical_not(med_mask),
-                **self._search_kw(layouts, "build", i, n, dev))
+                **self._search_kw(layouts, "build", i, n, dev, ctx))
             m = sr.best
             medoids.append(m)
             med_mask[m] = True
             dnear = torch.minimum(
                 dnear, be.pairwise(data[m:m + 1], data, metric=self.metric)[0])
             res.build_rounds.append(sr.rounds)
-            evals += sr.n_evals
+            if pic:
+                # n per fresh column position, on host ints.
+                evals += n * fresh_positions(fresh0, ctx.cache)
+                cached += sr.n_evals_cached
+            else:
+                evals += sr.n_evals
         res.evals_by_phase["build"] = evals + n * self.k
+        if pic:
+            res.evals_by_phase["build_cached"] = cached
         return medoids, med_mask
 
     # -- SWAP -----------------------------------------------------------
-    def _swap(self, data, medoids, med_mask, be_name, layouts,
+    def _swap(self, data, medoids, med_mask, ctx: FitContext, layouts,
               res: FitReport):
         n = data.shape[0]
         k = self.k
-        be = get_stats_backend(be_name)
+        B = self.batch_size
+        be = get_stats_backend(ctx.backend)
         dev = data.device
+        pic = ctx.mode == "pic"
         delta = (self.delta if self.delta is not None
                  else 1.0 / (1000.0 * k * n))
         log_term = log_term_f32(delta, dev)
         med_t = torch.tensor(medoids, dtype=torch.int64, device=dev)
         prev_loss = total_loss(data, med_t, metric=self.metric,
-                               backend=be_name)
+                               backend=ctx.backend)
         loss = float(prev_loss.item())
         converged = False
-        swap_evals = 0
+        swap_evals = swap_cached = 0
+        carry = None  # (sums, sqsums, rounds, d1, d2, assign) of last search
 
         def count_fn(active):
             # FastPAM1: one distance per (x, y) pair serves all k arms (·, x).
@@ -173,36 +313,64 @@ class BanditPAM:
 
         for t in range(self.max_swaps):
             d1, d2, assign = medoid_cache(data, med_t, metric=self.metric,
-                                          backend=be_name)
+                                          backend=ctx.backend)
+            seed = {}
+            n_changed = torch.zeros((), dtype=torch.int64, device=dev)
+            if carry is not None and carry_valid(ctx.cache, B):
+                # Virtual arms: the last search's moments, repaired where
+                # the accepted swap moved (d1, d2, assign).  Once a round
+                # was recycled the search starts cold.
+                c_sums, c_sq, c_rounds, d1o, d2o, ao = carry
+                s0, q0, n_changed = _carry_delta(
+                    be, ctx.cache.cols, ctx.perm_idx, ctx.perm_w,
+                    c_rounds * B, d1o, d2o, ao, d1, d2, assign, c_sums, c_sq,
+                    k)
+                seed = dict(init_sums=s0, init_sqsums=q0,
+                            init_rounds=c_rounds)
 
-            def stats_fn(ref_idx, w, lead):
-                return be.swap_stats(data, ref_idx, d1[ref_idx], d2[ref_idx],
-                                     assign[ref_idx], w, k, lead,
-                                     metric=self.metric)
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
+                dxy = (None if aux is None
+                       else self._cached_block(be, data, ref_idx, rnd, aux))
+                if dxy is None:
+                    return be.swap_stats(data, ref_idx, d1[ref_idx],
+                                         d2[ref_idx], assign[ref_idx], w, k,
+                                         lead, metric=self.metric)
+                return be.swap_stats_from_d(dxy, d1[ref_idx], d2[ref_idx],
+                                            assign[ref_idx], w, k, lead)
 
             def exact_fn():
                 return exact_swap_means(be, data, d1, d2, assign, k,
                                         metric=self.metric)
 
+            fresh0 = ctx.cache.fresh_pos if pic else 0
             sr = adaptive_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
-                n_arms=k * n, n_ref=n, batch_size=self.batch_size,
+                n_arms=k * n, n_ref=n, batch_size=B,
                 log_term=log_term,
                 active_init=torch.logical_not(med_mask).repeat(k),
                 count_fn=count_fn, stop_when_positive=self.swap_early_stop,
-                **self._search_kw(layouts, "swap", t, n, dev))
+                **seed, **self._search_kw(layouts, "swap", t, n, dev, ctx))
             res.swap_exact_fallbacks += int(sr.used_exact)
             m_idx, x_idx = divmod(sr.best, n)
             cand = med_t.clone()
             cand[m_idx] = x_idx
             new_loss = total_loss(data, cand, metric=self.metric,
-                                  backend=be_name)
+                                  backend=ctx.backend)
             # The JAX package's accept rule, float32 on the device.
             accept = new_loss < prev_loss - 1e-7 * torch.clamp_min(
                 torch.abs(prev_loss), 1.0)
-            new_loss_h, accept_h = torch.stack(
-                [new_loss.double(), accept.double()]).tolist()
-            swap_evals += 2 * n * k + sr.n_evals
+            new_loss_h, accept_h, n_changed_h = torch.stack(
+                [new_loss.double(), accept.double(),
+                 n_changed.double()]).tolist()
+            if pic:
+                # Fresh: n per fresh column position; cached: the rounds
+                # served from the ring plus n per repaired point.
+                swap_evals += 2 * n * k + n * fresh_positions(fresh0,
+                                                              ctx.cache)
+                swap_cached += sr.n_evals_cached + n * int(n_changed_h)
+                carry = (sr.sums, sr.sqsums, sr.rounds, d1, d2, assign)
+            else:
+                swap_evals += 2 * n * k + sr.n_evals
             if not accept_h:
                 converged = True
                 break
@@ -215,6 +383,8 @@ class BanditPAM:
             loss = float(new_loss_h)
             prev_loss = new_loss
         res.evals_by_phase["swap"] = swap_evals
+        if pic:
+            res.evals_by_phase["swap_cached"] = swap_cached
         return medoids, loss, converged
 
     # -- public ----------------------------------------------------------
@@ -240,15 +410,16 @@ class BanditPAM:
             layouts = _rng.from_generator(self.seed, dev)
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
+        ctx = self._make_context(data, be_name, layouts, res)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        medoids, med_mask = self._build(data, be_name, layouts, res)
+        medoids, med_mask = self._build(data, ctx, layouts, res)
         sync()
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        medoids, loss, converged = self._swap(data, medoids, med_mask,
-                                              be_name, layouts, res)
+        medoids, loss, converged = self._swap(data, medoids, med_mask, ctx,
+                                              layouts, res)
         sync()
         res.wall_by_phase["swap"] = time.perf_counter() - t0
         res.medoids = np.asarray(medoids, np.int64)
@@ -257,7 +428,8 @@ class BanditPAM:
         res.converged = converged
         res.distance_evals = sum(v for ph, v in res.evals_by_phase.items()
                                  if not ph.endswith("_cached"))
-        res.cached_evals = 0
+        res.cached_evals = sum(v for ph, v in res.evals_by_phase.items()
+                               if ph.endswith("_cached"))
         return res
 
     def fit_batch(self, datasets, seeds=None):

@@ -21,7 +21,10 @@ device)::
 
     pairwise(x, y, *, metric)                               -> [m, r]
     build_stats(data, ref_idx, dnear_b, w, lead, *, metric) -> 3 × [n]
+    build_stats_from_d(dxy, dnear_b, w, lead)               -> 3 × [n]
     swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *, metric)
+                                                            -> 3 × [k·n]
+    swap_stats_from_d(dxy, d1_b, d2_b, assign_b, w, k, lead)
                                                             -> 3 × [k·n]
     stream_build_sums(data, dnear, *, metric)               -> [n]
     stream_swap_sums(data, d1, d2, assign, k, *, metric)    -> [k·n]
@@ -36,15 +39,25 @@ so a SWAP leader ``lead`` is medoid ``lead // n`` and candidate
 in ``_EXACT_CHUNK``-column reference tiles added in walk order: the
 exact passes behind replacement sampling's fallback and behind PAM
 (:func:`exact_build_means`, :func:`exact_swap_means`).
+
+The ``*_from_d`` forms take a resident ``[n, B]`` distance block ``dxy``
+(a round's slice of the PIC column ring, the warm block, or the whole
+ring in the carried-moment repair) in place of the points, so they do no
+distance work: on the ``"cuda"`` backend SWAP goes through the
+``swap_g_from_cache`` kernel, and BUILD is plain tensor math on both
+backends, as in the JAX package.  :func:`stream_columns` produces cache
+columns, and :class:`FitContext` holds a fit's cache regime.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from .distances import pairwise
+from .pic_cache import PicCache
 
 _EXACT_CHUNK = 512  # row tile of the top-2 / loss walks, reference tile
 #                    of the exact streaming passes (the JAX REF_TILE)
@@ -178,6 +191,30 @@ def exact_swap_means(be, data, d1, d2, assign, k: int, *, metric: str
         (), float(n), dtype=torch.float32, device=data.device)
 
 
+def stream_columns(be, data: torch.Tensor, refs: torch.Tensor, *,
+                   metric: str,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``[n, C]`` cache column block ``d(data, refs)`` (warm block,
+    PIC warm rounds), produced in row strips of ``_EXACT_CHUNK`` rows
+    through the backend's pairwise path so only one ``[strip, C]`` block
+    is live besides the product; the last strip is realigned to end at
+    row n, as in the JAX package.  ``out`` (e.g. a column slice of the
+    ring) takes the product in place."""
+    tile = _EXACT_CHUNK
+    n = data.shape[0]
+    if out is None:
+        out = torch.empty((n, refs.shape[0]), dtype=torch.float32,
+                          device=data.device)
+    if n <= tile:
+        out.copy_(be.pairwise(data, refs, metric=metric))
+        return out
+    for i in range(-(-n // tile)):
+        lo = min(i * tile, n - tile)
+        out[lo:lo + tile] = be.pairwise(data[lo:lo + tile], refs,
+                                        metric=metric)
+    return out
+
+
 def _top2_block(dmat: torch.Tensor):
     """Nearest / second-nearest of one distance block: d1 the minimum,
     assign the FIRST index attaining it, d2 the minimum over the other
@@ -232,20 +269,27 @@ class TorchStatsBackend:
         return pairwise(x, y, metric=metric)
 
     def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric):
+        return self.build_stats_from_d(
+            pairwise(data, data[ref_idx], metric=metric), dnear_b, w, lead)
+
+    def build_stats_from_d(self, dxy, dnear_b, w, lead):
         # The leader's g-row is a row of the g block (the jnp backend's
         # ``g @ g[lead]``).
-        g = _build_g(pairwise(data, data[ref_idx], metric=metric),
-                     dnear_b) * w[None, :]
+        g = _build_g(dxy, dnear_b) * w[None, :]
         cross = (torch.zeros((g.shape[0],), dtype=g.dtype, device=g.device)
                  if lead is None else g @ g[lead])
         return torch.sum(g, dim=1), torch.sum(g * g, dim=1), cross
 
     def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
                    *, metric):
-        dxy = pairwise(data, data[ref_idx], metric=metric)
+        return self.swap_stats_from_d(
+            pairwise(data, data[ref_idx], metric=metric), d1_b, d2_b,
+            assign_b, w, k, lead)
+
+    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead):
         lead_g = None
         if lead is not None:
-            m_l, x_l = divmod(lead, data.shape[0])
+            m_l, x_l = divmod(lead, dxy.shape[0])
             lead_g = _swap_lead_g(dxy[x_l], d1_b, d2_b, assign_b, m_l)
         s, q, c = _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
@@ -263,10 +307,13 @@ class TorchStatsBackend:
 
 class CudaStatsBackend:
     """The hand-written kernels: ``build_g`` / ``swap_g`` for the bandit
-    rounds, ``stream_build_g`` / ``stream_swap_g`` for the exact passes,
-    ``top2`` for the medoid cache, loss and labels, ``pairwise`` for the
-    BUILD ``d_near`` update, the leader's distance row and predict.  CUDA
-    tensors only.
+    rounds, ``swap_g_from_cache`` for SWAP rounds served from a resident
+    distance block and the carried-moment repair, ``stream_build_g`` /
+    ``stream_swap_g`` for the exact passes, ``top2`` for the medoid cache,
+    loss and labels, ``pairwise`` for the BUILD ``d_near`` update, the
+    leader's distance row, the PIC ring's fresh columns and predict.
+    CUDA tensors only.  BUILD statistics from a resident block are the
+    torch backend's plain math (no distance work to fuse).
 
     The kernels take the leader's g-row as an input, so under
     ``baseline="leader"`` it comes from one extra pairwise row of the
@@ -306,6 +353,22 @@ class CudaStatsBackend:
             lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l)
         s, q, c = ops.swap_g_stats(data, y, d1_b, d2_b, assign_b, w, k,
                                    lead_g, metric=metric)
+        return s.reshape(-1), q.reshape(-1), c.reshape(-1)
+
+    def build_stats_from_d(self, dxy, dnear_b, w, lead):
+        self._ops(dxy)
+        return TorchStatsBackend.build_stats_from_d(self, dxy, dnear_b, w,
+                                                    lead)
+
+    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead):
+        ops = self._ops(dxy)
+        lead_g = None
+        if lead is not None:
+            # The leader's distance row is a row of the block.
+            m_l, x_l = divmod(lead, dxy.shape[0])
+            lead_g = _swap_lead_g(dxy[x_l], d1_b, d2_b, assign_b, m_l)
+        s, q, c = ops.swap_g_stats_cached(dxy, d1_b, d2_b, assign_b, w, k,
+                                          lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
     def stream_build_sums(self, data, dnear, *, metric):
@@ -376,3 +439,37 @@ def resolve_stats_backend(backend: Optional[str], metric: str,
             raise ValueError(f"metric {metric!r} has no kernel (kernel "
                              f"metrics: {list(KERNEL_METRICS)})")
     return backend
+
+
+# ---------------------------------------------------------------------------
+# FitContext: one fit's cache regime
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FitContext:
+    """What one ``BanditPAM.fit`` threads between its phases (the JAX
+    package's single-fit fields; the batched ones wait for ROADMAP A10).
+
+    ``mode`` is the cache regime:
+
+    * ``"none"``: no distance cache; every round is fresh and every
+      search draws its own permutation (or replacement batches);
+    * ``"warm"`` (paper App 2.2): one fixed permutation for every search
+      and a block ``dwarm`` [n, C] of its first ``free_rounds`` rounds'
+      columns, computed once up front; later rounds are fresh;
+    * ``"pic"`` (BanditPAM++): one fixed permutation and the bounded
+      column ring ``cache`` (:class:`~repro_torch.core.pic_cache.PicCache`,
+      capacity ``W = cols.shape[1] // B``), written through by the
+      rounds that compute a block fresh; ``perm_idx`` / ``perm_w`` are the
+      permutation's cyclic tiling at the ring's width, read by the
+      carried-moment repair.
+    """
+
+    mode: str                                 # "none" | "warm" | "pic"
+    backend: str                              # registered stats backend
+    perm: Optional[torch.Tensor] = None       # [n] fixed permutation
+    perm_idx: Optional[torch.Tensor] = None   # [W·B] tiled prefix ("pic")
+    perm_w: Optional[torch.Tensor] = None     # [W·B] {0,1} weights ("pic")
+    cache: Optional[PicCache] = None          # the ring ("pic")
+    dwarm: Optional[torch.Tensor] = None      # [n, C] warm block ("warm")
+    free_rounds: int = 0                      # rounds in dwarm ("warm")

@@ -4,10 +4,13 @@ Ledger semantics:
 
 * ``distance_evals`` — FRESH pairwise dissimilarity evaluations the
   algorithm paid for, exactly as the paper counts them.
-* ``cached_evals`` — evaluations served from a distance cache; zero until
-  the PIC engine is ported (ROADMAP A9).
-* ``evals_by_phase`` — the itemised split (``build``, ``swap``; keys
-  ending in ``_cached`` are excluded from ``distance_evals``).
+* ``cached_evals`` — evaluations served from a distance cache: the
+  ``reuse="pic"`` rounds replayed from the ring and the carried-moment
+  repairs (zero without the ring).
+* ``evals_by_phase`` — the itemised split: ``build``, ``swap`` and, with
+  a cache, ``cache_warm`` (the warm block, fresh), ``build_cached`` and
+  ``swap_cached``; the keys ending in ``_cached`` make up
+  ``cached_evals``, all others ``distance_evals``.
 
 The port keeps every count as a Python int (the device tallies are
 int64).  The JAX package's per-search count is uint32 and would wrap

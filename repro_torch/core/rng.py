@@ -14,6 +14,13 @@ search per iteration (``t``).  Two sampling modes draw differently:
   ``R = ceil(n/B)`` rounds, since every round consumes B of its n-point
   budget.
 
+A fit with a distance cache (``reuse="pic"``, or ``cache_cols > 0`` under
+permutation sampling) instead walks ONE fixed reference permutation in
+every search (``fixed_perm(n)``), drawn first, before any BUILD search;
+its searches draw nothing of their own.  In the JAX package it is
+``jax.random.permutation(ckey, n)``, ``ckey`` being the chain's first
+split (``_batch_rng_chains``' first output).
+
 The JAX package draws from its threefry chain: ``PRNGKey(seed)`` → one
 subkey per search → ``jax.random.permutation`` of a split of it, or, in
 replacement mode, ``key, sub = split(key); randint(sub, (B,), 0, n)``
@@ -26,9 +33,9 @@ from where the draws come from:
   ``torch.randint(0, n, (B,))`` from one seeded ``torch.Generator`` on
   the fit's device, in the order the fit consumes them;
 * :func:`from_numpy` replays given ``[k, n]`` BUILD and ``[T, n]`` SWAP
-  permutations and/or ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP draws —
-  the parity tests fill it from the JAX chain, and then both packages
-  walk identical batches.
+  permutations and/or ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP draws
+  and/or the ``[n]`` fixed permutation — the parity tests fill it from
+  the JAX chain, and then both packages walk identical batches.
 
 A torch replica of threefry, which would make the seeds compatible, is
 ROADMAP A12.
@@ -51,15 +58,23 @@ class GeneratorLayouts:
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
-        self.drawn = {"build": 0, "swap": 0}
+        self.drawn = {"fixed": 0, "build": 0, "swap": 0}
         self._round = None   # (phase, search, last round) of the open search
 
     def _open(self, phase: str, i: int) -> None:
-        # All BUILD searches come before the first SWAP search, each in order.
-        if i != self.drawn[phase] or (phase == "build" and self.drawn["swap"]):
+        # The fixed permutation first, then every BUILD search before the
+        # first SWAP search, each in order.
+        later = {"fixed": ("build", "swap"), "build": ("swap",),
+                 "swap": ()}[phase]
+        if i != self.drawn[phase] or any(self.drawn[p] for p in later):
             raise ValueError(f"layouts must be drawn in fit order; asked "
                              f"for {phase}[{i}] after {self.drawn}")
         self.drawn[phase] += 1
+
+    def fixed_perm(self, n: int) -> torch.Tensor:
+        """The cache-seeded fit's one permutation; drawn at most once,
+        before anything else."""
+        return self._perm("fixed", 0, n)
 
     def _perm(self, phase: str, i: int, n: int) -> torch.Tensor:
         self._open(phase, i)
@@ -94,16 +109,25 @@ class GeneratorLayouts:
 class ArrayLayouts:
     """Draws given up front: permutations ``build[k, n]`` and
     ``swap[T, n]``, and/or replacement draws ``build_draws[k, R, B]`` and
-    ``swap_draws[T, R, B]`` with ``R = ceil(n/B)``."""
+    ``swap_draws[T, R, B]`` with ``R = ceil(n/B)``, and/or the fixed
+    permutation ``fixed[n]``."""
 
     def __init__(self, build: Optional[np.ndarray] = None,
                  swap: Optional[np.ndarray] = None,
                  build_draws: Optional[np.ndarray] = None,
-                 swap_draws: Optional[np.ndarray] = None):
+                 swap_draws: Optional[np.ndarray] = None,
+                 fixed: Optional[np.ndarray] = None):
         self.build = _check(build, "build permutations", 2)
         self.swap = _check(swap, "swap permutations", 2)
         self.build_draws = _check(build_draws, "build draws", 3)
         self.swap_draws = _check(swap_draws, "swap draws", 3)
+        self.fixed = _check(fixed, "the fixed permutation", 1)
+
+    def fixed_perm(self, n: int) -> np.ndarray:
+        if self.fixed is None:
+            raise ValueError("no fixed permutation was given (a fit with a "
+                             "distance cache needs one)")
+        return _perm_row(self.fixed[None, :], 0, n, "fixed")
 
     def build_perm(self, i: int, n: int) -> np.ndarray:
         return _perm_row(self.build, i, n, "build")
@@ -168,8 +192,9 @@ def from_generator(seed: int, device) -> GeneratorLayouts:
 
 
 def from_numpy(build_perms=None, swap_perms=None, build_draws=None,
-               swap_draws=None) -> ArrayLayouts:
-    return ArrayLayouts(build_perms, swap_perms, build_draws, swap_draws)
+               swap_draws=None, fixed_perm=None) -> ArrayLayouts:
+    return ArrayLayouts(build_perms, swap_perms, build_draws, swap_draws,
+                        fixed_perm)
 
 
 def as_device_index(idx, device: torch.device) -> torch.Tensor:

@@ -42,6 +42,8 @@ SIGNATURES = {
     "rt_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     "rt_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                   _I, _P],
+    "rt_swap_g_from_cache": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             _I64, _I, _P],
     "rt_swap_g_k_max": [],
     "rt_top2": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "rt_stream_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,

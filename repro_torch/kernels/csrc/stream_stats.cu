@@ -33,8 +33,10 @@
 // sums to the [k, m] outputs, which only this block writes.  The bins
 // take 3*k*256 floats of dynamic shared memory, which caps k at
 // RT_SWAP_K_MAX (dist_tile.cuh), swap_g.cu's cap; the C entry refuses
-// larger k.
+// larger k.  The SWAP column and fold routines are swap_g.cu's
+// (swap_tile.cuh), so a weight-0 column is skipped here too.
 #include "dist_tile.cuh"
+#include "swap_tile.cuh"
 
 namespace {
 
@@ -125,23 +127,9 @@ stream_swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int64_t col0 = t0; col0 < t1; col0 += TN) {
       rt::dist_tile<M, TM, TN>(x, y, m, r, d, row0, col0, s);
       const int nc = t1 - col0 < TN ? (int)(t1 - col0) : TN;
-      for (int j = sub; j < nc; j += SUBS) {
-        const int64_t jj = col0 + j;
-        const float dv = s.dt[row][j];
-        const float a1 = d1[jj], a2 = d2[jj], wj = w[jj], lj = lg[jj];
-        const float m1 = fminf(dv, a1);
-        const float base = (m1 - a1) * wj;
-        const float corr = fminf(dv, a2) - m1;
-        bs += base;
-        bq += base * base;
-        bc += base * lj;
-        const int c = assign[jj];
-        if (c >= 0 && c < k) {
-          mine[(0 * k + c) * TM + row] += corr * wj;
-          mine[(1 * k + c) * TM + row] += (2.f * base * corr + corr * corr) * wj;
-          mine[(2 * k + c) * TM + row] += (corr * lj) * wj;
-        }
-      }
+      for (int j = sub; j < nc; j += SUBS)
+        rt::swap_col<TM>(s.dt[row][j], col0 + j, d1, d2, assign, w, lg, k,
+                         row, mine, bs, bq, bc);
       __syncthreads();  // dt is rewritten by the next column tile
     }
     red[0][sub][row] = bs;
@@ -155,15 +143,9 @@ stream_swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
       const int c = (e / TM) % k;
       const int q = e / (TM * k);
       if (row0 + i >= m) continue;
-      float base = red[q][0][i];
-      float bin = bins[(q * k + c) * TM + i];
-#pragma unroll
-      for (int t = 1; t < SUBS; ++t) {
-        base += red[q][t][i];
-        bin += bins[(((size_t)t * 3 + q) * k + c) * TM + i];
-      }
       float* o = outs[q] + (int64_t)c * m + row0 + i;
-      *o = (t0 == 0 ? 0.f : *o) + (base + bin);
+      *o = (t0 == 0 ? 0.f : *o) +
+           rt::swap_fold_at<TM, SUBS>(red, bins, k, q, c, i);
     }
     __syncthreads();  // bins and red are rewritten by the next tile
   }

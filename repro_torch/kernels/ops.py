@@ -33,6 +33,7 @@ KERNEL_METRICS = ("l2", "l2sq", "l1", "cosine")
 _KERNELS = {"pairwise": (_pairwise, "launches"),
             "build_g": (_build_g, "launches"),
             "swap_g": (_swap_g, "launches"),
+            "swap_g_from_cache": (_swap_g, "cached_launches"),
             "top2": (_stream_g, "top2_launches"),
             "stream_build_g": (_stream_g, "stream_build_launches"),
             "stream_swap_g": (_stream_g, "stream_swap_launches")}
@@ -50,9 +51,11 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
-def _on_cuda(what: str, metric: str, *tensors: torch.Tensor) -> bool:
-    """Validate a call; True for the kernel, False for the plain version."""
-    if metric not in KERNEL_METRICS:
+def _on_cuda(what: str, metric: Optional[str],
+             *tensors: torch.Tensor) -> bool:
+    """Validate a call; True for the kernel, False for the plain version.
+    ``metric=None``: a kernel that computes no distance."""
+    if metric is not None and metric not in KERNEL_METRICS:
         raise ValueError(f"{what}: metric {metric!r} has no kernel "
                          f"(kernel metrics: {list(KERNEL_METRICS)})")
     dev = tensors[0].device
@@ -134,6 +137,39 @@ def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
                               metric)
     return _swap_g.swap_g_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
                                 lead_g, metric)
+
+
+def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,
+                        d2_b: torch.Tensor, assign_b: torch.Tensor,
+                        w: torch.Tensor, k: int,
+                        lead_g: Optional[torch.Tensor] = None) -> Stats:
+    """``swap_g_stats`` served from a resident distance block: ``dxy``
+    [m, B] is a slice of the PIC column ring (one round, or the whole
+    ring in the carried-moment repair), read in place: its columns must
+    be adjacent (``stride(1) == 1``), its row stride is free.  Returns
+    (Σg, Σg², Σg·g_lead), each ``[k, m]``; no distance work."""
+    what = "swap_g_stats_cached"
+    if lead_g is None:
+        lead_g = torch.zeros_like(d1_b)
+    _check(dxy.ndim == 2, what, f"dxy must be [m, B], got {tuple(dxy.shape)}")
+    _check(dxy.stride(1) == 1 or dxy.shape[1] == 1, what,
+           "dxy's columns must be adjacent (stride(1) == 1)")
+    cuda = _on_cuda(what, None, d1_b, d2_b, assign_b, w, lead_g)
+    _check(dxy.device == d1_b.device, what,
+           f"tensors on {dxy.device} and {d1_b.device}")
+    _f32(what, dxy, d1_b, d2_b, w, lead_g)
+    _check(assign_b.dtype == torch.int32, what,
+           f"assign_b must be int32, got {assign_b.dtype}")
+    b = dxy.shape[1]
+    _check(b >= 1, what, "the block has no columns")
+    _check(all(t.shape == (b,) for t in (d1_b, d2_b, assign_b, w, lead_g)),
+           what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
+    _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    if cuda:
+        return _swap_g.launch_cached(dxy, d1_b, d2_b, assign_b, w, int(k),
+                                     lead_g)
+    return _swap_g.swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w,
+                                           int(k), lead_g)
 
 
 def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,

@@ -1,17 +1,34 @@
 """Fused SWAP (FastPAM1) arm statistics for all k medoid-arms at once.
 
-Replaces the TPU kernel ``src/repro/kernels/swap_g.py:85``
-(``swap_g_kernel``, tile math ``swap_stats_vals`` at ``:40``) with the
-CUDA kernel ``csrc/swap_g.cu``.  Its bound on the H100 is build_g's: the
-distance work, compute-bound at the main path's shapes.  The TPU
-kernel's one-hot ``[B, K]`` matrix product becomes a binned add into
-per-thread shared-memory bins chosen by each reference point's cluster:
-the same function with k times less work, no atomics, and the
-``[k, m]`` engine layout written directly.  The bins cap k at
-``k_max()`` (64); larger k raises (ROADMAP: lift the swap_g k cap).
+Two kernels in ``csrc/swap_g.cu``, over the shared tile math of
+``csrc/swap_tile.cuh`` (the TPU kernels' ``swap_stats_vals``,
+``src/repro/kernels/swap_g.py:40``):
 
-``swap_g_torch`` is the plain version (the engine's one-hot form).
-``launches`` counts kernel launches.
+* ``swap_g`` replaces ``swap_g_kernel`` (``:85``): the distances of the
+  batch computed in the kernel from the points;
+* ``swap_g_from_cache`` replaces ``swap_g_from_cache_kernel`` (``:118``):
+  the same statistics read from a resident ``[m, B]`` block of the PIC
+  column ring (one round's slice, or the whole ring in the
+  carried-moment repair), with no distance work.  It takes any row
+  stride, so a column slice of the ring is read in place, walks any B
+  (the TPU wrapper's ``CACHE_B_MAX`` chunking is a VMEM limit the card
+  does not have) and skips weight-0 columns.  Its bound is its bytes:
+  the block read once.
+
+Given equal distances the two give equal bits (one column routine, one
+thread-to-column map, one fold order).
+
+``swap_g``'s bound on the H100 is build_g's: the distance work,
+compute-bound at the main path's shapes.  The TPU kernels' one-hot
+``[B, K]`` matrix product becomes a binned add into per-thread
+shared-memory bins chosen by each reference point's cluster: the same
+function with k times less work, no atomics, and the ``[k, m]`` engine
+layout written directly.  The bins cap k at ``k_max()`` (64) in both
+kernels; larger k raises (ROADMAP: lift the swap_g k cap).
+
+``swap_g_torch`` and ``swap_g_from_cache_torch`` are the plain versions
+(the engine's one-hot form).  ``launches`` and ``cached_launches`` count
+the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -24,6 +41,7 @@ from . import build as _build
 from .pairwise import METRIC_IDS
 
 launches = 0
+cached_launches = 0
 
 
 def k_max() -> int:
@@ -38,13 +56,23 @@ def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
                              assign_b, w, k, lead_g)
 
 
-def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
-    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
-    global launches
+def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
+    """Plain version of the cached kernel: ``(Σg, Σg², Σg·g_lead)`` of a
+    given ``[m, B]`` distance block, each ``[k, m]``."""
+    return _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
+
+
+def _check_k(k: int) -> None:
     if k > k_max():
         raise ValueError(f"swap_g kernel holds at most k={k_max()} medoid "
                          f"bins in shared memory, got k={k} (ROADMAP: lift "
                          f"the swap_g k cap)")
+
+
+def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
+    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
+    global launches
+    _check_k(k)
     m, d = x.shape
     b = y.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
@@ -56,4 +84,23 @@ def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
         METRIC_IDS[metric], torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "swap_g kernel")
+    return sums, sq, cross
+
+
+def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
+    """Run the cached kernel on validated CUDA tensors (see ``ops``):
+    ``dxy`` [m, B] with unit column stride and any row stride."""
+    global cached_launches
+    _check_k(k)
+    m, b = dxy.shape
+    ld = dxy.stride(0) if m > 1 else b
+    sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
+                                   device=dxy.device) for _ in range(3))
+    code = _build.lib().rt_swap_g_from_cache(
+        dxy.data_ptr(), ld, d1_b.data_ptr(), d2_b.data_ptr(),
+        assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
+        sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, k,
+        torch.cuda.current_stream(dxy.device).cuda_stream)
+    cached_launches += 1
+    _build.check(code, "swap_g_from_cache kernel")
     return sums, sq, cross

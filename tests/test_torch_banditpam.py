@@ -168,7 +168,6 @@ def test_cuda_backend_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    {"reuse": "pic"}, {"cache_cols": 200}, {"cache_width": 400},
     {"metric": "precomputed"}, {"metric": lambda x, y: x @ y.T},
 ])
 def test_unported_knobs_raise(kw):
@@ -176,7 +175,7 @@ def test_unported_knobs_raise(kw):
         BanditPAM(3, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("solver", ["banditpam_pp", "fasterpam", "clara",
+@pytest.mark.parametrize("solver", ["clarans", "fasterpam", "clara",
                                     "onebatchpam", "banditpam_dist"])
 def test_unported_solvers_raise(solver):
     X = datasets.mnist_like(40, seed=0, d=16)

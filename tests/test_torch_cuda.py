@@ -293,3 +293,120 @@ def test_pam_cuda_matches_torch_on_card(cuda):
     assert counts["stream_build_g"] == k
     assert counts["stream_swap_g"] == a.n_swaps + (1 if a.converged else 0)
     _same_fit(a, b)
+
+
+def _cached_inputs(cuda, seed, m, width, b, k, w_share=1.0):
+    """A ring [m, width] of l2 distances, its column slice [m, b] at an
+    offset (row stride width != b), the slice's medoid-cache vectors from
+    real medoids, {0,1} weights (a share ``w_share`` of them 1) and a
+    leader row."""
+    x = _x(m, 48, seed, cuda)
+    g = torch.Generator().manual_seed(seed)
+    refs = x[torch.randint(0, m, (width,), generator=g).to(cuda)].contiguous()
+    ring = pairwise.pairwise_torch(x, refs, metric="l2")
+    lo = width - b
+    view = ring[:, lo:]
+    med = x[torch.randperm(m, generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = stream_g.top2_torch(refs[lo:].contiguous(), med, "l2")
+    w = (torch.rand(b, generator=g) < w_share).float().to(cuda)
+    w[-7:] = 0.0
+    lg = torch.randn(b, generator=g).to(cuda)
+    return view, d1, d2, a, w, lg
+
+
+def _cached_tol(view, d1, d2, w, lg):
+    """The two versions read the same distances and differ only in
+    summation order: at most 2·B·2^-24 times the sum of the terms'
+    magnitudes, bounded by max|d| (base and corr each lie in [-dmax,
+    dmax], d2 may be inf when k == 1)."""
+    b = view.shape[1]
+    dmax = float(view.max())
+    lgm = float(lg.abs().max())
+    e = 2 * b * 2.0 ** -24
+    return e * 2 * b * dmax, e * 4 * b * dmax ** 2, e * 2 * b * dmax * lgm
+
+
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_swap_g_from_cache_kernel_matches_plain(cuda, k):
+    view, d1, d2, a, w, lg = _cached_inputs(cuda, 11, 1300, 700, 300, k)
+    assert view.stride(0) == 700 and not view.is_contiguous()
+    before = swap_g.cached_launches
+    got = ops.swap_g_stats_cached(view, d1, d2, a, w, k, lg)
+    torch.cuda.synchronize()
+    assert swap_g.cached_launches == before + 1
+    want = swap_g.swap_g_from_cache_torch(view, d1, d2, a, w, k, lg)
+    for g_, w_, at in zip(got, want, _cached_tol(view, d1, d2, w, lg)):
+        assert g_.shape == (k, 1300)
+        _close(g_, w_, at)
+
+
+def test_swap_g_from_cache_kernel_at_the_repair_shape(cuda):
+    """The carried-moment repair: the whole ring, about 5 % of the
+    weights set (most 64-column tiles still hold one)."""
+    k = 5
+    view, d1, d2, a, w, _ = _cached_inputs(cuda, 12, 1300, 2600, 2600, k,
+                                           w_share=0.05)
+    assert 0 < float(w.sum()) < 0.1 * 2600
+    z = torch.zeros_like(d1)
+    got = ops.swap_g_stats_cached(view, d1, d2, a, w, k)
+    want = swap_g.swap_g_from_cache_torch(view, d1, d2, a, w, k, z)
+    for g_, w_, at in zip(got, want, _cached_tol(view, d1, d2, w, z)):
+        _close(g_, w_, at)
+    w0 = torch.zeros_like(w)
+    for t in ops.swap_g_stats_cached(view, d1, d2, a, w0, k):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_swap_g_from_cache_equals_swap_g_on_equal_distances(cuda, metric):
+    """Both SWAP kernels share one column routine and one fold order, so
+    the cached kernel fed the pairwise kernel's distances (the same
+    distance tile) returns swap_g's bits."""
+    k, n, d = 7, 1300, 64
+    x = _x(n, d, 13, cuda)
+    g = torch.Generator().manual_seed(13)
+    y = x[torch.randperm(n, generator=g)[:B].to(cuda)].contiguous()
+    med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = ops.stream_top2(y, med, metric=metric)
+    w = torch.ones(B, device=cuda)
+    w[-9:] = 0.0
+    lg = torch.randn(B, generator=g).to(cuda)
+    fused = ops.swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric)
+    cached = ops.swap_g_stats_cached(ops.pairwise_distance(x, y, metric),
+                                     d1, d2, a, w, k, lg)
+    for f, c in zip(fused, cached):
+        assert torch.equal(f, c)
+
+
+def test_swap_g_from_cache_refuses_k_past_its_bins(cuda):
+    k = swap_g.k_max() + 1
+    z = torch.zeros(B, device=cuda)
+    with pytest.raises(ValueError, match="k cap"):
+        ops.swap_g_stats_cached(torch.zeros((200, B), device=cuda), z, z,
+                                torch.zeros(B, dtype=torch.int32,
+                                            device=cuda), z + 1, k)
+
+
+@pytest.mark.parametrize("kw", [{"reuse": "pic"},
+                                {"reuse": "pic", "cache_width": 500},
+                                {"reuse": "none", "cache_cols": 700}])
+def test_cuda_cached_fit_matches_torch_fit_on_card(cuda, kw):
+    """The cache regimes, the same fixed permutation, kernels vs plain
+    versions on the card; the ledger tolerance of
+    ``test_cuda_fit_matches_torch_fit_on_card`` (single arm-rounds on an
+    exact float32 margin)."""
+    n, k = 1500, 4
+    X = datasets.mnist_like(n, seed=6)
+    perm = np.random.default_rng(2).permutation(n)
+    ops.reset_launch_counts()
+    a = BanditPAM(k, backend="cuda", device=cuda, **kw).fit(
+        X, layouts=rng.from_numpy(fixed_perm=perm))
+    counts = ops.launch_counts()
+    b_ = BanditPAM(k, backend="torch", device=cuda, **kw).fit(
+        X, layouts=rng.from_numpy(fixed_perm=perm))
+    assert counts["swap_g_from_cache"] > 0
+    assert counts["pairwise"] > k
+    if kw["reuse"] == "pic":
+        assert a.evals_by_phase["swap_cached"] > 0
+    assert a.build_rounds == b_.build_rounds
+    _same_fit(a, b_, ledger_rtol=1e-3)

@@ -203,6 +203,8 @@ def test_plain_path_never_counts_launches():
     ops.stream_build_g_stats(_t(x), _t(y), ones)
     ops.stream_swap_g_stats(_t(x), _t(y), ones, ones,
                             torch.zeros(6, dtype=torch.int32), k=2)
+    ops.swap_g_stats_cached(torch.ones(20, 6), ones, ones,
+                            torch.zeros(6, dtype=torch.int32), ones, 2)
     assert ops.launch_counts() == {"pairwise": 0, "build_g": 0, "swap_g": 0,
-                                   "top2": 0, "stream_build_g": 0,
-                                   "stream_swap_g": 0}
+                                   "swap_g_from_cache": 0, "top2": 0,
+                                   "stream_build_g": 0, "stream_swap_g": 0}

@@ -1,0 +1,16 @@
+"""The cached fits of ``tests/test_torch_pic.py`` at the l1 fixture
+(650, 4, l1), held against the JAX package on the CPU with the same
+rules (see that module's docstring).  A file of its own, so that the
+parity matrix is spread over the test workers."""
+
+import pytest
+
+from test_torch_banditpam import FIXTURES
+from test_torch_pic import MODES, check_mode_against_jax
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n,k,metric", [f for f in FIXTURES
+                                        if f[2] == "l1"])
+def test_cached_fit_modes_match_jax_reference(n, k, metric, mode):
+    check_mode_against_jax(n, k, metric, mode)
