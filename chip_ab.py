@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Time the port's kernels of this checkout against another checkout's
+on one NVIDIA GPU, in turns, and check that the two give equal bits.
+
+Run from the repository root, with the other checkout unpacked in a
+directory (for example the parent commit, from ``git archive``)::
+
+    python3 chip_ab.py --base build/parent
+
+Both kernel libraries are built by their own ``repro_torch/kernels/
+build.py`` from their own sources (the base's into its own ``build/``)
+and called through the C interface the two share (``rt_pairwise``,
+``rt_build_g``), on the same inputs: ``mnist_like`` rows at MNIST's size
+(d = 784) and the shapes the main path gives each kernel.  Each case is
+timed base, change, change, base (CUDA events, ``--reps`` launches after
+3 warm-up launches each) and the two outputs must be equal bit for bit.
+Prints the card's name and power limit and, as its last line, one JSON
+object with every case.  Exits with an error without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+METRIC_L2 = 0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def load_build(checkout: str, name: str):
+    """The ``build`` module of a checkout, imported under ``name``."""
+    path = os.path.join(checkout, "repro_torch", "kernels", "build.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def cases(torch, X):
+    """(name, shape, make outputs, call(lib, outputs, stream))."""
+    p = lambda t: t.data_ptr()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    n_fit = 60000
+    x = X[:n_fit]
+    q = X[n_fit:n_fit + 10000]
+    d = x.shape[1]
+
+    def rows(k):
+        idx = torch.randperm(n_fit, generator=gen)[:k].to(X.device)
+        return x[idx].contiguous()
+
+    def pairwise(a, b):
+        def make():
+            return [torch.empty((a.shape[0], b.shape[0]), device=X.device)]
+
+        def call(lib, outs, st):
+            return lib.rt_pairwise(p(a), p(b), p(outs[0]), a.shape[0],
+                                   b.shape[0], d, METRIC_L2, st)
+        return make, call
+
+    def build_g(b):
+        y = rows(b)
+        dn = (torch.rand(b, generator=gen) * 0.5).to(X.device)
+        dn[::7] = float("inf")
+        w = torch.ones(b, device=X.device)
+        w[-7:] = 0.0
+        lg = torch.randn(b, generator=gen).to(X.device)
+
+        def make():
+            return [torch.empty(n_fit, device=X.device) for _ in range(3)]
+
+        def call(lib, o, st):
+            return lib.rt_build_g(p(x), p(y), p(dn), p(w), p(lg), p(o[0]),
+                                  p(o[1]), p(o[2]), n_fit, b, d, METRIC_L2,
+                                  st)
+        return make, call
+
+    med = rows(10)
+    out = [("pairwise", "60000x100 (PIC round)", *pairwise(x, rows(100))),
+           ("pairwise", "60000x3200 (ring fill)", *pairwise(x, rows(3200))),
+           ("pairwise", "10000x10 (predict)", *pairwise(q, med)),
+           ("pairwise", "1x60000 (d_near row)", *pairwise(x[:1], x)),
+           ("pairwise", "1x100 (leader row)", *pairwise(x[5:6], rows(100))),
+           ("build_g", "60000x100 (BUILD round)", *build_g(100)),
+           ("build_g", "60000x300", *build_g(300))]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", required=True,
+                    help="directory of the checkout to compare against")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from repro_torch.core.datasets import mnist_like
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    libs = {}
+    for label, path in (("base", os.path.abspath(args.base)),
+                        ("change", ROOT)):
+        mod = load_build(path, f"ab_build_{label}")
+        libs[label] = mod.lib()
+        log(f"[ab] {label}: {path} built "
+            f"(cached={mod.build_info.get('cached')})")
+    X = torch.from_numpy(mnist_like(70000, seed=0)).cuda()
+    st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    results = []
+    for name, shape, make, call in cases(torch, X):
+        outs = {lab: make() for lab in libs}
+        for lab, lib in libs.items():
+            code = call(lib, outs[lab], st)
+            if code != 0:
+                raise RuntimeError(f"{name} {shape} {lab}: CUDA error {code}")
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b)
+                   for a, b in zip(outs["base"], outs["change"]))
+        t = {"base": [], "change": []}
+        for lab in ("base", "change", "change", "base"):
+            t[lab].append(time_ms(torch, lambda: call(libs[lab], outs[lab],
+                                                      st), args.reps))
+        row = {"kernel": name, "shape": shape, "equal_bits": same,
+               "base_ms": t["base"], "change_ms": t["change"]}
+        results.append(row)
+        log(f"[ab] {name:8s} {shape:26s} base {t['base']} ms  change "
+            f"{t['change']} ms  equal bits {same}")
+    log(card)
+    log(json.dumps({"card": card, "cases": results}))
+    return 0 if all(r["equal_bits"] for r in results) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    on a column slice of the default ring (row stride != B), at k = 1 and
    64 and at the carried-moment repair's shape (the whole 3,200-column
    ring, 5 % of the weights set), and timed over the full 60,000-column
-   ring as well (``cached_checks``);
+   ring as well (``cached_checks``).  Bit checks, which raise when the bits
+   differ: build_g equals stream_build_g over yref = the batch (r = B) for
+   every metric and both dnear cases; the two smallest entries of each row
+   of pairwise(x, medoids) equal top2's d1 and d2; swap_g equals
+   swap_g_from_cache fed pairwise's distances.  pairwise is also held to
+   its plain version at a PIC round's [60,000 x 100] and the ring fill's
+   [60,000 x 3,200], and timed at [60,000 x 100], [1 x 60,000] (a BUILD
+   d_near row) and [1 x 100] (a leader row) beside ``torch.cdist``;
 4. fit parity on the card: ``backend="cuda"`` against ``backend="torch"``
    on the same draws must give identical medoids, swap history and
    build rounds, and a loss within rtol 1e-5, for the default fit
@@ -64,7 +71,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    the carried-moment repair.
 
 The ``kernels`` line takes pairwise/build_g/swap_g/top2's launches from
-the default fit + predict, the streaming kernels' from the replacement
+the default fit + predict (pairwise's row is timed at predict's
+[10,000 x 10] and says so under ``shape``), the streaming kernels' from the replacement
 + leader fit and ``swap_g_from_cache``'s from the full-ring PIC fit;
 PAM's and the default-ring PIC fit's are printed above it.
 
@@ -182,6 +190,15 @@ def check_close(name, got, want, atol, rtol=1e-5):
     return worst
 
 
+def require_equal(name, got, want):
+    """Raise unless two tuples of tensors are equal bit for bit."""
+    import torch
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"[check] {name:44s} equal bits: {same}")
+    if not same:
+        raise AssertionError(f"{name}: the bits differ")
+
+
 def sum_err_limit(x, y, metric: str, dmax: float):
     """Limit on Σ_j |Δd(x_i, y_j)|, the kernel-vs-plain error of a sum of
     distances over the rows of ``y``.  ``r·dtol`` for l2sq, l1 and cosine.
@@ -257,6 +274,12 @@ def kernel_checks(torch, X, dev):
                                          (lim, 2 * dmax * lim,
                                           2 * dmax * lim))]
             res[f"build_g/{label}"] = (max(e), x, y, dn, w, lg)
+            # The streaming kernel over yref = the batch (r = B, one
+            # 512-column reference tile) folds the same distance bits in
+            # the same order.
+            stream = ops.stream_build_g_stats(x, y, dn, w, lg, metric=metric)
+            require_equal(f"build_g[{metric},{label}] == stream_build_g",
+                          got, stream)
         # SWAP, with d1/d2/assign of the batch from the top-2 kernel.
         d1, d2, a = ops.stream_top2(y, med, metric=metric)
         lg = dxy[:, 0].contiguous()                     # a leader's g-row
@@ -276,6 +299,13 @@ def kernel_checks(torch, X, dev):
         if not bool((got[2] == want[2])[clear].all()):
             raise AssertionError(f"top2[{metric}] labels differ off near-ties")
         res["top2"] = (max(e1, e2), x, med)
+        # The pairwise kernel (mainloop) and top2 (dist_tile) share the
+        # distance bits, so a row's two smallest entries are d1 and d2.
+        two = torch.topk(ops.pairwise_distance(x, med, metric), 2, dim=1,
+                         largest=False).values
+        require_equal(f"pairwise[{metric}] row minima == top2 d1, d2",
+                      (two[:, 0].contiguous(), two[:, 1].contiguous()),
+                      got[:2])
         return res, tol
 
     for metric, n in (("l2", N_FIT), ("l2sq", N_SMALL), ("l1", N_SMALL),
@@ -347,6 +377,8 @@ def time_rows(torch, res, q, med, pairwise_err):
                      "replaces": rep, "launches": 0, "max_abs_err": err,
                      "ms": ms, "plain_ms": pms, "bound_ms": bms,
                      "bound_by": bby, "library_ms": lms})
+        if name == "pairwise":
+            rows[-1]["shape"] = f"{mq}x{k}x{d}"
     return rows
 
 
@@ -460,7 +492,7 @@ def cached_checks(torch, X, dev):
     ``pairwise`` at a PIC round's fresh shape [60,000 × 100] beside
     ``torch.cdist``.  Returns the kernel's timing row (the cached-round
     slice, the shape of most of its launches)."""
-    from repro_torch.kernels import ops, swap_g
+    from repro_torch.kernels import ops, pairwise, swap_g
     gen = torch.Generator(device="cpu").manual_seed(2)
     x = X[:N_FIT].contiguous()
     n = x.shape[0]
@@ -491,6 +523,15 @@ def cached_checks(torch, X, dev):
 
     lo = 5 * B
     fresh = ops.pairwise_distance(x, refs[lo:lo + B].contiguous(), "l2")
+    # pairwise at a PIC round's fresh shape and at the ring fill's, against
+    # its plain version (l2: the distance tolerance of kernel_checks).
+    pw_err = 0.0
+    for name, got, yy in (("[60000 x 100]", fresh, refs[lo:lo + B]),
+                          ("[60000 x 3200]", ring, refs)):
+        want = pairwise.pairwise_torch(x, yy.contiguous(), metric="l2")
+        pw_err = max(pw_err, check_close(f"pairwise[l2] {name}", got, want,
+                                         dist_tol("l2", float(want.max()))))
+        del want
     errs = {}
     errs["round"], _ = case("round,k=10", fresh, 10, lo=lo)
     errs["slice"], sl_args = case("ring slice,k=10", ring[:, lo:lo + B], 10,
@@ -502,12 +543,11 @@ def cached_checks(torch, X, dev):
     # The fused kernel on the same batch, fed the points: the shared
     # column routine should give the cached kernel's bits.
     d1, d2, a, w, lg = sl_args[1:5] + sl_args[6:]
-    same = all(torch.equal(f, c) for f, c in zip(
-        ops.swap_g_stats(x, refs[lo:lo + B].contiguous(), d1, d2, a, w, 10,
-                         lg, metric="l2"),
-        ops.swap_g_stats_cached(fresh, d1, d2, a, w, 10, lg)))
-    log(f"[kernel] swap_g_from_cache within tolerance at every shape; on the "
-        f"pairwise kernel's distances it equals swap_g bit for bit: {same}")
+    require_equal("swap_g == swap_g_from_cache(pairwise)",
+                  ops.swap_g_stats(x, refs[lo:lo + B].contiguous(), d1, d2, a,
+                                   w, 10, lg, metric="l2"),
+                  ops.swap_g_stats_cached(fresh, d1, d2, a, w, 10, lg))
+    log("[kernel] swap_g_from_cache within tolerance at every shape")
 
     def bytes_of(dxy, w, k):
         # The block's columns that the run's weights need, each read once,
@@ -556,12 +596,23 @@ def cached_checks(torch, X, dev):
     # pairwise at a PIC round's fresh shape.
     y = refs[:B].contiguous()
     ms = time_ms(lambda: ops.pairwise_distance(x, y, "l2"))
+    pms = time_ms(lambda: pairwise.pairwise_torch(x, y, metric="l2"))
     lms = time_ms(lambda: torch.cdist(x, y))
     d = x.shape[1]
     bms, bby = bound_ms(2.0 * n * B * d, 4.0 * (n * d + B * d + n * B))
     log(f"[time] pairwise [60000 x 100] (a PIC round's fresh block): kernel "
-        f"{ms:.4f} ms  torch.cdist {lms:.4f} ms  bound {bms * 1e3:.1f} us "
-        f"({bby})")
+        f"{ms:.4f} ms  plain {pms:.4f} ms  torch.cdist {lms:.4f} ms  bound "
+        f"{bms * 1e3:.1f} us ({bby})  share of bound {bms / ms:.3f}  "
+        f"max_abs_err {pw_err:.3e}")
+    # and at a BUILD d_near row and a leader row (one x row).
+    for name, xx, yy in (("[1 x 60000] (a d_near row)", x[:1], x),
+                         ("[1 x 100] (a leader row)", x[5:6], y)):
+        ms = time_ms(lambda: ops.pairwise_distance(xx, yy, "l2"))
+        lms = time_ms(lambda: torch.cdist(xx, yy))
+        r = yy.shape[0]
+        bms, bby = bound_ms(2.0 * r * d, 4.0 * (d + r * d + r))
+        log(f"[time] pairwise {name}: kernel {ms:.4f} ms  torch.cdist "
+            f"{lms:.4f} ms  bound {bms * 1e3:.3f} us ({bby})")
     del ring
     torch.cuda.empty_cache()
     return [row]

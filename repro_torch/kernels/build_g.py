@@ -4,9 +4,11 @@ Replaces the TPU kernel ``src/repro/kernels/build_g.py:42``
 (``build_g_kernel``) with the CUDA kernel ``csrc/build_g.cu``.  On the
 H100 a round at n=60000, B=100, d=784 is 9.4 GFLOP of float32 distance
 work against 188 MB of reads, so it is compute-bound (about 140 us at
-67 TFLOP/s).  The design keeps the [64, 64] distance tile in shared
-memory and folds it into per-thread register partials that are combined
-in a fixed order: no atomics, the same bits on every run.
+67 TFLOP/s).  The design runs the pipelined mainloop of
+``csrc/dist_mainloop.cuh`` over a 128 x 104 tile (a whole B = 100 batch),
+puts the distance tile in shared memory and folds it into four residue
+partials per row added in a fixed order: no atomics, the same bits on
+every run, and at B <= 512 the bits of ``stream_build_g``.
 
 ``build_g_torch`` is the plain version (the engine's Eq. 6 math over a
 materialised ``[m, B]`` block).  ``launches`` counts kernel launches.

@@ -9,61 +9,77 @@
 //
 // Bound on the H100: 2*m*B*d flops of distance work (9.4 GFLOP at
 // m=60000, B=100, d=784) against 67 TFLOP/s float32 without tensor
-// cores, while x is read once (188 MB at 3.35 TB/s): compute-bound.
-// Design: one block per 64-row tile walks the whole B-batch in 64-column
-// tiles of the shared dist_tile.  The [64, 64] distance tile stays in
-// shared memory; four threads per row fold it into per-thread register
-// partials (columns sub, sub+4, ...), and the four partials are added in
-// a fixed order at the end.  No atomics, so every run gives the same
-// bits.  The isinf(dnear) branch is the TPU kernel's.
-#include "dist_tile.cuh"
+// cores (0.14 ms), while x is read once (188 MB at 3.35 TB/s, 0.056 ms):
+// compute-bound.  Design: one block per 128-row tile runs the pipelined,
+// register-blocked mainloop of dist_mainloop.cuh over the batch in
+// 104-column tiles (one tile for B <= 104, so x is staged once a round).
+// The finished [128, 104] distance tile goes to shared memory over the
+// free pipeline stages, and one thread per row folds it in a fixed
+// order: for each row, four partials, one per residue of the column
+// index mod 4, each over its columns in increasing order (across column
+// tiles), added 0 + 1 + 2 + 3 at the end.  That is stream_build_g's fold
+// over one 512-column reference tile, and the distances are dist_tile's
+// bits, so at B <= 512 the two kernels' sums are equal bit for bit.  No
+// atomics: every run gives the same bits.  The isinf(dnear) branch is
+// the TPU kernel's.
+#include <stdint.h>
+
+#include "dist_mainloop.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, NT = (TM / 4) * (TN / 4), SUBS = NT / TM;
+using W = rt::WideTile;
+constexpr int SUBS = 4;          // partials per row: column residues mod 4
+constexpr int DT_LD = W::BN + 1;  // the distance tile's row stride
+static_assert(W::BN % SUBS == 0, "a column keeps its residue across tiles");
+static_assert(W::NT == W::BM, "one thread folds each row");
+static_assert(W::BM * DT_LD <= W::NORMS, "the tile fits in the stages");
 
 template <int M>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(W::NT, W::MINB)
 build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ dnear, const float* __restrict__ w,
                const float* __restrict__ lg, float* __restrict__ sums,
                float* __restrict__ sq, float* __restrict__ cross, int64_t m,
-               int64_t b, int d) {
-  __shared__ rt::TileSmem<TM, TN> s;
-  __shared__ float red[3][SUBS][TM];
-  const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int row = threadIdx.x % TM;
-  const int sub = threadIdx.x / TM;
-  float ps = 0.f, pq = 0.f, pc = 0.f;
-  for (int64_t col0 = 0; col0 < b; col0 += TN) {
-    rt::dist_tile<M, TM, TN>(x, y, m, b, d, row0, col0, s);
-    const int nc = b - col0 < TN ? (int)(b - col0) : TN;
-    for (int j = sub; j < nc; j += SUBS) {
-      const float dv = s.dt[row][j];
-      const float dn = dnear[col0 + j];
-      float g = isinf(dn) ? dv : fminf(dv - dn, 0.f);
-      g = g * w[col0 + j];
-      ps += g;
-      pq += g * g;
-      pc += g * lg[col0 + j];
-    }
-    __syncthreads();  // dt is rewritten by the next tile
-  }
-  red[0][sub][row] = ps;
-  red[1][sub][row] = pq;
-  red[2][sub][row] = pc;
-  __syncthreads();
-  if (sub == 0 && row0 + row < m) {
-    float a0 = red[0][0][row], a1 = red[1][0][row], a2 = red[2][0][row];
+               int64_t b, int d, bool vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* dt = smem;  // [BM][DT_LD] over the stages, after each mainloop
+  const int64_t row0 = (int64_t)blockIdx.x * W::BM;
+  const int tx = W::tx(), ty = W::ty();
+  const int row = threadIdx.x;
+  float p[SUBS][3];  // (sums, sq, cross) partials of each residue
 #pragma unroll
-    for (int t = 1; t < SUBS; ++t) {
-      a0 += red[0][t][row];
-      a1 += red[1][t][row];
-      a2 += red[2][t][row];
+  for (int s = 0; s < SUBS; ++s) p[s][0] = p[s][1] = p[s][2] = 0.f;
+  for (int64_t col0 = 0; col0 < b; col0 += W::BN) {
+    float acc[W::RM][W::RN];
+    rt::dist_mainloop<M, W>(x, y, m, b, d, row0, col0, vec, smem, acc);
+    rt::dist_finish<M, W, false>(smem, acc);
+#pragma unroll
+    for (int i = 0; i < W::RM; ++i)
+#pragma unroll
+      for (int j = 0; j < W::RN; ++j)
+        dt[(ty + W::TY * i) * DT_LD + tx + W::TX * j] = acc[i][j];
+    __syncthreads();
+    const int nc = b - col0 < W::BN ? (int)(b - col0) : W::BN;
+#pragma unroll
+    for (int s = 0; s < SUBS; ++s)
+      for (int j = s; j < nc; j += SUBS)
+        rt::build_g_term(dt[row * DT_LD + j], dnear[col0 + j], w[col0 + j],
+                         lg[col0 + j], p[s][0], p[s][1], p[s][2]);
+    __syncthreads();  // the next column tile stages over dt
+  }
+  if (row0 + row < m) {
+    float a[3];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      a[t] = p[0][t];
+#pragma unroll
+      for (int s = 1; s < SUBS; ++s) a[t] += p[s][t];
     }
-    sums[row0 + row] = a0;
-    sq[row0 + row] = a1;
-    cross[row0 + row] = a2;
+    sums[row0 + row] = a[0];
+    sq[row0 + row] = a[1];
+    cross[row0 + row] = a[2];
   }
 }
 
@@ -74,10 +90,17 @@ extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
                           float* sq, float* cross, int64_t m, int64_t b, int d,
                           int metric, void* stream) {
   if (m <= 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((m + TM - 1) / TM);
+  const unsigned grid = (unsigned)((m + W::BM - 1) / W::BM);
+  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  RT_METRIC_SWITCH(metric, M,
-                   build_g_kernel<M><<<grid, NT, 0, st>>>(
-                       x, y, dnear, w, lg, sums, sq, cross, m, b, d));
+  RT_METRIC_SWITCH(metric, M, {
+    const cudaError_t e = cudaFuncSetAttribute(
+        build_g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)W::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    build_g_kernel<M><<<grid, W::NT, W::SMEM, st>>>(
+        x, y, dnear, w, lg, sums, sq, cross, m, b, d, vec);
+  });
   return (int)cudaGetLastError();
 }

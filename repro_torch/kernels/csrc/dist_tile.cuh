@@ -1,4 +1,4 @@
-// Shared distance tile for every kernel of the port (sm_90a, float32).
+// Shared distance tile of the SWAP and top-2 kernels (sm_90a, float32).
 //
 // Replaces the TPU device function src/repro/kernels/pairwise.py:34
 // (dist_tile): a [TM, TN] block of dissimilarities between TM rows of x
@@ -16,12 +16,14 @@
 // (max(., 0) before sqrt, rsqrt(max(|.|^2, 1e-30)) for cosine).
 //
 // The tile lands in shared memory (dt[TM][TN + 1]) so each caller runs
-// its own reduction over it in a fixed order.
+// its own reduction over it in a fixed order.  Its arithmetic is the
+// helpers of dist_math.cuh, which the pipelined mainloop
+// (dist_mainloop.cuh) calls too: both give a (row, column) pair the same
+// bits.  swap_g.cu, stream_stats.cu and stream_g.cu still run on this
+// tile; pairwise.cu and build_g.cu run on the mainloop.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "dist_math.cuh"
 
 // Most medoid bins the SWAP kernels (swap_g.cu, stream_stats.cu) hold in
 // shared memory: 3*k*256 floats; their C entries refuse larger k
@@ -29,8 +31,6 @@
 #define RT_SWAP_K_MAX 64
 
 namespace rt {
-
-enum Metric : int { L2 = 0, L2SQ = 1, COSINE = 2, L1 = 3 };
 
 constexpr int DK = 16;  // feature chunk staged per step
 
@@ -88,11 +88,11 @@ __device__ __forceinline__ void dist_tile(const float* __restrict__ x,
         const int t = tid + q * NT;
         if (t < TM) {
 #pragma unroll
-          for (int c = 0; c < DK; ++c) nrm[q] += s.xs[c][t] * s.xs[c][t];
+          for (int c = 0; c < DK; ++c) nrm[q] = norm_step(nrm[q], s.xs[c][t]);
         } else if (t < TM + TN) {
 #pragma unroll
           for (int c = 0; c < DK; ++c)
-            nrm[q] += s.ys[c][t - TM] * s.ys[c][t - TM];
+            nrm[q] = norm_step(nrm[q], s.ys[c][t - TM]);
         }
       }
     }
@@ -106,12 +106,8 @@ __device__ __forceinline__ void dist_tile(const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (M == L1)
-            acc[i][j] += fabsf(a[i] - b[j]);
-          else
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = dist_step<M>(acc[i][j], a[i], b[j]);
     }
     __syncthreads();
   }
@@ -134,41 +130,10 @@ __device__ __forceinline__ void dist_tile(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int lj = tx + j * TX;
-      float v = acc[i][j];
-      if (M == L2 || M == L2SQ) {
-        v = fmaxf((s.xx[li] + s.yy[lj]) - 2.f * v, 0.f);
-        if (M == L2) v = sqrtf(v);
-      } else if (M == COSINE) {
-        v = 1.f - v * rsqrtf(fmaxf(s.xx[li], 1e-30f)) *
-                      rsqrtf(fmaxf(s.yy[lj], 1e-30f));
-      }
-      s.dt[li][lj] = v;
+      s.dt[li][lj] = dist_epilogue<M>(acc[i][j], s.xx[li], s.yy[lj]);
     }
   }
   __syncthreads();
 }
-
-// Dispatch a kernel template on the runtime metric id.
-#define RT_METRIC_SWITCH(metric, M, ...)      \
-  switch (metric) {                           \
-    case rt::L2: {                            \
-      constexpr int M = rt::L2;               \
-      __VA_ARGS__;                            \
-    } break;                                  \
-    case rt::L2SQ: {                          \
-      constexpr int M = rt::L2SQ;             \
-      __VA_ARGS__;                            \
-    } break;                                  \
-    case rt::COSINE: {                        \
-      constexpr int M = rt::COSINE;           \
-      __VA_ARGS__;                            \
-    } break;                                  \
-    case rt::L1: {                            \
-      constexpr int M = rt::L1;               \
-      __VA_ARGS__;                            \
-    } break;                                  \
-    default:                                  \
-      return cudaErrorInvalidValue;           \
-  }
 
 }  // namespace rt

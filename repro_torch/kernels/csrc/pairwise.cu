@@ -1,32 +1,80 @@
 // Pairwise dissimilarity [m, d] x [r, d] -> [m, r] (float32).
 //
 // Replaces the TPU kernel src/repro/kernels/pairwise.py:74
-// (pairwise_kernel).  Bound on the H100: for the predict shapes (many
-// query rows, k medoid columns) it reads x once and writes m*r floats,
-// so it is memory-bound when r is small and compute-bound (2*m*r*d FMA
-// flops against 67 TFLOP/s float32) when r is large.  Design: one block
-// per [64, 64] output tile through the shared dist_tile; the tile goes
-// back to device memory row by row from shared memory, so the stores are
-// coalesced; ragged edges are masked here.  There is no feature-axis
-// split: the tile loops over any d.
-#include "dist_tile.cuh"
+// (pairwise_kernel).  Bound on the H100: 2*m*r*d FMA flops against
+// 67 TFLOP/s float32, or reading x and y once and writing m*r floats at
+// 3.35 TB/s, whichever is longer.  A PIC round's fresh block [60,000 x
+// 100 x 784] is compute-bound (0.14 ms); predict's [10,000 x 10], a
+// d_near row [1 x 60,000] and a leader row [1 x 100] are memory- or
+// latency-bound.
+//
+// Design: the pipelined, register-blocked mainloop of dist_mainloop.cuh,
+// which keeps dist_tile's bits, in one of three shapes chosen by rt_pairwise:
+// * r > 16 and m > 16: the wide tile, 128 rows x 104 columns a block (a
+//   whole B = 100 batch, so x is staged once per round);
+// * r <= 16 (predict): the narrow tile, 64 rows x 16 columns;
+// * m <= 16 (d_near and leader rows): the narrow tile with the operands
+//   swapped, y's rows down the tile and x's across, so a block is not
+//   nearly all padding; each thread stores its column of out.
+// The finished tile goes to device memory through shared memory, so
+// consecutive threads store consecutive floats of a row of out; ragged
+// rows and columns are masked.  There is no feature-axis split: the
+// mainloop loops over any d.
+#include <stdint.h>
+
+#include "dist_mainloop.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, NT = (TM / 4) * (TN / 4);
-
-template <int M>
-__global__ void __launch_bounds__(NT)
+// SWAP_AB: the tile's rows are y rows and its columns x rows.
+template <int M, class C, bool SWAP_AB>
+__global__ void __launch_bounds__(C::NT, C::MINB)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                float* __restrict__ out, int64_t m, int64_t r, int d) {
-  __shared__ rt::TileSmem<TM, TN> s;
-  const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int64_t col0 = (int64_t)blockIdx.y * TN;
-  rt::dist_tile<M, TM, TN>(x, y, m, r, d, row0, col0, s);
-  for (int e = threadIdx.x; e < TM * TN; e += NT) {
-    const int i = e / TN, j = e % TN;
-    if (row0 + i < m && col0 + j < r) out[(row0 + i) * r + col0 + j] = s.dt[i][j];
+                float* __restrict__ out, int64_t m, int64_t r, int d,
+                bool vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
+  const int64_t a0 = (int64_t)blockIdx.x * C::BM;
+  const int64_t b0 = (int64_t)blockIdx.y * C::BN;
+  float acc[C::RM][C::RN];
+  rt::dist_mainloop<M, C>(SWAP_AB ? y : x, SWAP_AB ? x : y, ma, mb, d, a0,
+                          b0, vec, smem, acc);
+  rt::dist_finish<M, C, SWAP_AB>(smem, acc);
+  // The tile goes to device memory through shared memory (over the free
+  // stages), so consecutive threads store consecutive floats of out.
+  constexpr int LDT = C::BN + 1;
+  static_assert(C::BM * LDT <= C::NORMS, "the tile fits in the stages");
+  float* dt = smem;
+  const int tx = C::tx(), ty = C::ty();
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::RN; ++j)
+      dt[(ty + C::TY * i) * LDT + tx + C::TX * j] = acc[i][j];
+  __syncthreads();
+  for (int e = threadIdx.x; e < C::BM * C::BN; e += C::NT) {
+    // SWAP_AB: out's rows run across the tile, so walk its rows fastest.
+    const int i = SWAP_AB ? e % C::BM : e / C::BN;
+    const int j = SWAP_AB ? e / C::BM : e % C::BN;
+    const int64_t ga = a0 + i, gb = b0 + j;
+    if (ga >= ma || gb >= mb) continue;
+    out[SWAP_AB ? gb * r + ga : ga * r + gb] = dt[i * LDT + j];
   }
+}
+
+template <int M, class C, bool SWAP_AB>
+cudaError_t launch(const float* x, const float* y, float* out, int64_t m,
+                   int64_t r, int d, bool vec, cudaStream_t st) {
+  const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
+  const dim3 grid((unsigned)((ma + C::BM - 1) / C::BM),
+                  (unsigned)((mb + C::BN - 1) / C::BN));
+  auto kernel = pairwise_kernel<M, C, SWAP_AB>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, C::NT, C::SMEM, st>>>(x, y, out, m, r, d, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -35,9 +83,16 @@ extern "C" int rt_pairwise(const float* x, const float* y, float* out,
                            int64_t m, int64_t r, int d, int metric,
                            void* stream) {
   if (m <= 0 || r <= 0) return cudaSuccess;
-  dim3 grid((unsigned)((m + TM - 1) / TM), (unsigned)((r + TN - 1) / TN));
+  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  RT_METRIC_SWITCH(metric, M,
-                   pairwise_kernel<M><<<grid, NT, 0, st>>>(x, y, out, m, r, d));
-  return (int)cudaGetLastError();
+  using Narrow = rt::NarrowTile;
+  RT_METRIC_SWITCH(metric, M, {
+    if (r <= Narrow::BN)
+      return (int)launch<M, Narrow, false>(x, y, out, m, r, d, vec, st);
+    if (m <= Narrow::BN)
+      return (int)launch<M, Narrow, true>(x, y, out, m, r, d, vec, st);
+    return (int)launch<M, rt::WideTile, false>(x, y, out, m, r, d, vec, st);
+  });
+  return cudaSuccess;
 }

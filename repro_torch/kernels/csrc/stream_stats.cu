@@ -67,15 +67,9 @@ stream_build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int64_t col0 = t0; col0 < t1; col0 += TN) {
       rt::dist_tile<M, TM, TN>(x, y, m, r, d, row0, col0, s);
       const int nc = t1 - col0 < TN ? (int)(t1 - col0) : TN;
-      for (int j = sub; j < nc; j += SUBS) {
-        const float dv = s.dt[row][j];
-        const float dn = dnear[col0 + j];
-        float g = isinf(dn) ? dv : fminf(dv - dn, 0.f);
-        g = g * w[col0 + j];
-        ps += g;
-        pq += g * g;
-        pc += g * lg[col0 + j];
-      }
+      for (int j = sub; j < nc; j += SUBS)
+        rt::build_g_term(s.dt[row][j], dnear[col0 + j], w[col0 + j],
+                         lg[col0 + j], ps, pq, pc);
       __syncthreads();  // dt is rewritten by the next column tile
     }
     red[0][sub][row] = ps;

@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel ``src/repro/kernels/pairwise.py:74``
 (``pairwise_kernel``, body ``dist_tile`` at ``:34``) with the CUDA kernel
-``csrc/pairwise.cu`` over the shared device routine ``csrc/dist_tile.cuh``.
-On the H100 it is memory-bound at the predict shapes (queries against k
-medoid columns: x is read once, the [m, k] block written once) and
-compute-bound once r is large; the design (one block per [64, 64] tile,
-features staged through shared memory, coalesced stores from a
-shared-memory tile) is described in the source.  There is no
-feature-axis split (the TPU kernel's ``DK_MAX``): the tile loops over any
-d.
+``csrc/pairwise.cu`` over the pipelined, register-blocked mainloop
+``csrc/dist_mainloop.cuh``, which gives every pair the bits of the shared
+tile ``csrc/dist_tile.cuh`` that the other kernels still run.  On the
+H100 it is memory-bound at the predict shapes (queries against k medoid
+columns: x is read once, the [m, k] block written once) and
+compute-bound once r is large; the design (a 128 x 104 tile of 8 x 13
+pairs a thread for the wide shapes, a 64 x 16 tile for r <= 16 and, with
+the operands swapped, for m <= 16; a cp.async feature ring; coalesced
+stores from a shared-memory tile) is described in the sources.  There is
+no feature-axis split (the TPU kernel's ``DK_MAX``): the mainloop loops
+over any d.
 
 ``pairwise_torch`` is the plain version: the registry metric of
 ``repro_torch.core.distances``.  ``launches`` counts kernel launches.

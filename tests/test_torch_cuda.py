@@ -50,7 +50,9 @@ def _close(got, want, atol, rtol=1e-5):
 
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("m,r,d", [(1000, 10, 784), (130, 300, 33),
-                                   (7, 65, 12)])
+                                   (7, 65, 12), (1, 60000, 784),
+                                   (1, 100, 784), (60000, 100, 784),
+                                   (5, 3, 784)])
 def test_pairwise_kernel_matches_plain(cuda, metric, m, r, d):
     x, y = _x(m + r, d, 0, cuda).split([m, r])
     x, y = x.contiguous(), y.contiguous()
@@ -81,6 +83,46 @@ def test_build_g_kernel_matches_plain(cuda, metric):
     for a, b, at in zip(got, want, (B * tol, 2 * B * dmax * tol,
                                     B * lgm * tol)):
         _close(a, b, at)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b", [100, 37, 300])
+@pytest.mark.parametrize("d", [784, 33, 12])
+def test_build_g_equals_stream_build_g_bits(cuda, metric, b, d):
+    """build_g and stream_build_g at r = B <= 512 fold the same distance
+    bits in the same order (four residue partials per row, one 512-column
+    reference tile), so their sums are equal bit for bit; B = 300 walks
+    several of build_g's column tiles, m = 1300 leaves a ragged row
+    tile."""
+    n = 1300
+    x = _x(n, d, 20, cuda)
+    g = torch.Generator().manual_seed(b + d)
+    y = x[torch.randperm(n, generator=g)[:b].to(cuda)].contiguous()
+    w = torch.ones(b, device=cuda)
+    w[::9] = 0.0
+    lg = torch.randn(b, generator=g).to(cuda)
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    for dn in (torch.full((b,), float("inf"), device=cuda),
+               torch.rand(b, generator=g).to(cuda) * dmax):
+        got = ops.build_g_stats(x, y, dn, w, lg, metric=metric)
+        want = ops.stream_build_g_stats(x, y, dn, w, lg, metric=metric)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [10, 40])
+def test_pairwise_row_minima_equal_top2_bits(cuda, metric, k):
+    """The pairwise kernel (the pipelined mainloop) and the top-2 kernel
+    (dist_tile) compute each distance with the same bits, so a row's two
+    smallest pairwise entries are top-2's d1 and d2."""
+    x = _x(3000, 784, 21, cuda)
+    med = x[torch.arange(0, 71 * k, 71, device=cuda)].contiguous()
+    dd = ops.pairwise_distance(x, med, metric)
+    two = torch.topk(dd, 2, dim=1, largest=False).values
+    d1, d2, _ = ops.stream_top2(x, med, metric=metric)
+    assert torch.equal(two[:, 0].contiguous(), d1)
+    assert torch.equal(two[:, 1].contiguous(), d2)
 
 
 @pytest.mark.parametrize("metric", METRICS)
