@@ -10,10 +10,15 @@ directory (for example the parent commit, from ``git archive``)::
 Both kernel libraries are built by their own ``repro_torch/kernels/
 build.py`` from their own sources (the base's into its own ``build/``)
 and called through the C interface the two share (``rt_pairwise``,
-``rt_build_g``), on the same inputs: ``mnist_like`` rows at MNIST's size
-(d = 784) and the shapes the main path gives each kernel.  Each case is
-timed base, change, change, base (CUDA events, ``--reps`` launches after
-3 warm-up launches each) and the two outputs must be equal bit for bit.
+``rt_build_g``, ``rt_swap_g``, ``rt_stream_build_g``), on the same
+inputs: ``mnist_like`` rows at MNIST's size (d = 784) and the shapes the
+main path gives each kernel (``rt_swap_g`` also at k = 64 and B = 300,
+``rt_stream_build_g`` at m = 60,000 and r = 100, 6,000 and 60,000).
+Each case is timed base, change, change, base (CUDA events, ``--reps``
+launches after 3 warm-up launches each; fewer after one for the
+stream_build_g cases at r = 6,000 and, 2, at r = 60,000, the full exact
+pass of about 0.2-0.4 s a launch) and the two outputs must be equal bit
+for bit.
 Prints the card's name and power limit and, as its last line, one JSON
 object with every case.  Exits with an error without a CUDA device.
 """
@@ -30,6 +35,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 METRIC_L2 = 0
+EXACT_REPS = 2  # launches a turn of the full exact pass (r = 60,000)
 
 
 def log(*a):
@@ -45,8 +51,8 @@ def load_build(checkout: str, name: str):
     return mod
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    for _ in range(3):
+def time_ms(torch, fn, reps: int, warm: int = 3) -> float:
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -59,8 +65,9 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def cases(torch, X):
-    """(name, shape, make outputs, call(lib, outputs, stream))."""
+def cases(torch, X, reps):
+    """(name, shape, make outputs, call(lib, outputs, stream), reps,
+    warm-up launches)."""
     p = lambda t: t.data_ptr()
     gen = torch.Generator(device="cpu").manual_seed(0)
     n_fit = 60000
@@ -98,6 +105,44 @@ def cases(torch, X):
                                   st)
         return make, call
 
+    def swap_g(b, k):
+        y = rows(b)
+        dd = torch.cdist(y, rows(k))
+        top = torch.topk(dd, min(2, k), dim=1, largest=False)
+        d1 = top.values[:, 0].contiguous()
+        d2 = (top.values[:, 1] if k > 1 else d1 * 2).contiguous()
+        a = top.indices[:, 0].to(torch.int32).contiguous()
+        w = torch.ones(b, device=X.device)
+        w[-7:] = 0.0
+        lg = torch.randn(b, generator=gen).to(X.device)
+
+        def make():
+            return [torch.empty((k, n_fit), device=X.device)
+                    for _ in range(3)]
+
+        def call(lib, o, st):
+            return lib.rt_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w), p(lg),
+                                 p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, k,
+                                 METRIC_L2, st)
+        return make, call
+
+    def stream_build_g(r):
+        y = x[:r]
+        dn = (torch.rand(r, generator=gen) * 0.5).to(X.device)
+        dn[::7] = float("inf")
+        w = torch.ones(r, device=X.device)
+        w[::97] = 0.0
+        lg = torch.randn(r, generator=gen).to(X.device)
+
+        def make():
+            return [torch.empty(n_fit, device=X.device) for _ in range(3)]
+
+        def call(lib, o, st):
+            return lib.rt_stream_build_g(p(x), p(y), p(dn), p(w), p(lg),
+                                         p(o[0]), p(o[1]), p(o[2]), n_fit, r,
+                                         d, METRIC_L2, st)
+        return make, call
+
     med = rows(10)
     out = [("pairwise", "60000x100 (PIC round)", *pairwise(x, rows(100))),
            ("pairwise", "60000x3200 (ring fill)", *pairwise(x, rows(3200))),
@@ -105,7 +150,16 @@ def cases(torch, X):
            ("pairwise", "1x60000 (d_near row)", *pairwise(x[:1], x)),
            ("pairwise", "1x100 (leader row)", *pairwise(x[5:6], rows(100))),
            ("build_g", "60000x100 (BUILD round)", *build_g(100)),
-           ("build_g", "60000x300", *build_g(300))]
+           ("build_g", "60000x300", *build_g(300)),
+           ("swap_g", "60000x100 k=10 (SWAP round)", *swap_g(100, 10)),
+           ("swap_g", "60000x100 k=64", *swap_g(100, 64)),
+           ("swap_g", "60000x300 k=10", *swap_g(300, 10))]
+    out = [c + (reps, 3) for c in out]
+    out += [("stream_build_g", "60000x100", *stream_build_g(100), reps, 3),
+            ("stream_build_g", "60000x6000", *stream_build_g(6000),
+             max(2, reps // 4), 1),
+            ("stream_build_g", "60000x60000 (exact pass)",
+             *stream_build_g(n_fit), EXACT_REPS, 1)]
     return out
 
 
@@ -135,7 +189,7 @@ def main() -> int:
     X = torch.from_numpy(mnist_like(70000, seed=0)).cuda()
     st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     results = []
-    for name, shape, make, call in cases(torch, X):
+    for name, shape, make, call, reps, warm in cases(torch, X, args.reps):
         outs = {lab: make() for lab in libs}
         for lab, lib in libs.items():
             code = call(lib, outs[lab], st)
@@ -147,11 +201,11 @@ def main() -> int:
         t = {"base": [], "change": []}
         for lab in ("base", "change", "change", "base"):
             t[lab].append(time_ms(torch, lambda: call(libs[lab], outs[lab],
-                                                      st), args.reps))
+                                                      st), reps, warm))
         row = {"kernel": name, "shape": shape, "equal_bits": same,
                "base_ms": t["base"], "change_ms": t["change"]}
         results.append(row)
-        log(f"[ab] {name:8s} {shape:26s} base {t['base']} ms  change "
+        log(f"[ab] {name:14s} {shape:27s} base {t['base']} ms  change "
             f"{t['change']} ms  equal bits {same}")
     log(card)
     log(json.dumps({"card": card, "cases": results}))

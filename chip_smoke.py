@@ -29,7 +29,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    differ: build_g equals stream_build_g over yref = the batch (r = B) for
    every metric and both dnear cases; the two smallest entries of each row
    of pairwise(x, medoids) equal top2's d1 and d2; swap_g equals
-   swap_g_from_cache fed pairwise's distances.  pairwise is also held to
+   swap_g_from_cache fed pairwise's distances, and stream_swap_g over
+   yref = the batch (r = B) at B = 100 and 300, k = 10 and ``k_max()``.  pairwise is also held to
    its plain version at a PIC round's [60,000 x 100] and the ring fill's
    [60,000 x 3,200], and timed at [60,000 x 100], [1 x 60,000] (a BUILD
    d_near row) and [1 x 100] (a leader row) beside ``torch.cdist``;
@@ -547,6 +548,18 @@ def cached_checks(torch, X, dev):
                   ops.swap_g_stats(x, refs[lo:lo + B].contiguous(), d1, d2, a,
                                    w, 10, lg, metric="l2"),
                   ops.swap_g_stats_cached(fresh, d1, d2, a, w, 10, lg))
+    # swap_g (the mainloop; the 64 x 64 tile at B > 104) and
+    # stream_swap_g (the tile) over yref = the batch fold the same bits in
+    # the same order.
+    for b in (B, 3 * B):
+        yb = refs[lo:lo + b].contiguous()
+        for k in (10, swap_g.k_max()):
+            d1, d2, a, w, lg = vectors(lo, b, k)
+            args = (x, yb, d1, d2, a, w, k, lg)
+            require_equal(f"swap_g == stream_swap_g [B={b}, k={k}, "
+                          f"{swap_g.route(b)}]",
+                          ops.swap_g_stats(*args, metric="l2"),
+                          ops.stream_swap_g_stats(*args, metric="l2"))
     log("[kernel] swap_g_from_cache within tolerance at every shape")
 
     def bytes_of(dxy, w, k):

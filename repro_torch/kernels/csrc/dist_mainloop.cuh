@@ -1,7 +1,8 @@
 // Pipelined, register-blocked distance mainloop for Hopper (sm_90a,
-// float32), the distance work of pairwise.cu and build_g.cu.
+// float32), the distance work of pairwise.cu, build_g.cu, swap_g.cu's
+// swap_g and stream_stats.cu's stream_build_g.
 //
-// Replaces, for those two kernels, the TPU device function
+// Replaces, for those kernels, the TPU device function
 // src/repro/kernels/pairwise.py:34 (dist_tile) and the shared tile
 // dist_tile.cuh, whose bits it keeps: every chain, norm and epilogue is a
 // helper of dist_math.cuh, run in the same order (see the contract
@@ -236,12 +237,15 @@ __device__ __forceinline__ void dist_finish(const float* smem,
   }
 }
 
-// The shapes pairwise.cu and build_g.cu run.  Wide: 104 columns hold a
-// whole B = 100 batch (4 % padding); 8 x 13 pairs a thread need 21
-// float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to 255 registers,
-// hence 128 threads and two blocks an SM; 16 features a stage, four
-// stages.  Narrow: 16 columns or fewer (predict's k medoids, or the few x
-// rows of a d_near or leader row with the operands swapped).
+// The shapes the kernels run.  Wide (pairwise, build_g, swap_g,
+// stream_build_g): 104 columns hold a whole B = 100 batch (4 % padding)
+// and, being 0 mod 4, keep a column's residue mod 4 across column tiles,
+// which the folds of build_g and stream_build_g rely on; 8 x 13 pairs a
+// thread need 21 float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to
+// 255 registers, hence 128 threads and two blocks an SM; 16 features a
+// stage, four stages.  Narrow (pairwise only): 16 columns or fewer
+// (predict's k medoids, or the few x rows of a d_near or leader row with
+// the operands swapped).
 using WideTile = Mainloop<16, 8, 8, 13, 16, 4, 2>;
 using NarrowTile = Mainloop<32, 4, 2, 4, 32, 4, 4>;
 

@@ -15,26 +15,46 @@
 //
 // Accumulation order (the TPU kernels' contract): the reference set is
 // walked in REF_TILE = 512-column tiles, the engine's _EXACT_CHUNK; each
-// tile's statistics are summed on their own (register partials of four
-// threads per row, added in a fixed order), and the tile sums are added
-// to the running totals in walk order.  A 60,000-term sum is thus 118
+// tile's statistics are summed on their own (four partials per row, one
+// per column residue mod 4, added in a fixed order), and the tile sums
+// are added to the running totals in walk order.  A 60,000-term sum is thus 118
 // sums of 512 terms, whose float32 error stays near the reference's.
 // No atomics: the same bits on every run.
 //
 // Bound on the H100: 2*m*r*d flops of distance work (5.6 TFLOP at
 // m = r = 60000, d = 784) against 67 TFLOP/s float32 without tensor cores
 // (84 ms), while x and y are read once (376 MB, 0.11 ms): compute-bound.
-// Design: build_g.cu / swap_g.cu with the reference walk as an outer
-// loop.  One block per 64-row tile of x walks all of y in 64-column tiles
-// of the shared dist_tile (which loops over any d: there is no feature
-// cap).  BUILD keeps the running totals in registers; SWAP bins the corr
-// terms by cluster in per-thread shared-memory bins, as swap_g.cu does,
+//
+// stream_build_g: build_g.cu with the reference walk as an outer loop.
+// One block per 128-row tile of x runs the pipelined, register-blocked
+// mainloop of dist_mainloop.cuh (WideTile, the pairs' bits are
+// dist_tile's) over each 512-column reference tile in 104-column tiles;
+// the fifth is clipped to the tile's last 96 columns (rows of y past the
+// reference tile are zero-filled, not read), so no column tile straddles
+// two reference tiles.  The finished [128, 104] tile goes to shared
+// memory over the stages and one thread per row folds it: four register
+// partials, one per residue of the column index mod 4 (104 = 512 = 0
+// mod 4, so a column's residue is its global one), each over its columns
+// in increasing order, reset at every reference tile and added 0 + 1 +
+// 2 + 3 at its end; the tile sum goes to running totals that start at 0,
+// in walk order, kept in shared memory beside the stages.  At r <= 512
+// that is build_g's fold, so the two kernels' sums are equal bit for bit.
+//
+// stream_swap_g: swap_g.cu's 64 x 64 dist_tile kernel with the walk as
+// an outer loop (ROADMAP: the next kernel to move onto the mainloop).
+// One block per 64-row tile of x walks all of y in 64-column tiles of
+// the shared dist_tile (which loops over any d: there is no feature
+// cap), bins the corr terms by cluster in per-thread shared-memory bins,
 // folds the bins at the end of every 512-column tile and adds the tile
 // sums to the [k, m] outputs, which only this block writes.  The bins
 // take 3*k*256 floats of dynamic shared memory, which caps k at
 // RT_SWAP_K_MAX (dist_tile.cuh), swap_g.cu's cap; the C entry refuses
 // larger k.  The SWAP column and fold routines are swap_g.cu's
-// (swap_tile.cuh), so a weight-0 column is skipped here too.
+// (swap_tile.cuh), so a weight-0 column is skipped here too, and at
+// r = B <= 512 its sums equal swap_g's bit for bit.
+#include <stdint.h>
+
+#include "dist_mainloop.cuh"
 #include "dist_tile.cuh"
 #include "swap_tile.cuh"
 
@@ -48,52 +68,69 @@ __device__ __forceinline__ int64_t tile_end(int64_t t0, int64_t r) {
   return t0 + REF_TILE < r ? t0 + REF_TILE : r;
 }
 
+using W = rt::WideTile;
+constexpr int SUBS_B = 4;           // BUILD partials per row: residues mod 4
+constexpr int DT_LD = W::BN + 1;    // the distance tile's row stride
+static_assert(W::BN % SUBS_B == 0 && REF_TILE % SUBS_B == 0,
+              "a column's residue in its tile is its global one");
+static_assert(W::NT == W::BM, "one thread folds each row");
+static_assert(W::BM * DT_LD <= W::NORMS, "the tile fits in the stages");
+// Dynamic shared memory: the mainloop's, then the running totals [3][BM].
+constexpr size_t BUILD_SMEM = W::SMEM + 3 * W::BM * sizeof(float);
+
 template <int M>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(W::NT, W::MINB)
 stream_build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ dnear,
                       const float* __restrict__ w, const float* __restrict__ lg,
                       float* __restrict__ sums, float* __restrict__ sq,
-                      float* __restrict__ cross, int64_t m, int64_t r, int d) {
-  __shared__ rt::TileSmem<TM, TN> s;
-  __shared__ float red[3][SUBS][TM];
-  const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int row = threadIdx.x % TM;
-  const int sub = threadIdx.x / TM;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;  // running totals (threads sub == 0)
+                      float* __restrict__ cross, int64_t m, int64_t r, int d,
+                      bool vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* dt = smem;  // [BM][DT_LD] over the stages, after each mainloop
+  // This row's running totals; only its own thread touches them.
+  float* tot = smem + W::NORMS + W::ROWS + threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * W::BM;
+  const int tx = W::tx(), ty = W::ty();
+  const int row = threadIdx.x;
+#pragma unroll
+  for (int t = 0; t < 3; ++t) tot[t * W::BM] = 0.f;
   for (int64_t t0 = 0; t0 < r; t0 += REF_TILE) {
     const int64_t t1 = tile_end(t0, r);
-    float ps = 0.f, pq = 0.f, pc = 0.f;
-    for (int64_t col0 = t0; col0 < t1; col0 += TN) {
-      rt::dist_tile<M, TM, TN>(x, y, m, r, d, row0, col0, s);
-      const int nc = t1 - col0 < TN ? (int)(t1 - col0) : TN;
-      for (int j = sub; j < nc; j += SUBS)
-        rt::build_g_term(s.dt[row][j], dnear[col0 + j], w[col0 + j],
-                         lg[col0 + j], ps, pq, pc);
-      __syncthreads();  // dt is rewritten by the next column tile
-    }
-    red[0][sub][row] = ps;
-    red[1][sub][row] = pq;
-    red[2][sub][row] = pc;
-    __syncthreads();
-    if (sub == 0) {
-      float t0s = red[0][0][row], t1s = red[1][0][row], t2s = red[2][0][row];
+    float p[SUBS_B][3];  // (sums, sq, cross) partials of each residue
 #pragma unroll
-      for (int t = 1; t < SUBS; ++t) {
-        t0s += red[0][t][row];
-        t1s += red[1][t][row];
-        t2s += red[2][t][row];
-      }
-      a0 += t0s;
-      a1 += t1s;
-      a2 += t2s;
+    for (int s = 0; s < SUBS_B; ++s) p[s][0] = p[s][1] = p[s][2] = 0.f;
+    for (int64_t col0 = t0; col0 < t1; col0 += W::BN) {
+      float acc[W::RM][W::RN];
+      rt::dist_mainloop<M, W>(x, y, m, t1, d, row0, col0, vec, smem, acc);
+      rt::dist_finish<M, W, false>(smem, acc);
+#pragma unroll
+      for (int i = 0; i < W::RM; ++i)
+#pragma unroll
+        for (int j = 0; j < W::RN; ++j)
+          dt[(ty + W::TY * i) * DT_LD + tx + W::TX * j] = acc[i][j];
+      __syncthreads();
+      const int nc = t1 - col0 < W::BN ? (int)(t1 - col0) : W::BN;
+#pragma unroll
+      for (int s = 0; s < SUBS_B; ++s)
+        for (int j = s; j < nc; j += SUBS_B)
+          rt::build_g_term(dt[row * DT_LD + j], dnear[col0 + j], w[col0 + j],
+                           lg[col0 + j], p[s][0], p[s][1], p[s][2]);
+      __syncthreads();  // the next column tile stages over dt
     }
-    __syncthreads();  // red is rewritten by the next reference tile
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      float a = p[0][t];
+#pragma unroll
+      for (int s = 1; s < SUBS_B; ++s) a += p[s][t];
+      tot[t * W::BM] += a;
+    }
   }
-  if (sub == 0 && row0 + row < m) {
-    sums[row0 + row] = a0;
-    sq[row0 + row] = a1;
-    cross[row0 + row] = a2;
+  if (row0 + row < m) {
+    sums[row0 + row] = tot[0];
+    sq[row0 + row] = tot[W::BM];
+    cross[row0 + row] = tot[2 * W::BM];
   }
 }
 
@@ -139,7 +176,7 @@ stream_swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
       if (row0 + i >= m) continue;
       float* o = outs[q] + (int64_t)c * m + row0 + i;
       *o = (t0 == 0 ? 0.f : *o) +
-           rt::swap_fold_at<TM, SUBS>(red, bins, k, q, c, i);
+           rt::swap_fold_ld<SUBS>(&red[0][0][0], bins, k, TM, q, c, i);
     }
     __syncthreads();  // bins and red are rewritten by the next tile
   }
@@ -154,11 +191,18 @@ extern "C" int rt_stream_build_g(const float* x, const float* y,
                                  int metric, void* stream) {
   if (r < 1) return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((m + TM - 1) / TM);
+  const unsigned grid = (unsigned)((m + W::BM - 1) / W::BM);
+  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  RT_METRIC_SWITCH(metric, M,
-                   stream_build_g_kernel<M><<<grid, NT, 0, st>>>(
-                       x, y, dnear, w, lg, sums, sq, cross, m, r, d));
+  RT_METRIC_SWITCH(metric, M, {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stream_build_g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)BUILD_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    stream_build_g_kernel<M><<<grid, W::NT, BUILD_SMEM, st>>>(
+        x, y, dnear, w, lg, sums, sq, cross, m, r, d, vec);
+  });
   return (int)cudaGetLastError();
 }
 

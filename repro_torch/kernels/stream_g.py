@@ -18,6 +18,9 @@
   replacement-sampling fallback and every step of PAM.  At m = r =
   60,000, d = 784 a pass is 2·m·r·d = 5.6 TFLOP of float32 distance work
   against 376 MB of reads: compute-bound, 84 ms at 67 TFLOP/s.
+  ``stream_build_g`` runs build_g's pipelined mainloop
+  (``csrc/dist_mainloop.cuh``) over each 512-column tile in 104-column
+  steps; ``stream_swap_g`` still runs the 64 x 64 ``dist_tile``.
 
 Each kernel has its plain version here (``top2_torch``,
 ``stream_build_g_torch``, ``stream_swap_g_torch``: the engine's walks)

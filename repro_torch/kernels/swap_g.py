@@ -19,7 +19,9 @@ Given equal distances the two give equal bits (one column routine, one
 thread-to-column map, one fold order).
 
 ``swap_g``'s bound on the H100 is build_g's: the distance work,
-compute-bound at the main path's shapes.  The TPU kernels' one-hot
+compute-bound at the main path's shapes.  It runs on build_g's pipelined
+mainloop (``csrc/dist_mainloop.cuh``) for B <= 104 (the fits' B = 100)
+and on the old 64 x 64 tile above it (``route``).  The TPU kernels' one-hot
 ``[B, K]`` matrix product becomes a binned add into per-thread
 shared-memory bins chosen by each reference point's cluster: the same
 function with k times less work, no atomics, and the ``[k, m]`` engine
@@ -47,6 +49,17 @@ cached_launches = 0
 def k_max() -> int:
     """Largest k the kernel's shared-memory bins hold."""
     return int(_build.lib().rt_swap_g_k_max())
+
+
+ROUTES = ("one_tile", "tile")
+
+
+def route(b: int) -> str:
+    """Which CUDA kernel ``swap_g`` runs for a batch of ``b`` columns (the
+    shape rules of ``csrc/swap_g.cu``): ``"one_tile"`` (B <= 104, the
+    mainloop, the batch one column tile) or ``"tile"`` (B > 104, the
+    64 x 64 ``dist_tile``)."""
+    return ROUTES[int(_build.lib().rt_swap_g_route(int(b)))]
 
 
 def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,

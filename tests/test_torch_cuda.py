@@ -149,6 +149,74 @@ def test_swap_g_kernel_matches_plain(cuda, metric, k):
         _close(a_, b_, at)
 
 
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b", [100, 37, 300])
+@pytest.mark.parametrize("d", [784, 33, 12])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_swap_g_equals_stream_swap_g_bits(cuda, metric, b, d, k):
+    """swap_g (the mainloop, or the 64 x 64 tile at B > 104) and
+    stream_swap_g (the tile) at r = B <= 512 fold the same distance bits
+    in the same order: per row, four residue owners, each over its
+    columns in increasing order, then 0 + 1 + 2 + 3.  B = 37 and 100 are
+    one column tile of the mainloop, B = 300 the 64 x 64 tile's several;
+    m = 1300 leaves a ragged row tile."""
+    n = 1300
+    x = _x(n, d, 22, cuda)
+    g = torch.Generator().manual_seed(1000 * k + b + d)
+    y = x[torch.randperm(n, generator=g)[:b].to(cuda)].contiguous()
+    med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = ops.stream_top2(y, med, metric=metric)
+    w = torch.ones(b, device=cuda)
+    w[::9] = 0.0
+    lg = torch.randn(b, generator=g).to(cuda)
+    got = ops.swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric)
+    want = ops.stream_swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric)
+    for a_, c in zip(got, want):
+        assert a_.shape == (k, n)
+        assert torch.equal(a_, c)
+
+
+def test_swap_g_shape_rules(cuda):
+    """A batch of one mainloop column tile (B <= 104, the fits' B = 100)
+    runs the mainloop at every k; a wider batch runs the 64 x 64 tile."""
+    assert [swap_g.route(b) for b in (1, 37, 100, 104)] == ["one_tile"] * 4
+    assert [swap_g.route(b) for b in (105, 300, 60000)] == ["tile"] * 3
+
+
+def test_swap_g_empty_batch_gives_zeros(cuda):
+    """No reference column: every statistic is an empty sum, 0."""
+    x = _x(300, 16, 24, cuda)
+    z = torch.zeros(0, device=cuda)
+    out = ops.swap_g_stats(x, x[:0].contiguous(), z, z,
+                           torch.zeros(0, dtype=torch.int32, device=cuda),
+                           z, 10, z)
+    for t in out:
+        assert torch.equal(t, torch.zeros((10, 300), device=cuda))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [784, 33])
+def test_stream_build_g_walk_order_bits(cuda, metric, d):
+    """At r = 1300 the streaming kernel sums three reference tiles, each
+    folded as build_g folds a batch, in walk order from 0:
+    ((0 + T[0:512]) + T[512:1024]) + T[1024:1300], float32 adds."""
+    x, y, w, lg, g = _stream_inputs(cuda, 23, n=1300, r=1300, d=d)
+    r = y.shape[0]
+    dmax = float(pairwise.pairwise_torch(x, y, metric=metric).max())
+    for dn in (torch.full((r,), float("inf"), device=cuda),
+               torch.rand(r, generator=g).to(cuda) * dmax):
+        want = [torch.zeros(x.shape[0], device=cuda) for _ in range(3)]
+        for lo in (0, 512, 1024):
+            sl = slice(lo, min(lo + 512, r))
+            part = ops.build_g_stats(x, y[sl].contiguous(), dn[sl].contiguous(),
+                                     w[sl].contiguous(), lg[sl].contiguous(),
+                                     metric=metric)
+            want = [a + p for a, p in zip(want, part)]
+        got = ops.stream_build_g_stats(x, y, dn, w, lg, metric=metric)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+
+
 def test_swap_g_refuses_k_past_its_bins(cuda):
     x = _x(200, 16, 3, cuda)
     k = swap_g.k_max() + 1
