@@ -10,15 +10,19 @@ directory (for example the parent commit, from ``git archive``)::
 Both kernel libraries are built by their own ``repro_torch/kernels/
 build.py`` from their own sources (the base's into its own ``build/``)
 and called through the C interface the two share (``rt_pairwise``,
-``rt_build_g``, ``rt_swap_g``, ``rt_stream_build_g``), on the same
-inputs: ``mnist_like`` rows at MNIST's size (d = 784) and the shapes the
-main path gives each kernel (``rt_swap_g`` also at k = 64 and B = 300,
-``rt_stream_build_g`` at m = 60,000 and r = 100, 6,000 and 60,000).
-Each case is timed base, change, change, base (CUDA events, ``--reps``
+``rt_build_g``, ``rt_swap_g``, ``rt_stream_build_g``,
+``rt_stream_swap_g``, ``rt_swap_g_from_cache``), on the same inputs:
+``mnist_like`` rows at MNIST's size (d = 784) and the shapes the main
+path gives each kernel (``rt_swap_g`` also at k = 64 and B = 300; the
+streaming kernels at m = 60,000 and r = 100, 6,000 and 60,000, k = 10,
+and ``rt_stream_swap_g`` at r = 6,000, k = 64 too; ``rt_swap_g_from_cache``
+at a PIC round's [60,000 x 100] block and over a full [60,000 x 60,000]
+ring with 5 % of the weights set, the carried-moment repair).  Each
+case is timed base, change, change, base (CUDA events, ``--reps``
 launches after 3 warm-up launches each; fewer after one for the
-stream_build_g cases at r = 6,000 and, 2, at r = 60,000, the full exact
-pass of about 0.2-0.4 s a launch) and the two outputs must be equal bit
-for bit.
+streaming cases at r = 6,000 and, 2, at r = 60,000, the full exact
+pass of about 0.2-0.5 s a launch, and 5 over the full ring) and the
+two outputs must be equal bit for bit.
 Prints the card's name and power limit and, as its last line, one JSON
 object with every case.  Exits with an error without a CUDA device.
 """
@@ -143,7 +147,55 @@ def cases(torch, X, reps):
                                          d, METRIC_L2, st)
         return make, call
 
+    def top2(yy, k):
+        top = torch.topk(torch.cdist(yy, rows(k)), min(2, k), dim=1,
+                         largest=False)
+        d1 = top.values[:, 0].contiguous()
+        d2 = (top.values[:, 1] if k > 1 else d1 * 2).contiguous()
+        return d1, d2, top.indices[:, 0].to(torch.int32).contiguous()
+
+    def stream_swap_g(r, k):
+        y = x[:r]
+        d1, d2, a = top2(y, k)
+        w = torch.ones(r, device=X.device)
+        w[::97] = 0.0
+        lg = torch.randn(r, generator=gen).to(X.device)
+
+        def make():
+            return [torch.empty((k, n_fit), device=X.device)
+                    for _ in range(3)]
+
+        def call(lib, o, st):
+            return lib.rt_stream_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w),
+                                        p(lg), p(o[0]), p(o[1]), p(o[2]),
+                                        n_fit, r, d, k, METRIC_L2, st)
+        return make, call
+
+    def swap_g_from_cache(dxy, yy, k, w_share):
+        b = dxy.shape[1]
+        d1, d2, a = top2(yy, k)
+        w = (torch.rand(b, generator=gen) < w_share).float().to(X.device)
+        w[-7:] = 0.0
+        lg = torch.randn(b, generator=gen).to(X.device)
+
+        def make():
+            return [torch.empty((k, n_fit), device=X.device)
+                    for _ in range(3)]
+
+        def call(lib, o, st):
+            return lib.rt_swap_g_from_cache(
+                p(dxy), dxy.stride(0), p(d1), p(d2), p(a), p(w), p(lg),
+                p(o[0]), p(o[1]), p(o[2]), n_fit, b, k, st)
+        return make, call
+
     med = rows(10)
+    yr = rows(100)
+    # A full ring's worth of distances: the real ones for 3,200 columns,
+    # repeated (its values only need to be the same on both sides).
+    ring = torch.empty((n_fit, n_fit), device=X.device)
+    for j in range(0, n_fit, 3200):
+        w_ = min(3200, n_fit - j)
+        ring[:, j:j + w_] = torch.cdist(x, x[j:j + w_])
     out = [("pairwise", "60000x100 (PIC round)", *pairwise(x, rows(100))),
            ("pairwise", "60000x3200 (ring fill)", *pairwise(x, rows(3200))),
            ("pairwise", "10000x10 (predict)", *pairwise(q, med)),
@@ -159,7 +211,19 @@ def cases(torch, X, reps):
             ("stream_build_g", "60000x6000", *stream_build_g(6000),
              max(2, reps // 4), 1),
             ("stream_build_g", "60000x60000 (exact pass)",
-             *stream_build_g(n_fit), EXACT_REPS, 1)]
+             *stream_build_g(n_fit), EXACT_REPS, 1),
+            ("stream_swap_g", "60000x100 k=10", *stream_swap_g(100, 10),
+             reps, 3),
+            ("stream_swap_g", "60000x6000 k=10", *stream_swap_g(6000, 10),
+             max(2, reps // 4), 1),
+            ("stream_swap_g", "60000x6000 k=64", *stream_swap_g(6000, 64),
+             max(2, reps // 4), 1),
+            ("stream_swap_g", "60000x60000 k=10 (exact pass)",
+             *stream_swap_g(n_fit, 10), EXACT_REPS, 1),
+            ("swap_g_from_cache", "60000x100 k=10 (PIC round)",
+             *swap_g_from_cache(torch.cdist(x, yr), yr, 10, 1.0), reps, 3),
+            ("swap_g_from_cache", "60000x60000 k=10, 5% w (repair)",
+             *swap_g_from_cache(ring, x, 10, 0.05), 5, 1)]
     return out
 
 

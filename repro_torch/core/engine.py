@@ -414,22 +414,17 @@ def resolve_stats_backend(backend: Optional[str], metric: str,
                           device: torch.device) -> str:
     """Normalise a ``backend=`` argument to a registered name.
 
-    ``"auto"`` (or None) picks the kernels on a CUDA device and the plain
-    versions on the CPU.  A metric without a kernel on a CUDA device
-    raises on this slice (ROADMAP: non-kernel metrics on CUDA), and an
-    explicit ``"cuda"`` off a CUDA device or with such a metric is an
-    error.
+    ``"auto"`` (or None) picks the kernels for a kernel metric on a CUDA
+    device and the plain versions otherwise: on the CPU, and for a metric
+    without a kernel (one added with ``register_metric``) on any device,
+    CUDA included, as the reference's ``"auto"`` sends such a metric to
+    ``"jnp"`` (``src/repro/core/engine.py:575-578``).  An explicit
+    ``"cuda"`` off a CUDA device or with such a metric is an error.
     """
     from ..kernels.ops import KERNEL_METRICS
     on_cuda = torch.device(device).type == "cuda"
     if backend in (None, "auto"):
-        if not on_cuda:
-            return "torch"
-        if metric not in KERNEL_METRICS:
-            raise NotImplementedError(
-                f"metric {metric!r} has no kernel; non-kernel metrics on "
-                f"CUDA are not ported yet (ROADMAP)")
-        return "cuda"
+        return "cuda" if on_cuda and metric in KERNEL_METRICS else "torch"
     get_stats_backend(backend)  # raises KeyError for unknown names
     if backend == "cuda":
         if not on_cuda:

@@ -44,8 +44,6 @@ SIGNATURES = {
                   _I, _P],
     "rt_swap_g_from_cache": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                              _I64, _I, _P],
-    "rt_swap_g_k_max": [],
-    "rt_swap_g_route": [_I64],
     "rt_top2": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "rt_stream_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                           _P],

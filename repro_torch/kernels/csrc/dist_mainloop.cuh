@@ -1,6 +1,6 @@
 // Pipelined, register-blocked distance mainloop for Hopper (sm_90a,
-// float32), the distance work of pairwise.cu, build_g.cu, swap_g.cu's
-// swap_g and stream_stats.cu's stream_build_g.
+// float32), the distance work of pairwise.cu, build_g.cu, swap_g.cu
+// (swap_g and stream_swap_g) and stream_stats.cu (stream_build_g).
 //
 // Replaces, for those kernels, the TPU device function
 // src/repro/kernels/pairwise.py:34 (dist_tile) and the shared tile
@@ -238,9 +238,9 @@ __device__ __forceinline__ void dist_finish(const float* smem,
 }
 
 // The shapes the kernels run.  Wide (pairwise, build_g, swap_g,
-// stream_build_g): 104 columns hold a whole B = 100 batch (4 % padding)
-// and, being 0 mod 4, keep a column's residue mod 4 across column tiles,
-// which the folds of build_g and stream_build_g rely on; 8 x 13 pairs a
+// stream_build_g, stream_swap_g): 104 columns hold a whole B = 100 batch
+// (4 % padding) and, being 0 mod 4, keep a column's residue mod 4 across
+// column tiles, which the folds rely on; 8 x 13 pairs a
 // thread need 21 float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to
 // 255 registers, hence 128 threads and two blocks an SM; 16 features a
 // stage, four stages.  Narrow (pairwise only): 16 columns or fewer

@@ -19,17 +19,11 @@
 // its own reduction over it in a fixed order.  Its arithmetic is the
 // helpers of dist_math.cuh, which the pipelined mainloop
 // (dist_mainloop.cuh) calls too: both give a (row, column) pair the same
-// bits.  stream_swap_g (stream_stats.cu), top2 (stream_g.cu) and swap_g
-// at B > 104 (swap_g.cu's shape rule) still run on this tile; pairwise,
-// build_g, swap_g at B <= 104 and stream_build_g run on the mainloop.
+// bits.  Only top2 (stream_g.cu) still runs on this tile; every other
+// distance kernel runs on the mainloop.
 #pragma once
 
 #include "dist_math.cuh"
-
-// Most medoid bins the SWAP kernels (swap_g.cu, stream_stats.cu) hold in
-// shared memory: 3*k*256 floats on this tile; their C entries refuse
-// larger k (ROADMAP: lift the swap_g k cap).
-#define RT_SWAP_K_MAX 64
 
 namespace rt {
 

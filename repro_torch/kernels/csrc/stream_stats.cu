@@ -1,32 +1,29 @@
-// Streaming BUILD / SWAP arm statistics over the WHOLE reference set, float32.
+// Streaming BUILD arm statistics over the WHOLE reference set, float32.
 //
-// Replaces the TPU kernels src/repro/kernels/stream_g.py:65
-// (stream_build_g_kernel) and :115 (stream_swap_g_kernel).  They compute
-// build_g.cu's and swap_g.cu's statistics for every candidate row x of
-// [m, d] against a reference set y [r, d] of any size (r = n for the exact
-// passes: the replacement-sampling fallback and every step of PAM):
-//   BUILD  g_j = (isinf(dnear_j) ? d : min(d - dnear_j, 0)) * w_j
-//          sums = sum_j g_j, sq = sum_j g_j^2, cross = sum_j g_j lg_j     [m]
-//   SWAP   base_j = (min(d, d1_j) - d1_j) w_j,  corr_j = min(d, d2_j) - min(d, d1_j)
-//          sums [c, x] = sum_j base_j      + sum_{a_j = c} corr_j w_j
-//          sq   [c, x] = sum_j base_j^2    + sum_{a_j = c} (2 base_j corr_j + corr_j^2) w_j
-//          cross[c, x] = sum_j base_j lg_j + sum_{a_j = c} corr_j lg_j w_j  [k, m]
+// Replaces the TPU kernel src/repro/kernels/stream_g.py:65
+// (stream_build_g_kernel); its SWAP twin, stream_swap_g (:115), is
+// swap_g.cu's kernel walked in 512-column reference tiles.  It computes
+// build_g.cu's statistics for every candidate row x of [m, d] against a
+// reference set y [r, d] of any size (r = n for the exact passes: the
+// replacement-sampling fallback and every step of PAM):
+//   g_j = (isinf(dnear_j) ? d : min(d - dnear_j, 0)) * w_j
+//   sums = sum_j g_j, sq = sum_j g_j^2, cross = sum_j g_j lg_j     [m]
 // Only these outputs reach device memory: no [m, r] or [m, 512] block.
 //
 // Accumulation order (the TPU kernels' contract): the reference set is
 // walked in REF_TILE = 512-column tiles, the engine's _EXACT_CHUNK; each
 // tile's statistics are summed on their own (four partials per row, one
 // per column residue mod 4, added in a fixed order), and the tile sums
-// are added to the running totals in walk order.  A 60,000-term sum is thus 118
-// sums of 512 terms, whose float32 error stays near the reference's.
+// are added to the running totals in walk order.  A 60,000-term sum is
+// thus 118 sums of 512 terms, whose float32 error stays near the
+// reference's.
 // No atomics: the same bits on every run.
 //
 // Bound on the H100: 2*m*r*d flops of distance work (5.6 TFLOP at
 // m = r = 60000, d = 784) against 67 TFLOP/s float32 without tensor cores
 // (84 ms), while x and y are read once (376 MB, 0.11 ms): compute-bound.
 //
-// stream_build_g: build_g.cu with the reference walk as an outer loop.
-// One block per 128-row tile of x runs the pipelined, register-blocked
+// Design: build_g.cu with the reference walk as an outer loop.  One block per 128-row tile of x runs the pipelined, register-blocked
 // mainloop of dist_mainloop.cuh (WideTile, the pairs' bits are
 // dist_tile's) over each 512-column reference tile in 104-column tiles;
 // the fifth is clipped to the tile's last 96 columns (rows of y past the
@@ -39,30 +36,13 @@
 // 2 + 3 at its end; the tile sum goes to running totals that start at 0,
 // in walk order, kept in shared memory beside the stages.  At r <= 512
 // that is build_g's fold, so the two kernels' sums are equal bit for bit.
-//
-// stream_swap_g: swap_g.cu's 64 x 64 dist_tile kernel with the walk as
-// an outer loop (ROADMAP: the next kernel to move onto the mainloop).
-// One block per 64-row tile of x walks all of y in 64-column tiles of
-// the shared dist_tile (which loops over any d: there is no feature
-// cap), bins the corr terms by cluster in per-thread shared-memory bins,
-// folds the bins at the end of every 512-column tile and adds the tile
-// sums to the [k, m] outputs, which only this block writes.  The bins
-// take 3*k*256 floats of dynamic shared memory, which caps k at
-// RT_SWAP_K_MAX (dist_tile.cuh), swap_g.cu's cap; the C entry refuses
-// larger k.  The SWAP column and fold routines are swap_g.cu's
-// (swap_tile.cuh), so a weight-0 column is skipped here too, and at
-// r = B <= 512 its sums equal swap_g's bit for bit.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
-#include "dist_tile.cuh"
-#include "swap_tile.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, NT = (TM / 4) * (TN / 4), SUBS = NT / TM;
 constexpr int64_t REF_TILE = 512;
-static_assert(REF_TILE % TN == 0, "a reference tile is whole column tiles");
 
 __device__ __forceinline__ int64_t tile_end(int64_t t0, int64_t r) {
   return t0 + REF_TILE < r ? t0 + REF_TILE : r;
@@ -134,54 +114,6 @@ stream_build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(NT)
-stream_swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ d1, const float* __restrict__ d2,
-                     const int* __restrict__ assign,
-                     const float* __restrict__ w, const float* __restrict__ lg,
-                     float* __restrict__ sums, float* __restrict__ sq,
-                     float* __restrict__ cross, int64_t m, int64_t r, int d,
-                     int k) {
-  __shared__ rt::TileSmem<TM, TN> s;
-  __shared__ float red[3][SUBS][TM];
-  extern __shared__ float bins[];  // [SUBS][3][k][TM]
-  const int64_t row0 = (int64_t)blockIdx.x * TM;
-  const int row = threadIdx.x % TM;
-  const int sub = threadIdx.x / TM;
-  float* mine = bins + (size_t)sub * 3 * k * TM;  // this thread: [3][k][TM]
-  float* outs[3] = {sums, sq, cross};
-  for (int64_t t0 = 0; t0 < r; t0 += REF_TILE) {
-    const int64_t t1 = tile_end(t0, r);
-    for (int e = 0; e < 3 * k; ++e) mine[e * TM + row] = 0.f;
-    float bs = 0.f, bq = 0.f, bc = 0.f;
-    for (int64_t col0 = t0; col0 < t1; col0 += TN) {
-      rt::dist_tile<M, TM, TN>(x, y, m, r, d, row0, col0, s);
-      const int nc = t1 - col0 < TN ? (int)(t1 - col0) : TN;
-      for (int j = sub; j < nc; j += SUBS)
-        rt::swap_col<TM>(s.dt[row][j], col0 + j, d1, d2, assign, w, lg, k,
-                         row, mine, bs, bq, bc);
-      __syncthreads();  // dt is rewritten by the next column tile
-    }
-    red[0][sub][row] = bs;
-    red[1][sub][row] = bq;
-    red[2][sub][row] = bc;
-    __syncthreads();
-    // Fold the tile: base partials plus the cluster bins, then add the
-    // tile's sum to the running total in the output (walk order).
-    for (int e = threadIdx.x; e < 3 * k * TM; e += NT) {
-      const int i = e % TM;
-      const int c = (e / TM) % k;
-      const int q = e / (TM * k);
-      if (row0 + i >= m) continue;
-      float* o = outs[q] + (int64_t)c * m + row0 + i;
-      *o = (t0 == 0 ? 0.f : *o) +
-           rt::swap_fold_ld<SUBS>(&red[0][0][0], bins, k, TM, q, c, i);
-    }
-    __syncthreads();  // bins and red are rewritten by the next tile
-  }
-}
-
 }  // namespace
 
 extern "C" int rt_stream_build_g(const float* x, const float* y,
@@ -202,29 +134,6 @@ extern "C" int rt_stream_build_g(const float* x, const float* y,
     if (e != cudaSuccess) return (int)e;
     stream_build_g_kernel<M><<<grid, W::NT, BUILD_SMEM, st>>>(
         x, y, dnear, w, lg, sums, sq, cross, m, r, d, vec);
-  });
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rt_stream_swap_g(const float* x, const float* y,
-                                const float* d1, const float* d2,
-                                const int* assign, const float* w,
-                                const float* lg, float* sums, float* sq,
-                                float* cross, int64_t m, int64_t r, int d,
-                                int k, int metric, void* stream) {
-  if (k < 1 || k > RT_SWAP_K_MAX || r < 1)
-    return (int)cudaErrorInvalidValue;
-  if (m <= 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((m + TM - 1) / TM);
-  const size_t smem = (size_t)SUBS * 3 * k * TM * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  RT_METRIC_SWITCH(metric, M, {
-    cudaError_t e = cudaFuncSetAttribute(
-        stream_swap_g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    stream_swap_g_kernel<M><<<grid, NT, smem, st>>>(
-        x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k);
   });
   return (int)cudaGetLastError();
 }

@@ -1,21 +1,20 @@
-// The SWAP (FastPAM1, paper Eq. 12) statistics of a [TM, TN] distance
-// tile, shared by every SWAP kernel of the port (swap_g.cu's three
-// kernels and stream_stats.cu's stream_swap_g), so a block of distances gives
-// the same bits whichever kernel reduced it.  Counterpart of the JAX
-// package's swap_stats_vals (src/repro/kernels/swap_g.py:40), shared by
-// its fresh, cached and streaming kernels alike.
+// The SWAP (FastPAM1, paper Eq. 12) column routine and fold, shared by
+// every SWAP kernel of the port (swap_g.cu's swap_g / stream_swap_g and
+// swap_g_from_cache.cu), so a block of distances gives the same bits
+// whichever kernel reduced it.  Counterpart of the JAX package's
+// swap_stats_vals (src/repro/kernels/swap_g.py:40), shared by its fresh,
+// cached and streaming kernels alike.
 //
 // Layout: a fold of R rows has SUBS = 4 owners per row, one per residue
-// of the column index mod 4; owner (row, sub) adds the columns sub,
-// sub + 4, ... of every tile in increasing order.  It keeps its base
-// terms in three register partials and its cluster terms in its own bins
-// mine[3][k][R] (at column `row`), so no two threads write one address.
-// The 64 x 64 tile kernels (swap_g at B > 104, swap_g_from_cache,
-// stream_swap_g) fold 64 rows (TM) at once, thread t being owner
-// (t % TM, t / TM); swap_g at B <= 104 folds its 128-row tile in groups
-// of R = 32 or 16 rows (swap_g.cu), from its column vectors staged in
-// shared memory.  All call swap_col_vals and swap_fold_ld, whose bin
-// stride ld is TM or R.
+// of the column index mod 4; owner (row, sub) adds its residue's columns
+// in increasing order.  It keeps its base terms in three register
+// partials and its cluster terms in its own bins mine[3][kc][R] (at
+// column `row`), so no two threads write one address.  A kernel may hold
+// the bins of a chunk of kc clusters at a time and walk its columns once
+// per chunk (the cluster id shifted by the chunk's first, so other
+// chunks' columns add to no bin): every bin still gets its adds in
+// column order.  Both kernels fold 32 rows at a time, a warp per
+// residue, and end with swap_fold_ld (bin stride ld = R).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,21 +43,6 @@ __device__ __forceinline__ void swap_col_vals(float dv, float wj, float a1,
     mine[(1 * k + c) * ld + row] += (2.f * base * corr + corr * corr) * wj;
     mine[(2 * k + c) * ld + row] += (corr * lj) * wj;
   }
-}
-
-// The same for reference column jj of the device vectors.  Every term
-// carries the factor w, so a weight-0 column adds only zeros: it is
-// skipped before its vectors are read.
-template <int TM>
-__device__ __forceinline__ void swap_col(
-    float dv, int64_t jj, const float* __restrict__ d1,
-    const float* __restrict__ d2, const int* __restrict__ assign,
-    const float* __restrict__ w, const float* __restrict__ lg, int k,
-    int row, float* mine, float& bs, float& bq, float& bc) {
-  const float wj = w[jj];
-  if (wj == 0.f) return;
-  swap_col_vals(dv, wj, d1[jj], d2[jj], lg[jj], assign[jj], k, TM, row, mine,
-                bs, bq, bc);
 }
 
 // Statistic q (0 sums, 1 sq, 2 cross) of arm (medoid c, row i): the SUBS

@@ -12,15 +12,16 @@
 * ``stream_build_g`` and ``stream_swap_g`` replace the TPU kernels
   ``src/repro/kernels/stream_g.py:65`` (``stream_build_g_kernel``) and
   ``:115`` (``stream_swap_g_kernel``) with the CUDA kernels of
-  ``csrc/stream_stats.cu``: build_g's and swap_g's statistics over the
-  WHOLE reference set (r unbounded), walked in 512-column tiles whose
-  sums are added in walk order.  They carry the exact passes: the
-  replacement-sampling fallback and every step of PAM.  At m = r =
-  60,000, d = 784 a pass is 2·m·r·d = 5.6 TFLOP of float32 distance work
-  against 376 MB of reads: compute-bound, 84 ms at 67 TFLOP/s.
-  ``stream_build_g`` runs build_g's pipelined mainloop
-  (``csrc/dist_mainloop.cuh``) over each 512-column tile in 104-column
-  steps; ``stream_swap_g`` still runs the 64 x 64 ``dist_tile``.
+  ``csrc/stream_stats.cu`` and ``csrc/swap_g.cu``: build_g's and
+  swap_g's statistics over the WHOLE reference set (r unbounded),
+  walked in 512-column tiles whose sums are added in walk order.  They
+  carry the exact passes: the replacement-sampling fallback and every
+  step of PAM.  At m = r = 60,000, d = 784 a pass is 2·m·r·d = 5.6 TFLOP
+  of float32 distance work against 376 MB of reads: compute-bound,
+  84 ms at 67 TFLOP/s.
+  Both run build_g's pipelined mainloop (``csrc/dist_mainloop.cuh``)
+  over each 512-column tile in 104-column steps; ``stream_swap_g`` is
+  ``csrc/swap_g.cu``'s kernel with that walk and takes any k >= 1.
 
 Each kernel has its plain version here (``top2_torch``,
 ``stream_build_g_torch``, ``stream_swap_g_torch``: the engine's walks)
@@ -36,7 +37,6 @@ from ..core.engine import (_stream_build_stats, _stream_swap_stats,
                            _stream_top2)
 from . import build as _build
 from .pairwise import METRIC_IDS
-from .swap_g import k_max
 
 top2_launches = 0
 stream_build_launches = 0
@@ -103,10 +103,6 @@ def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
                        metric: str):
     """Run the streaming SWAP kernel on validated CUDA tensors."""
     global stream_swap_launches
-    if k > k_max():
-        raise ValueError(f"stream_swap_g kernel holds at most k={k_max()} "
-                         f"medoid bins in shared memory, got k={k} "
-                         f"(ROADMAP: lift the swap_g k cap)")
     m, d = x.shape
     r = yref.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,

@@ -1,32 +1,30 @@
 """Fused SWAP (FastPAM1) arm statistics for all k medoid-arms at once.
 
-Two kernels in ``csrc/swap_g.cu``, over the shared tile math of
+Two CUDA kernels over the shared column routine and fold of
 ``csrc/swap_tile.cuh`` (the TPU kernels' ``swap_stats_vals``,
 ``src/repro/kernels/swap_g.py:40``):
 
 * ``swap_g`` replaces ``swap_g_kernel`` (``:85``): the distances of the
-  batch computed in the kernel from the points;
-* ``swap_g_from_cache`` replaces ``swap_g_from_cache_kernel`` (``:118``):
-  the same statistics read from a resident ``[m, B]`` block of the PIC
-  column ring (one round's slice, or the whole ring in the
-  carried-moment repair), with no distance work.  It takes any row
-  stride, so a column slice of the ring is read in place, walks any B
-  (the TPU wrapper's ``CACHE_B_MAX`` chunking is a VMEM limit the card
-  does not have) and skips weight-0 columns.  Its bound is its bytes:
-  the block read once.
+  batch computed in the kernel from the points, on build_g's pipelined
+  mainloop (``csrc/swap_g.cu``, which also carries ``stream_swap_g``:
+  the batch is one reference tile of that walk, so the two give equal
+  bits at r = B <= 512).  Its bound is build_g's: the distance work,
+  compute-bound at the main path's shapes.
+* ``swap_g_from_cache`` replaces ``swap_g_from_cache_kernel``
+  (``:118``): the same statistics read from a resident ``[m, B]`` block
+  of the PIC column ring (one round's slice, or the whole ring in the
+  carried-moment repair), with no distance work
+  (``csrc/swap_g_from_cache.cu``).  It takes any row stride, so a
+  column slice of the ring is read in place, walks any B (the TPU
+  wrapper's ``CACHE_B_MAX`` chunking is a VMEM limit the card does not
+  have) and reads only the weighted columns.  Its bound is its bytes.
 
 Given equal distances the two give equal bits (one column routine, one
-thread-to-column map, one fold order).
-
-``swap_g``'s bound on the H100 is build_g's: the distance work,
-compute-bound at the main path's shapes.  It runs on build_g's pipelined
-mainloop (``csrc/dist_mainloop.cuh``) for B <= 104 (the fits' B = 100)
-and on the old 64 x 64 tile above it (``route``).  The TPU kernels' one-hot
-``[B, K]`` matrix product becomes a binned add into per-thread
-shared-memory bins chosen by each reference point's cluster: the same
-function with k times less work, no atomics, and the ``[k, m]`` engine
-layout written directly.  The bins cap k at ``k_max()`` (64) in both
-kernels; larger k raises (ROADMAP: lift the swap_g k cap).
+owner order, one fold).  The TPU kernels' one-hot ``[B, K]`` matrix
+product becomes a binned add chosen by each reference point's cluster:
+the same function with k times less work, no atomics, and the ``[k, m]``
+engine layout written directly.  Both take any k >= 1: past 32 clusters
+the bins are held a chunk of 32 at a time.
 
 ``swap_g_torch`` and ``swap_g_from_cache_torch`` are the plain versions
 (the engine's one-hot form).  ``launches`` and ``cached_launches`` count
@@ -46,22 +44,6 @@ launches = 0
 cached_launches = 0
 
 
-def k_max() -> int:
-    """Largest k the kernel's shared-memory bins hold."""
-    return int(_build.lib().rt_swap_g_k_max())
-
-
-ROUTES = ("one_tile", "tile")
-
-
-def route(b: int) -> str:
-    """Which CUDA kernel ``swap_g`` runs for a batch of ``b`` columns (the
-    shape rules of ``csrc/swap_g.cu``): ``"one_tile"`` (B <= 104, the
-    mainloop, the batch one column tile) or ``"tile"`` (B > 104, the
-    64 x 64 ``dist_tile``)."""
-    return ROUTES[int(_build.lib().rt_swap_g_route(int(b)))]
-
-
 def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
                  metric: str):
     """Plain version: ``(Σg, Σg², Σg·g_lead)``, each ``[k, m]``."""
@@ -75,17 +57,9 @@ def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
     return _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
 
 
-def _check_k(k: int) -> None:
-    if k > k_max():
-        raise ValueError(f"swap_g kernel holds at most k={k_max()} medoid "
-                         f"bins in shared memory, got k={k} (ROADMAP: lift "
-                         f"the swap_g k cap)")
-
-
 def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
     """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
     global launches
-    _check_k(k)
     m, d = x.shape
     b = y.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
@@ -104,7 +78,6 @@ def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
     """Run the cached kernel on validated CUDA tensors (see ``ops``):
     ``dxy`` [m, B] with unit column stride and any row stride."""
     global cached_launches
-    _check_k(k)
     m, b = dxy.shape
     ld = dxy.stride(0) if m > 1 else b
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,

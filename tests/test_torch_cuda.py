@@ -152,14 +152,15 @@ def test_swap_g_kernel_matches_plain(cuda, metric, k):
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("b", [100, 37, 300])
 @pytest.mark.parametrize("d", [784, 33, 12])
-@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 200])
 def test_swap_g_equals_stream_swap_g_bits(cuda, metric, b, d, k):
-    """swap_g (the mainloop, or the 64 x 64 tile at B > 104) and
-    stream_swap_g (the tile) at r = B <= 512 fold the same distance bits
-    in the same order: per row, four residue owners, each over its
-    columns in increasing order, then 0 + 1 + 2 + 3.  B = 37 and 100 are
-    one column tile of the mainloop, B = 300 the 64 x 64 tile's several;
-    m = 1300 leaves a ragged row tile."""
+    """swap_g and stream_swap_g at r = B <= 512 are one kernel walking
+    one reference tile, and fold the same distance bits in the same
+    order: per row, four residue owners, each over its columns in
+    increasing order, then 0 + 1 + 2 + 3, at every k (past 32 clusters
+    the bins are held a chunk of 32 at a time).  B = 37 and 100 are one
+    column tile of the mainloop, B = 300 three, whose bins cross column
+    tiles through the scratch; m = 1300 leaves a ragged row tile."""
     n = 1300
     x = _x(n, d, 22, cuda)
     g = torch.Generator().manual_seed(1000 * k + b + d)
@@ -176,11 +177,36 @@ def test_swap_g_equals_stream_swap_g_bits(cuda, metric, b, d, k):
         assert torch.equal(a_, c)
 
 
-def test_swap_g_shape_rules(cuda):
-    """A batch of one mainloop column tile (B <= 104, the fits' B = 100)
-    runs the mainloop at every k; a wider batch runs the 64 x 64 tile."""
-    assert [swap_g.route(b) for b in (1, 37, 100, 104)] == ["one_tile"] * 4
-    assert [swap_g.route(b) for b in (105, 300, 60000)] == ["tile"] * 3
+@pytest.mark.parametrize("b", [1, 104, 105, 300, 700])
+def test_swap_g_shape_rules(cuda, b):
+    """Every batch width runs the one mainloop kernel as a single
+    reference tile: one column tile up to B = 104 (the fits' B = 100),
+    several past it, with no reset at 512 (B = 700: stream_swap_g would
+    reset there, so the two differ only in summation order)."""
+    n, d, k = 1300, 48, 10
+    x = _x(n, d, 25, cuda)
+    g = torch.Generator().manual_seed(b)
+    y = x[torch.randint(0, n, (b,), generator=g).to(cuda)].contiguous()
+    med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+    d1, d2, a = ops.stream_top2(y, med, metric="l2")
+    w = torch.ones(b, device=cuda)
+    w[::9] = 0.0
+    lg = torch.randn(b, generator=g).to(cuda)
+    before = swap_g.launches
+    got = ops.swap_g_stats(x, y, d1, d2, a, w, k, lg, metric="l2")
+    torch.cuda.synchronize()
+    assert swap_g.launches == before + 1
+    want = swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg, "l2")
+    dmax = float(pairwise.pairwise_torch(x, y, metric="l2").max())
+    tol = _dtol("l2", dmax, d)
+    lgm = float(lg.abs().max())
+    for a_, b_, at in zip(got, want, (2 * b * tol, 4 * b * dmax * tol,
+                                      2 * b * lgm * tol)):
+        _close(a_, b_, at)
+    if b <= 512:
+        stream = ops.stream_swap_g_stats(x, y, d1, d2, a, w, k, lg,
+                                         metric="l2")
+        assert all(torch.equal(a_, c) for a_, c in zip(got, stream))
 
 
 def test_swap_g_empty_batch_gives_zeros(cuda):
@@ -217,14 +243,11 @@ def test_stream_build_g_walk_order_bits(cuda, metric, d):
             assert torch.equal(a, c)
 
 
-def test_swap_g_refuses_k_past_its_bins(cuda):
-    x = _x(200, 16, 3, cuda)
-    k = swap_g.k_max() + 1
-    z = torch.zeros(B, device=cuda)
-    with pytest.raises(ValueError, match="k cap"):
-        ops.swap_g_stats(x, x[:B].contiguous(), z, z,
-                         torch.zeros(B, dtype=torch.int32, device=cuda),
-                         z + 1, k)
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_swap_g_kernel_past_64_medoids_matches_plain(cuda, metric):
+    """k = 65: the bins of 65 clusters are held in chunks of 32, 32 and
+    1; every arm matches the plain version."""
+    test_swap_g_kernel_matches_plain(cuda, metric, 65)
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -346,17 +369,14 @@ def test_stream_swap_g_kernel_matches_plain(cuda, metric, k):
         _close(a_, b_, at)
 
 
-def test_stream_swap_g_refuses_k_past_its_bins(cuda):
-    x = _x(200, 16, 3, cuda)
-    k = swap_g.k_max() + 1
-    z = torch.zeros(200, device=cuda)
-    with pytest.raises(ValueError, match="k cap"):
-        ops.stream_swap_g_stats(x, x, z, z,
-                                torch.zeros(200, dtype=torch.int32,
-                                            device=cuda), k=k)
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_stream_swap_g_kernel_past_64_medoids_matches_plain(cuda, metric):
+    """k = 65 over r = 1100 references (three reference tiles, their
+    bins crossing column tiles through the scratch, in three chunks)."""
+    test_stream_swap_g_kernel_matches_plain(cuda, metric, 65)
 
 
-def _same_fit(a, b, ledger_rtol=0.0):
+def _same_fit(a, b, ledger_rtol=0.0, loss_atol=0.0):
     assert a.medoids.tolist() == b.medoids.tolist()
     assert [h[:2] for h in a.swap_history] == [h[:2] for h in b.swap_history]
     assert (a.n_swaps, a.converged) == (b.n_swaps, b.converged)
@@ -364,7 +384,18 @@ def _same_fit(a, b, ledger_rtol=0.0):
     assert a.evals_by_phase.keys() == b.evals_by_phase.keys()
     for ph, v in b.evals_by_phase.items():
         assert abs(a.evals_by_phase[ph] - v) <= ledger_rtol * v, ph
-    assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss)
+    assert abs(a.loss - b.loss) <= 1e-5 * abs(b.loss) + loss_atol
+
+
+def _self_distance_noise(X, medoids):
+    """Limit on the two backends' l2 loss difference from the medoids'
+    distances to themselves: each is the square root of the l2sq
+    cancellation noise, at most sqrt(2·d·2^-24)·|x| for medoid row x,
+    which the kernels and cuBLAS round differently (ROADMAP, "l2
+    distances near 0").  It grows with k."""
+    d = X.shape[1]
+    norms = np.linalg.norm(X[np.asarray(medoids)].astype(np.float64), axis=1)
+    return float(np.sqrt(2 * d * 2.0 ** -24) * norms.sum())
 
 
 def test_cuda_fit_matches_torch_fit_replacement_leader(cuda):
@@ -436,7 +467,7 @@ def _cached_tol(view, d1, d2, w, lg):
     return e * 2 * b * dmax, e * 4 * b * dmax ** 2, e * 2 * b * dmax * lgm
 
 
-@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("k", [1, 10, 64, 65, 200])
 def test_swap_g_from_cache_kernel_matches_plain(cuda, k):
     view, d1, d2, a, w, lg = _cached_inputs(cuda, 11, 1300, 700, 300, k)
     assert view.stride(0) == 700 and not view.is_contiguous()
@@ -450,12 +481,17 @@ def test_swap_g_from_cache_kernel_matches_plain(cuda, k):
         _close(g_, w_, at)
 
 
-def test_swap_g_from_cache_kernel_at_the_repair_shape(cuda):
+@pytest.mark.parametrize("k", [5, 65])
+def test_swap_g_from_cache_kernel_at_the_repair_shape(cuda, k):
     """The carried-moment repair: the whole ring, about 5 % of the
-    weights set (most 64-column tiles still hold one)."""
-    k = 5
+    weights set, weighted columns in every residue mod 4, columns
+    [1024, 2048) all weight 0 (a whole scan of every residue's columns
+    finds none) and the last column weighted."""
     view, d1, d2, a, w, _ = _cached_inputs(cuda, 12, 1300, 2600, 2600, k,
                                            w_share=0.05)
+    w[1024:2048] = 0.0
+    w[100:104] = 1.0
+    w[-1] = 1.0
     assert 0 < float(w.sum()) < 0.1 * 2600
     z = torch.zeros_like(d1)
     got = ops.swap_g_stats_cached(view, d1, d2, a, w, k)
@@ -468,11 +504,12 @@ def test_swap_g_from_cache_kernel_at_the_repair_shape(cuda):
 
 
 @pytest.mark.parametrize("metric", ["l2", "l1"])
-def test_swap_g_from_cache_equals_swap_g_on_equal_distances(cuda, metric):
-    """Both SWAP kernels share one column routine and one fold order, so
-    the cached kernel fed the pairwise kernel's distances (the same
-    distance tile) returns swap_g's bits."""
-    k, n, d = 7, 1300, 64
+@pytest.mark.parametrize("k", [1, 7, 10, 64, 65, 200])
+def test_swap_g_from_cache_equals_swap_g_on_equal_distances(cuda, metric, k):
+    """Both SWAP kernels share one column routine, one owner order and
+    one fold, so the cached kernel fed the pairwise kernel's distances
+    (the same distance bits) returns swap_g's bits at every k."""
+    n, d = 1300, 64
     x = _x(n, d, 13, cuda)
     g = torch.Generator().manual_seed(13)
     y = x[torch.randperm(n, generator=g)[:B].to(cuda)].contiguous()
@@ -488,13 +525,18 @@ def test_swap_g_from_cache_equals_swap_g_on_equal_distances(cuda, metric):
         assert torch.equal(f, c)
 
 
-def test_swap_g_from_cache_refuses_k_past_its_bins(cuda):
-    k = swap_g.k_max() + 1
-    z = torch.zeros(B, device=cuda)
-    with pytest.raises(ValueError, match="k cap"):
-        ops.swap_g_stats_cached(torch.zeros((200, B), device=cuda), z, z,
-                                torch.zeros(B, dtype=torch.int32,
-                                            device=cuda), z + 1, k)
+def test_swap_g_from_cache_kernel_past_64_medoids_matches_plain(cuda):
+    """k = 65 at a round's shape (a contiguous [m, 100] block, dense
+    weights): the bins are held in chunks of 32, 32 and 1, each chunk a
+    walk of its own columns."""
+    k = 65
+    view, d1, d2, a, w, lg = _cached_inputs(cuda, 14, 1300, 100, 100, k)
+    assert view.is_contiguous()
+    got = ops.swap_g_stats_cached(view, d1, d2, a, w, k, lg)
+    want = swap_g.swap_g_from_cache_torch(view, d1, d2, a, w, k, lg)
+    for g_, w_, at in zip(got, want, _cached_tol(view, d1, d2, w, lg)):
+        assert g_.shape == (k, 1300)
+        _close(g_, w_, at)
 
 
 @pytest.mark.parametrize("kw", [{"reuse": "pic"},
@@ -520,3 +562,37 @@ def test_cuda_cached_fit_matches_torch_fit_on_card(cuda, kw):
         assert a.evals_by_phase["swap_cached"] > 0
     assert a.build_rounds == b_.build_rounds
     _same_fit(a, b_, ledger_rtol=1e-3)
+
+
+@pytest.mark.parametrize("solver", ["banditpam", "pam"])
+def test_cuda_fit_past_64_medoids_matches_torch_on_card(cuda, solver):
+    """k = 65 fits on the card through every SWAP kernel (none refuses a
+    k) and agrees with the plain versions.  On real-valued data some of
+    a k = 65 fit's many decisions sit on a float32 margin that the
+    kernels and cuBLAS round differently (mnist_like, n = 1500: PAM's
+    24th medoid differs); the integer blobs of ``datasets.code_blobs``
+    give both backends the same distances, so the fits agree, the
+    ledger within the tolerance of
+    ``test_cuda_fit_matches_torch_fit_on_card``."""
+    n, k = 1300, 65
+    X = datasets.code_blobs(n, k, seed=4)
+    ops.reset_launch_counts()
+    if solver == "pam":
+        a = pam(X, k, backend="cuda", device=cuda)
+        counts = ops.launch_counts()
+        b_ = pam(X, k, backend="torch", device=cuda)
+        assert counts["stream_swap_g"] >= 1
+        _same_fit(a, b_, loss_atol=_self_distance_noise(X, b_.medoids))
+        return
+    p = np.random.default_rng(3)
+    perms = (np.stack([p.permutation(n) for _ in range(k)]),
+             np.stack([p.permutation(n) for _ in range(4 * k + 10)]))
+    a = BanditPAM(k, backend="cuda", device=cuda).fit(
+        X, layouts=rng.from_numpy(*perms))
+    counts = ops.launch_counts()
+    b_ = BanditPAM(k, backend="torch", device=cuda).fit(
+        X, layouts=rng.from_numpy(*perms))
+    assert counts["swap_g"] > 0 and a.n_swaps > 0
+    assert a.build_rounds == b_.build_rounds
+    _same_fit(a, b_, ledger_rtol=1e-3,
+              loss_atol=_self_distance_noise(X, b_.medoids))
