@@ -11,18 +11,23 @@ Both kernel libraries are built by their own ``repro_torch/kernels/
 build.py`` from their own sources (the base's into its own ``build/``)
 and called through the C interface the two share (``rt_pairwise``,
 ``rt_build_g``, ``rt_swap_g``, ``rt_stream_build_g``,
-``rt_stream_swap_g``, ``rt_swap_g_from_cache``), on the same inputs:
+``rt_stream_swap_g``, ``rt_swap_g_from_cache``, ``rt_top2``), on the same
+inputs:
 ``mnist_like`` rows at MNIST's size (d = 784) and the shapes the main
 path gives each kernel (``rt_swap_g`` also at k = 64 and B = 300; the
 streaming kernels at m = 60,000 and r = 100, 6,000 and 60,000, k = 10,
 and ``rt_stream_swap_g`` at r = 6,000, k = 64 too; ``rt_swap_g_from_cache``
 at a PIC round's [60,000 x 100] block and over a full [60,000 x 60,000]
-ring with 5 % of the weights set, the carried-moment repair).  Each
+ring with 5 % of the weights set, the carried-moment repair; ``rt_top2``
+at n = 60,000 and k = 1, 10, 17, 40, 65 and 200, at predict's
+[10,000 x 10] and at d = 783, which takes the 4-byte copies).  Each
 case is timed base, change, change, base (CUDA events, ``--reps``
 launches after 3 warm-up launches each; fewer after one for the
 streaming cases at r = 6,000 and, 2, at r = 60,000, the full exact
 pass of about 0.2-0.5 s a launch, and 5 over the full ring) and the
-two outputs must be equal bit for bit.
+two outputs must be equal bit for bit.  ``--only top2`` (a kernel
+name, repeatable) runs that kernel's cases alone; ``--metric`` (l2 by
+default, or l2sq, cosine, l1) is the metric of every case.
 Prints the card's name and power limit and, as its last line, one JSON
 object with every case.  Exits with an error without a CUDA device.
 """
@@ -38,7 +43,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-METRIC_L2 = 0
+METRIC_IDS = {"l2": 0, "l2sq": 1, "cosine": 2, "l1": 3}
 EXACT_REPS = 2  # launches a turn of the full exact pass (r = 60,000)
 
 
@@ -69,9 +74,10 @@ def time_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def cases(torch, X, reps):
+def cases(torch, X, reps, only=(), metric_id=0):
     """(name, shape, make outputs, call(lib, outputs, stream), reps,
-    warm-up launches)."""
+    warm-up launches), of the kernels named in ``only`` (all if empty),
+    every distance in the metric ``metric_id``."""
     p = lambda t: t.data_ptr()
     gen = torch.Generator(device="cpu").manual_seed(0)
     n_fit = 60000
@@ -89,7 +95,7 @@ def cases(torch, X, reps):
 
         def call(lib, outs, st):
             return lib.rt_pairwise(p(a), p(b), p(outs[0]), a.shape[0],
-                                   b.shape[0], d, METRIC_L2, st)
+                                   b.shape[0], d, metric_id, st)
         return make, call
 
     def build_g(b):
@@ -105,7 +111,7 @@ def cases(torch, X, reps):
 
         def call(lib, o, st):
             return lib.rt_build_g(p(x), p(y), p(dn), p(w), p(lg), p(o[0]),
-                                  p(o[1]), p(o[2]), n_fit, b, d, METRIC_L2,
+                                  p(o[1]), p(o[2]), n_fit, b, d, metric_id,
                                   st)
         return make, call
 
@@ -127,7 +133,7 @@ def cases(torch, X, reps):
         def call(lib, o, st):
             return lib.rt_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w), p(lg),
                                  p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, k,
-                                 METRIC_L2, st)
+                                 metric_id, st)
         return make, call
 
     def stream_build_g(r):
@@ -144,7 +150,7 @@ def cases(torch, X, reps):
         def call(lib, o, st):
             return lib.rt_stream_build_g(p(x), p(y), p(dn), p(w), p(lg),
                                          p(o[0]), p(o[1]), p(o[2]), n_fit, r,
-                                         d, METRIC_L2, st)
+                                         d, metric_id, st)
         return make, call
 
     def top2(yy, k):
@@ -168,7 +174,22 @@ def cases(torch, X, reps):
         def call(lib, o, st):
             return lib.rt_stream_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w),
                                         p(lg), p(o[0]), p(o[1]), p(o[2]),
-                                        n_fit, r, d, k, METRIC_L2, st)
+                                        n_fit, r, d, k, metric_id, st)
+        return make, call
+
+    def top2_case(xx, k, dd=d):
+        xx = xx[:, :dd].contiguous()
+        mm = rows(k)[:, :dd].contiguous()
+        m = xx.shape[0]
+
+        def make():
+            return [torch.empty(m, device=X.device),
+                    torch.empty(m, device=X.device),
+                    torch.empty(m, dtype=torch.int32, device=X.device)]
+
+        def call(lib, o, st):
+            return lib.rt_top2(p(xx), p(mm), p(o[0]), p(o[1]), p(o[2]), m,
+                               k, dd, metric_id, st)
         return make, call
 
     def swap_g_from_cache(dxy, yy, k, w_share):
@@ -190,12 +211,6 @@ def cases(torch, X, reps):
 
     med = rows(10)
     yr = rows(100)
-    # A full ring's worth of distances: the real ones for 3,200 columns,
-    # repeated (its values only need to be the same on both sides).
-    ring = torch.empty((n_fit, n_fit), device=X.device)
-    for j in range(0, n_fit, 3200):
-        w_ = min(3200, n_fit - j)
-        ring[:, j:j + w_] = torch.cdist(x, x[j:j + w_])
     out = [("pairwise", "60000x100 (PIC round)", *pairwise(x, rows(100))),
            ("pairwise", "60000x3200 (ring fill)", *pairwise(x, rows(3200))),
            ("pairwise", "10000x10 (predict)", *pairwise(q, med)),
@@ -206,6 +221,10 @@ def cases(torch, X, reps):
            ("swap_g", "60000x100 k=10 (SWAP round)", *swap_g(100, 10)),
            ("swap_g", "60000x100 k=64", *swap_g(100, 64)),
            ("swap_g", "60000x300 k=10", *swap_g(300, 10))]
+    out += [("top2", f"60000x{k}" + (" (fit)" if k == 10 else ""),
+             *top2_case(x, k)) for k in (1, 10, 17, 40, 65, 200)]
+    out += [("top2", "10000x10 (predict)", *top2_case(q, 10)),
+            ("top2", "60000x10 d=783", *top2_case(x, 10, d - 1))]
     out = [c + (reps, 3) for c in out]
     out += [("stream_build_g", "60000x100", *stream_build_g(100), reps, 3),
             ("stream_build_g", "60000x6000", *stream_build_g(6000),
@@ -221,10 +240,18 @@ def cases(torch, X, reps):
             ("stream_swap_g", "60000x60000 k=10 (exact pass)",
              *stream_swap_g(n_fit, 10), EXACT_REPS, 1),
             ("swap_g_from_cache", "60000x100 k=10 (PIC round)",
-             *swap_g_from_cache(torch.cdist(x, yr), yr, 10, 1.0), reps, 3),
-            ("swap_g_from_cache", "60000x60000 k=10, 5% w (repair)",
-             *swap_g_from_cache(ring, x, 10, 0.05), 5, 1)]
-    return out
+             *swap_g_from_cache(torch.cdist(x, yr), yr, 10, 1.0), reps, 3)]
+    if not only or "swap_g_from_cache" in only:
+        # A full ring's worth of distances: the real ones for 3,200
+        # columns, repeated (its values only need to be the same on both
+        # sides).
+        ring = torch.empty((n_fit, n_fit), device=X.device)
+        for j in range(0, n_fit, 3200):
+            w_ = min(3200, n_fit - j)
+            ring[:, j:j + w_] = torch.cdist(x, x[j:j + w_])
+        out.append(("swap_g_from_cache", "60000x60000 k=10, 5% w (repair)",
+                    *swap_g_from_cache(ring, x, 10, 0.05), 5, 1))
+    return [c for c in out if not only or c[0] in only]
 
 
 def main() -> int:
@@ -232,6 +259,9 @@ def main() -> int:
     ap.add_argument("--base", required=True,
                     help="directory of the checkout to compare against")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", action="append", default=[],
+                    help="run only this kernel's cases (repeatable)")
+    ap.add_argument("--metric", choices=sorted(METRIC_IDS), default="l2")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -253,7 +283,8 @@ def main() -> int:
     X = torch.from_numpy(mnist_like(70000, seed=0)).cuda()
     st = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     results = []
-    for name, shape, make, call, reps, warm in cases(torch, X, args.reps):
+    for name, shape, make, call, reps, warm in cases(
+            torch, X, args.reps, args.only, METRIC_IDS[args.metric]):
         outs = {lab: make() for lab in libs}
         for lab, lib in libs.items():
             code = call(lib, outs[lab], st)

@@ -26,10 +26,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    64, 65 and 200 and at the carried-moment repair's shape (the whole
    3,200-column ring, 5 % of the weights set), and timed at the round and
    over the full 60,000-column ring with 5 % of the weights set
-   (``cached_checks``).  Bit checks, which raise when the bits differ:
-   build_g equals stream_build_g over yref = the batch (r = B) for every
-   metric and both dnear cases; the two smallest entries of each row of
-   pairwise(x, medoids) equal top2's d1 and d2; swap_g equals
+   (``cached_checks``).  top2 is also checked and timed at n = 60,000,
+   k = 65 and 200 (``top2_large_k``).  Bit checks, which raise when the
+   bits differ: build_g equals stream_build_g over yref = the batch
+   (r = B) for every metric and both dnear cases; the two smallest
+   entries of each row of pairwise(x, medoids) equal top2's d1 and d2
+   (k = 10 for every metric; k = 65 and 200, l2); swap_g equals
    swap_g_from_cache fed pairwise's distances (B = 100) and stream_swap_g
    over yref = the batch (r = B) at B = 100 and 300, each at k = 10, 64,
    65 and 200 (no SWAP kernel caps k).  pairwise is also held to
@@ -57,7 +59,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    reads, at most n·B, or one round of the carried prefix, at most B
    repaired points at n each); and the default fit at k = 65 on
    ``N_PARITY`` integer points in 65 blobs (``code_blobs``; the
-   replacement fits' allowance);
+   replacement fits' allowance; the cuda fit's launch counts are
+   printed);
 5. the main path at full size: ``KMedoids(k=10, solver="banditpam",
    metric="l2").fit`` on 60,000 MNIST-like points of d=784, then
    ``predict`` on 10,000 more, with every kernel's launch count from that
@@ -304,8 +307,8 @@ def kernel_checks(torch, X, dev):
         if not bool((got[2] == want[2])[clear].all()):
             raise AssertionError(f"top2[{metric}] labels differ off near-ties")
         res["top2"] = (max(e1, e2), x, med)
-        # The pairwise kernel (mainloop) and top2 (dist_tile) share the
-        # distance bits, so a row's two smallest entries are d1 and d2.
+        # The pairwise kernel and top2 run the same mainloop chains
+        # (dist_math.cuh), so a row's two smallest entries are d1 and d2.
         two = torch.topk(ops.pairwise_distance(x, med, metric), 2, dim=1,
                          largest=False).values
         require_equal(f"pairwise[{metric}] row minima == top2 d1, d2",
@@ -332,7 +335,53 @@ def kernel_checks(torch, X, dev):
             f"tolerance {tol:.3e}, max distance {float(want.max()):.3e})")
         if metric == "l2":
             rows = time_rows(torch, res, q, med, ep)
+            top2_large_k(torch, res["top2"][1], med, dev)
     return rows
+
+
+def top2_large_k(torch, x, med10, dev):
+    """Phase 3, top2 past the narrow tile at the main path's n = 60,000:
+    k = 65 (one 72-column tile) and k = 200 (two 104-column tiles), l2,
+    each against its plain version (the distance tolerance, the labels
+    off near-ties), against pairwise's row minima (equal bits, raising)
+    and timed beside its bound.  ``torch.cdist`` + ``torch.topk`` is
+    timed too, at k = 10 (the medoids of ``kernel_checks``), 65 and 200,
+    as a note only: two calls, so no library yardstick."""
+    from repro_torch.kernels import ops, pairwise, stream_g
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n, d = x.shape
+    for k in (10, 65, 200):
+        med = med10 if k == 10 else x[torch.randperm(
+            n, generator=gen)[:k].to(dev)].contiguous()
+        cms = time_ms(lambda: torch.topk(torch.cdist(x, med), 2, dim=1,
+                                         largest=False))
+        if k == 10:
+            log(f"[time] top2 k=10: torch.cdist + torch.topk {cms:.4f} ms "
+                f"(two calls, a note, not a library yardstick)")
+            continue
+        got = ops.stream_top2(x, med, metric="l2")
+        want = stream_g.top2_torch(x, med, "l2")
+        dmax = float(pairwise.pairwise_torch(x[:2048], med, metric="l2").max())
+        tol = dist_tol("l2", dmax)
+        err = max(check_close(f"top2[l2,k={k}] d1", got[0], want[0], tol),
+                  check_close(f"top2[l2,k={k}] d2", got[1], want[1], tol))
+        clear = clear_of_ties("l2", want[0], want[1], dmax)
+        if not bool((got[2] == want[2])[clear].all()):
+            raise AssertionError(f"top2[l2,k={k}] labels differ off near-ties")
+        two = torch.topk(ops.pairwise_distance(x, med, "l2"), 2, dim=1,
+                         largest=False).values
+        require_equal(f"pairwise[l2] row minima == top2 d1, d2 [k={k}]",
+                      (two[:, 0].contiguous(), two[:, 1].contiguous()),
+                      got[:2])
+        del two
+        ms = time_ms(lambda: ops.stream_top2(x, med, metric="l2"))
+        pms = time_ms(lambda: stream_g.top2_torch(x, med, "l2"), reps=5,
+                      warm=1)
+        bms, bby = bound_ms(2.0 * n * k * d, 4.0 * (n * d + k * d + 3 * n))
+        log(f"[time] top2 k={k}: kernel {ms:.4f} ms  plain {pms:.4f} ms  "
+            f"library -  bound {bms * 1e3:.1f} us ({bby})  share of bound "
+            f"{bms / ms:.3f}  max_abs_err {err:.3e}  torch.cdist + "
+            f"torch.topk {cms:.4f} ms (a note)")
 
 
 def time_rows(torch, res, q, med, pairwise_err):
@@ -717,13 +766,18 @@ def fit_parity(torch, X, dev):
     p65 = np.random.default_rng(65)
     perms = (np.stack([p65.permutation(n) for _ in range(k65)]),
              np.stack([p65.permutation(n) for _ in range(4 * k65 + 10)]))
+    from repro_torch.kernels import ops
     for be in ("cuda", "torch"):
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         fits[be] = BanditPAM(k65, metric="l2", backend=be, device=dev).fit(
             blobs, layouts=rng.from_numpy(*perms))
         log(f"[parity] k={k65} backend={be:5s} swaps {fits[be].n_swaps} "
             f"evals {fits[be].evals_by_phase} loss {fits[be].loss!r} "
             f"({time.perf_counter() - t0:.2f} s)")
+        if be == "cuda":
+            log(f"[parity] k={k65} backend=cuda kernel launches "
+                f"{ops.launch_counts()}")
     # Each medoid's distance to itself is the square root of the l2sq
     # cancellation noise, at most sqrt(2·d·2^-24)·|x|, rounded differently
     # by the kernels and cuBLAS; over 65 medoids it can exceed rtol 1e-5.

@@ -18,8 +18,8 @@
 // order: for each row, four partials, one per residue of the column
 // index mod 4, each over its columns in increasing order (across column
 // tiles), added 0 + 1 + 2 + 3 at the end.  That is stream_build_g's fold
-// over one 512-column reference tile, and the distances are dist_tile's
-// bits, so at B <= 512 the two kernels' sums are equal bit for bit.  No
+// over one 512-column reference tile, and the distances are the mainloop's
+// bits (dist_math.cuh), so at B <= 512 the two kernels' sums are equal bit for bit.  No
 // atomics: every run gives the same bits.  The isinf(dnear) branch is
 // the TPU kernel's.
 #include <stdint.h>

@@ -1,13 +1,14 @@
 // Pipelined, register-blocked distance mainloop for Hopper (sm_90a,
-// float32), the distance work of pairwise.cu, build_g.cu, swap_g.cu
-// (swap_g and stream_swap_g) and stream_stats.cu (stream_build_g).
+// float32), the distance work of every distance kernel of the port:
+// pairwise.cu, build_g.cu, swap_g.cu (swap_g and stream_swap_g),
+// stream_stats.cu (stream_build_g) and stream_g.cu (top2).
 //
 // Replaces, for those kernels, the TPU device function
-// src/repro/kernels/pairwise.py:34 (dist_tile) and the shared tile
-// dist_tile.cuh, whose bits it keeps: every chain, norm and epilogue is a
-// helper of dist_math.cuh, run in the same order (see the contract
-// there), so a (row, column) pair gets the same float32 bits here as in
-// dist_tile.  No split of the feature sum, no atomics, no tensor cores.
+// src/repro/kernels/pairwise.py:34 (dist_tile).  Every chain, norm and
+// epilogue is a helper of dist_math.cuh, run in the contract's order
+// (see there), so a (row, column) pair gets the same float32 bits in
+// every kernel and at every tile shape.  No split of the feature sum,
+// no atomics, no tensor cores.
 //
 // What bounds it: 2*BM*BN*d FMA flops per tile against the card's
 // float32 rate (67 TFLOP/s); the operands are read once per tile.  At
@@ -237,15 +238,16 @@ __device__ __forceinline__ void dist_finish(const float* smem,
   }
 }
 
-// The shapes the kernels run.  Wide (pairwise, build_g, swap_g,
-// stream_build_g, stream_swap_g): 104 columns hold a whole B = 100 batch
+// The shapes the kernels share (top2 adds 40- and 72-column ones of its
+// own).  Wide (pairwise, build_g, swap_g, stream_build_g, stream_swap_g,
+// top2 at some k past 80): 104 columns hold a whole B = 100 batch
 // (4 % padding) and, being 0 mod 4, keep a column's residue mod 4 across
 // column tiles, which the folds rely on; 8 x 13 pairs a
 // thread need 21 float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to
 // 255 registers, hence 128 threads and two blocks an SM; 16 features a
-// stage, four stages.  Narrow (pairwise only): 16 columns or fewer
-// (predict's k medoids, or the few x rows of a d_near or leader row with
-// the operands swapped).
+// stage, four stages.  Narrow (pairwise, top2): 16 columns or fewer
+// (predict's and the default fit's k medoids, or the few x rows of a
+// d_near or leader row with the operands swapped).
 using WideTile = Mainloop<16, 8, 8, 13, 16, 4, 2>;
 using NarrowTile = Mainloop<32, 4, 2, 4, 32, 4, 4>;
 

@@ -3,20 +3,25 @@
 // abs-sum or a squared norm, the epilogue that turns them into a
 // dissimilarity, and one column of the BUILD statistics.
 //
-// The bit contract.  Both distance routines, the shared tile
-// (dist_tile.cuh) and the pipelined mainloop (dist_mainloop.cuh), call
-// these helpers and nothing else for their arithmetic, so a (row, column)
-// pair gets the same bits from either:
+// The bit contract.  The one distance routine, the pipelined mainloop
+// (dist_mainloop.cuh), calls these helpers and nothing else for its
+// arithmetic, in every tile shape, so a (row, column) pair gets the same
+// bits from every kernel:
 //   l2, l2sq, cosine: the dot product is one fmaf chain over features
 //     0, 1, ..., d-1 from 0; each row norm is the same chain of squares;
 //   l1: one chain of += |a - b| in feature order;
 //   zero-padded features and edges add exact zeros (no chain is ever -0);
 //   the epilogue is the JAX clamp: max((xx + yy) - 2 dot, 0), then sqrt
 //   for l2; 1 - dot rsqrt(max(xx, 1e-30)) rsqrt(max(yy, 1e-30)) for cosine.
-// Keep the expressions as they are: nvcc contracts `nrm + v * v` (and may
-// contract the epilogue) the same way at every call site of one helper.
-// No split of the feature sum, no reassociation, no tensor cores: the
-// accept rule's float32 margins rest on these bits.
+// In a distance, every product that meets an add has its rounding
+// spelled out (fmaf, __fmul_rn, __fmaf_rn): nvcc fused the cosine epilogue's product and
+// subtraction at some unrolled call sites and not at others (two of
+// top2's tiles), which gave one pair two sets of bits.  The fused forms
+// here are the ones every kernel computed before.  The l2 epilogue needs
+// none (2 v is exact), and written as fmaf it cost pairwise's wide tile
+// 14 registers, spills and 2 % of its time.  No split of the feature
+// sum, no reassociation, no tensor cores: the accept rule's float32
+// margins rest on these bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,7 +41,7 @@ __device__ __forceinline__ float dist_step(float acc, float a, float b) {
 
 // Feature step of a row's squared norm.
 __device__ __forceinline__ float norm_step(float nrm, float v) {
-  return nrm + v * v;
+  return fmaf(v, v, nrm);
 }
 
 // The dissimilarity from a finished chain and the two rows' norms (xx of
@@ -45,10 +50,12 @@ template <int M>
 __device__ __forceinline__ float dist_epilogue(float acc, float xx, float yy) {
   float v = acc;
   if (M == L2 || M == L2SQ) {
+    // 2 v is exact, so fused or not this is round((xx + yy) - 2 v).
     v = fmaxf((xx + yy) - 2.f * v, 0.f);
     if (M == L2) v = sqrtf(v);
   } else if (M == COSINE) {
-    v = 1.f - v * rsqrtf(fmaxf(xx, 1e-30f)) * rsqrtf(fmaxf(yy, 1e-30f));
+    v = __fmaf_rn(-__fmul_rn(v, rsqrtf(fmaxf(xx, 1e-30f))),
+                  rsqrtf(fmaxf(yy, 1e-30f)), 1.f);
   }
   return v;
 }

@@ -9,7 +9,8 @@
 // latency-bound.
 //
 // Design: the pipelined, register-blocked mainloop of dist_mainloop.cuh,
-// which keeps dist_tile's bits, in one of three shapes chosen by rt_pairwise:
+// whose bits are dist_math.cuh's, in one of three shapes chosen by
+// rt_pairwise:
 // * r > 16 and m > 16: the wide tile, 128 rows x 104 columns a block (a
 //   whole B = 100 batch, so x is staged once per round);
 // * r <= 16 (predict): the narrow tile, 64 rows x 16 columns;

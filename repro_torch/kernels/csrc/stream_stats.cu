@@ -25,7 +25,7 @@
 //
 // Design: build_g.cu with the reference walk as an outer loop.  One block per 128-row tile of x runs the pipelined, register-blocked
 // mainloop of dist_mainloop.cuh (WideTile, the pairs' bits are
-// dist_tile's) over each 512-column reference tile in 104-column tiles;
+// dist_math.cuh's) over each 512-column reference tile in 104-column tiles;
 // the fifth is clipped to the tile's last 96 columns (rows of y past the
 // reference tile are zero-filled, not read), so no column tile straddles
 // two reference tiles.  The finished [128, 104] tile goes to shared

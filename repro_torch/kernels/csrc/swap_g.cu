@@ -30,7 +30,7 @@
 //
 // Design.  One block per 128-row tile of x runs the pipelined,
 // register-blocked mainloop of dist_mainloop.cuh (WideTile: 128 rows x
-// 104 columns, 128 threads, dist_tile's bits for every pair) over each
+// 104 columns, 128 threads, dist_math.cuh's bits for every pair) over each
 // reference tile in 104-column tiles, the last clipped to the reference
 // tile (rows of y past it are zero-filled, not read; 104 = 0 mod 4, so a
 // column's residue in its tile is its global one).  The finished

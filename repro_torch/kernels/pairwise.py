@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``src/repro/kernels/pairwise.py:74``
 (``pairwise_kernel``, body ``dist_tile`` at ``:34``) with the CUDA kernel
 ``csrc/pairwise.cu`` over the pipelined, register-blocked mainloop
-``csrc/dist_mainloop.cuh``, which gives every pair the bits of the shared
-tile ``csrc/dist_tile.cuh`` that the other kernels still run.  On the
+``csrc/dist_mainloop.cuh``, which gives every pair the bits of
+``csrc/dist_math.cuh`` that every distance kernel shares.  On the
 H100 it is memory-bound at the predict shapes (queries against k medoid
 columns: x is read once, the [m, k] block written once) and
 compute-bound once r is large; the design (a 128 x 104 tile of 8 x 13

@@ -3,12 +3,18 @@
 * ``top2`` replaces the TPU kernel ``src/repro/kernels/stream_g.py:165``
   (``stream_top2_kernel``) with the CUDA kernel ``csrc/stream_g.cu``.  In
   the port it carries the SWAP loop's medoid cache and candidate loss and
-  the fit's labels as well as assignment.  On the H100 it is
-  memory-bound (n=60000, k=10, d=784: 0.94 GFLOP against 188 MB of x,
-  about 56 us); the design stages the k medoid rows through shared
-  memory in a narrow [128, 16] tile and scans each row's columns in
-  index order, so the first-index tie rule holds and the [n, k] block
-  never reaches device memory.
+  the fit's labels as well as assignment, for any k >= 1.  On the H100
+  it is memory-bound at the default k (n=60000, k=10, d=784: 0.94 GFLOP
+  against 188 MB of x, about 56 us) and compute-bound from k of about
+  40 (k=200: 0.28 ms).  The design runs the distance mainloop
+  (``csrc/dist_mainloop.cuh``) in a tile chosen by k (64 x 16 up to 16
+  medoids; beyond, 128 rows by 40, 72 or 104 columns, whichever walk of
+  column tiles is shortest, in index order with x's rows fixed); each
+  thread scans its columns in
+  index order and the threads of a row merge their (best, index,
+  second) triples lexicographically, which is the sequential scan's
+  answer, so the first-index tie rule holds and the [n, k] block never
+  reaches device memory.
 * ``stream_build_g`` and ``stream_swap_g`` replace the TPU kernels
   ``src/repro/kernels/stream_g.py:65`` (``stream_build_g_kernel``) and
   ``:115`` (``stream_swap_g_kernel``) with the CUDA kernels of

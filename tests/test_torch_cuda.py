@@ -111,13 +111,15 @@ def test_build_g_equals_stream_build_g_bits(cuda, metric, b, d):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("k", [10, 40, 65, 200])
 def test_pairwise_row_minima_equal_top2_bits(cuda, metric, k):
-    """The pairwise kernel (the pipelined mainloop) and the top-2 kernel
-    (dist_tile) compute each distance with the same bits, so a row's two
-    smallest pairwise entries are top-2's d1 and d2."""
+    """The pairwise kernel and the top-2 kernel run the same mainloop
+    chains (dist_math.cuh) in different tile shapes, so each distance has
+    the same bits and a row's two smallest pairwise entries are top-2's
+    d1 and d2 (k = 10, 40, 65, 200 cover top-2's four tiles)."""
     x = _x(3000, 784, 21, cuda)
-    med = x[torch.arange(0, 71 * k, 71, device=cuda)].contiguous()
+    step = min(71, 3000 // k)
+    med = x[torch.arange(0, step * k, step, device=cuda)].contiguous()
     dd = ops.pairwise_distance(x, med, metric)
     two = torch.topk(dd, 2, dim=1, largest=False).values
     d1, d2, _ = ops.stream_top2(x, med, metric=metric)
@@ -251,16 +253,25 @@ def test_swap_g_kernel_past_64_medoids_matches_plain(cuda, metric):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("k", [1, 5, 17])
-def test_top2_kernel_matches_plain(cuda, metric, k):
-    n, d = 2000, 48
+@pytest.mark.parametrize("k", [1, 5, 17, 40, 65, 200])
+@pytest.mark.parametrize("d", [48, 47])
+def test_top2_kernel_matches_plain(cuda, metric, k, d):
+    """Every top-2 tile (16, 40, 72 and 104 columns at k = 1 and 5, 17
+    and 40, 65, 200) and several column tiles (k = 200); d = 47 takes the
+    4-byte copies."""
+    n = max(2000, 17 * k)
     x = _x(n, d, 4, cuda)
     med = x[torch.arange(0, 17 * k, 17, device=cuda)].contiguous()
     if k > 1:
         med[-1] = med[0]                     # duplicate rows: d2 == d1
     got = ops.stream_top2(x, med, metric=metric)
     want = stream_g.top2_torch(x, med, metric)
-    dmax = float(want[0].max())
+    # The error scale is max|d| (module docstring).  With few medoids the
+    # largest d1 stands in for it; past 17 the largest d1 shrinks (at
+    # k = 200 it is far below the norms and the cosine similarities that
+    # set the float32 noise), so those cases take max|d| of the block.
+    dmax = float(want[0].max() if k <= 17 else
+                 pairwise.pairwise_torch(x, med, metric=metric).max())
     tol = _dtol(metric, dmax, d)
     _close(got[0], want[0], tol)
     _close(got[1], want[1], tol)
@@ -269,6 +280,34 @@ def test_top2_kernel_matches_plain(cuda, metric, k):
     if k > 1:
         on0 = got[2] == 0
         assert torch.equal(got[1][on0], got[0][on0])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k,dups", [(200, (5, 16, 103, 104, 150)),
+                                    (65, (4, 5, 16, 64)),
+                                    (40, (5, 16, 39)),
+                                    (16, (4, 5, 15))])
+def test_top2_duplicate_medoids_first_index_bits(cuda, metric, k, dups):
+    """Copies of medoid 0 where the merge is tested, one tile shape each:
+    in one thread's own columns (16, and 64 at k = 65; 4 at k = 16),
+    across the threads of a row (5, 15, 39), and across the 104-column
+    tiles of k = 200 (103 | 104, 150).  assign is the first index attaining d1,
+    bit for bit pairwise's first argmin, and d2 == d1 where it is 0."""
+    n, d = 3000, 96
+    x = _x(n, d, 23, cuda)
+    step = n // k
+    med = x[torch.arange(0, step * k, step, device=cuda)].contiguous()
+    for j in dups:
+        med[j] = med[0]
+    d1, d2, a = ops.stream_top2(x, med, metric=metric)
+    dd = ops.pairwise_distance(x, med, metric)
+    assert torch.equal(d1, dd.min(dim=1).values)
+    assert torch.equal(a, torch.argmin(dd, dim=1).to(torch.int32))
+    on0 = a == 0
+    assert bool(on0.any())
+    assert torch.equal(d2[on0], d1[on0])
+    for j in dups:
+        assert not bool((a == j).any())
 
 
 def test_cuda_tensor_never_falls_back(cuda):

@@ -144,6 +144,27 @@ def test_top2_plain_matches_jax_kernel(metric, k):
     np.testing.assert_array_equal(got[2], oa.numpy())
 
 
+@pytest.mark.parametrize("metric", METRICS)
+def test_top2_plain_matches_jax_kernel_past_one_lane_pad(metric):
+    """k = 130: the JAX kernel pads the medoids to 256 lanes and masks
+    126 of them; two copies of one row sit at columns 0 and 129, on either
+    side of the first 128 lanes, near data row 0 (not on it: an l2
+    distance of 0 would be sqrt's cancellation noise)."""
+    x, med = _data(300, 130, 33, seed=11)
+    med[0] = med[129] = x[0] + 0.1 * med[0]
+    got = [t.numpy() for t in ops.stream_top2(_t(x), _t(med), metric=metric)]
+    want = [np.asarray(t) for t in jops.stream_top2(
+        jnp.asarray(x), jnp.asarray(med), metric=metric, interpret=True)]
+    atol = 1e-5 * float(np.abs(want[1]).max())
+    _close(got[0], want[0], atol)
+    _close(got[1], want[1], atol)
+    np.testing.assert_array_equal(got[2], want[2])
+    assert not (got[2] == 129).any()
+    tie = got[2] == 0
+    assert tie[0]
+    np.testing.assert_array_equal(got[1][tie], got[0][tie])
+
+
 def test_top2_single_medoid_has_infinite_runner_up():
     x, med = _data(40, 1, 8, seed=2)
     d1, d2, a = ops.stream_top2(_t(x), _t(med), metric="l2")
