@@ -20,7 +20,9 @@ and ``rt_stream_swap_g`` at r = 6,000, k = 64 too; ``rt_swap_g_from_cache``
 at a PIC round's [60,000 x 100] block and over a full [60,000 x 60,000]
 ring with 5 % of the weights set, the carried-moment repair; ``rt_top2``
 at n = 60,000 and k = 1, 10, 17, 40, 65 and 200, at predict's
-[10,000 x 10] and at d = 783, which takes the 4-byte copies).  Each
+[10,000 x 10] and at d = 783, which takes the 4-byte copies).  A
+checkout whose ``rt_build_g`` and ``rt_swap_g`` take the run flag gets
+it at 1 (a device int), as the device-resident fit passes it.  Each
 case is timed base, change, change, base (CUDA events, ``--reps``
 launches after 3 warm-up launches each; fewer after one for the
 streaming cases at r = 6,000 and, 2, at r = 60,000, the full exact
@@ -80,6 +82,17 @@ def cases(torch, X, reps, only=(), metric_id=0):
     every distance in the metric ``metric_id``."""
     p = lambda t: t.data_ptr()
     gen = torch.Generator(device="cpu").manual_seed(0)
+    flag = torch.ones(1, dtype=torch.int32, device=X.device)
+
+    def flagged(fn, *args):
+        """Call a round kernel with the run flag at 1 before the stream,
+        as the device-resident fit passes it, where the checkout's kernel
+        takes one; a base from before the flag gets none (kept while such
+        bases are compared)."""
+        if len(fn.argtypes) == len(args) + 1:
+            args = args[:-1] + (p(flag), args[-1])
+        return fn(*args)
+
     n_fit = 60000
     x = X[:n_fit]
     q = X[n_fit:n_fit + 10000]
@@ -110,9 +123,9 @@ def cases(torch, X, reps, only=(), metric_id=0):
             return [torch.empty(n_fit, device=X.device) for _ in range(3)]
 
         def call(lib, o, st):
-            return lib.rt_build_g(p(x), p(y), p(dn), p(w), p(lg), p(o[0]),
-                                  p(o[1]), p(o[2]), n_fit, b, d, metric_id,
-                                  st)
+            return flagged(lib.rt_build_g, p(x), p(y), p(dn), p(w), p(lg),
+                           p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, metric_id,
+                           st)
         return make, call
 
     def swap_g(b, k):
@@ -131,9 +144,9 @@ def cases(torch, X, reps, only=(), metric_id=0):
                     for _ in range(3)]
 
         def call(lib, o, st):
-            return lib.rt_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w), p(lg),
-                                 p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, k,
-                                 metric_id, st)
+            return flagged(lib.rt_swap_g, p(x), p(y), p(d1), p(d2), p(a), p(w),
+                           p(lg), p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, k,
+                           metric_id, st)
         return make, call
 
     def stream_build_g(r):

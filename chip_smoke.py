@@ -37,7 +37,10 @@ Phases, each of which raises (exit code != 0) on any failure:
    65 and 200 (no SWAP kernel caps k).  pairwise is also held to
    its plain version at a PIC round's [60,000 x 100] and the ring fill's
    [60,000 x 3,200], and timed at [60,000 x 100], [1 x 60,000] (a BUILD
-   d_near row) and [1 x 100] (a leader row) beside ``torch.cdist``;
+   d_near row) and [1 x 100] (a leader row) beside ``torch.cdist``.
+   The round kernels' run flag (``run_flag_checks``): build_g and swap_g
+   with the flag at 1 give the bits of no flag (raising), and a masked
+   launch (flag 0) is timed beside a real one;
 4. fit parity on the card: ``backend="cuda"`` against ``backend="torch"``
    on the same draws must give identical medoids, swap history and
    build rounds, and a loss within rtol 1e-5, for the default fit
@@ -60,11 +63,20 @@ Phases, each of which raises (exit code != 0) on any failure:
    repaired points at n each); and the default fit at k = 65 on
    ``N_PARITY`` integer points in 65 blobs (``code_blobs``; the
    replacement fits' allowance; the cuda fit's launch counts are
-   printed);
+   printed); then the two drivers (``driver_parity``): ``backend="cuda"``
+   with ``fused=True`` (device-resident searches) against
+   ``fused=False`` (stepped) for the defaults, the leader, the early stop
+   and the warm block ``cache_cols=1000``, whose reports must be
+   identical, the loss bits included;
 5. the main path at full size: ``KMedoids(k=10, solver="banditpam",
    metric="l2").fit`` on 60,000 MNIST-like points of d=784, then
    ``predict`` on 10,000 more, with every kernel's launch count from that
-   run, which must be >= 1; then the exact paths on the same rows, each
+   run, which must be >= 1, and its host reads by phase; then the same
+   fit with ``fused=False`` (``driver_paths``), counted on its own, whose
+   report must be the main path's, with both drivers' walls, host reads,
+   ledgers and launches, and one ``torch.profiler`` run of each (the
+   device's busy and idle share over the fit, kernel time by name, the
+   unprofiled walls beside them); then the exact paths on the same rows, each
    counted on its own: ``KMedoids(k=10, sampling="replacement",
    baseline="leader").fit`` (every kernel, the two streaming ones
    included, launched >= 1 times) and ``KMedoids(k=10,
@@ -335,8 +347,33 @@ def kernel_checks(torch, X, dev):
             f"tolerance {tol:.3e}, max distance {float(want.max()):.3e})")
         if metric == "l2":
             rows = time_rows(torch, res, q, med, ep)
+            run_flag_checks(torch, res, dev)
             top2_large_k(torch, res["top2"][1], med, dev)
     return rows
+
+
+def run_flag_checks(torch, res, dev):
+    """Phase 3, the round kernels' run flag at the main path's shapes
+    (l2): with the flag at 1, build_g and swap_g give the bits of no flag
+    (equal bits, raising); a masked launch (flag 0, a round enqueued
+    after its search stopped) is timed beside the real one."""
+    from repro_torch.kernels import ops
+    flag = {v: torch.tensor([v], dtype=torch.int32, device=dev)
+            for v in (0, 1)}
+    _, x, y, dn, w, lg = res["build_g/finite"]
+    _, _, _, d1, d2, a, ws, k, lgs = res["swap_g"]
+    calls = {
+        "build_g": lambda run: ops.build_g_stats(x, y, dn, w, lg,
+                                                 metric="l2", run=run),
+        "swap_g": lambda run: ops.swap_g_stats(x, y, d1, d2, a, ws, k, lgs,
+                                               metric="l2", run=run)}
+    for name, call in calls.items():
+        require_equal(f"{name}[l2] run flag 1 == no flag", call(flag[1]),
+                      call(None))
+        real = time_ms(lambda: call(flag[1]))
+        masked = time_ms(lambda: call(flag[0]))
+        log(f"[time] {name:9s} masked launch (flag 0) {masked:.4f} ms  "
+            f"beside the real launch (flag 1) {real:.4f} ms")
 
 
 def top2_large_k(torch, x, med10, dev):
@@ -788,6 +825,51 @@ def fit_parity(torch, X, dev):
              loss_atol=noise)
 
 
+def driver_parity(torch, X, dev):
+    """Phase 4, the two drivers on the card: ``backend="cuda"`` with
+    ``fused=True`` (device-resident searches, masked rounds through the
+    kernels' run flag) against ``fused=False`` (one read a round), on the
+    same draws, for the defaults, the leader, the early stop and the warm
+    block ``cache_cols=1000``.  The reports must be identical (raising):
+    medoids, swap history with its losses, build rounds, ledger,
+    fallbacks, swaps, convergence and the loss bits."""
+    import numpy as np
+    from repro_torch.core import BanditPAM, rng
+    n, k = N_PARITY, 5
+    data = X[:n].contiguous()
+    prng = np.random.default_rng(18)
+    perms = (np.stack([prng.permutation(n) for _ in range(k)]),
+             np.stack([prng.permutation(n) for _ in range(4 * k + 10)]),
+             None, None, prng.permutation(n))
+    for kw in ({}, {"baseline": "leader"}, {"swap_early_stop": True},
+               {"cache_cols": 1000}):
+        fits = {}
+        for fused in (True, False):
+            t0 = time.perf_counter()
+            fits[fused] = BanditPAM(k, metric="l2", backend="cuda",
+                                    device=dev, fused=fused, **kw).fit(
+                data, layouts=rng.from_numpy(*perms))
+            log(f"[driver] {kw} fused={fused!s:5s} medoids "
+                f"{fits[fused].medoids.tolist()} rounds "
+                f"{fits[fused].build_rounds} evals "
+                f"{fits[fused].evals_by_phase} host reads "
+                f"{fits[fused].host_reads_by_phase} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        same_report(fits[True], fits[False], f"fused vs stepped {kw}")
+
+
+def same_report(a, b, what):
+    """Raise unless two fit reports are identical, the loss bits
+    included."""
+    fields = ("swap_history", "build_rounds", "evals_by_phase",
+              "swap_exact_fallbacks", "n_swaps", "converged", "loss")
+    same = a.medoids.tolist() == b.medoids.tolist() and all(
+        getattr(a, f) == getattr(b, f) for f in fields)
+    log(f"[driver] {what}: identical reports: {same}")
+    if not same:
+        raise AssertionError(f"{what}: the reports differ")
+
+
 def same_fit(a, b, what, ledger_slack, loss_atol=0.0):
     """Raise unless two fits agree: medoids, swap history, build rounds,
     fallbacks, swaps and convergence equal, each phase's ledger within
@@ -832,7 +914,8 @@ def main_path(torch, X, dev, Xnp):
     log(f"[main] loss {r.loss!r} n_swaps {r.n_swaps} converged {r.converged}")
     log(f"[main] evals_by_phase {r.evals_by_phase} build_rounds {r.build_rounds}")
     log(f"[main] wall_by_phase {r.wall_by_phase} fit {fit_s:.3f} s "
-        f"(data upload included)")
+        f"(data upload included); host_reads_by_phase "
+        f"{r.host_reads_by_phase}")
     log(f"[main] predict {N_QUERY} rows {predict_ms:.3f} ms; peak device memory "
         f"{peak} bytes")
     log(f"[main] kernel launches {counts}")
@@ -858,6 +941,118 @@ def main_path(torch, X, dev, Xnp):
     log(f"[main] predict labels == plain argmin on {int(clear.sum())} of "
         f"{N_QUERY} rows (the rest are near-ties)")
     return counts, r
+
+
+def driver_paths(torch, X, Xnp, fused_fit, fused_counts):
+    """Phase 5, the default fit's two drivers at full size.  The stepped
+    fit (``fused=False``), counted from 0, must give the main path's
+    fused report (identical, raising); both print wall by phase, host
+    reads, ledger and launches (the fused fit's include predict's and
+    its masked rounds: fused minus stepped).  Then one ``torch.profiler``
+    run of each driver's fit (CPU and CUDA activities, the data already
+    on the card) gives the device's busy and idle share over the fit's
+    wall and the kernel time by name, with the unprofiled walls beside
+    them."""
+    from repro_torch.api import KMedoids
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    est = KMedoids(k=10, solver="banditpam", metric="l2", seed=0,
+                   fused=False).fit(Xnp[:N_FIT])
+    counts = ops.launch_counts()
+    stepped = est.report_
+    same_report(fused_fit, stepped, "default fit at full size, fused vs "
+                "stepped")
+    for name, rep, c in (("fused", fused_fit, fused_counts),
+                         ("stepped", stepped, counts)):
+        log(f"[driver] {name}: wall_by_phase {rep.wall_by_phase} "
+            f"host_reads_by_phase {rep.host_reads_by_phase} evals_by_phase "
+            f"{rep.evals_by_phase} launches {c}")
+    log("[driver] masked launches of the fused fit (fused - stepped): "
+        + ", ".join(f"{nm} {fused_counts[nm] - counts[nm]}"
+                    for nm in ("build_g", "swap_g")))
+    for name, rep in (("fused", fused_fit), ("stepped", stepped)):
+        profile_fit(torch, X[:N_FIT].contiguous(), name == "fused", name,
+                    rep)
+
+
+def profile_fit(torch, data, fused, name, unprofiled):
+    """One fit of the default configuration under ``torch.profiler``:
+    the union of the device's activity intervals (kernels, copies,
+    memsets) over the fit's host wall is its busy share, the rest its idle
+    share; the device time by kernel name follows, longest first, then
+    the host's self time by operator.  The tables are read from the
+    profiler's raw events (its ``key_averages`` takes minutes over the
+    million events of a fit)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import KMedoids
+    est = KMedoids(k=10, solver="banditpam", metric="l2", seed=0,
+                   fused=fused)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.fit(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ivs, by_name, host = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        start, end = e.start_ns(), e.end_ns()
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            host.append((e.start_thread_id(), start, -end, e.name()))
+            continue
+        # A range of the host's annotations mirrored on the device
+        # timeline is no device activity.
+        if getattr(e, "is_user_annotation", lambda: False)():
+            continue
+        ivs.append((start, end))
+        cnt, tot = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (cnt + 1, tot + end - start)
+    busy, last = 0, None
+    for a, b in sorted(ivs):
+        if last is None or a > last:
+            busy += b - a
+            last = b
+        elif b > last:
+            busy += b - last
+            last = b
+    r = est.report_
+    log(f"[profile] {name}: fit wall {wall:.3f} s under the profiler "
+        f"(wall_by_phase {r.wall_by_phase}; unprofiled "
+        f"{unprofiled.wall_by_phase})"
+        f"; {len(ivs)} device activities")
+    if not ivs:
+        raise AssertionError(f"{name}: the profiler recorded no device "
+                             "activity")
+    log(f"[profile] {name}: device busy {busy / 1e9:.3f} s, busy share "
+        f"{busy / 1e9 / wall:.4f}, idle share {1 - busy / 1e9 / wall:.4f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for nm, (cnt, tot) in top:
+        log(f"[profile] {name}:   {tot / 1e6:10.3f} ms  {cnt:7d} x  "
+            f"{nm[:90]}")
+    # Host time by operator, self (less the operators and runtime calls
+    # nested in it on its thread).
+    own, stack = {}, []
+    for tid, a, neg_b, nm in sorted(host):
+        while stack and (stack[-1][0] != tid or stack[-1][1] <= a):
+            stack.pop()
+        if stack:
+            parent = stack[-1][2]
+            own[parent][1] -= -neg_b - a
+        ent = own.setdefault(nm, [0, 0])
+        ent[0] += 1
+        ent[1] += -neg_b - a
+        stack.append((tid, -neg_b, nm))
+    host_s = sum(v[1] for v in own.values()) / 1e9
+    log(f"[profile] {name}: host time by operator, self ({host_s:.3f} s "
+        f"in all), longest first:")
+    for nm, (cnt, tot) in sorted(own.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"[profile] {name}:   {tot / 1e6:10.3f} ms  {cnt:7d} x  "
+            f"{tot / 1e3 / cnt:7.2f} us  {nm[:60]}")
+    log(f"[profile] {name}: same report as unprofiled: "
+        f"{r.evals_by_phase == unprofiled.evals_by_phase}; trace read in "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 def exact_paths(torch, X, dev, Xnp, perm_fit):
@@ -1024,7 +1219,9 @@ def main() -> int:
     rows = (kernel_checks(torch, X, dev) + stream_checks(torch, X, dev)
             + cached_checks(torch, X, dev))
     fit_parity(torch, X, dev)
+    driver_parity(torch, X, dev)
     counts, perm_fit = main_path(torch, X, dev, Xnp)
+    driver_paths(torch, X, Xnp, perm_fit, counts)
     counts_exact, pam_fit = exact_paths(torch, X, dev, Xnp, perm_fit)
     counts_pic = pic_paths(torch, X, dev, Xnp, pam_fit)
     # Each kernel's launches come from one run of its own path: the

@@ -38,9 +38,35 @@ and two options beyond the paper:
 
 Every arm quantity stays in float32 on the data's device, and every
 division is tensor by tensor, so the card's and the CPU's arithmetic is
-the JAX package's.  The loop runs on the host with one device read per
-round, which carries the survivor count, the early-stop verdict and, in
-round 1 of a leader search, the pilot leader.
+the JAX package's.
+
+One round is one function (``_Search.round``) that two loops share:
+
+* the stepped loop (``resident=False``) reads the round's verdict back
+  after every round (one ``engine.host_read`` of the "still running"
+  flag and the survivor count), as the JAX package's ``fused=False``
+  driver does;
+* the device-resident loop (``resident=True``, the counterpart of the
+  JAX package's device-side while loop) enqueues rounds without a read.
+  Every state update of a round is masked by a device flag
+  ``running = (#survivors > 1) ∧ verdict`` (the tallies add
+  ``cost·running``, the kills are ``kill ∧ running``, the moments and
+  the leader are selected) and the stats kernels take the flag too, so a round enqueued after the stop changes nothing: not
+  the moments, not the ledger, not the leader, not the round count.
+  The host reads ``running`` once every ``ROUNDS_PER_READ`` rounds and
+  stops enqueueing once it reads 0; the result stays on the device
+  (:class:`DeviceResult`) for the caller to read with its own.  The
+  permutation schedule is static, so each round's slice, its effective
+  size, the σ round and the cache-served split are host ints known when
+  the round is enqueued.
+
+In both loops the leader is a 0-d device index from the pilot round on.
+
+Both loops run the same arithmetic on the same values, so they return
+the same result bit for bit.  Replacement sampling (its draws come from
+one generator in round order, so a round enqueued past the stop would
+use up draws) and the PIC searches (their ring state is host ints) keep
+the stepped loop; ROADMAP A18b.
 
 Cache-seeded searches (BanditPAM++ and the paper's App 2.2 warm block),
 permutation sampling over a FIXED permutation shared by every search:
@@ -59,12 +85,12 @@ permutation sampling over a FIXED permutation shared by every search:
   ring), handed to ``stats_fn`` with the round index; being host state,
   the ring is updated in place.
 
-``SearchResult`` returns the final ``sums`` / ``sqsums`` for the next
-search's carry.  ``n_evals`` and ``n_evals_cached`` are tallied in int64
-on the device.  The JAX package keeps them in uint32, which wraps past
-2**32 evaluations in one search at large n (a SWAP fallback alone adds
-up to ``n·n``, a cache-served search up to ``n·n`` cached reads, at
-n = 60,000); the port's do not.
+``SearchResult`` (and :class:`DeviceResult`) return the final ``sums``
+/ ``sqsums`` for the next search's carry.  ``n_evals`` and
+``n_evals_cached`` are tallied in int64 on the device.  The JAX package
+keeps them in uint32, which wraps past 2**32 evaluations in one search
+at large n (a SWAP fallback alone adds up to ``n·n``, a cache-served
+search up to ``n·n`` cached reads, at n = 60,000); the port's do not.
 """
 
 from __future__ import annotations
@@ -72,6 +98,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from .engine import host_read
 
 # Per-arm sub-Gaussianity floor: keeps CIs finite for degenerate arms whose
 # first-batch returns are constant (e.g. duplicated points).
@@ -81,6 +109,11 @@ SIGMA_FLOOR = 1e-8
 # clear this fraction of the arm's RAW confidence width, so that last-bit
 # differences between stats backends cannot decide kills.
 LEAD_TIE_REL = 1e-2
+
+# Rounds the device-resident loop enqueues between two reads of its
+# "still running" flag.  A masked round costs a launch per kernel, a read
+# a round trip to the host.
+ROUNDS_PER_READ = 32
 
 StatsFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 CountFn = Callable[[torch.Tensor], torch.Tensor]
@@ -97,6 +130,29 @@ class SearchResult(NamedTuple):
     n_evals_cached: int = 0                 # evaluations served by a cache
     sums: Optional[torch.Tensor] = None     # [arms] final Σg (prefix)
     sqsums: Optional[torch.Tensor] = None   # [arms] final Σg² (prefix)
+
+
+class DeviceResult(NamedTuple):
+    """A search's result as it stands on the device: 0-d int64 tensors
+    but ``used_exact``, which the host knows."""
+    best: torch.Tensor
+    n_evals: torch.Tensor
+    rounds: torch.Tensor
+    n_survivors: torch.Tensor
+    used_exact: bool
+    n_evals_cached: torch.Tensor
+    sums: torch.Tensor
+    sqsums: torch.Tensor
+
+    def read(self, report=None, phase: str = "search") -> SearchResult:
+        """The result on the host, in one ``engine.host_read``."""
+        best, n_evals, rounds, n_surv, n_cached = host_read(
+            [self.best, self.n_evals, self.rounds, self.n_survivors,
+             self.n_evals_cached], report, phase)
+        return SearchResult(best=best, n_evals=n_evals, rounds=rounds,
+                            n_survivors=n_surv, used_exact=self.used_exact,
+                            n_evals_cached=n_cached, sums=self.sums,
+                            sqsums=self.sqsums)
 
 
 def log_term_f32(delta: float, device) -> torch.Tensor:
@@ -121,33 +177,247 @@ def tile_perm(perm: torch.Tensor, n_ref: int, batch_size: int
     return perm_idx, perm_w
 
 
-def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
-                    batch_size: int, log_term: torch.Tensor,
-                    active_init: torch.Tensor,
-                    perm: Optional[torch.Tensor] = None,
-                    draw: Optional[DrawFn] = None,
-                    exact_fn: Optional[ExactFn] = None,
-                    count_fn: CountFn = default_count,
-                    baseline: str = "none",
-                    stop_when_positive: bool = False,
-                    free_rounds: int = 0, free_lo: int = 0,
-                    init_sums: Optional[torch.Tensor] = None,
-                    init_sqsums: Optional[torch.Tensor] = None,
-                    init_rounds: int = 0, aux: Any = None) -> SearchResult:
+class _Search:
+    """One search's state on the device, and its round.
+
+    The state is the per-arm moments (``sums``, ``sqsums``, ``sigma``), the
+    survivor mask ``active``, the leader state, the int64 tallies,
+    ``done`` (rounds run) and ``n_active`` (survivors, kept up to date by
+    the stepped loop, which reads it), and the 0-d bool ``running``.
+    ``n_used`` (the samples drawn once the rounds enqueued so far have
+    run) is a host int that follows the static schedule.  So do the
+    round's scalars: the
+    samples after round r, ``n_new_f[r]``, and the confidence factors
+    ``root[r] = sqrt(log(1/δ)/n_new_f[r])`` and ``fpc[r]`` (the
+    finite-population factor) are tables made once per search, read by
+    round index without a launch.
+    """
+
+    def __init__(self, *, n_arms, n_ref, batch_size, log_term, active_init,
+                 perm, draw, count_fn, baseline, stop_when_positive,
+                 free_rounds, free_lo, init_sums, init_sqsums, init_rounds,
+                 resident):
+        dev = active_init.device
+        self.dev = dev
+        self.n_ref = n_ref
+        self.B = B = int(batch_size)
+        self.log_term = log_term
+        self.count_fn = count_fn
+        self.draw = draw
+        self.use_lead = baseline == "leader"
+        self.stop_when_positive = stop_when_positive
+        self.free = (free_lo, free_rounds)
+        self.resident = resident
+        f32 = dict(dtype=torch.float32, device=dev)
+        n_new = torch.arange(1, -(-n_ref // B) + 1, device=dev) * B
+        if perm is not None:
+            self.perm_idx, self.perm_w = tile_perm(perm, n_ref, B)
+            n_new = torch.clamp_max(n_new, n_ref)
+        else:
+            self.perm_idx = None
+            self.ones = torch.ones((B,), **f32)
+        self.n_new_f = n_new.to(torch.float32)
+        self.root = torch.sqrt(log_term / self.n_new_f)
+        if perm is not None:
+            n_eff_f = self.scalar(n_ref)
+            self.fpc = torch.sqrt(torch.clamp_min(
+                1.0 - self.n_new_f / n_eff_f, 0.0))
+        self.active = active_init.clone()
+        self.n_evals = torch.zeros((), dtype=torch.int64, device=dev)
+        self.n_cached = torch.zeros_like(self.n_evals)
+        self.done = torch.zeros_like(self.n_evals)
+        self.r0 = int(init_rounds) if init_sums is not None else 0
+        # Σ perm_w over the carried prefix, for the cyclic tiling.
+        self.n_used = min(self.r0 * B, n_ref)
+        if self.use_lead:
+            self.arms = torch.arange(n_arms, device=dev)
+            self.lead = torch.zeros((), dtype=torch.int64, device=dev)
+            self.d_sums = torch.zeros((n_arms,), **f32)
+            self.sigma_d = torch.full((n_arms,), float("inf"), **f32)
+            # Samples since the pilot round r0, after each round, and the
+            # differenced confidence factor.
+            post = n_new - n_new[min(self.r0, n_new.numel() - 1)]
+            self.post_f = post.to(torch.float32)
+            self.root_d = torch.sqrt(log_term / self.post_f)
+        if init_sums is None:
+            self.sums = torch.zeros((n_arms,), **f32)
+            self.sqsums = torch.zeros((n_arms,), **f32)
+            self.sigma = torch.full((n_arms,), float("inf"), **f32)
+        else:
+            # σ from the carried moments (every arm has n_used samples).
+            self.sums, self.sqsums = init_sums, init_sqsums
+            n0_f = self.scalar(max(self.n_used, 1))
+            mu0 = self.sums / n0_f
+            self.sigma = torch.sqrt(torch.clamp_min(
+                self.sqsums / n0_f - mu0 * mu0, 0.0)) + SIGMA_FLOOR
+        self.n_active = torch.sum(self.active, dtype=torch.int64)
+        self.running = self.n_active > 1
+        if stop_when_positive and init_sums is not None:
+            n0_f = self.scalar(max(self.n_used, 1))
+            self.running = self.running & _may_improve(
+                self.sums, self.sigma, self.active, n0_f,
+                torch.sqrt(log_term / n0_f))
+
+    def scalar(self, v: float) -> torch.Tensor:
+        return torch.full((), float(v), dtype=torch.float32,
+                          device=self.dev)   # on-device fill, no copy
+
+    def round(self, rnd: int, stats_fn: StatsFn, aux: Any, lead) -> bool:
+        """Round ``rnd``: its batch statistics from ``stats_fn`` (given
+        the leader ``lead``, None before the pilot round), then the state
+        update, selected by ``running`` in the device-resident loop.
+        Returns whether this was a leader search's pilot round."""
+        B = self.B
+        if self.perm_idx is not None:
+            lo = rnd * B
+            ref_idx = self.perm_idx[lo:lo + B]
+            w = self.perm_w[lo:lo + B]
+            b_eff = min(B, self.n_ref - lo)
+        else:
+            ref_idx, w, b_eff = self.draw(rnd), self.ones, B
+        kw = {}
+        if self.resident:
+            kw["run"] = self.running.to(torch.int32).reshape(1)
+        if aux is None:
+            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead, **kw)
+        else:
+            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead, rnd, aux,
+                                             **kw)
+
+        # ---- raw statistics (paper) ----
+        new = {"sums": self.sums + sums_b, "sqsums": self.sqsums + sq_b}
+        n_new_f = self.n_new_f[rnd]
+        mu_hat = new["sums"] / n_new_f
+        sigma = self.sigma
+        if self.n_used == 0:                                      # Eq. 11
+            b_eff_f = self.scalar(b_eff)
+            batch_mean = sums_b / b_eff_f
+            batch_var = torch.clamp_min(
+                sq_b / b_eff_f - batch_mean * batch_mean, 0.0)
+            new["sigma"] = sigma = torch.sqrt(batch_var) + SIGMA_FLOOR
+        ci = sigma * self.root[rnd]
+        if self.perm_idx is not None:
+            ci = ci * self.fpc[rnd]
+        active = self.active
+        ucb = torch.where(active, mu_hat + ci, float("inf"))
+        lcb = mu_hat - ci
+        kill = lcb > torch.min(ucb)
+
+        # ---- differenced statistics vs the pilot leader ----
+        pilot = self.use_lead and rnd == self.r0
+        if pilot:
+            new["lead"] = torch.argmin(torch.where(active, mu_hat,
+                                                   float("inf")))
+        elif self.use_lead:
+            li = self.lead.reshape(1)
+            d_b = sums_b - sums_b.index_select(0, li)
+            dsq_b = sq_b - 2.0 * cross_b + sq_b.index_select(0, li)
+            new["d_sums"] = d_sums = self.d_sums + d_b
+            sigma_d = self.sigma_d
+            if rnd == self.r0 + 1:
+                b_eff_f = self.scalar(b_eff)
+                d_mean = d_b / b_eff_f
+                new["sigma_d"] = sigma_d = torch.sqrt(torch.clamp_min(
+                    dsq_b / b_eff_f - d_mean * d_mean, 0.0)) + SIGMA_FLOOR
+            mu_d = d_sums / self.post_f[rnd]
+            root = self.root_d[rnd]
+            ci_d = sigma_d * root
+            ucb_d = torch.where(active, mu_d + ci_d, float("inf"))
+            eps_d = LEAD_TIE_REL * sigma * root
+            kill_d = (mu_d - ci_d) > torch.min(ucb_d) + eps_d
+            kill = kill | (kill_d & (self.arms != self.lead))
+
+        cost = self.count_fn(active) * b_eff
+        if self.resident:
+            # A round enqueued after the stop counts nothing, kills
+            # nothing, and keeps the moments and the leader as they were.
+            on = self.running
+            cost, kill = cost * on, kill & on
+            new = {k: torch.where(on, v, getattr(self, k))
+                   for k, v in new.items()}
+        lo_free, hi_free = self.free
+        if lo_free <= rnd < hi_free:
+            self.n_cached = self.n_cached + cost
+        else:
+            self.n_evals = self.n_evals + cost
+        self.active = active & ~kill
+        self.n_used += b_eff
+        n_active = torch.sum(self.active, dtype=torch.int64)
+        going = n_active > 1
+        if self.stop_when_positive:
+            going = going & _may_improve(new["sums"], sigma, self.active,
+                                         n_new_f, self.root[rnd])
+        if self.resident:
+            self.done = self.done + on
+            going = going & on
+        else:
+            self.done = self.done + 1
+            self.n_active = n_active
+        for k, v in new.items():
+            setattr(self, k, v)
+        self.running = going
+        return pilot
+
+    def result(self, exact_fn, used_exact: bool) -> "DeviceResult":
+        """The pick: the FIRST index minimising the survivors' means, the
+        exact ones when ``used_exact``."""
+        if used_exact:
+            mu_sel = torch.where(self.active, exact_fn(), float("inf"))
+            self.n_evals = (self.n_evals
+                            + self.count_fn(self.active) * self.n_ref)
+        else:
+            rounds = self.done + self.r0
+            cap = self.n_ref if self.perm_idx is not None else None
+            n_used_f = torch.clamp(rounds * self.B, 1, cap).to(torch.float32)
+            mu_sel = torch.where(self.active, self.sums / n_used_f,
+                                 float("inf"))
+        return DeviceResult(best=torch.argmin(mu_sel), n_evals=self.n_evals,
+                            rounds=self.done + self.r0,
+                            n_survivors=torch.sum(self.active,
+                                                  dtype=torch.int64),
+                            used_exact=used_exact,
+                            n_evals_cached=self.n_cached, sums=self.sums,
+                            sqsums=self.sqsums)
+
+
+def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
+                  batch_size: int, log_term: torch.Tensor,
+                  active_init: torch.Tensor,
+                  perm: Optional[torch.Tensor] = None,
+                  draw: Optional[DrawFn] = None,
+                  exact_fn: Optional[ExactFn] = None,
+                  count_fn: CountFn = default_count,
+                  baseline: str = "none",
+                  stop_when_positive: bool = False,
+                  free_rounds: int = 0, free_lo: int = 0,
+                  init_sums: Optional[torch.Tensor] = None,
+                  init_sqsums: Optional[torch.Tensor] = None,
+                  init_rounds: int = 0, aux: Any = None,
+                  resident: bool = False, report=None,
+                  phase: str = "search") -> "DeviceResult":
     """Run one best-arm identification (one BUILD assignment or one SWAP
-    pick).
+    pick) and leave its result on the device.
 
     Give ``perm`` ([n_ref] int64, permutation sampling) or ``draw``
     (``rnd -> [B]`` int64 indices, replacement sampling, with
     ``exact_fn() -> [n_arms]`` exact means for the fallback).
     ``stats_fn(ref_idx[B], w[B], lead) -> (sums, sqsums, cross)`` returns
     the per-arm weighted batch sums of g, g² and g·g_lead (``lead`` is
-    the leader arm, or None when no cross-sum is needed).  ``count_fn``
-    gives the distance evaluations per reference point as a function of
-    the survivor mask (BUILD: #active arms; SWAP: #distinct active
-    candidates).  With ``aux`` given, ``stats_fn`` is called as
-    ``stats_fn(ref_idx, w, lead, rnd, aux)``, ``rnd`` the round index.
-    The cache seeds (``free_*``, ``init_*``) are in the module docstring.
+    the leader arm as a 0-d int64 device tensor, or None when no
+    cross-sum is needed).  ``count_fn`` gives the distance evaluations per reference point
+    as a function of the survivor mask (BUILD: #active arms; SWAP:
+    #distinct active candidates).  With ``aux`` given, ``stats_fn`` is
+    called as ``stats_fn(ref_idx, w, lead, rnd, aux)``, ``rnd`` the round
+    index.  The cache seeds (``free_*``, ``init_*``) are in the module
+    docstring.
+
+    ``resident=True`` runs the device-resident loop, which needs
+    permutation sampling; it passes ``stats_fn`` the keyword ``run``, a
+    ``[1]`` int32 device flag that is 0 for a round enqueued after the
+    stop (the round's result is discarded; a kernel may skip its work).
+    The caller keeps PIC searches, whose ``stats_fn`` updates host ring
+    state, on the stepped loop.  Every read goes through
+    ``engine.host_read``, counted under ``phase`` in ``report``.
     """
     if (perm is None) == (draw is None):
         raise ValueError("give exactly one of perm (permutation sampling) "
@@ -162,151 +432,50 @@ def adaptive_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     if init_sums is not None and perm is None:
         raise ValueError("carried statistics require permutation sampling "
                          "over a fixed perm")
-    use_perm = perm is not None
-    use_lead = baseline == "leader"
-    dev = active_init.device
-    B = int(batch_size)
-    f32 = dict(dtype=torch.float32, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-
-    def scalar(v: float) -> torch.Tensor:
-        return torch.full((), float(v), **f32)   # on-device fill, no copy
-
-    if use_perm:
-        perm_idx, perm_w = tile_perm(perm, n_ref, B)
-        n_eff_f = scalar(n_ref)
-    else:
-        ones = torch.ones((B,), **f32)
-    active = active_init.clone()
-    n_evals = torch.zeros((), **i64)
-    n_cached = torch.zeros((), **i64)
-    lead = None                       # host int once the pilot round ran
-    if use_lead:
-        arms = torch.arange(n_arms, device=dev)
-        d_sums = torch.zeros((n_arms,), **f32)
-        sigma_d = torch.full((n_arms,), float("inf"), **f32)
-        n_post = 0
-    rounds = int(init_rounds) if init_sums is not None else 0
-    # Σ perm_w over the carried prefix, for the cyclic tiling.
-    n_used = min(rounds * B, n_ref)
-    reads = [torch.sum(active, dtype=torch.int64)]
-    if init_sums is None:
-        sums = torch.zeros((n_arms,), **f32)
-        sqsums = torch.zeros((n_arms,), **f32)
-        sigma = torch.full((n_arms,), float("inf"), **f32)
-    else:
-        # σ from the carried moments (every arm has n_used samples).
-        sums, sqsums = init_sums, init_sqsums
-        n0_f = scalar(max(n_used, 1))
-        mu0 = sums / n0_f
-        sigma = torch.sqrt(torch.clamp_min(sqsums / n0_f - mu0 * mu0,
-                                           0.0)) + SIGMA_FLOOR
-        if stop_when_positive:
-            reads.append(_may_improve(sums, sigma, active, log_term,
-                                           scalar(max(n_used, 1))))
-    vals = torch.stack(reads).tolist()
-    n_active = vals[0]
-    go = bool(vals[1]) if len(vals) > 1 else True    # early-stop verdict
-    while n_used < n_ref and n_active > 1 and go:
-        if use_perm:
-            lo = rounds * B
-            ref_idx = perm_idx[lo:lo + B]
-            w = perm_w[lo:lo + B]
-            b_eff = min(B, n_ref - lo)
+    if resident and perm is None:
+        raise ValueError("the device-resident loop needs permutation "
+                         "sampling (replacement sampling: ROADMAP A18b)")
+    s = _Search(n_arms=n_arms, n_ref=n_ref, batch_size=batch_size,
+                log_term=log_term, active_init=active_init, perm=perm,
+                draw=draw, count_fn=count_fn, baseline=baseline,
+                stop_when_positive=stop_when_positive,
+                free_rounds=free_rounds, free_lo=free_lo,
+                init_sums=init_sums, init_sqsums=init_sqsums,
+                init_rounds=init_rounds, resident=resident)
+    every = ROUNDS_PER_READ if resident else 1
+    lead = None          # the leader stats_fn gets, once the pilot ran
+    going, n_active = True, None
+    if not resident:
+        going, n_active = host_read([s.running, s.n_active], report, phase)
+    rnd = s.r0
+    while s.n_used < n_ref and going:
+        if s.round(rnd, stats_fn, aux, lead):
+            lead = s.lead
+        rnd += 1
+        if resident:
+            if (rnd - s.r0) % every == 0 and s.n_used < n_ref:
+                (going,) = host_read([s.running], report, phase)
         else:
-            ref_idx = draw(rounds)
-            w = ones
-            b_eff = B
-        if aux is None:
-            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead)
-        else:
-            sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead, rounds, aux)
-
-        # ---- raw statistics (paper) ----
-        sums = sums + sums_b
-        sqsums = sqsums + sq_b
-        n_new = n_used + b_eff
-        n_new_f = scalar(n_new)
-        b_eff_f = scalar(b_eff)
-        mu_hat = sums / n_new_f
-        if n_used == 0:                                           # Eq. 11
-            batch_mean = sums_b / b_eff_f
-            batch_var = torch.clamp_min(
-                sq_b / b_eff_f - batch_mean * batch_mean, 0.0)
-            sigma = torch.sqrt(batch_var) + SIGMA_FLOOR
-        ci = sigma * torch.sqrt(log_term / n_new_f)
-        if use_perm:
-            ci = ci * torch.sqrt(torch.clamp_min(1.0 - n_new_f / n_eff_f,
-                                                 0.0))
-        ucb = torch.where(active, mu_hat + ci, float("inf"))
-        lcb = mu_hat - ci
-        kill = lcb > torch.min(ucb)
-
-        # ---- differenced statistics vs the pilot leader ----
-        reads = []
-        if use_lead and lead is None:
-            reads.append(torch.argmin(torch.where(active, mu_hat,
-                                                  float("inf"))))
-        elif use_lead:
-            d_b = sums_b - sums_b[lead]
-            dsq_b = sq_b - 2.0 * cross_b + sq_b[lead]
-            d_sums = d_sums + d_b
-            if n_post == 0:
-                d_mean = d_b / b_eff_f
-                sigma_d = torch.sqrt(torch.clamp_min(
-                    dsq_b / b_eff_f - d_mean * d_mean, 0.0)) + SIGMA_FLOOR
-            n_post += b_eff
-            n_post_f = scalar(n_post)
-            mu_d = d_sums / n_post_f
-            root = torch.sqrt(log_term / n_post_f)
-            ci_d = sigma_d * root
-            ucb_d = torch.where(active, mu_d + ci_d, float("inf"))
-            eps_d = LEAD_TIE_REL * sigma * root
-            kill_d = (mu_d - ci_d) > torch.min(ucb_d) + eps_d
-            kill = kill | (kill_d & (arms != lead))
-
-        cost = count_fn(active) * b_eff
-        if free_lo <= rounds < free_rounds:
-            n_cached = n_cached + cost
-        else:
-            n_evals = n_evals + cost
-        active = active & ~kill
-        n_used = n_new
-        rounds += 1
-        # The round's one device read: survivors, pilot leader, verdict.
-        reads.insert(0, torch.sum(active, dtype=torch.int64))
-        if stop_when_positive:
-            reads.append(_may_improve(sums, sigma, active, log_term,
-                                           scalar(max(n_used, 1))))
-        vals = torch.stack(reads).tolist()
-        n_active = vals[0]
-        if use_lead and lead is None:
-            lead = vals[1]
-        if stop_when_positive:
-            go = bool(vals[-1])
-
-    used_exact = not use_perm and n_active > 1
-    if used_exact:
-        mu_sel = torch.where(active, exact_fn(), float("inf"))
-        n_evals = n_evals + count_fn(active) * n_ref
-    else:
-        mu_sel = torch.where(active, sums / scalar(max(n_used, 1)),
-                             float("inf"))
-    best = torch.argmin(mu_sel)
-    best_h, n_evals_h, n_cached_h = torch.stack(
-        [best, n_evals, n_cached]).tolist()
-    return SearchResult(best=int(best_h), n_evals=int(n_evals_h),
-                        rounds=rounds, n_survivors=n_active,
-                        used_exact=used_exact,
-                        n_evals_cached=int(n_cached_h), sums=sums,
-                        sqsums=sqsums)
+            # The stepped round's one read: the verdict and the survivors.
+            going, n_active = host_read([s.running, s.n_active], report,
+                                        phase)
+    used_exact = perm is None and n_active > 1
+    return s.result(exact_fn, used_exact)
 
 
-def _may_improve(sums, sigma, active, log_term, n_used_f):
-    """The early stop's verdict as an int64 0-d tensor: 1 while some
+def adaptive_search(*, report=None, phase: str = "search",
+                    **kw) -> SearchResult:
+    """:func:`device_search` (same arguments), its result read back in
+    one more ``engine.host_read``."""
+    return device_search(report=report, phase=phase, **kw).read(report,
+                                                                phase)
+
+
+def _may_improve(sums, sigma, active, n_used_f, root):
+    """The early stop's verdict as a 0-d bool tensor: True while some
     surviving arm's lower bound ``mu − σ·sqrt(log(1/δ)/n_used)`` is not
-    positive (the search goes on), 0 once none can be an improving
-    swap."""
-    lcb = sums / n_used_f - sigma * torch.sqrt(log_term / n_used_f)
+    positive (the search goes on), False once none can be an improving
+    swap.  ``root`` is ``sqrt(log(1/δ)/n_used)``."""
+    lcb = sums / n_used_f - sigma * root
     lcb_min = torch.min(torch.where(active, lcb, float("inf")))
-    return (lcb_min <= 0.0).to(torch.int64)
+    return lcb_min <= 0.0

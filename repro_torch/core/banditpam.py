@@ -49,9 +49,18 @@ reference permutation walked by every search (``layouts.fixed_perm``):
   ``sampling="replacement"`` refuses ``reuse="pic"`` and ignores
   ``cache_cols``, as in the JAX package.
 
-The port has one host-driven fit loop (one device read per bandit
-round), so ``fused=False`` (the JAX package's stepped fit loop) runs the
-same code and gives the identical report.
+The drivers (``fused``), the counterparts of the JAX package's: every
+device-to-host read goes through ``engine.host_read`` and is counted in
+``FitReport.host_reads_by_phase``.  ``fused=True`` (the default) runs the
+device-resident searches (``adaptive.py``) under permutation sampling,
+warm block included: a BUILD pick stays a device index that updates the
+medoid mask and ``d_near`` on the device, so BUILD reads its searches'
+flags once every ``adaptive.ROUNDS_PER_READ`` rounds and its picks and
+ledger once at its end; a SWAP iteration reads its search's flags the
+same way, then the pick, the candidate loss, the accept bit and the
+ledger terms in one read.  ``fused=False`` runs the stepped searches (one
+read per round), as do replacement sampling and ``reuse="pic"`` under
+either value (ROADMAP A18b).  The two give identical reports.
 
 Random draws: every search takes its reference permutation, or in
 replacement mode its per-round batches, from a layout source
@@ -69,12 +78,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .adaptive import adaptive_search, log_term_f32
+from .adaptive import device_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import resolve_metric
 from .engine import (FitContext, exact_build_means, exact_swap_means,
-                     get_stats_backend, medoid_cache, resolve_stats_backend,
-                     stream_columns, total_loss)
+                     get_stats_backend, host_read, medoid_cache,
+                     resolve_stats_backend, stream_columns, total_loss)
 from .pic_cache import (cache_read_or_write, carry_valid, fresh_positions,
                         make_cache, resolve_cache_rounds)
 from .report import FitReport
@@ -162,6 +171,7 @@ class BanditPAM:
         self.reuse = reuse
         self.cache_width = cache_width
         self.backend = backend
+        self.fused = bool(fused)
         self.device = device
 
     # -- per-fit context -------------------------------------------------
@@ -231,8 +241,7 @@ class BanditPAM:
         elif ctx.mode == "warm":
             kw.update(perm=ctx.perm, aux=ctx, free_rounds=ctx.free_rounds)
         elif self.sampling == "permutation":
-            perm = getattr(layouts, f"{phase}_perm")(s, n)
-            kw["perm"] = _rng.as_device_index(perm, dev)
+            kw["perm"] = layouts.perm_on(phase, s, n, dev)
         else:
             draw = getattr(layouts, f"{phase}_draw")
             kw["draw"] = lambda rnd: _rng.as_device_index(
@@ -240,7 +249,12 @@ class BanditPAM:
         return kw
 
     # -- BUILD ----------------------------------------------------------
-    def _build(self, data, ctx: FitContext, layouts, res: FitReport):
+    def _build(self, data, ctx: FitContext, layouts, res: FitReport,
+               resident: bool):
+        """The k BUILD searches.  Each pick stays a device index: it
+        updates the medoid mask and ``d_near`` on the device, so the
+        phase reads its picks, rounds and ledger back once, at its end
+        (plus the searches' own reads)."""
         n = data.shape[0]
         be = get_stats_backend(ctx.backend)
         dev = data.device
@@ -250,45 +264,56 @@ class BanditPAM:
         dnear = torch.full((n,), float("inf"), dtype=torch.float32,
                            device=dev)
         med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-        medoids, evals, cached = [], 0, 0
+        found, fresh = [], []
         for i in range(self.k):
-            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux))
+                dnear_b = dnear.index_select(0, ref_idx)
                 if dxy is None:
-                    return be.build_stats(data, ref_idx, dnear[ref_idx], w,
-                                          lead, metric=self.metric)
-                return be.build_stats_from_d(dxy, dnear[ref_idx], w, lead)
+                    return be.build_stats(data, ref_idx, dnear_b, w, lead,
+                                          metric=self.metric, run=run)
+                return be.build_stats_from_d(dxy, dnear_b, w, lead)
 
             def exact_fn():
                 return exact_build_means(be, data, dnear, metric=self.metric)
 
             fresh0 = ctx.cache.fresh_pos if pic else 0
-            sr = adaptive_search(
+            sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=n, n_ref=n, batch_size=self.batch_size,
                 log_term=log_term, active_init=torch.logical_not(med_mask),
+                resident=resident, report=res, phase="build",
                 **self._search_kw(layouts, "build", i, n, dev, ctx))
-            m = sr.best
-            medoids.append(m)
-            med_mask[m] = True
-            dnear = torch.minimum(
-                dnear, be.pairwise(data[m:m + 1], data, metric=self.metric)[0])
-            res.build_rounds.append(sr.rounds)
+            best = sr.best.reshape(1)
+            med_mask.index_fill_(0, best, True)
+            dnear = torch.minimum(dnear, be.pairwise(
+                data.index_select(0, best), data, metric=self.metric)[0])
+            found.append(sr)
             if pic:
                 # n per fresh column position, on host ints.
-                evals += n * fresh_positions(fresh0, ctx.cache)
-                cached += sr.n_evals_cached
-            else:
-                evals += sr.n_evals
-        res.evals_by_phase["build"] = evals + n * self.k
+                fresh.append(fresh_positions(fresh0, ctx.cache))
+        k = self.k
+        vals = host_read([s.best for s in found] + [s.rounds for s in found]
+                         + [s.n_evals_cached if pic else s.n_evals
+                            for s in found], res, "build")
+        medoids = vals[:k]
+        res.build_rounds.extend(vals[k:2 * k])
         if pic:
-            res.evals_by_phase["build_cached"] = cached
-        return medoids, med_mask
+            res.evals_by_phase["build"] = n * sum(fresh) + n * k
+            res.evals_by_phase["build_cached"] = sum(vals[2 * k:])
+        else:
+            res.evals_by_phase["build"] = sum(vals[2 * k:]) + n * k
+        med_t = torch.stack([s.best for s in found])
+        return medoids, med_t, med_mask
 
     # -- SWAP -----------------------------------------------------------
-    def _swap(self, data, medoids, med_mask, ctx: FitContext, layouts,
-              res: FitReport):
+    def _swap(self, data, medoids, med_t, med_mask, ctx: FitContext,
+              layouts, res: FitReport, resident: bool):
+        """The SWAP iterations, each one search plus ONE read: the pick,
+        the candidate loss, the accept bit (decided on the device) and the
+        ledger terms.  The running loss stays on the device; the first one
+        is read once."""
         n = data.shape[0]
         k = self.k
         B = self.batch_size
@@ -298,10 +323,9 @@ class BanditPAM:
         delta = (self.delta if self.delta is not None
                  else 1.0 / (1000.0 * k * n))
         log_term = log_term_f32(delta, dev)
-        med_t = torch.tensor(medoids, dtype=torch.int64, device=dev)
         prev_loss = total_loss(data, med_t, metric=self.metric,
                                backend=ctx.backend)
-        loss = float(prev_loss.item())
+        (loss,) = host_read([prev_loss], res, "swap")
         converged = False
         swap_evals = swap_cached = 0
         carry = None  # (sums, sqsums, rounds, d1, d2, assign) of last search
@@ -328,59 +352,63 @@ class BanditPAM:
                 seed = dict(init_sums=s0, init_sqsums=q0,
                             init_rounds=c_rounds)
 
-            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux))
+                d1_b, d2_b, a_b = (v.index_select(0, ref_idx)
+                                   for v in (d1, d2, assign))
                 if dxy is None:
-                    return be.swap_stats(data, ref_idx, d1[ref_idx],
-                                         d2[ref_idx], assign[ref_idx], w, k,
-                                         lead, metric=self.metric)
-                return be.swap_stats_from_d(dxy, d1[ref_idx], d2[ref_idx],
-                                            assign[ref_idx], w, k, lead)
+                    return be.swap_stats(data, ref_idx, d1_b, d2_b, a_b, w,
+                                         k, lead, metric=self.metric,
+                                         run=run)
+                return be.swap_stats_from_d(dxy, d1_b, d2_b, a_b, w, k, lead)
 
             def exact_fn():
                 return exact_swap_means(be, data, d1, d2, assign, k,
                                         metric=self.metric)
 
             fresh0 = ctx.cache.fresh_pos if pic else 0
-            sr = adaptive_search(
+            sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=k * n, n_ref=n, batch_size=B,
                 log_term=log_term,
                 active_init=torch.logical_not(med_mask).repeat(k),
                 count_fn=count_fn, stop_when_positive=self.swap_early_stop,
+                resident=resident, report=res, phase="swap",
                 **seed, **self._search_kw(layouts, "swap", t, n, dev, ctx))
-            res.swap_exact_fallbacks += int(sr.used_exact)
-            m_idx, x_idx = divmod(sr.best, n)
-            cand = med_t.clone()
-            cand[m_idx] = x_idx
+            cand = med_t.index_copy(0, (sr.best // n).reshape(1),
+                                    (sr.best % n).reshape(1))
             new_loss = total_loss(data, cand, metric=self.metric,
                                   backend=ctx.backend)
             # The JAX package's accept rule, float32 on the device.
             accept = new_loss < prev_loss - 1e-7 * torch.clamp_min(
                 torch.abs(prev_loss), 1.0)
-            new_loss_h, accept_h, n_changed_h = torch.stack(
-                [new_loss.double(), accept.double(),
-                 n_changed.double()]).tolist()
+            # The iteration's one read.
+            (best_h, new_loss_h, accept_h, n_evals_h, n_cached_h,
+             n_changed_h, rounds_h) = host_read(
+                 [sr.best, new_loss, accept, sr.n_evals, sr.n_evals_cached,
+                  n_changed, sr.rounds], res, "swap")
+            res.swap_exact_fallbacks += int(sr.used_exact)
             if pic:
                 # Fresh: n per fresh column position; cached: the rounds
                 # served from the ring plus n per repaired point.
                 swap_evals += 2 * n * k + n * fresh_positions(fresh0,
                                                               ctx.cache)
-                swap_cached += sr.n_evals_cached + n * int(n_changed_h)
-                carry = (sr.sums, sr.sqsums, sr.rounds, d1, d2, assign)
+                swap_cached += n_cached_h + n * n_changed_h
+                carry = (sr.sums, sr.sqsums, rounds_h, d1, d2, assign)
             else:
-                swap_evals += 2 * n * k + sr.n_evals
+                swap_evals += 2 * n * k + n_evals_h
             if not accept_h:
                 converged = True
                 break
+            m_idx, x_idx = divmod(best_h, n)
             old = medoids[m_idx]
             medoids[m_idx] = x_idx
             med_mask[old] = False
             med_mask[x_idx] = True
             med_t = cand
-            res.swap_history.append((old, x_idx, float(new_loss_h)))
-            loss = float(new_loss_h)
+            res.swap_history.append((old, x_idx, new_loss_h))
+            loss = new_loss_h
             prev_loss = new_loss
         res.evals_by_phase["swap"] = swap_evals
         if pic:
@@ -414,12 +442,17 @@ class BanditPAM:
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        medoids, med_mask = self._build(data, ctx, layouts, res)
+        # The device-resident searches (ROADMAP A18) run under
+        # permutation sampling outside the PIC ring; the rest step.
+        resident = (self.fused and self.sampling == "permutation"
+                    and ctx.mode != "pic")
+        medoids, med_t, med_mask = self._build(data, ctx, layouts, res,
+                                               resident)
         sync()
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        medoids, loss, converged = self._swap(data, medoids, med_mask, ctx,
-                                              layouts, res)
+        medoids, loss, converged = self._swap(data, medoids, med_t, med_mask,
+                                              ctx, layouts, res, resident)
         sync()
         res.wall_by_phase["swap"] = time.perf_counter() - t0
         res.medoids = np.asarray(medoids, np.int64)

@@ -20,10 +20,11 @@ Backend contract (every method takes and returns tensors on the data's
 device)::
 
     pairwise(x, y, *, metric)                               -> [m, r]
-    build_stats(data, ref_idx, dnear_b, w, lead, *, metric) -> 3 × [n]
+    build_stats(data, ref_idx, dnear_b, w, lead, *, metric, run=None)
+                                                            -> 3 × [n]
     build_stats_from_d(dxy, dnear_b, w, lead)               -> 3 × [n]
-    swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *, metric)
-                                                            -> 3 × [k·n]
+    swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *, metric,
+               run=None)                                    -> 3 × [k·n]
     swap_stats_from_d(dxy, d1_b, d2_b, assign_b, w, k, lead)
                                                             -> 3 × [k·n]
     stream_build_sums(data, dnear, *, metric)               -> [n]
@@ -32,13 +33,18 @@ device)::
 
 The round statistics are (Σg, Σg², Σg·g_lead) over the batch, where
 ``lead`` is the leader arm of ``baseline="leader"`` (None: the cross-sum
-is zeros and costs nothing).  Arm ``(medoid c, candidate x)`` of the
-SWAP statistics sits at flat index ``c·n + x``, the JAX package's order,
-so a SWAP leader ``lead`` is medoid ``lead // n`` and candidate
-``lead % n``.  The streaming sums are Σg over the WHOLE dataset, walked
-in ``_EXACT_CHUNK``-column reference tiles added in walk order: the
-exact passes behind replacement sampling's fallback and behind PAM
-(:func:`exact_build_means`, :func:`exact_swap_means`).
+is zeros and costs nothing) as a 0-d int64 device index, read without
+a sync.  ``run`` is the
+device-resident search's ``[1]`` int32 flag, 0 for a round enqueued after
+the stop: the kernels return at once, the plain math runs all the same,
+and the search discards the round's result either way.  Arm
+``(medoid c, candidate x)`` of the SWAP statistics sits at flat index
+``c·n + x``, the JAX package's order, so a SWAP leader ``lead`` is
+medoid ``lead // n`` and candidate ``lead % n``.  The streaming sums are
+Σg over the WHOLE dataset, walked in ``_EXACT_CHUNK``-column reference
+tiles added in walk order: the exact passes behind replacement
+sampling's fallback and behind PAM (:func:`exact_build_means`,
+:func:`exact_swap_means`).
 
 The ``*_from_d`` forms take a resident ``[n, B]`` distance block ``dxy``
 (a round's slice of the PIC column ring, the warm block, or the whole
@@ -108,9 +114,10 @@ def _swap_batch_stats(dxy, d1_b, d2_b, a_b, w, k: int, lead_g=None):
     return sums, sqsums, cross
 
 
-def _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l: int) -> torch.Tensor:
+def _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l) -> torch.Tensor:
     """The SWAP leader arm's g-row over a batch from its distance row
-    ``dl``: ``base + 1[assign == m_l]·corr`` (unweighted)."""
+    ``dl``: ``base + 1[assign == m_l]·corr`` (unweighted); ``m_l`` a 0-d
+    device index."""
     base, corr = _swap_terms(dl[None, :], d1_b, d2_b)
     return base[0] + (assign_b == m_l).to(dl.dtype) * corr[0]
 
@@ -256,6 +263,38 @@ def total_loss(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
     return torch.sum(d1)
 
 
+def host_read(values, report=None, phase: str = "") -> list:
+    """The one device-to-host read point of the fit drivers (counterpart
+    of ``repro.core.engine.host_read``).
+
+    ``values`` are tensors on one device; they come back in ONE copy (one
+    ``tolist`` of their concatenation: in their own type where they share
+    one, else in int64, or in float64 where one is floating, which holds
+    every float32 and every integer below 2**53 exactly), as Python ints
+    for
+    integer and bool tensors and floats otherwise, a list for a tensor of
+    several elements.  Each call adds one to
+    ``report.host_reads_by_phase[phase]`` when a report is given: the
+    count of the reads that wait for the device.
+    """
+    flat = [torch.as_tensor(v).reshape(-1) for v in values]
+    common = (torch.float64 if any(t.dtype.is_floating_point for t in flat)
+              else torch.int64)
+    if len({t.dtype for t in flat}) == 1:
+        common = flat[0].dtype
+    host = torch.cat([t.to(common) for t in flat]).tolist()
+    if report is not None:
+        reads = report.host_reads_by_phase
+        reads[phase] = reads.get(phase, 0) + 1
+    out, i = [], 0
+    for t, v in zip(values, flat):
+        conv = float if t.dtype.is_floating_point else int
+        part = [conv(x) for x in host[i:i + v.numel()]]
+        out.append(part if t.dim() else part[0])
+        i += v.numel()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # StatsBackend implementations
 # ---------------------------------------------------------------------------
@@ -268,29 +307,35 @@ class TorchStatsBackend:
     def pairwise(self, x, y, *, metric):
         return pairwise(x, y, metric=metric)
 
-    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric):
+    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
+                    run=None):
+        # ``run`` (a masked round's flag) changes nothing here: the plain
+        # math runs and the search discards a masked round's result.
         return self.build_stats_from_d(
-            pairwise(data, data[ref_idx], metric=metric), dnear_b, w, lead)
+            pairwise(data, data.index_select(0, ref_idx), metric=metric),
+            dnear_b, w, lead)
 
     def build_stats_from_d(self, dxy, dnear_b, w, lead):
         # The leader's g-row is a row of the g block (the jnp backend's
         # ``g @ g[lead]``).
         g = _build_g(dxy, dnear_b) * w[None, :]
         cross = (torch.zeros((g.shape[0],), dtype=g.dtype, device=g.device)
-                 if lead is None else g @ g[lead])
+                 if lead is None
+                 else g @ g.index_select(0, lead.view(1))[0])
         return torch.sum(g, dim=1), torch.sum(g * g, dim=1), cross
 
     def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
-                   *, metric):
+                   *, metric, run=None):
         return self.swap_stats_from_d(
-            pairwise(data, data[ref_idx], metric=metric), d1_b, d2_b,
-            assign_b, w, k, lead)
+            pairwise(data, data.index_select(0, ref_idx), metric=metric),
+            d1_b, d2_b, assign_b, w, k, lead)
 
     def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead):
         lead_g = None
         if lead is not None:
-            m_l, x_l = divmod(lead, dxy.shape[0])
-            lead_g = _swap_lead_g(dxy[x_l], d1_b, d2_b, assign_b, m_l)
+            n = dxy.shape[0]
+            dl = dxy.index_select(0, (lead % n).view(1))[0]
+            lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, lead // n)
         s, q, c = _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
@@ -333,26 +378,30 @@ class CudaStatsBackend:
     def pairwise(self, x, y, *, metric):
         return self._ops(x).pairwise_distance(x, y, metric)
 
-    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric):
+    def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
+                    run=None):
         ops = self._ops(data)
-        y = data[ref_idx]
+        y = data.index_select(0, ref_idx)
         lead_g = None
         if lead is not None:
-            dl = ops.pairwise_distance(data[lead:lead + 1], y, metric)[0]
+            dl = ops.pairwise_distance(data.index_select(0, lead.view(1)), y,
+                                       metric)[0]
             lead_g = _build_g(dl[None, :], dnear_b)[0] * w
-        return ops.build_g_stats(data, y, dnear_b, w, lead_g, metric=metric)
+        return ops.build_g_stats(data, y, dnear_b, w, lead_g, metric=metric,
+                                 run=run)
 
     def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
-                   *, metric):
+                   *, metric, run=None):
         ops = self._ops(data)
-        y = data[ref_idx]
+        y = data.index_select(0, ref_idx)
         lead_g = None
         if lead is not None:
-            m_l, x_l = divmod(lead, data.shape[0])
-            dl = ops.pairwise_distance(data[x_l:x_l + 1], y, metric)[0]
-            lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, m_l)
+            n = data.shape[0]
+            dl = ops.pairwise_distance(
+                data.index_select(0, (lead % n).view(1)), y, metric)[0]
+            lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, lead // n)
         s, q, c = ops.swap_g_stats(data, y, d1_b, d2_b, assign_b, w, k,
-                                   lead_g, metric=metric)
+                                   lead_g, metric=metric, run=run)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
     def build_stats_from_d(self, dxy, dnear_b, w, lead):
@@ -365,8 +414,9 @@ class CudaStatsBackend:
         lead_g = None
         if lead is not None:
             # The leader's distance row is a row of the block.
-            m_l, x_l = divmod(lead, dxy.shape[0])
-            lead_g = _swap_lead_g(dxy[x_l], d1_b, d2_b, assign_b, m_l)
+            n = dxy.shape[0]
+            dl = dxy.index_select(0, (lead % n).view(1))[0]
+            lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, lead // n)
         s, q, c = ops.swap_g_stats_cached(dxy, d1_b, d2_b, assign_b, w, k,
                                           lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)

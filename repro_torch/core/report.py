@@ -17,7 +17,11 @@ int64).  The JAX package's per-search count is uint32 and would wrap
 past 2**32 evaluations in one search at large n; the port's does not.
 
 ``wall_by_phase`` holds seconds per phase, measured on the host around
-work that ends in a device synchronisation.
+work that ends in a device synchronisation.  ``host_reads_by_phase``
+counts the driver's device-to-host reads per phase (``build``, ``swap``),
+each one ``engine.host_read`` that waits for the device: the port's
+counterpart of the reads the JAX package's ``FitGuard`` polices.
+``dispatches_by_phase`` has no torch meaning and stays empty.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ class FitReport:
     metric: str = ""
     wall_by_phase: Dict[str, float] = field(default_factory=dict)
     dispatches_by_phase: Dict[str, int] = field(default_factory=dict)
+    host_reads_by_phase: Dict[str, int] = field(default_factory=dict)
 
     def ledger(self) -> Dict[str, object]:
         """The fresh/cached distance-evaluation ledger as one dict."""

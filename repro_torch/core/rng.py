@@ -96,6 +96,11 @@ class GeneratorLayouts:
     def build_perm(self, i: int, n: int) -> torch.Tensor:
         return self._perm("build", i, n)
 
+    def perm_on(self, phase: str, i: int, n: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_perm(i, n)`` on ``device`` (drawn there)."""
+        return self._perm(phase, i, n).to(device)
+
     def swap_perm(self, t: int, n: int) -> torch.Tensor:
         return self._perm("swap", t, n)
 
@@ -122,6 +127,20 @@ class ArrayLayouts:
         self.build_draws = _check(build_draws, "build draws", 3)
         self.swap_draws = _check(swap_draws, "swap draws", 3)
         self.fixed = _check(fixed, "the fixed permutation", 1)
+        self._uploaded = {}
+
+    def perm_on(self, phase: str, i: int, n: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_perm(i, n)`` as a row of the phase's permutations on
+        ``device``, uploaded whole at the phase's first request: a copy
+        from pageable host memory waits for the device, so one copy a
+        phase keeps the searches free of hidden syncs."""
+        getattr(self, f"{phase}_perm")(i, n)          # validates
+        key = (phase, str(device))
+        if key not in self._uploaded:
+            self._uploaded[key] = as_device_index(getattr(self, phase),
+                                                  device)
+        return self._uploaded[key][i]
 
     def fixed_perm(self, n: int) -> np.ndarray:
         if self.fixed is None:

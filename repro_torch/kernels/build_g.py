@@ -26,15 +26,19 @@ from .pairwise import METRIC_IDS
 launches = 0
 
 
-def build_g_torch(x, y, dnear_b, w, lead_g, metric: str):
+def build_g_torch(x, y, dnear_b, w, lead_g, metric: str, run=None):
     """Plain version: ``g = (d − dnear) ∧ 0`` (``d`` where dnear = inf),
-    times ``w``; returns the three ``[m]`` sums."""
+    times ``w``; returns the three ``[m]`` sums.  It computes them
+    whatever the run flag says; the caller discards a masked round's."""
     g = _build_g(pairwise(x, y, metric=metric), dnear_b) * w[None, :]
     return torch.sum(g, dim=1), torch.sum(g * g, dim=1), g @ lead_g
 
 
-def launch(x, y, dnear_b, w, lead_g, metric: str):
-    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
+def launch(x, y, dnear_b, w, lead_g, metric: str, run=None):
+    """Run the CUDA kernel on validated CUDA tensors (see ``ops``).  A
+    run flag ``run`` ([1] int32) that reads 0 makes every block return at
+    once and leaves the outputs unwritten; the launch counts all the
+    same."""
     global launches
     m, d = x.shape
     b = y.shape[0]
@@ -43,7 +47,7 @@ def launch(x, y, dnear_b, w, lead_g, metric: str):
     code = _build.lib().rt_build_g(
         x.data_ptr(), y.data_ptr(), dnear_b.data_ptr(), w.data_ptr(),
         lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
-        m, b, d, METRIC_IDS[metric],
+        m, b, d, METRIC_IDS[metric], None if run is None else run.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "build_g kernel")

@@ -22,6 +22,13 @@
 // bits (dist_math.cuh), so at B <= 512 the two kernels' sums are equal bit for bit.  No
 // atomics: every run gives the same bits.  The isinf(dnear) branch is
 // the TPU kernel's.
+//
+// The run flag.  `run` (NULL: run) is the device-resident search's "still
+// running" flag: a round enqueued after the search stopped reads 0 there,
+// and every block returns before its first load, so a masked round costs
+// a launch and leaves the outputs unwritten (the caller discards them).
+// The flag changes nothing else: arithmetic, tile and walk order are the
+// same, so a flag of 1 gives the bits of NULL.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -41,7 +48,8 @@ build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ dnear, const float* __restrict__ w,
                const float* __restrict__ lg, float* __restrict__ sums,
                float* __restrict__ sq, float* __restrict__ cross, int64_t m,
-               int64_t b, int d, bool vec) {
+               int64_t b, int d, bool vec, const int* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;  // a masked round: the whole block
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* dt = smem;  // [BM][DT_LD] over the stages, after each mainloop
@@ -88,7 +96,7 @@ build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
 extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
                           const float* w, const float* lg, float* sums,
                           float* sq, float* cross, int64_t m, int64_t b, int d,
-                          int metric, void* stream) {
+                          int metric, const int* run, void* stream) {
   if (m <= 0) return cudaSuccess;
   const unsigned grid = (unsigned)((m + W::BM - 1) / W::BM);
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
@@ -100,7 +108,7 @@ extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
         (int)W::SMEM);
     if (e != cudaSuccess) return (int)e;
     build_g_kernel<M><<<grid, W::NT, W::SMEM, st>>>(
-        x, y, dnear, w, lg, sums, sq, cross, m, b, d, vec);
+        x, y, dnear, w, lg, sums, sq, cross, m, b, d, vec, run);
   });
   return (int)cudaGetLastError();
 }

@@ -59,6 +59,13 @@
 // L2), allocated stream-ordered around the launch (cudaMallocAsync).
 // Dynamic shared memory: 81,312 B at k <= 10, at most 111,136 B (k >=
 // 32): two blocks an SM at every k.
+//
+// The run flag.  rt_swap_g takes `run` (NULL: run), the device-resident
+// search's "still running" flag: where it reads 0 every block returns
+// before its first load, so a round enqueued after the search stopped
+// costs a launch and leaves the outputs unwritten (the caller discards
+// them).  Nothing else changes, so a flag of 1 gives the bits of NULL.
+// rt_stream_swap_g passes NULL.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -102,7 +109,8 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
               const float* __restrict__ lg, float* __restrict__ sums,
               float* __restrict__ sq, float* __restrict__ cross, int64_t m,
               int64_t r, int d, int k, int64_t period, bool vec,
-              float* __restrict__ scratch) {
+              float* __restrict__ scratch, const int* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;  // a masked round: the whole block
   extern __shared__ float4 smem4[];
   const int kc = k < KC_MAX ? k : KC_MAX;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -215,7 +223,7 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
                           const float* d2, const int* assign, const float* w,
                           const float* lg, float* sums, float* sq,
                           float* cross, int64_t m, int64_t r, int d, int k,
-                          int64_t period, cudaStream_t st) {
+                          int64_t period, const int* run, cudaStream_t st) {
   const int kc = k < KC_MAX ? k : KC_MAX;
   const size_t smem = (size_t)(red_offset(kc) + GROUPS * GRED) * sizeof(float);
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
@@ -245,7 +253,7 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
   }
   swap_g_kernel<M><<<(unsigned)grid, W::NT, smem, st>>>(
       x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k, period, vec,
-      scratch);
+      scratch, run);
   e = cudaGetLastError();
   if (scratch != nullptr) {
     const cudaError_t f = cudaFreeAsync(scratch, st);
@@ -261,7 +269,7 @@ extern "C" int rt_swap_g(const float* x, const float* y, const float* d1,
                          const float* d2, const int* assign, const float* w,
                          const float* lg, float* sums, float* sq, float* cross,
                          int64_t m, int64_t b, int d, int k, int metric,
-                         void* stream) {
+                         const int* run, void* stream) {
   if (k < 1) return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
@@ -276,7 +284,7 @@ extern "C" int rt_swap_g(const float* x, const float* y, const float* d1,
   }
   RT_METRIC_SWITCH(metric, M, {
     return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, b, d, k, b, st);
+                                 m, b, d, k, b, run, st);
   });
   return cudaSuccess;
 }
@@ -293,7 +301,7 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
   cudaStream_t st = (cudaStream_t)stream;
   RT_METRIC_SWITCH(metric, M, {
     return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, r, d, k, REF_TILE, st);
+                                 m, r, d, k, REF_TILE, nullptr, st);
   });
   return cudaSuccess;
 }

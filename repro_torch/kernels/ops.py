@@ -76,6 +76,15 @@ def _check(cond: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
+def _run_flag(what: str, run: Optional[torch.Tensor], like: torch.Tensor
+              ) -> None:
+    """A run flag is a one-element int32 tensor on the data's device."""
+    if run is not None:
+        _check(run.dtype == torch.int32 and run.numel() == 1
+               and run.device == like.device, what,
+               f"run must be a one-element int32 tensor on {like.device}")
+
+
 def _f32(what: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         _check(t.dtype == torch.float32, what, f"expects float32, got {t.dtype}")
@@ -96,8 +105,11 @@ def pairwise_distance(x: torch.Tensor, y: torch.Tensor,
 
 def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
                   w: torch.Tensor, lead_g: Optional[torch.Tensor] = None,
-                  *, metric: str = "l2") -> Stats:
-    """Fused BUILD statistics: (Σg, Σg², Σg·g_lead) per arm, [m] each."""
+                  *, metric: str = "l2",
+                  run: Optional[torch.Tensor] = None) -> Stats:
+    """Fused BUILD statistics: (Σg, Σg², Σg·g_lead) per arm, [m] each.
+    ``run`` ([1] int32, optional): where it reads 0 the kernel returns at
+    once and the outputs are unwritten, for the caller to discard."""
     what = "build_g_stats"
     if lead_g is None:
         lead_g = torch.zeros_like(dnear_b)
@@ -108,17 +120,20 @@ def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
            f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
     _check(dnear_b.shape == (b,) and w.shape == (b,) and lead_g.shape == (b,),
            what, "dnear_b, w and lead_g must be [B]")
+    _run_flag(what, run, x)
     if cuda:
-        return _build_g.launch(x, y, dnear_b, w, lead_g, metric)
-    return _build_g.build_g_torch(x, y, dnear_b, w, lead_g, metric)
+        return _build_g.launch(x, y, dnear_b, w, lead_g, metric, run)
+    return _build_g.build_g_torch(x, y, dnear_b, w, lead_g, metric, run)
 
 
 def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
                  d2_b: torch.Tensor, assign_b: torch.Tensor, w: torch.Tensor,
                  k: int, lead_g: Optional[torch.Tensor] = None,
-                 *, metric: str = "l2") -> Stats:
+                 *, metric: str = "l2",
+                 run: Optional[torch.Tensor] = None) -> Stats:
     """Fused SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
-    ``[k, m]``: arm (medoid c, candidate x) lives at ``[c, x]``."""
+    ``[k, m]``: arm (medoid c, candidate x) lives at ``[c, x]``.  ``run``
+    as in :func:`build_g_stats`."""
     what = "swap_g_stats"
     if lead_g is None:
         lead_g = torch.zeros_like(d1_b)
@@ -132,11 +147,12 @@ def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
     _check(all(t.shape == (b,) for t in (d1_b, d2_b, assign_b, w, lead_g)),
            what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    _run_flag(what, run, x)
     if cuda:
         return _swap_g.launch(x, y, d1_b, d2_b, assign_b, w, int(k), lead_g,
-                              metric)
+                              metric, run)
     return _swap_g.swap_g_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
-                                lead_g, metric)
+                                lead_g, metric, run)
 
 
 def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,

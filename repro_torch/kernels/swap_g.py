@@ -45,8 +45,9 @@ cached_launches = 0
 
 
 def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
-                 metric: str):
-    """Plain version: ``(Σg, Σg², Σg·g_lead)``, each ``[k, m]``."""
+                 metric: str, run=None):
+    """Plain version: ``(Σg, Σg², Σg·g_lead)``, each ``[k, m]``, computed
+    whatever the run flag says (the caller discards a masked round's)."""
     return _swap_batch_stats(pairwise(x, y, metric=metric), d1_b, d2_b,
                              assign_b, w, k, lead_g)
 
@@ -57,8 +58,11 @@ def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
     return _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
 
 
-def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
-    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
+def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
+           run=None):
+    """Run the CUDA kernel on validated CUDA tensors (see ``ops``); a run
+    flag ``run`` ([1] int32) that reads 0 leaves the outputs unwritten
+    (counted as a launch all the same)."""
     global launches
     m, d = x.shape
     b = y.shape[0]
@@ -68,7 +72,8 @@ def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str):
         x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, d, k,
-        METRIC_IDS[metric], torch.cuda.current_stream(x.device).cuda_stream)
+        METRIC_IDS[metric], None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "swap_g kernel")
     return sums, sq, cross

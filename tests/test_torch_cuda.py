@@ -635,3 +635,67 @@ def test_cuda_fit_past_64_medoids_matches_torch_on_card(cuda, solver):
     assert a.build_rounds == b_.build_rounds
     _same_fit(a, b_, ledger_rtol=1e-3,
               loss_atol=_self_distance_noise(X, b_.medoids))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kernel", ["build_g", "swap_g"])
+@pytest.mark.parametrize("b", [100, 300])
+def test_round_kernels_run_flag(cuda, metric, kernel, b):
+    """The run flag of the round kernels: at 1 the outputs equal the bits
+    of no flag (NULL); at 0 every block returns at once, the launch still
+    counts, and the stream goes on (a later call gives the same bits
+    again).  B = 300 takes swap_g's scratch path."""
+    n, d, k = 1300, 64, 10
+    x = _x(n, d, 30, cuda)
+    g = torch.Generator().manual_seed(b)
+    y = x[torch.randperm(n, generator=g)[:b].to(cuda)].contiguous()
+    w = torch.ones(b, device=cuda)
+    w[::9] = 0.0
+    lg = torch.randn(b, generator=g).to(cuda)
+    if kernel == "build_g":
+        mod = build_g
+        dn = torch.rand(b, generator=g).to(cuda)
+        dn[::7] = float("inf")
+
+        def call(run):
+            return ops.build_g_stats(x, y, dn, w, lg, metric=metric, run=run)
+    else:
+        mod = swap_g
+        med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+        d1, d2, a = ops.stream_top2(y, med, metric=metric)
+
+        def call(run):
+            return ops.swap_g_stats(x, y, d1, d2, a, w, k, lg, metric=metric,
+                                    run=run)
+    flag = {v: torch.tensor([v], dtype=torch.int32, device=cuda)
+            for v in (0, 1)}
+    want = call(None)
+    before = mod.launches
+    call(flag[0])
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    for run in (flag[1], None):
+        for got, ref in zip(call(run), want):
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kw", [{}, {"baseline": "leader"},
+                                {"swap_early_stop": True},
+                                {"cache_cols": 700}])
+def test_cuda_fused_fit_equals_stepped_fit(cuda, kw):
+    """On the card the device-resident driver (masked rounds through the
+    kernels' run flag) and the stepped driver give the same report, loss
+    bits included, and the fused one reads the device far less often."""
+    n, k = 1500, 4
+    X = datasets.mnist_like(n, seed=6)
+    p = np.random.default_rng(0)
+    perms = (np.stack([p.permutation(n) for _ in range(k)]),
+             np.stack([p.permutation(n) for _ in range(4 * k + 10)]),
+             None, None, p.permutation(n))
+    fits = [BanditPAM(k, backend="cuda", device=cuda, fused=f, **kw).fit(
+        X, layouts=rng.from_numpy(*perms)) for f in (True, False)]
+    a, b_ = fits
+    _same_fit(a, b_)
+    assert a.build_rounds == b_.build_rounds
+    assert a.swap_history == b_.swap_history and a.loss == b_.loss
+    assert a.host_reads_by_phase["build"] < b_.host_reads_by_phase["build"]

@@ -41,16 +41,36 @@ def _close(got, want, atol, rtol=1e-5):
                                rtol=rtol, atol=atol)
 
 
+def _f64_pairwise(x, y, metric):
+    """The distances in float64 with numpy, from the definitions."""
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    if metric == "l1":
+        return np.abs(x[:, None, :] - y[None, :, :]).sum(-1)
+    if metric == "cosine":
+        xn = x / np.sqrt((x * x).sum(-1))[:, None]
+        yn = y / np.sqrt((y * y).sum(-1))[:, None]
+        return 1.0 - xn @ yn.T
+    sq = ((x[:, None, :] - y[None, :, :]) ** 2).sum(-1)
+    return np.sqrt(sq) if metric == "l2" else sq
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("shape", [(130, 100, 17), (64, 300, 129),
                                    (7, 5, 3)])
 def test_pairwise_plain_matches_jax_kernel(metric, shape):
     m, r, d = shape
     x, y = _data(m, r, d)
-    got = ops.pairwise_distance(_t(x), _t(y), metric).numpy()
-    want = np.asarray(jops.pairwise_distance(jnp.asarray(x), jnp.asarray(y),
+    # Each package gets its own copy of the inputs.
+    got = ops.pairwise_distance(torch.tensor(x), torch.tensor(y),
+                                metric).numpy()
+    want = np.asarray(jops.pairwise_distance(jnp.array(x), jnp.array(y),
                                              metric, interpret=True))
     atol = 1e-5 * np.abs(want).max()
+    # Both sides against float64 first, so that a difference names the
+    # side that left float32 accuracy.
+    exact = _f64_pairwise(x, y, metric)
+    _close(got, exact, atol)
+    _close(want, exact, atol)
     _close(got, want, atol)
     _close(got, np.asarray(jref.pairwise_ref(jnp.asarray(x), jnp.asarray(y),
                                              metric)), atol)
@@ -213,6 +233,30 @@ def test_wrappers_validate_inputs():
                          torch.zeros(6, dtype=torch.int64), torch.ones(6), 2)
     with pytest.raises(ValueError, match=r"\[B\]"):
         ops.build_g_stats(_t(x), _t(y), torch.ones(5), torch.ones(6))
+
+
+@pytest.mark.parametrize("kernel", ["build_g", "swap_g"])
+def test_plain_versions_take_the_run_flag(kernel):
+    """The round kernels' run flag (0: a round enqueued after its search
+    stopped) reaches the plain versions too, which compute all the same:
+    the search discards a masked round's statistics whatever computed
+    them.  A flag that is not one int32 element is refused."""
+    x, y = _data(30, 6, 4)
+    ones = torch.ones(6)
+    if kernel == "build_g":
+        def call(run):
+            return ops.build_g_stats(_t(x), _t(y), ones, ones, run=run)
+    else:
+        def call(run):
+            return ops.swap_g_stats(_t(x), _t(y), ones, 2 * ones,
+                                    torch.zeros(6, dtype=torch.int32), ones,
+                                    2, run=run)
+    want = call(None)
+    for flag in (0, 1):
+        for g, w in zip(call(torch.tensor([flag], dtype=torch.int32)), want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="run"):
+        call(torch.tensor([1]))
 
 
 def test_plain_path_never_counts_launches():

@@ -49,7 +49,7 @@ def _searches(n, k, metric, X, bperms, sperm):
         def tstats(ref_idx, w, lead):
             return tuple(_t(a) for a in jstats(
                 jnp.asarray(ref_idx.numpy()), jnp.asarray(w.numpy()),
-                0 if lead is None else lead, 0))
+                0 if lead is None else int(lead), 0))
         want = jadaptive.adaptive_search(
             jax.random.PRNGKey(0), stats_fn=jstats, exact_fn=None,
             n_arms=n_arms, n_ref=n, batch_size=100,
@@ -126,8 +126,8 @@ def test_leader_cross_sums_match_jax_backend(metric):
     data = jnp.asarray(X)
     want = jb.build_stats(data, jnp.asarray(ref), jnp.asarray(dnear[ref]),
                           jnp.asarray(w), 17, metric=metric)
-    got = tb.build_stats(_t(X), _t(ref), _t(dnear[ref]), _t(w), 17,
-                         metric=metric)
+    got = tb.build_stats(_t(X), _t(ref), _t(dnear[ref]), _t(w),
+                         torch.tensor(17), metric=metric)
     for g, wv in zip(got, want):
         torch.testing.assert_close(g[lo], _t(wv)[lo], rtol=1e-5, atol=1e-3)
     meds = np.array([3, 50, 120])
@@ -139,7 +139,7 @@ def test_leader_cross_sums_match_jax_backend(metric):
                          jnp.asarray(d2), jnp.asarray(a), jnp.asarray(w), k,
                          lead, metric=metric)
     got = tb.swap_stats(_t(X), _t(ref), _t(d1), _t(d2), _t(a).long(), _t(w),
-                        k, lead, metric=metric)
+                        k, torch.tensor(lead), metric=metric)
     cand = np.setdiff1d(np.arange(n // 2), meds)
     for g, wv in zip(got, want):
         torch.testing.assert_close(g.view(k, n)[:, cand],
@@ -167,3 +167,61 @@ def test_reference_leader_ledger_depends_on_compilation():
     for f in (jit, eager):
         assert abs(port.evals_by_phase["build"]
                    - f.evals_by_phase["build"]) <= 4 * 100
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_device_leader_gives_the_int_leaders_statistics(backend,
+                                                       monkeypatch):
+    """The port's backends take the leader as a 0-d int64 device index,
+    the JAX backend as an int: every leader statistic (BUILD and SWAP,
+    fresh and from a distance block) agrees with the JAX backend's at
+    the same leader to float32 rounding.  The cuda backend runs here on
+    the CPU through the kernels' plain versions (its device check
+    lifted).  The batch, the leaders and the compared arms are split as
+    in ``test_leader_cross_sums_match_jax_backend``; the block forms get
+    one distance block, the port's."""
+    from repro_torch.kernels import ops
+    if backend == "cuda":
+        monkeypatch.setattr(engine.CudaStatsBackend, "_ops",
+                            staticmethod(lambda t: ops))
+    be = engine.get_stats_backend(backend)
+    jb = jengine.get_stats_backend("jnp")
+    n, k = 240, 3
+    Xn = jdatasets.mnist_like(n, seed=4, d=40)
+    X, data = _t(Xn), jnp.asarray(Xn)
+    gen = np.random.default_rng(5)
+    ref = gen.integers(n // 2, n, 100)
+    w = np.ones(100, np.float32)
+    w[-9:] = 0.0
+    dnear = gen.uniform(1, 5, n).astype(np.float32)[ref]
+    meds = np.array([3, 50, 120])
+    d1, d2, a = (np.asarray(v)[ref] for v in jengine.medoid_cache(
+        data, jnp.asarray(meds, jnp.int32), metric="l2"))
+    dxy = ops.pairwise_distance(X, X[_t(ref)].contiguous(), "l2")
+    J = {name: jnp.asarray(v) for name, v in
+         dict(ref=ref, w=w, dnear=dnear, d1=d1, d2=d2, a=a,
+              dxy=dxy.numpy()).items()}
+    T = {name: _t(v) for name, v in
+         dict(ref=ref, w=w, dnear=dnear, d1=d1, d2=d2,
+              a=a.astype(np.int32), dxy=dxy).items()}
+    build = [
+        lambda b, v, L: b.build_stats(X if b is be else data, v["ref"],
+                                      v["dnear"], v["w"], L, metric="l2"),
+        lambda b, v, L: b.build_stats_from_d(v["dxy"], v["dnear"], v["w"],
+                                             L)]
+    swap = [
+        lambda b, v, L: b.swap_stats(X if b is be else data, v["ref"],
+                                     v["d1"], v["d2"], v["a"], v["w"], k, L,
+                                     metric="l2"),
+        lambda b, v, L: b.swap_stats_from_d(v["dxy"], v["d1"], v["d2"],
+                                            v["a"], v["w"], k, L)]
+    cand = np.setdiff1d(np.arange(n // 2), meds)
+    for lead, calls, arms in ((17, build, np.arange(n // 2)),
+                              (2 * n + 77, swap,
+                               (np.arange(k)[:, None] * n + cand).ravel())):
+        for call in calls:
+            got = call(be, T, torch.tensor(lead))
+            want = call(jb, J, lead)
+            for g, wv in zip(got, want):
+                torch.testing.assert_close(g[arms], _t(wv)[arms],
+                                           rtol=1e-5, atol=1e-3)

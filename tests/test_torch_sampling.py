@@ -104,14 +104,25 @@ def test_fit_modes_match_jax_reference(n, k, metric, mode, monkeypatch):
     check_mode_against_jax(n, k, metric, mode, monkeypatch)
 
 
-@pytest.mark.parametrize("kw", [{}, {"sampling": "replacement",
-                                     "baseline": "leader",
-                                     "swap_early_stop": True}])
+@pytest.mark.parametrize("kw", [{}, {"baseline": "leader"},
+                                {"swap_early_stop": True},
+                                {"cache_cols": 200},
+                                {"sampling": "replacement",
+                                 "baseline": "leader",
+                                 "swap_early_stop": True}])
 def test_stepped_loop_gives_the_fused_report(kw):
+    """``fused=True`` runs the device-resident searches under permutation
+    sampling (defaults, leader, early stop, the warm block) and the
+    stepped ones under replacement sampling; ``fused=False`` the stepped
+    ones throughout.  The reports are identical, the loss bits included.
+    A batch of 20 gives searches of up to 15 rounds, past the stop of
+    most of them."""
     n, k = 300, 3
     X = jdatasets.mnist_like(n, seed=2)
-    a = BanditPAM(k, device="cpu", fused=True, seed=4, **kw).fit(X)
-    b = BanditPAM(k, device="cpu", fused=False, seed=4, **kw).fit(X)
+    a = BanditPAM(k, device="cpu", fused=True, seed=4, batch_size=20,
+                  **kw).fit(X)
+    b = BanditPAM(k, device="cpu", fused=False, seed=4, batch_size=20,
+                  **kw).fit(X)
     for f in ("evals_by_phase", "swap_history", "build_rounds",
               "swap_exact_fallbacks", "n_swaps", "converged", "loss"):
         assert getattr(a, f) == getattr(b, f), f
@@ -178,7 +189,8 @@ def test_leader_cross_sums_match_between_backend_forms():
     w = torch.ones(100)
     w[-9:] = 0.0
     dnear = torch.from_numpy(gen.uniform(1, 5, n).astype(np.float32))
-    s, q, c = be.build_stats(X, ref, dnear[ref], w, 17, metric="l2")
+    s, q, c = be.build_stats(X, ref, dnear[ref], w, torch.tensor(17),
+                             metric="l2")
     dl = ops.pairwise_distance(X[17:18], X[ref], "l2")[0]
     lg = engine._build_g(dl[None, :], dnear[ref])[0] * w
     s2, q2, c2 = ops.build_g_stats(X, X[ref].contiguous(), dnear[ref], w, lg,
@@ -186,11 +198,11 @@ def test_leader_cross_sums_match_between_backend_forms():
     torch.testing.assert_close(c, c2, rtol=1e-5, atol=1e-4)
     d1, d2, a = engine.medoid_cache(X, torch.tensor([3, 50, 120]),
                                     metric="l2")
-    lead = 2 * n + 77                              # medoid 2, candidate 77
+    lead = torch.tensor(2 * n + 77)                # medoid 2, candidate 77
     s, q, c = be.swap_stats(X, ref, d1[ref], d2[ref], a[ref], w, k, lead,
                             metric="l2")
     dl = ops.pairwise_distance(X[77:78], X[ref], "l2")[0]
-    lg = engine._swap_lead_g(dl, d1[ref], d2[ref], a[ref], 2)
+    lg = engine._swap_lead_g(dl, d1[ref], d2[ref], a[ref], torch.tensor(2))
     s2, q2, c2 = ops.swap_g_stats(X, X[ref].contiguous(), d1[ref], d2[ref],
                                   a[ref], w, k, lg, metric="l2")
     torch.testing.assert_close(c, c2.reshape(-1), rtol=1e-5, atol=1e-4)
