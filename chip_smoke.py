@@ -90,6 +90,26 @@ Phases, each of which raises (exit code != 0) on any failure:
    its own, each launching ``swap_g_from_cache``, the full ring running
    the carried-moment repair.
 
+6. the other solvers, the threefry draws and the non-kernel metrics
+   (``threefry_answers``, ``solver_paths``, ``solver_parity``): (a) the
+   port's threefry on the card and on the CPU against jax 0.9.0's known
+   answers (``KA_*``: split, fold_in, randint, a 60,000-point
+   permutation, choice, uniform), raising; (b) ``KMedoids(k=10,
+   solver=s).fit`` on the main path's 60,000 rows for FasterPAM,
+   Voronoi iteration, CLARANS, CLARA and OneBatchPAM, each counted on
+   its own, with wall, ledger, swaps, host reads, the loss against a
+   plain ``total_loss`` and over PAM's, and each kernel's launches
+   (its path's kernels must have run); (c) ``backend="cuda"`` against
+   ``"torch"`` for each of them on ``N_PARITY`` integer points in 10
+   blobs (``code_blobs``): medoids, swap history and ledger equal,
+   raising; (d) a ``"precomputed"`` fit on the card equal to the ``l2``
+   fit's medoids on those points, and a callable metric fitting on the
+   card through ``"torch"`` (no kernel launched) as on the CPU; and
+   (``solver_kernel_times``) ``pairwise``, ``swap_g_from_cache`` and
+   ``stream_swap_g`` at the shapes these solvers give them, each held
+   to its plain version with phase 3's tolerances and timed beside it.
+   The phase prints its wall.
+
 The ``kernels`` line takes pairwise/build_g/swap_g/top2's launches from
 the default fit + predict (pairwise's row is timed at predict's
 [10,000 x 10] and says so under ``shape``), the streaming kernels' from the replacement
@@ -143,6 +163,57 @@ N_PARITY = 4096             # rows of the cuda-vs-torch fit parity
 # The kernels of the default fit + predict; the streaming kernels run on
 # the exact paths (replacement sampling's fallback, PAM).
 MAIN_KERNELS = ("pairwise", "build_g", "swap_g", "top2")
+
+# Phase 6's threefry known answers, computed with jax 0.9.0
+# (jax.random, partitionable threefry, 64-bit types off): split(PRNGKey(0)),
+# fold_in(PRNGKey(7), 3), randint(PRNGKey(1), (100,), 0, 60000), the first
+# 16 entries and the checksum sum(p[i]·i) of permutation(PRNGKey(0), 60000),
+# choice(PRNGKey(0), 60000, (256,), replace=False) and the float32 bits of
+# uniform(PRNGKey(2), (8,)).
+KA_SPLIT = ((1797259609, 2579123966), (928981903, 3453687069))
+KA_FOLD_IN = (276534068, 1641862660)
+KA_RANDINT = (
+    7996, 2927, 43040, 21353, 4768, 52684, 438, 27381, 47506, 30946, 29408,
+    24033, 39874, 12930, 36398, 31226, 40081, 21591, 44603, 2202, 43960,
+    15092, 25496, 55114, 36646, 59199, 42426, 67, 34472, 27462, 4644, 39655,
+    16307, 57787, 3573, 7153, 30937, 31562, 57804, 14754, 29334, 52154, 7010,
+    4624, 55239, 24722, 12301, 12930, 27007, 28017, 40407, 1543, 14556, 9669,
+    51209, 39455, 55913, 46339, 6396, 44535, 48380, 53042, 25804, 2883,
+    36757, 52965, 7848, 778, 49752, 16298, 20534, 54966, 15971, 28688, 59530,
+    48282, 44239, 8114, 4170, 55457, 59028, 54209, 20510, 57573, 13491,
+    33185, 47925, 41996, 41781, 35469, 58001, 56915, 9392, 43132, 46386,
+    10857, 36662, 56322, 36827, 2005)
+KA_PERM_HEAD = (48820, 47051, 9095, 5778, 25367, 40208, 19520, 18286, 34087,
+                34222, 28766, 9011, 9052, 31243, 52793, 36801)
+KA_PERM_CHECKSUM = 53940813614023
+KA_CHOICE = (
+    48820, 47051, 9095, 5778, 25367, 40208, 19520, 18286, 34087, 34222,
+    28766, 9011, 9052, 31243, 52793, 36801, 28761, 3850, 15391, 58251, 53521,
+    14902, 24741, 51056, 26838, 41122, 16388, 46125, 13342, 4602, 32982,
+    12917, 54008, 25602, 37036, 34016, 59257, 29841, 25400, 2332, 47971,
+    10974, 1547, 153, 161, 22646, 7844, 43607, 4834, 9741, 22752, 43187,
+    51739, 59864, 48457, 17201, 2031, 48194, 27632, 49316, 23281, 28711,
+    33967, 41688, 10687, 8590, 49534, 7319, 37126, 17521, 713, 22725, 20519,
+    28904, 55487, 40246, 581, 56375, 41311, 57586, 22249, 56327, 17546, 3231,
+    19745, 42406, 45993, 9138, 49309, 16477, 23543, 39725, 668, 45820, 35287,
+    15335, 11538, 6195, 1910, 54826, 54808, 52711, 4003, 43228, 11855, 34771,
+    12631, 28541, 47474, 35626, 16647, 44147, 48578, 5554, 35863, 58104,
+    47518, 50185, 2646, 13274, 33530, 11977, 23311, 47234, 14047, 9537,
+    36924, 53056, 11986, 36229, 41489, 53179, 18193, 57265, 11647, 24031,
+    12769, 5025, 45013, 36357, 43308, 14960, 19862, 23481, 18888, 26087,
+    11765, 31480, 3121, 39823, 30446, 31094, 17381, 43530, 24482, 53959,
+    33818, 58669, 20241, 53823, 56538, 16181, 45053, 59397, 19080, 41223,
+    21285, 50869, 49013, 25706, 29076, 52390, 53040, 46746, 21023, 24611,
+    13873, 27164, 42793, 18165, 24054, 12141, 4336, 35561, 52340, 41771,
+    27764, 59862, 30985, 36173, 57729, 35595, 5485, 24637, 47811, 59943,
+    35174, 2072, 37572, 32547, 693, 35676, 10166, 31169, 3139, 48788, 55560,
+    8224, 58650, 42122, 33375, 18398, 22326, 32884, 13789, 3189, 59775,
+    18938, 29019, 34236, 57754, 58718, 24293, 56675, 10068, 5531, 29818,
+    14132, 8254, 20751, 3664, 54273, 52979, 38621, 19450, 7653, 17914, 11859,
+    27657, 12961, 6846, 27445, 47065, 42139, 52239, 4511, 27067, 45120,
+    23989, 42693, 41226, 56960, 39826, 53146, 59831, 26682)
+KA_UNIFORM_BITS = (1059326690, 1063685594, 1047236112, 1063366964, 1054220920,
+                   1045376368, 1060881616, 1044380424)
 
 
 def log(*a):
@@ -1190,6 +1261,250 @@ def pic_paths(torch, X, dev, Xnp, pam_fit):
     return counts
 
 
+NEW_SOLVERS = ("fasterpam", "voronoi", "clarans", "clara", "onebatchpam")
+# The kernels each new solver must launch on the card.
+SOLVER_KERNELS = {"fasterpam": ("stream_swap_g", "top2"),
+                  "voronoi": ("pairwise", "top2"),
+                  "clarans": ("top2",),
+                  "clara": ("stream_build_g", "stream_swap_g", "top2"),
+                  "onebatchpam": ("pairwise", "swap_g_from_cache", "top2")}
+
+
+def threefry_answers(torch, dev):
+    """Phase 6 (a): the port's threefry on the card and on the CPU
+    against jax 0.9.0's known answers (raising), and the time of one
+    n = 60,000 permutation on the card (a search's draw)."""
+    from repro_torch.core import threefry as tf
+    key0 = tf.PRNGKey(0)
+    keys_ok = (tuple(map(tuple, tf.split(key0))) == KA_SPLIT
+               and tuple(tf.fold_in(tf.PRNGKey(7), 3)) == KA_FOLD_IN)
+    log(f"[threefry] split / fold_in (host ints) == jax: {keys_ok}")
+    if not keys_ok:
+        raise AssertionError("threefry keys differ from jax's")
+    for where in (dev, torch.device("cpu")):
+        ri = tf.randint(tf.PRNGKey(1), (100,), 0, 60000, where).cpu()
+        p = tf.permutation(key0, 60000, where).cpu()
+        c = tf.choice(key0, 60000, (256,), replace=False, device=where).cpu()
+        u = tf.uniform(tf.PRNGKey(2), (8,), device=where).cpu()
+        got = {"randint": ri.tolist() == list(KA_RANDINT),
+               "permutation": (p[:16].tolist() == list(KA_PERM_HEAD)
+                               and int((p * torch.arange(60000)).sum())
+                               == KA_PERM_CHECKSUM),
+               "choice": c.tolist() == list(KA_CHOICE),
+               "uniform": u.view(torch.int32).tolist()
+               == list(KA_UNIFORM_BITS)}
+        log(f"[threefry] {where.type}: equal to jax's known answers: {got}")
+        if not all(got.values()):
+            raise AssertionError(f"threefry on {where} differs from jax")
+    ms = time_ms(lambda: tf.permutation(key0, 60000, dev), reps=10, warm=2)
+    log(f"[threefry] permutation(n=60000) on the card {ms:.4f} ms")
+
+
+def solver_paths(torch, X, dev, Xnp, pam_fit):
+    """Phase 6 (b): every new solver through ``KMedoids(k=10,
+    solver=s).fit`` on the main path's 60,000 rows (d = 784, l2), each
+    counted on its own: wall, ledger, swaps, host reads, loss against a
+    plain ``total_loss`` (raising) and over PAM's, and the launches of
+    each kernel it ran (its kernels must have run).  Returns the
+    counts."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import total_loss
+    from repro_torch.kernels import ops
+    counts = {}
+    data = X[:N_FIT].contiguous()
+    for name in NEW_SOLVERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        est = KMedoids(k=10, solver=name, metric="l2", seed=0).fit(
+            Xnp[:N_FIT])
+        fit_s = time.perf_counter() - t0
+        c = counts[name] = ops.launch_counts()
+        r = est.report_
+        log(f"[solvers] {name}: n {N_FIT} d {X.shape[1]} k 10 medoids "
+            f"{r.medoids.tolist()} loss {r.loss!r} n_swaps {r.n_swaps} "
+            f"converged {r.converged}")
+        log(f"[solvers] {name}: evals_by_phase {r.evals_by_phase} "
+            f"wall_by_phase {r.wall_by_phase} fit {fit_s:.3f} s (data "
+            f"upload included) host_reads_by_phase {r.host_reads_by_phase}"
+            f"; peak device memory {torch.cuda.max_memory_allocated()} "
+            f"bytes")
+        log(f"[solvers] {name}: kernel launches "
+            f"{ {nm: v for nm, v in c.items() if v} }")
+        if min(c[nm] for nm in SOLVER_KERNELS[name]) < 1:
+            raise AssertionError(f"{name}: a kernel of its path never ran: "
+                                 f"{c}")
+        if len(set(r.medoids.tolist())) != 10:
+            raise AssertionError(f"bad {name} medoids")
+        med_t = torch.as_tensor(r.medoids, device=dev)
+        plain = float(total_loss(data, med_t, metric="l2", backend="torch"))
+        if not abs(plain - r.loss) <= 1e-5 * abs(plain):
+            raise AssertionError(f"{name} loss {r.loss} != plain {plain}")
+        log(f"[claim] {name}: loss / PAM loss {r.loss / pam_fit.loss!r}; "
+            f"medoids == PAM's: "
+            f"{sorted(r.medoids.tolist()) == sorted(pam_fit.medoids.tolist())}")
+    return counts
+
+
+def solver_kernel_times(torch, X, dev):
+    """Phase 6, the kernels at the shapes the new solvers give them (l2,
+    d = 784, k = 10): ``pairwise`` at OneBatchPAM's [60,000 x 256] block
+    and Voronoi's [60,000 x 4,096] tile, ``swap_g_from_cache`` over
+    OneBatchPAM's block with unit weights, ``stream_swap_g`` at a
+    FasterPAM block of 32,768 candidates against all 60,000 references;
+    each held to its plain version with phase 3's tolerances (raising)
+    and timed beside it, the library call where there is one, and its
+    bound."""
+    from repro_torch.core import baselines, onebatch, threefry
+    from repro_torch.kernels import ops, pairwise, stream_g, swap_g
+    from repro_torch.core.engine import _swap_batch_stats
+    x = X[:N_FIT].contiguous()
+    n, d, k = x.shape[0], x.shape[1], 10
+    ref = threefry.choice(threefry.PRNGKey(0), n, (onebatch.DEFAULT_REF_SIZE,),
+                          replace=False, device=dev)
+    for label, y in (("OneBatchPAM block", x[ref].contiguous()),
+                     ("Voronoi tile", x[:baselines.VORONOI_TILE])):
+        r = y.shape[0]
+        got = ops.pairwise_distance(x, y, "l2")
+        want = pairwise.pairwise_torch(x, y, metric="l2")
+        err = check_close(f"pairwise[{n}x{r}]", got, want,
+                          dist_tol("l2", float(want.max())))
+        del got, want
+        ms = time_ms(lambda: ops.pairwise_distance(x, y, "l2"), reps=5)
+        pms = time_ms(lambda: pairwise.pairwise_torch(x, y, metric="l2"),
+                      reps=5)
+        lms = time_ms(lambda: torch.cdist(x, y), reps=5)
+        bms, bby = bound_ms(2.0 * n * r * d, 4.0 * (n * d + r * d + n * r))
+        log(f"[time6] pairwise [{n} x {r}] ({label}): kernel {ms:.4f} ms  "
+            f"plain {pms:.4f} ms  torch.cdist {lms:.4f} ms  bound "
+            f"{bms:.4f} ms ({bby})  share of bound {bms / ms:.3f}  "
+            f"max_abs_err {err:.3e}")
+    D = ops.pairwise_distance(x, x[ref].contiguous(), "l2")
+    b = D.shape[1]
+    Dm = D[:k]                                  # the block rows of 10 medoids
+    a_b = torch.argmin(Dm, dim=0)
+    d1 = Dm.gather(0, a_b[None])[0]
+    d2 = torch.min(Dm.scatter(0, a_b[None], float("inf")), dim=0).values
+    a_b = a_b.to(torch.int32)
+    w = torch.ones(b, device=dev)
+    lg = torch.zeros(b, device=dev)
+    got = ops.swap_g_stats_cached(D, d1, d2, a_b, w, k)
+    want = _swap_batch_stats(D, d1, d2, a_b, w, k, None)
+    lim = swap_abs_sums(D, d1, d2, a_b, w, k, lg)
+    err = max(check_close(f"swap_g_from_cache[{n}x{b}] {nm}", g, wv,
+                          2 * b * 2.0 ** -24 * li, rtol=0.0)
+              for nm, g, wv, li in zip(("sums", "sq"), got[:2], want[:2],
+                                       lim[:2]))
+    ms = time_ms(lambda: ops.swap_g_stats_cached(D, d1, d2, a_b, w, k))
+    pms = time_ms(lambda: swap_g.swap_g_from_cache_torch(D, d1, d2, a_b, w, k,
+                                                         lg))
+    bms, bby = bound_ms(0.0, 4.0 * (n * b + 5 * b + 3 * k * n))
+    log(f"[time6] swap_g_from_cache [{n} x {b}] (OneBatchPAM SWAP, unit "
+        f"weights, k={k}): kernel {ms:.4f} ms  plain {pms:.4f} ms  bound "
+        f"{bms:.4f} ms ({bby})  share of bound {bms / ms:.3f}  max_abs_err "
+        f"{err:.3e}")
+    m = baselines.FASTERPAM_BLOCK
+    med = x[torch.arange(0, n, n // k, device=dev)[:k]].contiguous()
+    d1, d2, a = ops.stream_top2(x, med, metric="l2")
+    rows = x[n - m:].contiguous()               # a block's candidate rows
+    sargs = (rows, x, d1, d2, a, torch.ones(n, device=dev), k,
+             torch.zeros(n, device=dev))
+    got = ops.stream_swap_g_stats(*sargs, metric="l2")
+    want = stream_g.stream_swap_g_torch(*sargs, "l2")
+    dmax = float(pairwise.pairwise_torch(rows[:2048], x, metric="l2").max())
+    slim = sum_err_limit(rows, x, "l2", dmax)
+    err = check_close(f"stream_swap_g[{m}x{n}] sums", got[0], want[0],
+                      2 * slim)
+    del got, want
+    ms = time_ms(lambda: ops.stream_swap_g_stats(*sargs, metric="l2"),
+                 reps=3, warm=1)
+    pms = time_ms(lambda: stream_g.stream_swap_g_torch(*sargs, "l2"), reps=2,
+                  warm=1)
+    bms, bby = bound_ms(2.0 * m * n * d,
+                        4.0 * (m * d + n * d + 5 * n + 3 * k * m))
+    log(f"[time6] stream_swap_g [{m} x {n}] (a FasterPAM block, k={k}): "
+        f"kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.3f} ms "
+        f"({bby})  share of bound {bms / ms:.3f}  max_abs_err {err:.3e}")
+    torch.cuda.empty_cache()
+
+
+def solver_parity(torch, dev):
+    """Phase 6 (c) and (d) on ``N_PARITY`` integer points in 10 blobs
+    (``code_blobs``: both backends compute the same distances):
+    ``backend="cuda"`` against ``"torch"`` for each new solver (medoids,
+    swap history, swaps, convergence and ledger equal, the loss within
+    rtol 1e-5; raising), FasterPAM's card route (candidate blocks
+    through ``stream_swap_g``) against its plain route (one candidate at
+    a time); then a ``"precomputed"`` fit on the card against the
+    ``l2`` fit (equal medoids, raising) and a callable metric's fit on
+    the card (through ``"torch"``: no stats kernel launched) against
+    the same fit on the CPU."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import baselines, onebatch
+    from repro_torch.core.datasets import code_blobs
+    from repro_torch.core.distances import l2
+    from repro_torch.kernels import ops
+    k = 10
+    blobs = torch.from_numpy(code_blobs(N_PARITY, k, seed=6)).to(dev)
+    run = {"fasterpam": lambda be: baselines.fasterpam(
+               blobs, k, seed=0, backend=be, device=dev),
+           "voronoi": lambda be: baselines.voronoi_iteration(
+               blobs, k, seed=0, backend=be, device=dev),
+           "clarans": lambda be: baselines.clarans(
+               blobs, k, seed=0, backend=be, device=dev),
+           "clara": lambda be: baselines.clara(
+               blobs, k, seed=0, backend=be, device=dev),
+           "onebatchpam": lambda be: onebatch.onebatchpam(
+               blobs, k, seed=0, backend=be, device=dev)}
+    for name in NEW_SOLVERS:
+        fits = {}
+        for be in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            fits[be] = run[name](be)
+            log(f"[parity6] {name} backend={be:5s} medoids "
+                f"{fits[be].medoids.tolist()} swaps {fits[be].n_swaps} "
+                f"evals {fits[be].evals_by_phase} host reads "
+                f"{fits[be].host_reads_by_phase} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        a, b = fits["cuda"], fits["torch"]
+        same = (a.medoids.tolist() == b.medoids.tolist()
+                and [h[:2] for h in a.swap_history]
+                == [h[:2] for h in b.swap_history]
+                and a.evals_by_phase == b.evals_by_phase
+                and (a.n_swaps, a.converged) == (b.n_swaps, b.converged))
+        if not same or abs(a.loss - b.loss) > 1e-5 * abs(b.loss):
+            raise AssertionError(f"{name}: cuda and torch fits differ")
+        log(f"[parity6] {name}: cuda == torch (medoids, swaps, ledger); loss "
+            f"rel diff {abs(a.loss - b.loss) / abs(b.loss):.2e}")
+    # The metrics: the lookup of the exact l2 block, and a callable.
+    D = l2(blobs, blobs)
+    a = KMedoids(k, metric="precomputed", seed=0, device=dev).fit(D)
+    b = KMedoids(k, metric="l2", seed=0, device=dev).fit(blobs)
+    log(f"[metrics] precomputed fit medoids {a.medoids_.tolist()} evals "
+        f"{a.report_.evals_by_phase}; l2 fit {b.medoids_.tolist()} evals "
+        f"{b.report_.evals_by_phase}")
+    if a.medoids_.tolist() != b.medoids_.tolist():
+        raise AssertionError("the precomputed fit's medoids differ from the "
+                             "l2 fit's")
+
+    def chebyshev(x, y):
+        return torch.amax(torch.abs(x[:, None, :] - y[None, :, :]), dim=-1)
+    ops.reset_launch_counts()
+    c = KMedoids(k, metric=chebyshev, seed=0, device=dev).fit(blobs[:1024])
+    launched = ops.launch_counts()
+    d = KMedoids(k, metric=chebyshev, seed=0, device="cpu").fit(
+        blobs[:1024].cpu())
+    log(f"[metrics] callable {c.report_.metric!r} on the card: medoids "
+        f"{c.medoids_.tolist()} evals {c.report_.evals_by_phase}; launches "
+        f"{ {nm: v for nm, v in launched.items() if v} }; cpu medoids "
+        f"{d.medoids_.tolist()}")
+    if (c.medoids_.tolist() != d.medoids_.tolist()
+            or any(launched.values())):
+        raise AssertionError("the callable metric's card fit differs from "
+                             "the CPU's or launched a kernel")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1224,6 +1539,12 @@ def main() -> int:
     driver_paths(torch, X, Xnp, perm_fit, counts)
     counts_exact, pam_fit = exact_paths(torch, X, dev, Xnp, perm_fit)
     counts_pic = pic_paths(torch, X, dev, Xnp, pam_fit)
+    t6 = time.perf_counter()
+    threefry_answers(torch, dev)
+    counts_solvers = solver_paths(torch, X, dev, Xnp, pam_fit)
+    solver_kernel_times(torch, X, dev)
+    solver_parity(torch, dev)
+    log(f"[solvers] phase 6 wall {time.perf_counter() - t6:.1f} s")
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -1241,6 +1562,9 @@ def main() -> int:
                     for nm in ("stream_build_g", "stream_swap_g"))
         + "; default-ring PIC fit: swap_g_from_cache "
         + str(counts_pic["pic"]["swap_g_from_cache"]))
+    log("[launches] phase 6, each solver's full-size fit: " + "; ".join(
+        f"{name} " + ", ".join(f"{nm} {c[nm]}" for nm in sorted(c) if c[nm])
+        for name, c in counts_solvers.items()))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 from .estimator import KMedoids
 from .predict import (assign_medoids, assign_rows, bucket_rows,
                       medoid_distances)
-from .registry import available_solvers, get_solver, register_solver
+from .registry import (available_solvers, default_params, get_solver,
+                       register_solver)
 
 __all__ = ["KMedoids", "assign_medoids", "assign_rows", "available_solvers",
-           "bucket_rows", "get_solver", "medoid_distances", "register_solver"]
+           "bucket_rows", "default_params", "get_solver", "medoid_distances",
+           "register_solver"]

@@ -14,6 +14,12 @@ runs the plain PyTorch path.  ``labels_`` come from one top-2 pass (the
 ``top2`` kernel on the card); ``transform`` from the pairwise path (the
 ``pairwise`` kernel) and ``predict`` is its first-index argmin.
 
+``metric`` is a registered name, a raw ``[m, d] x [r, d] -> [m, r]``
+callable of tensors (registered on first use), or ``"precomputed"``:
+then ``fit`` takes the ``[n, n]`` dissimilarity matrix itself, and
+``predict`` / ``transform`` take the ``[m, n]`` query-to-fit-points
+block, whose medoid columns are the answer.
+
 ``KMedoids.from_fitted(X, medoids, metric)`` builds a fitted estimator
 from given medoid indices, e.g. medoids fitted by the JAX package.
 """
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.distances import resolve_metric
+from ..core.distances import attach_index, resolve_metric
 from ..core.engine import medoid_cache, resolve_stats_backend
 from .predict import DEFAULT_CHUNK, medoid_distances_t
 from .registry import get_solver, solver_accepts_backend
@@ -37,10 +43,12 @@ class KMedoids:
 
     Args:
       k: number of medoids.
-      solver: registered solver name (``"banditpam"`` on this slice).
-      metric: ``"l2"``, ``"l2sq"``, ``"l1"`` or ``"cosine"``.
-      seed: seeds the default reference-permutation source (a
-        ``torch.Generator``; not the JAX package's draws).
+      solver: registered solver name (``available_solvers()``).
+      metric: a registered name (``"l2"``, ``"l2sq"``, ``"l1"``,
+        ``"cosine"``, ...), a callable, or ``"precomputed"``.
+      seed: forwarded to the stochastic solvers; the bandit solvers draw
+        the JAX package's threefry chain for it, so a seed gives the JAX
+        fit.
       backend: stats backend of the fit (``"auto"``, ``"cuda"``,
         ``"torch"``).
       predict_backend: backend of ``predict``/``transform``.
@@ -82,12 +90,20 @@ class KMedoids:
                              f"{tuple(data.shape)}")
         return data
 
+    def _fit_data(self, X, metric_name: str,
+                  dev: torch.device) -> torch.Tensor:
+        """``X`` on the device; for ``"precomputed"`` the ``[n, n]``
+        matrix with its index column (``attach_index``)."""
+        data = self._data(X, dev)
+        return attach_index(data) if metric_name == "precomputed" else data
+
     def _set_fitted(self, data: torch.Tensor, medoids: np.ndarray,
                     metric_name: str) -> None:
         dev = data.device
         med_t = torch.as_tensor(medoids, dtype=torch.int64, device=dev)
-        # In-sample labels (and the loss) under the fit's metric: one
-        # top-2 pass.
+        # In-sample labels (and the loss) under the fit's metric (for
+        # "precomputed", the lookup over the indexed matrix): one top-2
+        # pass.
         d1, _, assign = medoid_cache(
             data, med_t, metric=metric_name,
             backend=resolve_stats_backend(self.backend, metric_name, dev))
@@ -95,8 +111,15 @@ class KMedoids:
         self.medoids_ = medoids
         self.labels_ = assign.cpu().numpy()
         self._metric_name = metric_name
-        self._medoid_points = data[med_t].contiguous()
-        self.n_features_in_ = data.shape[1]
+        if metric_name == "precomputed":
+            # Queries are [m, n_fit] blocks; the medoids are columns.
+            self._n_fit = data.shape[0]
+            self._medoid_points = None
+            self._medoid_cols = med_t
+            self.n_features_in_ = data.shape[0]
+        else:
+            self._medoid_points = data[med_t].contiguous()
+            self.n_features_in_ = data.shape[1]
 
     # -- fitting ---------------------------------------------------------
     def fit(self, X, layouts=None) -> "KMedoids":
@@ -108,7 +131,7 @@ class KMedoids:
                 "warm_start is not ported to repro_torch yet (ROADMAP A11)")
         metric_name = resolve_metric(self.metric)
         dev = resolve_device(self.device)
-        data = self._data(X, dev)
+        data = self._fit_data(X, metric_name, dev)
         if data.shape[0] <= self.k:
             raise ValueError(f"need n > k, got n={data.shape[0]}, k={self.k}")
         params = dict(self.solver_params)
@@ -141,7 +164,8 @@ class KMedoids:
         est = cls(k=medoids.shape[0], metric=metric, device=device, **kw)
         metric_name = resolve_metric(metric)
         dev = resolve_device(device)
-        est._set_fitted(est._data(X, dev), medoids, metric_name)
+        est._set_fitted(est._fit_data(X, metric_name, dev), medoids,
+                        metric_name)
         return est
 
     def _check_fitted(self):
@@ -152,6 +176,14 @@ class KMedoids:
     # -- inference -------------------------------------------------------
     def _transform_t(self, X, backend: Optional[str]) -> torch.Tensor:
         self._check_fitted()
+        if self._metric_name == "precomputed":
+            q = self._data(X, self._medoid_cols.device)
+            if q.shape[1] != self._n_fit:
+                raise ValueError(
+                    f"precomputed queries must be [m, n_fit={self._n_fit}] "
+                    f"dissimilarities to the fit points, got "
+                    f"{tuple(q.shape)}")
+            return q.index_select(1, self._medoid_cols)
         if len(X.shape) != 2 or X.shape[1] != self.n_features_in_:
             raise ValueError(f"queries must be [m, {self.n_features_in_}], "
                              f"got shape {tuple(X.shape)}")
@@ -161,7 +193,9 @@ class KMedoids:
             chunk=self.predict_chunk)
 
     def transform(self, X, backend: Optional[str] = None) -> np.ndarray:
-        """Dissimilarities from each query row to the medoids, [m, k]."""
+        """Dissimilarities from each query row to the medoids, [m, k];
+        with ``metric="precomputed"``, ``X`` is the ``[m, n_fit]``
+        query-to-fit-points block."""
         return self._transform_t(X, backend).cpu().numpy()
 
     def predict(self, X, backend: Optional[str] = None) -> np.ndarray:

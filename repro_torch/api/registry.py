@@ -6,15 +6,21 @@ Solver contract::
     fn(data, k, *, metric: str, seed: int, device, layouts=None, **params)
         -> FitReport
 
+``data`` is a ``[n, d]`` float32 tensor on the fit's device (already
+``attach_index``-augmented when ``metric == "precomputed"``); ``metric``
+is a registered name (the facade resolves callables first).
+
 Ported: ``banditpam`` (its knobs, the cache regimes ``reuse`` /
 ``cache_width`` / ``cache_cols`` included, reach the fit as solver
 params), ``banditpam_pp`` (BanditPAM++: ``banditpam`` with
-``reuse="pic"`` by default), and the exact oracles ``pam`` (PAM's k·n² SWAP
-accounting) and ``fastpam1`` (n² per SWAP step; the same medoids), which
-run through the stats backend and so take ``backend=``.  The JAX
-package's other solvers are known by name and raise
-``NotImplementedError`` with their ROADMAP item, so a caller learns that
-the solver exists but is not ported yet.
+``reuse="pic"`` by default), the exact oracles ``pam`` (PAM's k·n² SWAP
+accounting) and ``fastpam1`` (n² per SWAP step; the same medoids), the
+baselines ``fasterpam``, ``voronoi``, ``clarans`` and ``clara``
+(``core.baselines``) and ``onebatchpam`` (``core.onebatch``).  All of
+them run through the stats backend and so take ``backend=``; only the
+bandit solvers read ``layouts=``.  ``banditpam_dist``, the sharded fit,
+is known by name and raises ``NotImplementedError`` with its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ..core.banditpam import BanditPAM
+from ..core.baselines import clara, clarans, fasterpam, voronoi_iteration
+from ..core.onebatch import onebatchpam
 from ..core.pam import pam
 from ..core.report import FitReport
 
@@ -31,9 +39,11 @@ _SOLVERS: Dict[str, Solver] = {}
 _ACCEPTS_BACKEND: set = set()
 
 # Solvers of the JAX package that later slices port, by ROADMAP item.
-NOT_PORTED = {"banditpam_dist": "A13",
-              "fasterpam": "A8", "clara": "A8", "clarans": "A8",
-              "voronoi": "A8", "onebatchpam": "A8"}
+NOT_PORTED = {"banditpam_dist": "A13"}
+
+# Solvers that accept the adaptive-search knobs (baseline / sampling /
+# cache_cols / ...).
+BANDIT_SOLVERS = ("banditpam", "banditpam_pp")
 
 
 def register_solver(name: str, fn: Solver, *,
@@ -65,6 +75,13 @@ def solver_accepts_backend(name: str) -> bool:
     return name in _ACCEPTS_BACKEND
 
 
+def default_params(solver: str) -> dict:
+    """Recommended ``solver_params`` for a solver, as the JAX package's
+    registry gives them: the bandit solvers get the leader control
+    variate, everything else runs stock."""
+    return {"baseline": "leader"} if solver in BANDIT_SOLVERS else {}
+
+
 def _banditpam(data, k, *, metric, seed, device, layouts=None, **params):
     return BanditPAM(k, metric=metric, seed=seed, device=device,
                      **params).fit(data, layouts=layouts)
@@ -90,7 +107,19 @@ def _fastpam1(data, k, *, metric, seed, device, layouts=None, **params):
                **params)
 
 
-register_solver("banditpam", _banditpam, accepts_backend=True)
-register_solver("banditpam_pp", _banditpam_pp, accepts_backend=True)
-register_solver("pam", _pam, accepts_backend=True)
-register_solver("fastpam1", _fastpam1, accepts_backend=True)
+def _seeded(fn):
+    """A solver of ``core.baselines`` / ``core.onebatch``: it takes the
+    seed and ignores ``layouts`` (it draws no bandit batches)."""
+    def solver(data, k, *, metric, seed, device, layouts=None, **params):
+        return fn(data, k, metric=metric, seed=seed, device=device,
+                  **params)
+    return solver
+
+
+for _name, _fn in (("banditpam", _banditpam), ("banditpam_pp", _banditpam_pp),
+                   ("pam", _pam), ("fastpam1", _fastpam1),
+                   ("fasterpam", _seeded(fasterpam)),
+                   ("clara", _seeded(clara)), ("clarans", _seeded(clarans)),
+                   ("voronoi", _seeded(voronoi_iteration)),
+                   ("onebatchpam", _seeded(onebatchpam))):
+    register_solver(_name, _fn, accepts_backend=True)

@@ -1,19 +1,23 @@
-"""Carry the JAX package's state across to the port (numpy in, no JAX).
+"""Carry draws and fitted state across to the port (numpy in, no JAX).
 
 BanditPAM has no weights; what a fit depends on besides the data is its
-random draws, and what predict depends on is the fitted medoids:
+random draws, and what predict depends on is the fitted medoids.  A seed
+needs nothing from here: the port's default layout source replays the
+JAX package's threefry chain for it (``repro_torch.core.rng.from_seed``),
+so ``KMedoids(seed=s)`` walks the JAX fit's draws on its own.  This
+module replays draws given as arrays:
 
-* :func:`layouts_from_reference` wraps the JAX chain's per-search
-  reference permutations (``[k, n]`` BUILD, ``[T, n]`` SWAP — e.g. from
+* :func:`layouts_from_reference` wraps per-search reference
+  permutations (``[k, n]`` BUILD, ``[T, n]`` SWAP — e.g. from
   ``repro.core.banditpam._batch_rng_chains`` and ``_batch_perms``) as a
-  layout source, so ``BanditPAM.fit(X, layouts=...)`` walks exactly the
-  JAX fit's batches;
+  layout source, so ``BanditPAM.fit(X, layouts=...)`` walks exactly
+  those batches;
 * :func:`draws_from_reference` does the same for replacement sampling:
-  the JAX chain's per-round batches, ``[k, R, B]`` BUILD and
-  ``[T, R, B]`` SWAP with ``R = ceil(n/B)``.  Search ``s`` of the JAX fit
-  (its key is ``_batch_rng_chains``' ``subs[s]``: k BUILD keys, then T
-  SWAP keys) draws round ``r`` as ``key, sub = split(key);
-  randint(sub, (B,), 0, n)``;
+  per-round batches, ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP with
+  ``R = ceil(n/B)``.  Search ``s`` of the JAX fit (its key is
+  ``_batch_rng_chains``' ``subs[s]``: k BUILD keys, then T SWAP keys)
+  draws round ``r`` as ``key, sub = split(key); randint(sub, (B,), 0,
+  n)``;
 * ``layouts_from_reference(fixed_perm=...)`` carries the one fixed
   permutation of a fit with a distance cache (``reuse="pic"``, or
   ``cache_cols > 0`` under permutation sampling):

@@ -64,10 +64,11 @@ either value (ROADMAP A18b).  The two give identical reports.
 
 Random draws: every search takes its reference permutation, or in
 replacement mode its per-round batches, from a layout source
-(``repro_torch.core.rng``).  The default draws from a ``torch.Generator``
-seeded with ``seed``, so the same seed does NOT give the JAX package's
-medoids; pass ``layouts=`` built by ``repro_torch.convert`` from the JAX
-chain's draws to replay a JAX fit exactly.
+(``repro_torch.core.rng``).  The default replays the JAX package's
+threefry chain for ``seed`` (``rng.from_seed``), so the same seed gives
+the JAX fit's draws and hence its medoids; ``layouts=`` replaces the
+source (``rng.from_generator``, or given draws through
+``repro_torch.convert``).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ import torch
 
 from .adaptive import device_search, log_term_f32
 from .device import DeviceLike, resolve_device
-from .distances import resolve_metric
+from .distances import check_data, resolve_metric
 from .engine import (FitContext, exact_build_means, exact_swap_means,
                      get_stats_backend, host_read, medoid_cache,
                      resolve_stats_backend, stream_columns, total_loss)
@@ -421,8 +422,8 @@ class BanditPAM:
 
         ``layouts`` is the source of the per-search reference
         permutations or replacement draws (``repro_torch.core.rng``); by
-        default a ``torch.Generator`` seeded with ``self.seed`` on the
-        fit's device.
+        default the JAX package's threefry chain for ``self.seed``,
+        computed on the fit's device.
         """
         if warm_start is not None:
             raise _not_ported("warm_start", "A11")
@@ -433,9 +434,10 @@ class BanditPAM:
         n = data.shape[0]
         if n <= self.k:
             raise ValueError("need n > k")
+        check_data(data, self.metric)
         be_name = resolve_stats_backend(self.backend, self.metric, dev)
         if layouts is None:
-            layouts = _rng.from_generator(self.seed, dev)
+            layouts = _rng.from_seed(self.seed, dev, self.k)
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
         ctx = self._make_context(data, be_name, layouts, res)

@@ -14,7 +14,17 @@ These are the plain versions of the ``pairwise`` kernel and the metric
 half of the ``"torch"`` stats backend.  On a CUDA tensor they run with
 TF32 switched off, so the products stay in full float32.
 
-``"precomputed"`` and callable metrics are not ported yet (ROADMAP A2).
+The registry is open, as in the JAX package: ``register_metric`` takes
+any ``[m, d] x [r, d] -> [m, r]`` function of tensors, and
+``resolve_metric`` also takes a raw callable (registered under a name
+derived from it, never over an existing one) or ``"precomputed"``.  A
+caller-supplied ``[n, n]`` dissimilarity matrix goes through
+:func:`attach_index`, which appends each row's own index as a trailing
+column; the ``"precomputed"`` metric then gathers ``D[I, J]`` for a block
+pair from the x rows (full rows of D) at the y rows' index column, so
+every solver runs on it unchanged.  Neither has a kernel: under
+``backend="auto"`` both run on ``"torch"`` on the data's device, CUDA
+included (``engine.resolve_stats_backend``).
 """
 
 from __future__ import annotations
@@ -90,26 +100,98 @@ def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# float32 holds integers exactly up to 2**24, which bounds the index
+# column.
+_MAX_PRECOMPUTED_N = 1 << 24
+
+
+def attach_index(dissim) -> torch.Tensor:
+    """Prepare an ``[n, n]`` dissimilarity matrix (numpy or tensor; a
+    tensor keeps its device) for ``metric="precomputed"``: each row's own
+    index is appended as a trailing column, so row blocks stay
+    self-describing under the solvers' index-only data access."""
+    d = torch.as_tensor(dissim, dtype=torch.float32)
+    if d.ndim != 2 or d.shape[0] != d.shape[1]:
+        raise ValueError(f'metric="precomputed" expects a square [n, n] '
+                         f"dissimilarity matrix, got shape {tuple(d.shape)}")
+    n = d.shape[0]
+    if n >= _MAX_PRECOMPUTED_N:
+        raise ValueError(f"precomputed index column is exact only for "
+                         f"n < {_MAX_PRECOMPUTED_N}, got n={n}")
+    idx = torch.arange(n, dtype=torch.float32, device=d.device)[:, None]
+    return torch.cat([d, idx], dim=1).contiguous()
+
+
+def check_index_column(col: torch.Tensor, n_cols: int) -> None:
+    """Raise unless ``col`` holds column indices of a ``n_cols``-column
+    matrix: integers in ``[0, n_cols)``.  On a CUDA tensor this reads
+    from the device, so the solvers call it once, on their data, before
+    the fit (:func:`check_data`)."""
+    if col.numel() and not bool(torch.all((col >= 0) & (col < n_cols)
+                                          & (col == torch.round(col)))):
+        raise ValueError(
+            'metric="precomputed" data must be routed through '
+            "attach_index() (the trailing column must hold row indices); "
+            "got non-index values: pass the raw [n, n] matrix to "
+            "repro_torch.api.KMedoids, or call attach_index yourself "
+            "before the other entry points")
+
+
+def precomputed(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Lookup 'metric' over ``attach_index``-augmented data: x rows carry
+    ``D[i, :]``, the y rows' trailing column carries ``j``, so the block
+    is a gather ``D[I, J]``.  A CPU call checks the index column (a raw,
+    un-augmented matrix fails at the first distance call, as in the JAX
+    package); on the card, where that check would read from the device
+    in every round, :func:`check_data` makes it once per fit, and the
+    gather's indices are clamped so no input can fault the device."""
+    col = y[:, -1]
+    n_cols = x.shape[1] - 1
+    if not col.is_cuda:
+        check_index_column(col, n_cols)
+    j = torch.clamp(col.to(torch.int64), 0, max(n_cols - 1, 0))
+    return torch.index_select(x[:, :-1], 1, j)
+
+
+def check_data(data: torch.Tensor, metric: str) -> None:
+    """A solver's one check of its data: for ``"precomputed"`` the
+    trailing column must index the matrix's columns."""
+    if metric == "precomputed":
+        check_index_column(data[:, -1], data.shape[1] - 1)
+
+
 def resolve_metric(metric) -> str:
     """Normalise a user-facing ``metric`` argument to a registered name.
-    ``"precomputed"`` and raw callables are later work (ROADMAP A2)."""
+
+    Accepts a registered name (validated), ``"precomputed"`` (the caller
+    routes the data through :func:`attach_index`), or a raw
+    ``[m, d] x [r, d] -> [m, r]`` callable, registered under a name
+    derived from the function (the same object always resolves to the
+    same name; a new one never takes an existing name).
+    """
     if isinstance(metric, str):
-        if metric == "precomputed":
-            raise NotImplementedError(
-                'metric="precomputed" is not ported yet (ROADMAP A2)')
         get_metric(metric)  # raises KeyError for unknown names
         return metric
     if callable(metric):
-        raise NotImplementedError(
-            "callable metrics are not ported yet (ROADMAP A2)")
-    raise TypeError(f"metric must be a registered name; "
-                    f"got {type(metric).__name__}")
+        for name, fn in _REGISTRY.items():
+            if fn is metric:
+                return name
+        base = getattr(metric, "__name__", None) or "metric"
+        name, i = base, 0
+        while name in _REGISTRY:   # never clobber an existing registration
+            i += 1
+            name = f"{base}_{i}"
+        register_metric(name, metric)
+        return name
+    raise TypeError(f"metric must be a registered name, 'precomputed', or a "
+                    f"callable; got {type(metric).__name__}")
 
 
 register_metric("l2", l2)
 register_metric("l2sq", l2sq)
 register_metric("l1", l1)
 register_metric("cosine", cosine)
+register_metric("precomputed", precomputed)
 
 
 def pairwise(x: torch.Tensor, y: torch.Tensor, *, metric: str = "l2"

@@ -28,7 +28,8 @@ device)::
     swap_stats_from_d(dxy, d1_b, d2_b, assign_b, w, k, lead)
                                                             -> 3 × [k·n]
     stream_build_sums(data, dnear, *, metric)               -> [n]
-    stream_swap_sums(data, d1, d2, assign, k, *, metric)    -> [k·n]
+    stream_swap_sums(data, d1, d2, assign, k, *, metric, rows=None)
+                                                            -> [k·m]
     top2(x, med_pts, *, metric)                    -> (d1, d2, assign)
 
 The round statistics are (Σg, Σg², Σg·g_lead) over the batch, where
@@ -44,7 +45,9 @@ medoid ``lead // n`` and candidate ``lead % n``.  The streaming sums are
 Σg over the WHOLE dataset, walked in ``_EXACT_CHUNK``-column reference
 tiles added in walk order: the exact passes behind replacement
 sampling's fallback and behind PAM (:func:`exact_build_means`,
-:func:`exact_swap_means`).
+:func:`exact_swap_means`); ``rows`` (an index tensor) restricts the SWAP
+sums' candidates to those rows of ``data``, m of them (FasterPAM's
+candidate blocks).
 
 The ``*_from_d`` forms take a resident ``[n, B]`` distance block ``dxy``
 (a round's slice of the PIC column ring, the warm block, or the whole
@@ -342,8 +345,10 @@ class TorchStatsBackend:
     def stream_build_sums(self, data, dnear, *, metric):
         return _stream_build_stats(data, data, dnear, None, None, metric)[0]
 
-    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric):
-        return _stream_swap_stats(data, data, d1, d2, assign, None, k, None,
+    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric,
+                         rows=None):
+        x = data if rows is None else data.index_select(0, rows)
+        return _stream_swap_stats(x, data, d1, d2, assign, None, k, None,
                                   metric)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
@@ -425,9 +430,11 @@ class CudaStatsBackend:
         return self._ops(data).stream_build_g_stats(data, data, dnear,
                                                     metric=metric)[0]
 
-    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric):
+    def stream_swap_sums(self, data, d1, d2, assign, k, *, metric,
+                         rows=None):
+        x = data if rows is None else data.index_select(0, rows)
         return self._ops(data).stream_swap_g_stats(
-            data, data, d1, d2, assign, k=k, metric=metric)[0].reshape(-1)
+            x, data, d1, d2, assign, k=k, metric=metric)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
         return self._ops(x).stream_top2(x, med_pts, metric=metric)

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .distances import resolve_metric
+from .distances import check_data, resolve_metric
 from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
                      medoid_cache, resolve_stats_backend, total_loss)
 from .report import FitReport
@@ -45,6 +45,7 @@ def pam(data, k: int, metric: str = "l2", max_swaps: Optional[int] = None,
     k = int(k)
     if n <= k:
         raise ValueError("need n > k")
+    check_data(data, metric)
     max_swaps = max_swaps if max_swaps is not None else 4 * k + 10
     be_name = resolve_stats_backend(backend, metric, dev)
     be = get_stats_backend(be_name)

@@ -21,24 +21,28 @@ its searches draw nothing of their own.  In the JAX package it is
 ``jax.random.permutation(ckey, n)``, ``ckey`` being the chain's first
 split (``_batch_rng_chains``' first output).
 
-The JAX package draws from its threefry chain: ``PRNGKey(seed)`` → one
-subkey per search → ``jax.random.permutation`` of a split of it, or, in
-replacement mode, ``key, sub = split(key); randint(sub, (B,), 0, n)``
-each round.  ``torch.Generator`` cannot reproduce those bits, so the
-same seed gives the two packages different draws — and hence, in
-general, different medoids.  A layout source decouples the fit loop
-from where the draws come from:
+The JAX package draws from its threefry chain: ``PRNGKey(seed)``, then
+``key, ckey = split(key)`` (``ckey`` seeds the fixed permutation), then
+one subkey per search from successive ``key, sub = split(key)`` (the k
+BUILD searches, then the SWAP searches); a search's permutation is
+``jax.random.permutation(split(sub)[1], n)``, and in replacement mode it
+draws round by round ``key, sub = split(key); randint(sub, (B,), 0, n)``
+from its own subkey.  A layout source decouples the fit loop from where
+the draws come from:
 
-* :func:`from_generator` (the default) draws ``torch.randperm(n)`` or
+* :func:`from_seed` (the default) replays that chain with the port's
+  threefry (``repro_torch.core.threefry``), so the same seed gives the
+  JAX package's draws, and hence its medoids, with no JAX at hand.
+  Every search owns its key, so the searches may ask in any order, and a
+  replacement search computes all of its rounds' batches at its first
+  request;
+* :func:`from_generator` draws ``torch.randperm(n)`` or
   ``torch.randint(0, n, (B,))`` from one seeded ``torch.Generator`` on
-  the fit's device, in the order the fit consumes them;
+  the fit's device, in the order the fit consumes them (not the JAX
+  package's draws);
 * :func:`from_numpy` replays given ``[k, n]`` BUILD and ``[T, n]`` SWAP
   permutations and/or ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP draws
-  and/or the ``[n]`` fixed permutation — the parity tests fill it from
-  the JAX chain, and then both packages walk identical batches.
-
-A torch replica of threefry, which would make the seeds compatible, is
-ROADMAP A12.
+  and/or the ``[n]`` fixed permutation, e.g. draws a test chose itself.
 """
 
 from __future__ import annotations
@@ -47,6 +51,72 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import threefry
+
+
+class SeedLayouts:
+    """The JAX package's threefry chain for ``seed``: search ``s`` (BUILD
+    ``i`` is ``s = i``, SWAP ``t`` is ``s = k + t``) takes the ``s``-th
+    subkey of the chain.  Keys are host ints, so drawing reads nothing
+    from the device; the permutations and batches are computed on
+    ``device``.  Any order of requests gives the same draws."""
+
+    def __init__(self, seed: int, device: torch.device, k: int):
+        self.device = torch.device(device)
+        self.k = int(k)
+        key = threefry.PRNGKey(seed)
+        self._key, self.ckey = threefry.split(key)
+        self._subs = []             # the chain's search subkeys so far
+        self._rounds = None         # (phase, search, n, b) and its batches
+
+    def search_key(self, phase: str, i: int) -> threefry.Key:
+        """The subkey of BUILD search ``i`` or SWAP search ``i``."""
+        s = i if phase == "build" else self.k + i
+        while len(self._subs) <= s:
+            self._key, sub = threefry.split(self._key)
+            self._subs.append(sub)
+        return self._subs[s]
+
+    def perm_on(self, phase: str, i: int, n: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_perm(i, n)`` computed on ``device``."""
+        return threefry.permutation(
+            threefry.split(self.search_key(phase, i))[1], n, device)
+
+    def fixed_perm(self, n: int) -> torch.Tensor:
+        return threefry.permutation(self.ckey, n, self.device)
+
+    def build_perm(self, i: int, n: int) -> torch.Tensor:
+        return self.perm_on("build", i, n, self.device)
+
+    def swap_perm(self, t: int, n: int) -> torch.Tensor:
+        return self.perm_on("swap", t, n, self.device)
+
+    def _draw(self, phase: str, i: int, rnd: int, n: int,
+              b: int) -> torch.Tensor:
+        # All R = ceil(n/b) rounds of the search at its first request:
+        # round r is randint(sub_r, (b,), 0, n) with key, sub_r =
+        # split(key) from the search's subkey.
+        tag = (phase, i, n, b)
+        if self._rounds is None or self._rounds[0] != tag:
+            key, subs = self.search_key(phase, i), []
+            for _ in range(-(-n // b)):
+                key, sub = threefry.split(key)
+                subs.append(sub)
+            self._rounds = (tag, threefry.randint_rows(subs, b, 0, n,
+                                                       self.device))
+        rows = self._rounds[1]
+        if rnd >= rows.shape[0]:
+            raise ValueError(f"the fit asked for {phase}[{i}] round {rnd}; "
+                             f"a search runs at most {rows.shape[0]}")
+        return rows[rnd]
+
+    def build_draw(self, i: int, rnd: int, n: int, b: int) -> torch.Tensor:
+        return self._draw("build", i, rnd, n, b)
+
+    def swap_draw(self, t: int, rnd: int, n: int, b: int) -> torch.Tensor:
+        return self._draw("swap", t, rnd, n, b)
 
 
 class GeneratorLayouts:
@@ -204,6 +274,12 @@ def _draw_row(p: Optional[np.ndarray], i: int, rnd: int, n: int, b: int,
         raise ValueError(f"{what}[{i}] round {rnd} draws lie outside "
                          f"[0, {n})")
     return row
+
+
+def from_seed(seed: int, device, k: int) -> SeedLayouts:
+    """The JAX package's draws for ``seed``; ``k`` is the number of BUILD
+    searches that precede the first SWAP search (the fit's k)."""
+    return SeedLayouts(seed, device, k)
 
 
 def from_generator(seed: int, device) -> GeneratorLayouts:

@@ -1,0 +1,204 @@
+"""The JAX package's random draws in PyTorch: threefry2x32 and the
+``jax.random`` functions the package calls, bit for bit.
+
+This is jax's partitionable threefry path (``jax_threefry_partitionable``
+on, jax's default since 0.5), with 64-bit types off (jax's default):
+
+* :func:`PRNGKey` — ``jax.random.PRNGKey(seed)``.  jax narrows a Python
+  int to int32 before ``threefry_seed`` splits it into its high and low
+  words, so the key is ``(0, seed mod 2**32)`` for any seed in
+  ``[-2**63, 2**63)``, negative seeds and seeds ≥ 2**32 included;
+* :func:`split`, :func:`fold_in` — the key derivations;
+* :func:`random_bits` — 32-bit words: threefry of the key over the
+  64-bit iota of the shape (high and low words), the two outputs xored;
+* :func:`randint` — ``_randint``: two split keys give high and low
+  words, reduced modulo the span through the ``2**32 mod span``
+  multiplier;
+* :func:`permutation` — ``_shuffle``: ``ceil(3·ln n / ln(2**32 − 1))``
+  rounds, each a fresh split and a STABLE sort by 32-bit keys
+  (``lax.sort_key_val`` is stable, and at n = 60,000 keys collide);
+* :func:`choice` — without replacement ``permutation(key, n)[:size]``,
+  with replacement ``randint(key, shape, 0, n)``;
+* :func:`uniform` — float32 in ``[minval, maxval)`` from the top 23 bits,
+  scaled by XLA's fused multiply-add.
+
+A key is a pair of host ints, so deriving one never touches a device.
+Bits are computed on the given device, in int64 tensors that hold
+uint32 values (every sum and product is masked with ``& 0xFFFFFFFF``,
+since torch's uint32 coverage is thin): the same key gives the same bits
+on the CPU and on the card.  :func:`threefry2x32` takes ints or tensors
+alike, so a batch of keys (one per row) runs as one tensor computation
+(:func:`randint_rows`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+Key = Tuple[int, int]
+Word = Union[int, torch.Tensor]
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def threefry2x32(k1: Word, k2: Word, x1: Word, x2: Word
+                 ) -> Tuple[Word, Word]:
+    """The Threefry-2x32 hash (20 rounds) of the counter pair (x1, x2)
+    under key (k1, k2); ints or int64 tensors of uint32 values, which
+    broadcast."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = (x1 + ks[0]) & MASK, (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = (((x1 << r) & MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off."""
+    seed = int(seed)
+    if not -2 ** 63 <= seed < 2 ** 63:
+        raise OverflowError(f"seed {seed} does not fit in int64")
+    return (0, seed & MASK)
+
+
+def split(key: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)``: key i is threefry over the count
+    pair (i >> 32, i mod 2**32)."""
+    k1, k2 = key
+    return [threefry2x32(k1, k2, i >> 32, i & MASK) for i in range(int(num))]
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``, ``data`` taken as uint32."""
+    return threefry2x32(key[0], key[1], 0, int(data) & MASK)
+
+
+def _bits(k1: Word, k2: Word, size: int, device) -> torch.Tensor:
+    """32-bit words for flat positions ``[0, size)``; key words that are
+    tensors of shape [R, 1] give one row per key, [R, size]."""
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
+    return b1 ^ b2
+
+
+def _shape(shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(
+        int(s) for s in shape)
+
+
+def random_bits(key: Key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int64 tensor."""
+    shape = _shape(shape)
+    return _bits(key[0], key[1], math.prod(shape), device).reshape(shape)
+
+
+def _span(minval: int, maxval: int) -> int:
+    for v in (minval, maxval):
+        if not _INT32_MIN <= v <= _INT32_MAX:
+            raise ValueError(f"randint bounds must fit in int32, got {v}")
+    return 1 if maxval <= minval else maxval - minval
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a·b mod 2**32`` for uint32 values, without leaving int64."""
+    return (((((a >> 16) * b) & 0xFFFF) << 16) + (a & 0xFFFF) * b) & MASK
+
+
+def _reduce(hi: torch.Tensor, lo: torch.Tensor, minval: int,
+            span: int) -> torch.Tensor:
+    """``_randint``'s reduction of the high and low words into
+    ``[minval, minval + span)``, in uint32 arithmetic."""
+    # jax squares 2**16 mod span in uint32, which wraps past span 2**16.
+    mult = (((2 ** 16 % span) ** 2) & MASK) % span
+    return minval + ((_mul32(hi % span, mult) + lo % span) & MASK) % span
+
+
+def randint_rows(keys: Sequence[Key], size: int, minval: int, maxval: int,
+                 device="cpu") -> torch.Tensor:
+    """``randint(key, (size,), minval, maxval)`` for each key, one row
+    each: ``[len(keys), size]`` int64, computed as one tensor pass."""
+    minval, maxval = int(minval), int(maxval)
+    span = _span(minval, maxval)
+    words = [w for key in keys for sub in split(key) for w in sub]
+    kt = torch.tensor(words, dtype=torch.int64).view(len(keys), 4)
+    if torch.device(device).type == "cuda":
+        # A copy from pageable memory would wait for the device.
+        kt = kt.pin_memory().to(device, non_blocking=True)
+    return _reduce(_bits(kt[:, 0:1], kt[:, 1:2], size, device),
+                   _bits(kt[:, 2:3], kt[:, 3:4], size, device), minval, span)
+
+
+def randint(key: Key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 bounds)
+    as an int64 tensor."""
+    shape = _shape(shape)
+    minval, maxval = int(minval), int(maxval)
+    span = _span(minval, maxval)
+    k_hi, k_lo = split(key)
+    size = math.prod(shape)
+    return _reduce(_bits(k_hi[0], k_hi[1], size, device),
+                   _bits(k_lo[0], k_lo[1], size, device), minval,
+                   span).reshape(shape)
+
+
+def shuffle_rounds(n: int) -> int:
+    """The sort rounds of ``_shuffle`` for n elements (float64, as jax
+    computes it)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key: Key, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as an int64 tensor."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(shuffle_rounds(n)):
+        key, sub = split(key)
+        order = torch.sort(_bits(sub[0], sub[1], n, device),
+                           stable=True).indices
+        x = x.index_select(0, order)
+    return x
+
+
+def choice(key: Key, n: int, shape, replace: bool = True,
+           device="cpu") -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace)`` (uniform weights)."""
+    shape = _shape(shape)
+    size = math.prod(shape)
+    if size == 0:
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+    if n <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if replace:
+        return randint(key, shape, 0, n, device)
+    if size > n:
+        raise ValueError(f"Cannot take a larger sample (size {size}) than "
+                         f"population (size {n}) when 'replace=False'")
+    return permutation(key, n, device)[:size].reshape(shape)
+
+
+def uniform(key: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    shape = _shape(shape)
+    bits = _bits(key[0], key[1], math.prod(shape), device)
+    one = (bits >> 9) | 0x3F800000                  # [1, 2) in float32
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    # XLA contracts ``floats·(hi − lo) + lo`` into one fused multiply-add:
+    # the float32 product is exact in float64, so the add is rounded
+    # there and then to float32.  The bounds are host scalars (a tensor
+    # made from them would be a copy to the device).
+    lo, hi = np.float32(minval), np.float32(maxval)
+    out = (floats.double() * float(hi - lo) + float(lo)).float()
+    return torch.clamp_min(out, float(lo)).reshape(shape)

@@ -55,7 +55,7 @@ def test_rounds_past_the_stop_change_nothing(every, monkeypatch):
     """The report does not depend on how many rounds are enqueued between
     two reads.  With one read in 10**6 rounds every search enqueues all
     of its ceil(n/B) rounds, and those past its stop run masked.  The
-    fixture's searches stop early (BUILD after 100, 77 and 94 of 100
+    fixture's searches stop early (BUILD after 100, 100 and 84 of 100
     rounds), and the leader and the early stop keep state of their own
     to mask."""
     n, k, b = 400, 3, 4

@@ -1,0 +1,74 @@
+"""A seed gives the JAX package's fit, with no draws passed in: with no
+``layouts=``, ``repro_torch.api.KMedoids(k, seed=s, device="cpu")``
+against ``repro.api.KMedoids(k, seed=s)`` on the CPU, on the fixtures of
+``test_torch_banditpam.py``, at seeds 0 and 1, in the default mode
+(permutation sampling), under ``sampling="replacement"``, ``reuse="pic"``
+and the warm block ``cache_cols > 0``.
+
+Both packages walk the same draws (``test_torch_threefry.py`` holds
+``rng.from_seed`` to the JAX chain), so medoids, swap history, build
+rounds, swaps, convergence, exact fallbacks and every phase's ledger
+must be equal and the loss agree to rtol 1e-5.  The cases of
+``MARGIN_CASES`` (ROADMAP §C) are the exception for the ledger alone:
+there the two packages sum a batch's float32 statistics in different
+orders, an arm whose kill margin sits within that rounding dies a round
+earlier or later, and each phase is held to within 10 arm-rounds (10·B
+evaluations).  At (300, 3, l2), seed 2 (not a case here), the first
+SWAP search pays 52,500 in the JAX fit and 52,700 in the port, and a
+float64 replay of that search kills the arms where the port does.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.api import KMedoids as JKMedoids
+from repro.core import datasets as jdatasets
+from repro_torch.api import KMedoids
+from test_torch_banditpam import FIXTURES
+
+MODES = {"permutation": {}, "replacement": {"sampling": "replacement"},
+         "pic": {"reuse": "pic"}, "cache_cols": {"cache_cols": 200}}
+B = 100
+# (n, k, metric, mode, seed) whose ledger differs between the packages
+# by float32 kill margins: (650, 5, l2) at seed 1 moves by +100 (swap,
+# permutation), -750 (swap, replacement), -100 (build_cached, pic) and
+# -100 (build, cache_cols).
+MARGIN_CASES = {(650, 5, "l2", mode, 1) for mode in MODES}
+
+
+@pytest.fixture(autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread: these tests run many small ops, and with
+    several pytest workers sharing the cores, OpenMP's idle threads
+    multiply their time tens of times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n,k,metric", FIXTURES)
+def test_seed_gives_the_jax_fit(n, k, metric, mode, seed):
+    X = jdatasets.mnist_like(n, seed=1)
+    kw = MODES[mode]
+    want = JKMedoids(k, metric=metric, seed=seed, **kw).fit(X).report_
+    got = KMedoids(k, metric=metric, seed=seed, device="cpu",
+                   **kw).fit(X).report_
+    assert got.medoids.tolist() == np.asarray(want.medoids).tolist()
+    assert ([h[:2] for h in got.swap_history]
+            == [tuple(h[:2]) for h in want.swap_history])
+    assert got.build_rounds == want.build_rounds
+    assert (got.n_swaps, got.converged, got.swap_exact_fallbacks) == (
+        want.n_swaps, want.converged, want.swap_exact_fallbacks)
+    assert got.evals_by_phase.keys() == want.evals_by_phase.keys()
+    if (n, k, metric, mode, seed) in MARGIN_CASES:
+        for ph, v in want.evals_by_phase.items():
+            assert abs(got.evals_by_phase[ph] - v) <= 10 * B, (ph, got, want)
+    else:
+        assert got.evals_by_phase == want.evals_by_phase
+    assert abs(got.loss - want.loss) <= 1e-5 * abs(want.loss)
+    for (_, _, lg), (_, _, lw) in zip(got.swap_history, want.swap_history):
+        assert abs(lg - lw) <= 1e-5 * abs(lw)
