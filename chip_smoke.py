@@ -109,6 +109,20 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``stream_swap_g`` at the shapes these solvers give them, each held
    to its plain version with phase 3's tolerances and timed beside it.
    The phase prints its wall.
+7. the serving layer (``serve_path``, ``serve_parity``):
+   ``MedoidService(10, "l2")`` on the card with the JAX service's
+   defaults, fitted on the main path's 60,000 rows; 200 predict requests
+   of 256 rows (p50 / p99 ms, upload and read included); 20,000 drifted
+   rows ingested in chunks of 1,000 (rows a second, each refit's
+   position, wall, ledger and host reads), counted from 0 before the fit
+   (top2, pairwise and swap_g_from_cache must run); the warm / cold
+   refit pair against the reference's gates; snapshots after the first
+   chunk and after half of the stream, each restored on the card, which
+   must end where the service that never stopped ended (the early one
+   through a refit); and a ``"cuda"`` against a ``"torch"``
+   service on ``N_PARITY`` integer points (same refit positions,
+   labels, dmin bits and medoids).  All raising; the phase prints its
+   wall and launches.
 
 The ``kernels`` line takes pairwise/build_g/swap_g/top2's launches from
 the default fit + predict (pairwise's row is timed at predict's
@@ -1505,6 +1519,242 @@ def solver_parity(torch, dev):
                              "the CPU's or launched a kernel")
 
 
+SERVE_KERNELS = ("top2", "pairwise", "swap_g_from_cache")
+N_REQUESTS, REQUEST_ROWS = 200, 256
+N_STREAM, STREAM_CHUNK = 20000, 1000
+
+
+def _same_serving(a, b, what):
+    """Raise unless two services are in the same state: medoid bits,
+    ``stats()``, reservoir state and refit records (walls aside)."""
+    import numpy as np
+    ra, rb = a.reservoir.state(), b.reservoir.state()
+    strip = [[{f: v for f, v in r.items() if f != "wall_s"}
+              for r in s.ledger.refits] for s in (a, b)]
+    same = (a.medoid_points.cpu().numpy().tobytes()
+            == b.medoid_points.cpu().numpy().tobytes()
+            and a.stats() == b.stats() and strip[0] == strip[1]
+            and all(np.asarray(ra[k]).tobytes() == np.asarray(rb[k]).tobytes()
+                    for k in ra))
+    log(f"[serve] {what}: medoids, stats, reservoir state and refit "
+        f"records equal: {same}")
+    if not same:
+        raise AssertionError(f"{what}: the services differ")
+
+
+def _ingest_all(svc, rows, chunk):
+    """Ingest ``rows`` in chunks; returns labels, dmin, and (offset,
+    report) for each refit."""
+    import numpy as np
+    labels, dmin, refits = [], [], []
+    for lo in range(0, rows.shape[0], chunk):
+        r = svc.ingest(rows[lo:lo + chunk])
+        labels.append(r.labels)
+        dmin.append(r.dmin)
+        if r.refit is not None:
+            refits.append((lo, r.refit))
+    return np.concatenate(labels), np.concatenate(dmin), refits
+
+
+def serve_path(torch, X, dev, Xnp):
+    """Phase 7, the serving layer at MNIST's size: ``MedoidService(10,
+    "l2")`` on the card with the reference's defaults (``banditpam_pp``
+    fit, warm refits, a 2,048-point reservoir, drift threshold 0.25 over
+    256 points), fitted on the main path's 60,000 rows; 200 ``predict``
+    requests of 256 of the 10,000 predict rows (p50 / p99 ms a request,
+    upload and read included; labels against the plain argmin off
+    near-ties); 20,000 drifted rows (``mnist_like(20000, seed=3) + 0.5``)
+    ingested in chunks of 1,000 (rows a second with every refit
+    included; each refit's position, wall, ledger and host reads; at
+    least one refit, each with BUILD 0, each that swaps with cached
+    reads, since its later searches replay the ring its first filled);
+    the counts set
+    to 0 before the fit and read after the stream, which must have
+    launched top2, pairwise and swap_g_from_cache.  Then (not counted)
+    ``refit_report_pair()`` against the reference's gates, and snapshots
+    taken after the first chunk and after half of the stream, each
+    restored on the card and fed the rest, which must end where the
+    service that never stopped ended (the early one through a refit).
+    Returns the counts."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.datasets import mnist_like
+    from repro_torch.core.distances import l2
+    from repro_torch.kernels import ops
+    from repro_torch.serve import MedoidService
+    stream = mnist_like(N_STREAM, seed=3) + np.float32(0.5)
+    half = N_STREAM // 2
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc = MedoidService(10, "l2").fit(Xnp[:N_FIT])
+    fit_s = time.perf_counter() - t0
+    rep = svc.last_report
+    log(f"[serve] fit banditpam_pp {svc.solver_params}: {fit_s:.3f} s (data "
+        f"upload and reservoir seeding included) medoids "
+        f"{rep.medoids.tolist()} loss {rep.loss!r} evals "
+        f"{rep.evals_by_phase} host reads {rep.host_reads_by_phase}; "
+        f"stats {svc.stats()}")
+    queries = Xnp[N_FIT:N_FIT + N_QUERY]
+    ms, got = [], []
+    for i in range(N_REQUESTS):
+        lo = (i * REQUEST_ROWS) % (N_QUERY - REQUEST_ROWS)
+        t1 = time.perf_counter()
+        got.append((lo, svc.predict(queries[lo:lo + REQUEST_ROWS])))
+        ms.append((time.perf_counter() - t1) * 1e3)
+    p50, p99 = np.percentile(ms, [50, 99])
+    log(f"[serve] predict: {N_REQUESTS} requests of {REQUEST_ROWS} rows, "
+        f"p50 {p50:.4f} ms p99 {p99:.4f} ms max {max(ms):.4f} ms per "
+        f"request (upload and read included)")
+    # The labels against the plain argmin off near-ties.
+    dq = l2(torch.from_numpy(queries).to(dev), svc.medoid_points)
+    want = torch.argmin(dq, dim=1).cpu().numpy()
+    top = torch.topk(dq, 2, dim=1, largest=False).values
+    clear = clear_of_ties("l2", top[:, 0], top[:, 1],
+                          float(dq.max())).cpu().numpy()
+    bad = sum(int(((lab != want[lo:lo + REQUEST_ROWS])
+                   & clear[lo:lo + REQUEST_ROWS]).sum()) for lo, lab in got)
+    if bad:
+        raise AssertionError(f"{bad} request labels differ from the plain "
+                             f"argmin")
+    # Snapshots after the first chunk (before the later refits, so the
+    # service resumed from it has to refit as the one that never stopped
+    # did) and after half of the stream.
+    cuts = (STREAM_CHUNK, half)
+    with tempfile.TemporaryDirectory() as snap_root:
+        t1 = time.perf_counter()
+        snap_s, parts, lo = 0.0, [], 0
+        for cut in cuts + (N_STREAM,):
+            lab, dmin, refs = _ingest_all(svc, stream[lo:cut], STREAM_CHUNK)
+            parts.append((lab, dmin, [(lo + p, r) for p, r in refs]))
+            if cut < N_STREAM:
+                t_snap = time.perf_counter()
+                svc.snapshot(os.path.join(snap_root, f"at_{cut}"))
+                snap_s += time.perf_counter() - t_snap
+            lo = cut
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t1 - snap_s
+        counts = ops.launch_counts()
+        labels = np.concatenate([p[0] for p in parts])
+        dmins = np.concatenate([p[1] for p in parts])
+        refits = [x for p in parts for x in p[2]]
+        log(f"[serve] stream: {N_STREAM} rows in chunks of {STREAM_CHUNK}, "
+            f"{stream_s:.3f} s, {N_STREAM / stream_s:.1f} rows/s (refits "
+            f"included; the snapshots after {list(cuts)} rows, "
+            f"{snap_s:.3f} s, not); reservoir {len(svc.reservoir)} of "
+            f"{svc.reservoir_size}; stats {svc.stats()}")
+        for (pos, r), rec in zip(refits, svc.ledger.refits[1:]):
+            log(f"[serve] refit at row {pos + STREAM_CHUNK} of the stream: "
+                f"{rec['kind']} wall {rec['wall_s']:.4f} s medoids "
+                f"{r.medoids.tolist()} loss {r.loss!r} swaps {r.n_swaps} "
+                f"evals {r.evals_by_phase} host reads "
+                f"{r.host_reads_by_phase}")
+        log(f"[serve] kernel launches, fit + requests + stream: {counts}")
+        # A warm refit pays no BUILD.  Its first SWAP search fills the
+        # empty ring, so a refit that swaps reads cached columns in its
+        # later searches, and one that converges in its first search
+        # reads none (the JAX package's warm fit does the same:
+        # tests/test_torch_serve.py::test_warm_fit_from_the_optimum_reads_no_cached_column).
+        if not refits:
+            raise AssertionError("the drifted stream never tripped a refit")
+        for pos, r in refits:
+            if r.evals_by_phase["build"] != 0 or (
+                    r.n_swaps > 0 and r.ledger()["cached"] <= 0):
+                raise AssertionError(f"the warm refit at {pos} paid BUILD or "
+                                     f"swapped and read no cached column")
+        if not any(r.ledger()["cached"] > 0 for _, r in refits):
+            raise AssertionError("no warm refit read a cached column")
+        if min(counts[nm] for nm in SERVE_KERNELS) < 1:
+            raise AssertionError(f"a kernel of the serving path never ran: "
+                                 f"{counts}")
+        # Snapshot and resume: each restored service, fed the rest of the
+        # stream, gives the same labels, dmin bits and refits and ends
+        # where the service that never stopped ended.  The early one must
+        # refit on the way.
+        for cut in cuts:
+            back = MedoidService.restore(os.path.join(snap_root, f"at_{cut}"))
+            lab_c, dmin_c, refs_c = _ingest_all(back, stream[cut:],
+                                                STREAM_CHUNK)
+            refs_c = [(cut + p, r) for p, r in refs_c]
+            after = [(p, r) for p, r in refits if p >= cut]
+            same = (np.array_equal(labels[cut:], lab_c)
+                    and dmins[cut:].tobytes() == dmin_c.tobytes()
+                    and [p for p, _ in after] == [p for p, _ in refs_c]
+                    and all(x.medoids.tolist() == y.medoids.tolist()
+                            for (_, x), (_, y) in zip(after, refs_c)))
+            log(f"[serve] resumed after {cut} rows: labels, dmin bits, refit "
+                f"positions {[p + STREAM_CHUNK for p, _ in refs_c]} and "
+                f"their medoids equal: {same}")
+            if not same:
+                raise AssertionError(f"the service resumed after {cut} rows "
+                                     f"went another way")
+            if cut == STREAM_CHUNK and not refs_c:
+                raise AssertionError("the service resumed after the first "
+                                     "chunk never refitted")
+            _same_serving(svc, back, f"resumed after {cut} rows vs never "
+                          f"stopped")
+    # Warm against cold on the same sample and seed (the reference's
+    # gates: benchmarks/serve_bench.py, tests/test_serve.py).
+    warm, cold = svc.refit_report_pair()
+    for name, r in (("warm", warm), ("cold", cold)):
+        led = r.ledger()
+        log(f"[serve] refit pair, {name}: ledger {led} loss {r.loss!r} swaps "
+            f"{r.n_swaps} wall {r.wall_by_phase} cached fraction "
+            f"{led['cached'] / (led['fresh'] + led['cached'])!r}")
+    gates = {"warm cached > 0": warm.ledger()["cached"] > 0,
+             "warm build == 0": warm.evals_by_phase["build"] == 0,
+             "cold build > 0": cold.evals_by_phase["build"] > 0,
+             "warm fresh < cold fresh":
+                 warm.ledger()["fresh"] < cold.ledger()["fresh"],
+             "warm loss <= cold loss (rtol 1e-5)":
+                 warm.loss <= cold.loss + 1e-5 * abs(cold.loss)}
+    log(f"[serve] refit pair gates: {gates}")
+    if not all(gates.values()):
+        raise AssertionError(f"the warm refit failed a gate: {gates}")
+    return counts
+
+
+def serve_parity(torch, dev):
+    """Phase 7, ``backend="cuda"`` against ``"torch"`` services on the
+    card, on ``N_PARITY`` integer points in 10 blobs (``code_blobs``:
+    both backends compute the same distances), fed ``N_PARITY`` points of
+    other blobs in chunks of 500: the same refit positions, labels, dmin bits
+    and medoids, ledgers within phase 4's cache-mode allowance (2·n·B per
+    entry); raising."""
+    import numpy as np
+    from repro_torch.core.datasets import code_blobs
+    from repro_torch.serve import MedoidService
+    fit_rows = code_blobs(N_PARITY, 10, seed=6)
+    stream = code_blobs(N_PARITY, 10, seed=7)
+    out = {}
+    for be in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        svc = MedoidService(10, "l2", backend=be).fit(fit_rows)
+        out[be] = (svc, *_ingest_all(svc, stream, 500))
+        log(f"[serve] parity {be:5s}: refits at "
+            f"{[p for p, _ in out[be][3]]} medoids "
+            f"{[r.medoids.tolist() for _, r in out[be][3]]} ledgers "
+            f"{[r.evals_by_phase for _, r in out[be][3]]} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    (a, la, da, ra), (b, lb, db, rb) = out["cuda"], out["torch"]
+    n = 10 + len(a.reservoir)
+    same = (bool(ra) and [p for p, _ in ra] == [p for p, _ in rb]
+            and np.array_equal(la, lb) and da.tobytes() == db.tobytes()
+            and all(x.medoids.tolist() == y.medoids.tolist()
+                    and x.evals_by_phase.keys() == y.evals_by_phase.keys()
+                    and all(abs(v - y.evals_by_phase[p]) <= 2 * n * B
+                            for p, v in x.evals_by_phase.items())
+                    for (_, x), (_, y) in zip(ra, rb))
+            and a.medoid_points.cpu().numpy().tobytes()
+            == b.medoid_points.cpu().numpy().tobytes())
+    log(f"[serve] parity: cuda == torch (refit positions, labels, dmin bits, "
+        f"medoids; ledgers within 2·n·B): {same}; ledgers exactly equal: "
+        f"{[x.evals_by_phase == y.evals_by_phase for (_, x), (_, y) in zip(ra, rb)]}")
+    if not same:
+        raise AssertionError("the cuda and torch services differ")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1545,6 +1795,13 @@ def main() -> int:
     solver_kernel_times(torch, X, dev)
     solver_parity(torch, dev)
     log(f"[solvers] phase 6 wall {time.perf_counter() - t6:.1f} s")
+    t7 = time.perf_counter()
+    counts_serve = serve_path(torch, X, dev, Xnp)
+    serve_parity(torch, dev)
+    # serve_path set the counts to 0 before the phase's first launch.
+    from repro_torch.kernels import ops
+    counts_phase7 = ops.launch_counts()
+    log(f"[serve] phase 7 wall {time.perf_counter() - t7:.1f} s")
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -1565,6 +1822,13 @@ def main() -> int:
     log("[launches] phase 6, each solver's full-size fit: " + "; ".join(
         f"{name} " + ", ".join(f"{nm} {c[nm]}" for nm in sorted(c) if c[nm])
         for name, c in counts_solvers.items()))
+    log("[launches] phase 7, the service's fit, requests and stream: "
+        + ", ".join(f"{nm} {counts_serve[nm]}" for nm in sorted(counts_serve)
+                    if counts_serve[nm])
+        + "; the whole phase (with the refit pair, the two resumed services "
+        "and the cuda service on code_blobs): "
+        + ", ".join(f"{nm} {counts_phase7[nm]}"
+                    for nm in sorted(counts_phase7) if counts_phase7[nm]))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -126,9 +126,6 @@ class KMedoids:
         """Fit on ``X``; ``layouts`` (``repro_torch.core.rng``) replaces
         the default permutation source, e.g. with the JAX chain's."""
         solver_fn = get_solver(self.solver)
-        if "warm_start" in self.solver_params:
-            raise NotImplementedError(
-                "warm_start is not ported to repro_torch yet (ROADMAP A11)")
         metric_name = resolve_metric(self.metric)
         dev = resolve_device(self.device)
         data = self._fit_data(X, metric_name, dev)

@@ -8,10 +8,10 @@
   pass (the ``top2`` kernel on the card); no ``[m, k]`` block.
 
 Queries arrive as numpy or tensors and are moved to the device once.
-PyTorch runs eagerly, so there is nothing to retrace and no row padding:
-:func:`bucket_rows` / :func:`assign_rows` are kept, with the JAX
-package's definitions, as the row buckets the serving layer will use for
-CUDA graphs (ROADMAP A11).
+PyTorch runs eagerly, so there is nothing to retrace and no row padding;
+the serving layer (``repro_torch.serve``) answers each request eagerly
+through :func:`assign_medoids`, one upload, one ``top2`` launch and one
+read.
 """
 
 from __future__ import annotations
@@ -25,17 +25,6 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.engine import get_stats_backend, resolve_stats_backend
 
 DEFAULT_CHUNK = 8192
-
-
-def bucket_rows(m: int, chunk: int) -> int:
-    """The smallest power of two >= m, clamped to ``chunk``."""
-    m = min(max(1, m), chunk)
-    return min(1 << (m - 1).bit_length(), chunk)
-
-
-def assign_rows(m: int) -> int:
-    """The smallest power of two >= m, unclamped."""
-    return 1 << (max(1, m) - 1).bit_length()
 
 
 def resolve_backend(backend: Optional[str], metric: str,
@@ -90,7 +79,7 @@ def assign_medoids(x, medoid_points, metric: str, *,
                    device: DeviceLike = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """``[m, d]`` queries → ``(labels [m] int32, dmin [m] float32)`` in
-    one top-2 pass; ties go to the lowest medoid index."""
+    one top-2 pass and one read; ties go to the lowest medoid index."""
     dev = resolve_device(device)
     med = torch.as_tensor(medoid_points, dtype=torch.float32).to(
         dev).contiguous()
@@ -99,4 +88,7 @@ def assign_medoids(x, medoid_points, metric: str, *,
     if q.shape[0] == 0:
         return np.empty((0,), np.int32), np.empty((0,), np.float32)
     d1, _, labels = be.top2(q, med, metric=metric)
-    return labels.cpu().numpy(), d1.cpu().numpy()
+    # One copy of both, as int32 words (a bitwise copy of dmin).
+    host = torch.stack([labels.to(torch.int32),
+                        d1.view(torch.int32)]).cpu().numpy()
+    return host[0], host[1].view(np.float32)

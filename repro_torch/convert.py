@@ -24,7 +24,9 @@ module replays draws given as arrays:
   ``jax.random.permutation(ckey, n)`` with ``ckey`` the first output of
   ``_batch_rng_chains``;
 * a fitted JAX estimator crosses as its medoid indices, through
-  ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``.
+  ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``;
+* a JAX ``MedoidService`` crosses as its state tree, config and refit
+  records (:func:`service_from_reference`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ from __future__ import annotations
 import numpy as np
 
 from .core import rng
+from .core.device import DeviceLike
+from .serve import MedoidService
+
+# The JAX package's stats backends and the port's counterparts.
+_BACKENDS = {"jnp": "torch", "pallas": "cuda"}
 
 
 def layouts_from_reference(build_perms=None, swap_perms=None, *,
@@ -57,3 +64,16 @@ def draws_from_reference(build_draws, swap_draws) -> rng.ArrayLayouts:
     """The JAX fit's replacement draws (``[k, R, B]`` BUILD, ``[T, R, B]``
     SWAP) as a layout source for ``sampling="replacement"``."""
     return rng.from_numpy(build_draws=build_draws, swap_draws=swap_draws)
+
+
+def service_from_reference(state_tree, config, refits=(),
+                           device: DeviceLike = None) -> MedoidService:
+    """A port ``MedoidService`` in a JAX service's state: ``state_tree``
+    is its ``_state_tree()`` as numpy (``jax.device_get``), ``config``
+    its ``config()``, ``refits`` its ``ledger.refits``.  Fed the stream
+    the JAX service would have seen next, it trips the same refits and
+    lands on the same medoids.  The backends ``"jnp"`` and ``"pallas"``
+    become ``"torch"`` and ``"cuda"``; ``device=None`` is the card."""
+    cfg = dict(config)
+    cfg["backend"] = _BACKENDS.get(cfg["backend"], cfg["backend"])
+    return MedoidService.from_state(cfg, state_tree, refits, device)

@@ -420,13 +420,17 @@ class BanditPAM:
     def fit(self, data, warm_start=None, layouts=None) -> FitReport:
         """Fit medoids on ``data`` ([n, d], numpy or tensor).
 
+        ``warm_start`` (k distinct indices into ``data``) skips BUILD and
+        starts SWAP from those medoids: the serving layer's refit.  BUILD
+        pays 0 evaluations, the fixed permutation of a cache regime is
+        drawn as in a cold fit, and the SWAP searches take the chain's
+        subkeys from its head, as in the JAX package.
+
         ``layouts`` is the source of the per-search reference
         permutations or replacement draws (``repro_torch.core.rng``); by
         default the JAX package's threefry chain for ``self.seed``,
         computed on the fit's device.
         """
-        if warm_start is not None:
-            raise _not_ported("warm_start", "A11")
         dev = resolve_device(self.device)
         data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
         if data.ndim != 2:
@@ -434,10 +438,21 @@ class BanditPAM:
         n = data.shape[0]
         if n <= self.k:
             raise ValueError("need n > k")
+        ws = None
+        if warm_start is not None:
+            ws = np.asarray(warm_start, np.int64).ravel()
+            if ws.shape[0] != self.k or len(set(ws.tolist())) != self.k:
+                raise ValueError(
+                    f"warm_start must be {self.k} distinct medoid indices, "
+                    f"got {ws.tolist()}")
+            if ws.min() < 0 or ws.max() >= n:
+                raise ValueError(f"warm_start indices out of range [0, {n})")
         check_data(data, self.metric)
         be_name = resolve_stats_backend(self.backend, self.metric, dev)
         if layouts is None:
-            layouts = _rng.from_seed(self.seed, dev, self.k)
+            # A warm fit runs no BUILD search before its SWAP searches.
+            layouts = _rng.from_seed(self.seed, dev,
+                                     self.k if ws is None else 0)
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
         ctx = self._make_context(data, be_name, layouts, res)
@@ -448,8 +463,15 @@ class BanditPAM:
         # permutation sampling outside the PIC ring; the rest step.
         resident = (self.fused and self.sampling == "permutation"
                     and ctx.mode != "pic")
-        medoids, med_t, med_mask = self._build(data, ctx, layouts, res,
-                                               resident)
+        if ws is None:
+            medoids, med_t, med_mask = self._build(data, ctx, layouts, res,
+                                                   resident)
+        else:
+            medoids = ws.tolist()
+            med_t = torch.as_tensor(ws).to(dev)
+            med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+            med_mask.index_fill_(0, med_t, True)
+            res.evals_by_phase["build"] = 0
         sync()
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()

@@ -58,9 +58,13 @@ from . import threefry
 class SeedLayouts:
     """The JAX package's threefry chain for ``seed``: search ``s`` (BUILD
     ``i`` is ``s = i``, SWAP ``t`` is ``s = k + t``) takes the ``s``-th
-    subkey of the chain.  Keys are host ints, so drawing reads nothing
-    from the device; the permutations and batches are computed on
-    ``device``.  Any order of requests gives the same draws."""
+    subkey of the chain.  ``k`` is the number of BUILD searches before
+    the first SWAP search: a fit's k, or 0 for a warm-started fit, which
+    skips BUILD and splits its SWAP subkeys from the chain's head (the
+    fixed permutation still comes from ``ckey``).  Keys are host ints, so
+    drawing reads nothing from the device; the permutations and batches
+    are computed on ``device``.  Any order of requests gives the same
+    draws."""
 
     def __init__(self, seed: int, device: torch.device, k: int):
         self.device = torch.device(device)
@@ -72,6 +76,9 @@ class SeedLayouts:
 
     def search_key(self, phase: str, i: int) -> threefry.Key:
         """The subkey of BUILD search ``i`` or SWAP search ``i``."""
+        if phase == "build" and i >= self.k:
+            raise ValueError(f"this chain has {self.k} BUILD searches; "
+                             f"asked for BUILD search {i}")
         s = i if phase == "build" else self.k + i
         while len(self._subs) <= s:
             self._key, sub = threefry.split(self._key)
@@ -278,7 +285,8 @@ def _draw_row(p: Optional[np.ndarray], i: int, rnd: int, n: int, b: int,
 
 def from_seed(seed: int, device, k: int) -> SeedLayouts:
     """The JAX package's draws for ``seed``; ``k`` is the number of BUILD
-    searches that precede the first SWAP search (the fit's k)."""
+    searches that precede the first SWAP search (the fit's k; 0 for a
+    warm-started fit)."""
     return SeedLayouts(seed, device, k)
 
 

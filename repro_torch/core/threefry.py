@@ -8,7 +8,8 @@ on, jax's default since 0.5), with 64-bit types off (jax's default):
   int to int32 before ``threefry_seed`` splits it into its high and low
   words, so the key is ``(0, seed mod 2**32)`` for any seed in
   ``[-2**63, 2**63)``, negative seeds and seeds ≥ 2**32 included;
-* :func:`split`, :func:`fold_in` — the key derivations;
+* :func:`split`, :func:`fold_in` — the key derivations (``fold_in``
+  also over a tensor of data words, one key per word);
 * :func:`random_bits` — 32-bit words: threefry of the key over the
   64-bit iota of the shape (high and low words), the two outputs xored;
 * :func:`randint` — ``_randint``: two split keys give high and low
@@ -20,7 +21,7 @@ on, jax's default since 0.5), with 64-bit types off (jax's default):
 * :func:`choice` — without replacement ``permutation(key, n)[:size]``,
   with replacement ``randint(key, shape, 0, n)``;
 * :func:`uniform` — float32 in ``[minval, maxval)`` from the top 23 bits,
-  scaled by XLA's fused multiply-add.
+  scaled by XLA's fused multiply-add; for one key or a batch of keys.
 
 A key is a pair of host ints, so deriving one never touches a device.
 Bits are computed on the given device, in int64 tensors that hold
@@ -78,9 +79,13 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [threefry2x32(k1, k2, i >> 32, i & MASK) for i in range(int(num))]
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``, ``data`` taken as uint32."""
-    return threefry2x32(key[0], key[1], 0, int(data) & MASK)
+def fold_in(key: Key, data: Word) -> Tuple[Word, Word]:
+    """``jax.random.fold_in(key, data)``, ``data`` taken as uint32.  For
+    an int64 tensor of data words the result is one key per element: a
+    pair of tensors of its shape (``uniform`` takes such a pair)."""
+    if not isinstance(data, torch.Tensor):
+        data = int(data)
+    return threefry2x32(key[0], key[1], 0, data & MASK)
 
 
 def _bits(k1: Word, k2: Word, size: int, device) -> torch.Tensor:
@@ -188,11 +193,19 @@ def choice(key: Key, n: int, shape, replace: bool = True,
     return permutation(key, n, device)[:size].reshape(shape)
 
 
-def uniform(key: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
             device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.  A key
+    whose words are tensors of one shape S (``fold_in`` over a tensor of
+    data words) is a batch of keys: the result is S + shape, on their
+    device, each key's draw as jax's ``vmap`` of ``uniform`` gives it."""
     shape = _shape(shape)
-    bits = _bits(key[0], key[1], math.prod(shape), device)
+    k1, k2 = key
+    batch = ()
+    if isinstance(k1, torch.Tensor):
+        batch, device = tuple(k1.shape), k1.device
+        k1, k2 = k1.reshape(-1, 1), k2.reshape(-1, 1)
+    bits = _bits(k1, k2, math.prod(shape), device)
     one = (bits >> 9) | 0x3F800000                  # [1, 2) in float32
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     # XLA contracts ``floats·(hi − lo) + lo`` into one fused multiply-add:
@@ -201,4 +214,4 @@ def uniform(key: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
     # made from them would be a copy to the device).
     lo, hi = np.float32(minval), np.float32(maxval)
     out = (floats.double() * float(hi - lo) + float(lo)).float()
-    return torch.clamp_min(out, float(lo)).reshape(shape)
+    return torch.clamp_min(out, float(lo)).reshape(batch + shape)

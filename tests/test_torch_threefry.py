@@ -2,7 +2,8 @@
 ``jax.random`` on the CPU, bit for bit: keys from seeds (negative, 0,
 past 2**32), ``split``, ``fold_in``, ``random_bits``, ``randint``,
 ``permutation``, ``choice`` and ``uniform``, over sizes n = 1, 2, 100,
-4,097 and 60,000 and several shapes.
+4,097 and 60,000 and several shapes; ``fold_in`` and ``uniform`` also
+over tensors of data words (the serving reservoir's draws).
 
 The port replays jax's partitionable threefry path with 64-bit types
 off; the first test fails loudly if this jax draws otherwise.
@@ -64,6 +65,41 @@ def test_seeds_past_int64_raise_as_in_jax():
         jax.random.PRNGKey(2 ** 64)
     with pytest.raises(OverflowError):
         threefry.PRNGKey(2 ** 64)
+
+
+@CASES
+@given(seed=SEEDS, data=st.lists(st.integers(-2 ** 63, 2 ** 63 - 1),
+                                 min_size=1, max_size=40))
+def test_fold_in_over_a_tensor_of_data_words(seed, data):
+    """One key per data word, each ``jax.random.fold_in`` of the word as
+    uint32 (jax takes an int64 index as int32 with 64-bit types off, so
+    the word is the index mod 2**32)."""
+    words = np.asarray(data, np.int64)
+    k1, k2 = threefry.fold_in(threefry.PRNGKey(seed), torch.from_numpy(words))
+    got = np.stack([_np(k1), _np(k2)], axis=1)
+    want = np.asarray(jax.vmap(lambda i: jax.random.fold_in(_jkey(seed), i))(
+        jax.numpy.asarray(words.astype(np.uint32))))
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@CASES
+@given(seed=SEEDS, words=st.lists(st.integers(0, 2 ** 32 - 1), min_size=1,
+                                  max_size=40),
+       shape=st.sampled_from([(), (3,), (2, 4)]),
+       bounds=st.sampled_from([(0.0, 1.0), (-2.5, 7.3)]))
+def test_uniform_over_a_batch_of_keys(seed, words, shape, bounds):
+    """``uniform`` of ``fold_in`` over a tensor of words equals jax's
+    ``vmap`` of ``uniform(fold_in(key, i), shape)``, bit for bit."""
+    lo, hi = bounds
+    w = np.asarray(words, np.uint32)
+    want = np.asarray(jax.vmap(lambda i: jax.random.uniform(
+        jax.random.fold_in(_jkey(seed), i), shape, minval=lo,
+        maxval=hi))(jax.numpy.asarray(w)))
+    keys = threefry.fold_in(threefry.PRNGKey(seed),
+                            torch.from_numpy(w.astype(np.int64)))
+    got = _np(threefry.uniform(keys, shape, lo, hi))
+    assert got.shape == (len(words),) + shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @CASES
