@@ -123,8 +123,28 @@ Phases, each of which raises (exit code != 0) on any failure:
    service on ``N_PARITY`` integer points (same refit positions,
    labels, dmin bits and medoids).  All raising; the phase prints its
    wall and launches.
+8. batched multi-fit (``batch_paths``, ``lane_kernel_checks``,
+   ``batch_parity``; ``[batch]`` lines), ``KMedoids(...,
+   solver_params=default_params(s)).fit_batch`` (the leader): (a) the JAX
+   package's multi-fit benchmark shape, 64 fits of ``mnist_like(256,
+   seed=i)``, d = 784, k = 5, seeds 0-63, for ``banditpam`` (lockstep
+   lanes) and ``banditpam_pp`` (PIC lanes one after another); (b) 8
+   ragged fits of ``mnist_like`` with n_i = 5,000 + 1,037·i, d = 784,
+   k = 10, ``banditpam``; each batch against the loop of its single fits
+   (every report identical, the loss bits included), both paths' walls
+   by phase, host reads by phase and launches by kernel, counted from 0
+   on each; (c) the lane kernels (``build_g_lanes``, ``swap_g_lanes`` at
+   k = 10 and 65, ``top2_lanes``) at (b)'s padded shape with lane 3's
+   run flag at 0: every running lane equal bit for bit to the single
+   launch on its slice, within phase 3's tolerances of the plain lane
+   version, each timed beside the loop of single launches and the plain
+   version, with its bound over the running lanes; (d) ``backend="cuda"``
+   against ``"torch"`` ``fit_batch`` on 4 ragged ``code_blobs`` lanes:
+   each equal to its own loop exactly, the two within phase 4's
+   allowance.  All raising; the phase prints its wall.
 
-The ``kernels`` line takes pairwise/build_g/swap_g/top2's launches from
+The ``kernels`` line takes the lane kernels' launches from phase 8's
+ragged batch (b) and pairwise/build_g/swap_g/top2's from
 the default fit + predict (pairwise's row is timed at predict's
 [10,000 x 10] and says so under ``shape``), the streaming kernels' from the replacement
 + leader fit and ``swap_g_from_cache``'s from the full-ring PIC fit;
@@ -955,18 +975,19 @@ def same_report(a, b, what):
         raise AssertionError(f"{what}: the reports differ")
 
 
-def same_fit(a, b, what, ledger_slack, loss_atol=0.0):
+def same_fit(a, b, what, ledger_slack, loss_atol=0.0, ledger_rtol=0.0):
     """Raise unless two fits agree: medoids, swap history, build rounds,
     fallbacks, swaps and convergence equal, each phase's ledger within
-    ``ledger_slack`` evaluations, the loss within rtol 1e-5 plus
-    ``loss_atol``."""
+    ``ledger_slack`` evaluations plus ``ledger_rtol`` of its value, the
+    loss within rtol 1e-5 plus ``loss_atol``."""
     same = (a.medoids.tolist() == b.medoids.tolist()
             and [h[:2] for h in a.swap_history] == [h[:2] for h in b.swap_history]
             and a.build_rounds == b.build_rounds
             and a.swap_exact_fallbacks == b.swap_exact_fallbacks
             and a.n_swaps == b.n_swaps and a.converged == b.converged
             and a.evals_by_phase.keys() == b.evals_by_phase.keys()
-            and all(abs(a.evals_by_phase[p] - v) <= ledger_slack
+            and all(abs(a.evals_by_phase[p] - v)
+                    <= ledger_slack + ledger_rtol * v
                     for p, v in b.evals_by_phase.items()))
     if not same or abs(a.loss - b.loss) > 1e-5 * abs(b.loss) + loss_atol:
         raise AssertionError(f"{what}: cuda and torch fits differ")
@@ -1755,6 +1776,263 @@ def serve_parity(torch, dev):
         raise AssertionError("the cuda and torch services differ")
 
 
+# Phase 8: the JAX package's multi-fit benchmark shape (benchmarks/
+# multifit_bench.py: 64 fits, n = 256, k = 5) and a ragged batch of
+# MNIST-sized fits (n_i = 5,000 + 1,037·i, no n_i a multiple of B).
+BATCH_FITS, BATCH_N, BATCH_K = 64, 256, 5
+RAGGED_N = tuple(5000 + 1037 * i for i in range(8))
+RAGGED_K = 10
+LANE_KERNELS = ("build_g_lanes", "swap_g_lanes", "top2_lanes")
+
+
+def _sum_phases(reports, field):
+    out = {}
+    for r in reports:
+        for ph, v in getattr(r, field).items():
+            out[ph] = out.get(ph, 0) + v
+    return out
+
+
+def batch_vs_loop(torch, what, solver, Xs, seeds, k):
+    """Phase 8 (a, b): ``KMedoids.fit_batch`` against the loop of its
+    single fits, each counted from 0; raises unless every report is
+    identical (loss bits included).  Prints both paths' walls, host reads
+    and launches; returns the batch's launch counts and report."""
+    from repro_torch.api import KMedoids
+    from repro_torch.api.registry import default_params
+    from repro_torch.kernels import ops
+    params = default_params(solver)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = KMedoids(k, solver=solver, metric="l2", seed=0,
+                   **params).fit_batch(Xs, seeds=seeds)
+    batch_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = [KMedoids(k, solver=solver, metric="l2", seed=s, **params).fit(
+        X).report_ for X, s in zip(Xs, seeds)]
+    loop_s = time.perf_counter() - t0
+    loop_counts = ops.launch_counts()
+    for i, (a, b) in enumerate(zip(rep, loop)):
+        same = (a.medoids.tolist() == b.medoids.tolist() and all(
+            getattr(a, f) == getattr(b, f)
+            for f in ("swap_history", "build_rounds", "evals_by_phase",
+                      "n_swaps", "converged", "loss")))
+        if not same:
+            raise AssertionError(f"{what}: fit {i} of the batch differs from "
+                                 f"its single fit")
+    labels_ok = all((rep.labels[i, :X.shape[0]] == b.labels).all()
+                    for i, (X, b) in enumerate(zip(Xs, loop)))
+    if not labels_ok:
+        raise AssertionError(f"{what}: batch labels differ from the loop's")
+    log(f"[batch] {what}: {len(Xs)} fits, batch == loop (medoids, swaps, "
+        f"build rounds, ledger, loss bits, labels): True; swaps "
+        f"{sum(r.n_swaps for r in rep)}, ledger "
+        f"{sum(r.distance_evals for r in rep)} fresh "
+        f"{sum(r.cached_evals for r in rep)} cached")
+    log(f"[batch] {what}: batch wall_by_phase {rep.wall_by_phase} call "
+        f"{batch_s:.3f} s (upload and labels included); host_reads_by_phase "
+        f"{rep.host_reads_by_phase}; dispatches_by_phase "
+        f"{rep.dispatches_by_phase}; launches "
+        f"{ {nm: v for nm, v in counts.items() if v} }")
+    log(f"[batch] {what}: loop wall_by_phase {_sum_phases(loop, 'wall_by_phase')}"
+        f" calls {loop_s:.3f} s; host_reads_by_phase "
+        f"{_sum_phases(loop, 'host_reads_by_phase')} (one fit: "
+        f"{loop[0].host_reads_by_phase}); launches "
+        f"{ {nm: v for nm, v in loop_counts.items() if v} }")
+    return counts, rep
+
+
+def lane_kernel_checks(torch, Xs, dev):
+    """Phase 8 (c): the lane kernels at the ragged batch's padded shape,
+    lane 3's run flag at 0; returns their ``kernels`` rows."""
+    from repro_torch.core.engine import LaneData
+    from repro_torch.kernels import build_g, ops, pairwise, stream_g, swap_g
+    lanes = LaneData.pad([torch.from_numpy(X).to(dev) for X in Xs], dev)
+    L, n_pad, d = lanes.data.shape
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    ref = torch.stack([torch.randperm(n, generator=gen)[:B]
+                       for n in lanes.ns]).to(dev)
+    y = lanes.gather(ref).contiguous()
+    w = torch.ones((L, B), device=dev)
+    w[:, -7:] = 0.0
+    run = torch.ones((L,), dtype=torch.int32, device=dev)
+    run[3] = 0
+    live = [i for i in range(L) if i != 3]
+    med = {k: torch.stack([lanes.lane(i)[torch.randperm(n, generator=gen)[
+        :k].to(dev)] for i, n in enumerate(lanes.ns)]).contiguous()
+        for k in (10, 65)}
+    dn = torch.stack([pairwise.pairwise_torch(y[i], med[10][i],
+                                              metric="l2").min(dim=1).values
+                      for i in range(L)]).contiguous()
+    lg = torch.clamp_max(torch.stack([pairwise.pairwise_torch(
+        y[i], med[10][i, :1], metric="l2")[:, 0] for i in range(L)]) - dn,
+        0.0).contiguous() * w
+    dmax = max(float(pairwise.pairwise_torch(lanes.lane(i)[:2048], y[i],
+                                             metric="l2").max())
+               for i in range(L))
+    lims = [sum_err_limit(lanes.lane(i), y[i], "l2", dmax) for i in range(L)]
+    nlive = sum(lanes.ns[i] for i in live)
+    rows = []
+
+    def lane_row(name, src, replaces, lane_fn, single_fns, plain_fn,
+                 scale, outs, fl, by, names=("sums", "sq", "cross")):
+        got = lane_fn()
+        for i in live:
+            one = single_fns[i]()
+            require_equal(f"{name} lane {i} (n={lanes.ns[i]}) == single "
+                          f"launch", tuple(g[i, ..., :lanes.ns[i]]
+                                           for g in got[:outs]), one[:outs])
+        want = plain_fn()
+        err = 0.0
+        for i in live:
+            n = lanes.ns[i]
+            for nm, g, wv, a in zip(names, got, want, scale(i)):
+                if a is not None:
+                    err = max(err, check_close(
+                        f"{name}[{i}] {nm}", g[i, ..., :n], wv[i, ..., :n],
+                        a))
+        ms = time_ms(lane_fn)
+        loop_ms = time_ms(lambda: [single_fns[i]() for i in range(L)])
+        pms = time_ms(plain_fn, reps=3, warm=1)
+        bms, bby = bound_ms(fl, by)
+        log(f"[batch] time {name:14s} lanes {ms:.4f} ms  loop of {L} single "
+            f"launches {loop_ms:.4f} ms  plain {pms:.4f} ms  bound "
+            f"{bms * 1e3:.1f} us ({bby})  share of bound {bms / ms:.3f}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None,
+                     "loop_ms": loop_ms,
+                     "shape": f"{L} lanes, n {min(lanes.ns)}-{max(lanes.ns)}"
+                              f" (pad {n_pad}), B {B}, d {d}"})
+
+    def x_of(i):
+        return lanes.lane(i).contiguous()
+
+    lane_row("build_g_lanes", "repro_torch/kernels/csrc/build_g.cu",
+             "src/repro/kernels/build_g.py:42",
+             lambda: ops.build_g_lanes_stats(lanes.data, y, dn, w, lg,
+                                             rows=lanes.rows, metric="l2",
+                                             run=run),
+             [lambda i=i: ops.build_g_stats(x_of(i), y[i], dn[i], w[i], lg[i],
+                                            metric="l2",
+                                            run=run[i:i + 1])
+              for i in range(L)],
+             lambda: build_g.build_g_lanes_torch(lanes.data, y, dn, w, lg,
+                                                 lanes.rows.cpu(), "l2"),
+             lambda i: (lims[i], 2 * dmax * lims[i], 2 * dmax * lims[i]), 3,
+             2.0 * nlive * B * d,
+             4.0 * (nlive * d + len(live) * (B * d + 3 * B) + 3 * nlive))
+    for k in (10, 65):
+        d1, d2, a = ops.stream_top2_lanes(y, med[k], metric="l2")
+        lead = lg
+        lane_row(f"swap_g_lanes" if k == 10 else f"swap_g_lanes[k={k}]",
+                 "repro_torch/kernels/csrc/swap_g.cu",
+                 "src/repro/kernels/swap_g.py:85",
+                 lambda: ops.swap_g_lanes_stats(lanes.data, y, d1, d2, a, w, k,
+                                                lead, rows=lanes.rows,
+                                                metric="l2", run=run),
+                 [lambda i=i: ops.swap_g_stats(x_of(i), y[i], d1[i], d2[i],
+                                               a[i], w[i], k, lead[i],
+                                               metric="l2", run=run[i:i + 1])
+                  for i in range(L)],
+                 lambda: swap_g.swap_g_lanes_torch(lanes.data, y, d1, d2, a, w,
+                                                   k, lead, lanes.rows.cpu(),
+                                                   "l2"),
+                 lambda i: (2 * lims[i], 4 * dmax * lims[i],
+                            4 * dmax * lims[i]), 3,
+                 2.0 * nlive * B * d,
+                 4.0 * (nlive * d + len(live) * (B * d + 5 * B)
+                        + 3 * k * nlive))
+    tol = dist_tol("l2", dmax)
+    lane_row("top2_lanes", "repro_torch/kernels/csrc/stream_g.cu",
+             "src/repro/kernels/stream_g.py:165",
+             lambda: ops.stream_top2_lanes(lanes.data, med[10],
+                                           rows=lanes.rows, metric="l2"),
+             [lambda i=i: ops.stream_top2(x_of(i), med[10][i], metric="l2")
+              for i in range(L)],
+             lambda: stream_g.top2_lanes_torch(lanes.data, med[10],
+                                               lanes.rows.cpu(), "l2"),
+             lambda i: (tol, tol), 3,
+             2.0 * sum(lanes.ns) * 10 * d,
+             4.0 * (sum(lanes.ns) * d + L * 10 * d + 3 * sum(lanes.ns)),
+             names=("d1", "d2"))
+    # The k = 65 SWAP row is printed; the kernels line keeps one row per
+    # lane kernel.
+    return [r for r in rows if "[" not in r["name"]]
+
+
+def batch_parity(torch, dev):
+    """Phase 8 (d): ``backend="cuda"`` against ``"torch"`` ``fit_batch``
+    on 4 ragged ``code_blobs`` lanes, each backend's batch equal to its
+    own loop of single fits exactly.  The two backends must agree on
+    medoids, swaps and build rounds; the ledger without the leader within
+    phase 4's ``code_blobs`` allowance, 10·B (the kernels and the plain
+    versions round batch sums differently, which can move a kill on an
+    exact margin by a round), and with ``default_params`` (the leader)
+    within 0.1 % (the allowance of the card tests' cuda-against-torch
+    fits: the leader's cross sums are added in different orders too, and
+    on blobs whose duplicate rows tie with the leader that moves
+    differenced kills)."""
+    from repro_torch.api import KMedoids
+    from repro_torch.api.registry import default_params
+    from repro_torch.core import datasets
+    ns = (3000, 4096, 2500, 3701)
+    Xs = [datasets.code_blobs(n, 10, seed=i) for i, n in enumerate(ns)]
+    seeds = [0, 1, 2, 3]
+    for label, params in (("leader", default_params("banditpam")),
+                          ("no leader", {})):
+        reps = {}
+        for be in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            reps[be] = KMedoids(10, metric="l2", seed=0, backend=be,
+                                **params).fit_batch(Xs, seeds=seeds)
+            for i, (X, s) in enumerate(zip(Xs, seeds)):
+                one = KMedoids(10, metric="l2", seed=s, backend=be,
+                               **params).fit(X).report_
+                same_report(reps[be][i], one, f"code_blobs ({label}) lane "
+                            f"{i}, {be} batch vs its single fit")
+            log(f"[batch] (d) {label} backend={be:5s} medoids "
+                f"{[r.medoids.tolist() for r in reps[be]]} build rounds "
+                f"{[r.build_rounds for r in reps[be]]} swaps "
+                f"{[r.n_swaps for r in reps[be]]} evals "
+                f"{[r.evals_by_phase for r in reps[be]]} "
+                f"({time.perf_counter() - t0:.2f} s with the loop)")
+        for i in range(len(ns)):
+            a, b = reps["cuda"][i], reps["torch"][i]
+            same_fit(a, b, f"(d) fit_batch {label} lane {i} on code_blobs",
+                     0 if params else 10 * B,
+                     ledger_rtol=1e-3 if params else 0.0)
+
+
+def batch_paths(torch, dev):
+    """Phase 8: (a) and (b), then (c) and (d); returns the lane kernels'
+    rows with their launches from (b)."""
+    from repro_torch.core.datasets import mnist_like
+    t0 = time.perf_counter()
+    small = [mnist_like(BATCH_N, seed=i) for i in range(BATCH_FITS)]
+    ragged = [mnist_like(n, seed=100 + i) for i, n in enumerate(RAGGED_N)]
+    log(f"[batch] data made in {time.perf_counter() - t0:.1f} s")
+    for solver in ("banditpam", "banditpam_pp"):
+        batch_vs_loop(torch, f"(a) {solver} {BATCH_FITS} x mnist_like("
+                      f"{BATCH_N}), k={BATCH_K}", solver, small,
+                      list(range(BATCH_FITS)), BATCH_K)
+    counts, _ = batch_vs_loop(torch, f"(b) banditpam ragged n={RAGGED_N}, "
+                              f"k={RAGGED_K}", "banditpam", ragged,
+                              list(range(len(RAGGED_N))), RAGGED_K)
+    if min(counts[nm] for nm in LANE_KERNELS) < 1:
+        raise AssertionError(f"a lane kernel never ran in (b): {counts}")
+    rows = lane_kernel_checks(torch, ragged, dev)
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    batch_parity(torch, dev)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1802,6 +2080,9 @@ def main() -> int:
     from repro_torch.kernels import ops
     counts_phase7 = ops.launch_counts()
     log(f"[serve] phase 7 wall {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    lane_rows = batch_paths(torch, dev)
+    log(f"[batch] phase 8 wall {time.perf_counter() - t8:.1f} s")
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -1829,8 +2110,10 @@ def main() -> int:
         "and the cuda service on code_blobs): "
         + ", ".join(f"{nm} {counts_phase7[nm]}"
                     for nm in sorted(counts_phase7) if counts_phase7[nm]))
+    log("[launches] phase 8, the ragged batch (b): " + ", ".join(
+        f"{r['name']} {r['launches']}" for r in lane_rows))
     log(card)
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": rows + lane_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,7 @@
     est.medoids_, est.labels_, est.loss_, est.report_
     est.predict(X_new)              # [m] nearest-medoid labels
     est.transform(X_new)            # [m, k] dissimilarities
+    batch = est.fit_batch([X0, X1, ...], seeds=[...])  # many fits at once
 
 ``device=None`` means the card and raises without one; ``device="cpu"``
 runs the plain PyTorch path.  ``labels_`` come from one top-2 pass (the
@@ -19,6 +20,11 @@ callable of tensors (registered on first use), or ``"precomputed"``:
 then ``fit`` takes the ``[n, n]`` dissimilarity matrix itself, and
 ``predict`` / ``transform`` take the ``[m, n]`` query-to-fit-points
 block, whose medoid columns are the answer.
+
+``fit_batch`` fits many independent datasets in one call (the bandit
+solvers; ``core/batch.py``) and returns a ``BatchFitReport`` with
+``[B, n_max]`` labels from one lane ``top2`` launch; it does not set the
+single-fit state.
 
 ``KMedoids.from_fitted(X, medoids, metric)`` builds a fitted estimator
 from given medoid indices, e.g. medoids fitted by the JAX package.
@@ -33,9 +39,32 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.distances import attach_index, resolve_metric
-from ..core.engine import medoid_cache, resolve_stats_backend
+from ..core.batch import lane_arrays
+from ..core.engine import (LaneData, get_stats_backend, medoid_cache,
+                           resolve_stats_backend)
 from .predict import DEFAULT_CHUNK, medoid_distances_t
-from .registry import get_solver, solver_accepts_backend
+from .registry import get_batch_solver, get_solver, solver_accepts_backend
+
+
+def _pad_batch(X_batch, dev: torch.device) -> LaneData:
+    """A ``[B, n, d]`` array or a (ragged) list of ``[n_i, d]`` arrays as
+    one padded lane tensor on ``dev`` (zero pad rows)."""
+    return LaneData.pad([a.to(dev) for a in lane_arrays(X_batch)], dev)
+
+
+def _batch_labels(lanes: LaneData, medoids: np.ndarray, metric: str,
+                  backend: str) -> np.ndarray:
+    """In-sample labels of a batch of fits, ``[B, n_max]`` int32: one lane
+    ``top2`` pass (the lane kernel on the card), each lane's the single
+    facade's; 0 past a fit's n."""
+    dev = lanes.data.device
+    med = torch.as_tensor(np.asarray(medoids, np.int64)).to(dev)
+    _, _, assign = get_stats_backend(backend).top2_lanes(lanes, med,
+                                                         metric=metric)
+    labels = assign.cpu().numpy()[:, :max(lanes.ns)]
+    for i, n in enumerate(lanes.ns):
+        labels[i, n:] = 0
+    return labels
 
 
 class KMedoids:
@@ -149,8 +178,36 @@ class KMedoids:
         return self
 
     def fit_batch(self, X_batch, seeds=None):
-        raise NotImplementedError(
-            "fit_batch is not ported to repro_torch yet (ROADMAP A10)")
+        """Fit a batch of INDEPENDENT datasets: ``X_batch`` a ``[B, n, d]``
+        array or a list of ``[n_i, d]`` arrays, ``seeds`` the per-fit
+        seeds (default: ``self.seed`` for every fit).  Only the solvers
+        with a batched entry point (``available_batch_solvers()``: the
+        bandit solvers); each fit equals the single fit with its seed.
+
+        Returns a :class:`~repro_torch.core.report.BatchFitReport` with
+        ``labels`` ``[B, n_max]`` (0 past a fit's n).  Does NOT set the
+        single-fit state (``medoids_`` etc.): a batch has no single
+        in-sample assignment for ``predict``."""
+        batch_fn = get_batch_solver(self.solver)   # fail fast on bad names
+        metric_name = resolve_metric(self.metric)
+        if metric_name == "precomputed":
+            raise ValueError("fit_batch does not support "
+                             "metric='precomputed' (per-fit dissimilarity "
+                             "matrices would be ragged); pass features")
+        params = dict(self.solver_params)
+        if solver_accepts_backend(self.solver):
+            params.setdefault("backend", self.backend)
+        dev = resolve_device(self.device)
+        report = batch_fn(X_batch, self.k, metric=metric_name,
+                          seed=self.seed, device=dev, seeds=seeds, **params)
+        lanes = _pad_batch(X_batch, dev)
+        report.labels = _batch_labels(
+            lanes, report.medoids, metric_name,
+            resolve_stats_backend(params.get("backend", self.backend),
+                                  metric_name, dev))
+        report.solver = self.solver
+        report.metric = metric_name
+        return report
 
     @classmethod
     def from_fitted(cls, X, medoids, metric: str = "l2", *,

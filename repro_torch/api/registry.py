@@ -6,6 +6,17 @@ Solver contract::
     fn(data, k, *, metric: str, seed: int, device, layouts=None, **params)
         -> FitReport
 
+A solver may also register a batched multi-fit entry point
+(``batch_fn``, behind ``KMedoids.fit_batch``)::
+
+    batch_fn(datasets, k, *, metric, seed, device, seeds=None, **params)
+        -> BatchFitReport
+
+``datasets`` a ``[B, n, d]`` array or a list of ragged ``[n_i, d]``
+ones; each fit of the batch must equal ``fn`` on its dataset and seed
+bit for bit (``tests/test_torch_multifit.py`` holds the bandit solvers
+to it).
+
 ``data`` is a ``[n, d]`` float32 tensor on the fit's device (already
 ``attach_index``-augmented when ``metric == "precomputed"``); ``metric``
 is a registered name (the facade resolves callables first).
@@ -20,12 +31,12 @@ baselines ``fasterpam``, ``voronoi``, ``clarans`` and ``clara``
 them run through the stats backend and so take ``backend=``; only the
 bandit solvers read ``layouts=``.  ``banditpam_dist``, the sharded fit,
 is known by name and raises ``NotImplementedError`` with its ROADMAP
-item.
+item.  ``banditpam`` and ``banditpam_pp`` have batched entry points.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..core.banditpam import BanditPAM
 from ..core.baselines import clara, clarans, fasterpam, voronoi_iteration
@@ -36,6 +47,7 @@ from ..core.report import FitReport
 Solver = Callable[..., FitReport]
 
 _SOLVERS: Dict[str, Solver] = {}
+_BATCH_SOLVERS: Dict[str, Callable] = {}
 _ACCEPTS_BACKEND: set = set()
 
 # Solvers of the JAX package that later slices port, by ROADMAP item.
@@ -47,10 +59,16 @@ BANDIT_SOLVERS = ("banditpam", "banditpam_pp")
 
 
 def register_solver(name: str, fn: Solver, *,
-                    accepts_backend: bool = False) -> None:
+                    accepts_backend: bool = False,
+                    batch_fn: Optional[Callable] = None) -> None:
     """Register ``fn`` under ``name``; ``accepts_backend=True`` declares
-    that it takes the ``backend=`` stats-backend kwarg."""
+    that it takes the ``backend=`` stats-backend kwarg, and ``batch_fn``
+    is its batched multi-fit entry point (see the module docstring)."""
     _SOLVERS[name] = fn
+    if batch_fn is not None:
+        _BATCH_SOLVERS[name] = batch_fn
+    else:
+        _BATCH_SOLVERS.pop(name, None)
     if accepts_backend:
         _ACCEPTS_BACKEND.add(name)
     else:
@@ -67,8 +85,22 @@ def get_solver(name: str) -> Solver:
     return _SOLVERS[name]
 
 
+def get_batch_solver(name: str) -> Callable:
+    get_solver(name)                       # the unknown-name error first
+    if name not in _BATCH_SOLVERS:
+        raise ValueError(
+            f"solver {name!r} has no batched entrypoint; fit_batch is "
+            f"available for {sorted(_BATCH_SOLVERS)} (register one via "
+            f"register_solver(..., batch_fn=...))")
+    return _BATCH_SOLVERS[name]
+
+
 def available_solvers():
     return sorted(_SOLVERS)
+
+
+def available_batch_solvers():
+    return sorted(_BATCH_SOLVERS)
 
 
 def solver_accepts_backend(name: str) -> bool:
@@ -95,6 +127,19 @@ def _banditpam_pp(data, k, *, metric, seed, device, layouts=None,
                       layouts=layouts, **params)
 
 
+def _banditpam_batch(datasets, k, *, metric, seed, device, seeds=None,
+                     **params):
+    return BanditPAM(k, metric=metric, seed=seed, device=device,
+                     **params).fit_batch(datasets, seeds=seeds)
+
+
+def _banditpam_pp_batch(datasets, k, *, metric, seed, device, seeds=None,
+                        **params):
+    params.setdefault("reuse", "pic")
+    return _banditpam_batch(datasets, k, metric=metric, seed=seed,
+                            device=device, seeds=seeds, **params)
+
+
 def _pam(data, k, *, metric, seed, device, layouts=None, **params):
     # Deterministic: seed and layouts intentionally unused.
     return pam(data, k, metric=metric, fastpam1=False, device=device,
@@ -116,10 +161,13 @@ def _seeded(fn):
     return solver
 
 
-for _name, _fn in (("banditpam", _banditpam), ("banditpam_pp", _banditpam_pp),
-                   ("pam", _pam), ("fastpam1", _fastpam1),
+for _name, _fn in (("pam", _pam), ("fastpam1", _fastpam1),
                    ("fasterpam", _seeded(fasterpam)),
                    ("clara", _seeded(clara)), ("clarans", _seeded(clarans)),
                    ("voronoi", _seeded(voronoi_iteration)),
                    ("onebatchpam", _seeded(onebatchpam))):
     register_solver(_name, _fn, accepts_backend=True)
+register_solver("banditpam", _banditpam, accepts_backend=True,
+                batch_fn=_banditpam_batch)
+register_solver("banditpam_pp", _banditpam_pp, accepts_backend=True,
+                batch_fn=_banditpam_pp_batch)

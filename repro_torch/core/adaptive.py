@@ -85,6 +85,20 @@ permutation sampling over a FIXED permutation shared by every search:
   ring), handed to ``stats_fn`` with the round index; being host state,
   the ring is updated in place.
 
+The lane axis (``lane_search``, ``fit_batch``): L independent
+permutation searches, one per fit of a padded batch, advance one round
+at a time in lockstep, each round ONE ``stats_fn`` call for every lane
+(one ``build_g`` / ``swap_g`` launch on the card).  It is the
+device-resident loop with a leading lane axis: the schedule tables are
+``[L, R_max]`` (each lane's own n, δ and budget ``ceil(n_l/B)``), a lane
+past its budget is masked exactly like a round past its stop, and the
+host reads the ``[L]`` flags once every ``ROUNDS_PER_READ`` rounds and
+stops once every lane reads 0.  Every per-lane quantity is the single
+search's elementwise arithmetic on the lane's own values (min, argmin
+and integer counts are exact over any arm set), and pad arms start
+inactive, so each lane returns the single search's result bit for bit.
+The single-fit ``_Search`` is left as it is.
+
 ``SearchResult`` (and :class:`DeviceResult`) return the final ``sums``
 / ``sqsums`` for the next search's carry.  ``n_evals`` and
 ``n_evals_cached`` are tallied in int64 on the device.  The JAX package
@@ -167,11 +181,12 @@ def default_count(active: torch.Tensor) -> torch.Tensor:
 
 def tile_perm(perm: torch.Tensor, n_ref: int, batch_size: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cyclic layout: ``perm`` tiled to ``ceil(n/B)·B`` slots, and
-    the {0,1} weights that zero the slots past ``n_ref``."""
+    """The cyclic layout: ``perm`` (``[n_ref]``, or ``[G, n_ref]`` for G
+    searches at once) tiled to ``ceil(n/B)·B`` slots, and the {0,1}
+    weights that zero the slots past ``n_ref``."""
     total = -(-n_ref // batch_size) * batch_size
     reps = -(-total // n_ref)
-    perm_idx = perm.repeat(reps)[:total]
+    perm_idx = perm.repeat(*[1] * (perm.ndim - 1), reps)[..., :total]
     perm_w = (torch.arange(total, device=perm.device) < n_ref).to(
         torch.float32)
     return perm_idx, perm_w
@@ -469,6 +484,191 @@ def adaptive_search(*, report=None, phase: str = "search",
     one more ``engine.host_read``."""
     return device_search(report=report, phase=phase, **kw).read(report,
                                                                 phase)
+
+
+class LaneResult(NamedTuple):
+    """A lane search's result on the device: ``[L]`` int64 tensors."""
+    best: torch.Tensor
+    n_evals: torch.Tensor
+    rounds: torch.Tensor
+
+
+class _LaneSearch:
+    """L permutation searches in lockstep (see the module docstring).
+
+    ``perm_idx`` / ``perm_w`` are ``[L, R_max·B]``: each lane's cyclic
+    tiling (``tile_perm``) padded with index 0 at weight 0; ``n_ref`` the
+    lanes' reference counts (host ints) and ``n_dev`` the same ``[L]`` on
+    the device; ``log_term`` ``[L]`` float32.
+    """
+
+    def __init__(self, *, n_ref, n_dev, batch_size, log_term, active_init,
+                 perm_idx, perm_w, count_fn, baseline, stop_when_positive):
+        dev = active_init.device
+        L, n_arms = active_init.shape
+        self.B = B = int(batch_size)
+        self.R = R = max(-(-n // B) for n in n_ref)
+        # Round-major, so each round's [L, B] slice is contiguous.
+        self.perm_idx = perm_idx.view(L, R, B).transpose(0, 1).contiguous()
+        self.perm_w = perm_w.view(L, R, B).transpose(0, 1).contiguous()
+        self.count_fn = count_fn
+        self.use_lead = baseline == "leader"
+        self.stop_when_positive = stop_when_positive
+        f32 = dict(dtype=torch.float32, device=dev)
+        steps = torch.arange(self.R, device=dev)
+        nd = n_dev.to(torch.int64)[:, None]
+        # Samples after round r, clamped to each lane's n, as the single
+        # search's table; a lane's rounds past its budget are masked.
+        n_new = torch.minimum((steps + 1)[None, :] * B, nd)       # [L, R]
+        self.budget = steps[None, :] < (nd + B - 1) // B          # [L, R]
+        self.b_eff = torch.clamp(nd - steps[None, :] * B, 0, B)   # [L, R]
+        self.b_eff_f = self.b_eff.to(torch.float32)
+        self.n_new_f = n_new.to(torch.float32)
+        lt = log_term[:, None]
+        self.root = torch.sqrt(lt / self.n_new_f)
+        self.fpc = torch.sqrt(torch.clamp_min(
+            1.0 - self.n_new_f / n_dev.to(torch.float32)[:, None], 0.0))
+        self.n_cap = nd[:, 0]
+        self.active = active_init.clone()
+        self.n_evals = torch.zeros((L,), dtype=torch.int64, device=dev)
+        self.done = torch.zeros_like(self.n_evals)
+        if self.use_lead:
+            self.arms = torch.arange(n_arms, device=dev)[None, :]
+            self.lead = torch.zeros((L,), dtype=torch.int64, device=dev)
+            self.d_sums = torch.zeros((L, n_arms), **f32)
+            self.sigma_d = torch.full((L, n_arms), float("inf"), **f32)
+            post = n_new - n_new[:, :1]
+            self.post_f = post.to(torch.float32)
+            self.root_d = torch.sqrt(lt / self.post_f)
+        self.sums = torch.zeros((L, n_arms), **f32)
+        self.sqsums = torch.zeros((L, n_arms), **f32)
+        self.sigma = torch.full((L, n_arms), float("inf"), **f32)
+        self.running = torch.sum(self.active, dim=1, dtype=torch.int64) > 1
+
+    def round(self, rnd: int, stats_fn, lead) -> bool:
+        """Round ``rnd`` of every lane: one ``stats_fn`` call, then each
+        lane's state update, selected by its flag ``on`` (still running
+        and within its budget).  Returns whether it was the pilot."""
+        ref_idx, w = self.perm_idx[rnd], self.perm_w[rnd]
+        on = self.running & self.budget[:, rnd]
+        sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead,
+                                         on.to(torch.int32))
+
+        # ---- raw statistics (paper) ----
+        new = {"sums": self.sums + sums_b, "sqsums": self.sqsums + sq_b}
+        n_new_f = self.n_new_f[:, rnd:rnd + 1]
+        mu_hat = new["sums"] / n_new_f
+        sigma = self.sigma
+        if rnd == 0:                                              # Eq. 11
+            b_eff_f = self.b_eff_f[:, :1]
+            batch_mean = sums_b / b_eff_f
+            batch_var = torch.clamp_min(
+                sq_b / b_eff_f - batch_mean * batch_mean, 0.0)
+            new["sigma"] = sigma = torch.sqrt(batch_var) + SIGMA_FLOOR
+        ci = sigma * self.root[:, rnd:rnd + 1]
+        ci = ci * self.fpc[:, rnd:rnd + 1]
+        active = self.active
+        ucb = torch.where(active, mu_hat + ci, float("inf"))
+        lcb = mu_hat - ci
+        kill = lcb > torch.min(ucb, dim=1, keepdim=True).values
+
+        # ---- differenced statistics vs the pilot leader ----
+        pilot = self.use_lead and rnd == 0
+        if pilot:
+            new["lead"] = torch.argmin(torch.where(active, mu_hat,
+                                                   float("inf")), dim=1)
+        elif self.use_lead:
+            li = self.lead[:, None]
+            d_b = sums_b - sums_b.gather(1, li)
+            dsq_b = sq_b - 2.0 * cross_b + sq_b.gather(1, li)
+            new["d_sums"] = d_sums = self.d_sums + d_b
+            sigma_d = self.sigma_d
+            if rnd == 1:
+                b_eff_f = self.b_eff_f[:, 1:2]
+                d_mean = d_b / b_eff_f
+                new["sigma_d"] = sigma_d = torch.sqrt(torch.clamp_min(
+                    dsq_b / b_eff_f - d_mean * d_mean, 0.0)) + SIGMA_FLOOR
+            mu_d = d_sums / self.post_f[:, rnd:rnd + 1]
+            root = self.root_d[:, rnd:rnd + 1]
+            ci_d = sigma_d * root
+            ucb_d = torch.where(active, mu_d + ci_d, float("inf"))
+            eps_d = LEAD_TIE_REL * sigma * root
+            kill_d = ((mu_d - ci_d)
+                      > torch.min(ucb_d, dim=1, keepdim=True).values + eps_d)
+            kill = kill | (kill_d & (self.arms != li))
+
+        # A lane past its stop or its budget counts nothing, kills
+        # nothing, and keeps its moments and its leader.
+        cost = self.count_fn(active) * self.b_eff[:, rnd] * on
+        kill = kill & on[:, None]
+        new = {k: torch.where(on if v.ndim == 1 else on[:, None], v,
+                              getattr(self, k))
+               for k, v in new.items()}
+        self.n_evals = self.n_evals + cost
+        self.active = active & ~kill
+        going = torch.sum(self.active, dim=1, dtype=torch.int64) > 1
+        if self.stop_when_positive:
+            lcb_p = new["sums"] / n_new_f - sigma * self.root[:, rnd:rnd + 1]
+            lcb_min = torch.min(torch.where(self.active, lcb_p,
+                                            float("inf")), dim=1).values
+            going = going & (lcb_min <= 0.0)
+        self.done = self.done + on
+        for k, v in new.items():
+            setattr(self, k, v)
+        self.running = going & on
+        return pilot
+
+    def result(self) -> LaneResult:
+        """Each lane's pick: the FIRST index minimising its survivors'
+        means."""
+        n_used_f = torch.minimum(torch.clamp_min(self.done * self.B, 1),
+                                 self.n_cap).to(torch.float32)
+        mu_sel = torch.where(self.active, self.sums / n_used_f[:, None],
+                             float("inf"))
+        return LaneResult(best=torch.argmin(mu_sel, dim=1),
+                          n_evals=self.n_evals, rounds=self.done)
+
+
+def lane_search(*, stats_fn, n_ref, n_dev, batch_size: int,
+                log_term: torch.Tensor, active_init: torch.Tensor,
+                perm_idx: torch.Tensor, perm_w: torch.Tensor,
+                count_fn=None, baseline: str = "none",
+                stop_when_positive: bool = False, report=None,
+                phase: str = "search", rounds_log=None) -> LaneResult:
+    """Run L permutation searches in lockstep, the device-resident loop
+    with a lane axis, and leave the ``[L]`` results on the device.
+
+    ``stats_fn(ref_idx [L, B], w [L, B], lead, run) -> 3 × [L, arms]``
+    gives every lane's batch statistics in one call (``lead`` ``[L]``
+    int64 or None before the pilot round, ``run`` the lanes' ``[L]``
+    int32 flags: a lane at 0 is discarded).  ``count_fn(active [L, arms])
+    -> [L]`` int64 (default: #active arms).  The host reads the lanes'
+    flags once every ``ROUNDS_PER_READ`` rounds through
+    ``engine.host_read`` (counted under ``phase`` in ``report``) and
+    stops once all read 0; ``rounds_log`` (a dict) counts the rounds
+    enqueued under ``phase``.
+    """
+    if baseline not in ("none", "leader"):
+        raise ValueError(f"unknown baseline mode {baseline!r}")
+    if count_fn is None:
+        def count_fn(active):
+            return torch.sum(active, dim=1, dtype=torch.int64)
+    s = _LaneSearch(n_ref=n_ref, n_dev=n_dev, batch_size=batch_size,
+                    log_term=log_term, active_init=active_init,
+                    perm_idx=perm_idx, perm_w=perm_w, count_fn=count_fn,
+                    baseline=baseline, stop_when_positive=stop_when_positive)
+    lead = None
+    going, rnd = True, 0
+    while rnd < s.R and going:
+        if s.round(rnd, stats_fn, lead):
+            lead = s.lead
+        rnd += 1
+        if rounds_log is not None:
+            rounds_log[phase] = rounds_log.get(phase, 0) + 1
+        if rnd % ROUNDS_PER_READ == 0 and rnd < s.R:
+            (flags,) = host_read([s.running], report, phase)
+            going = any(flags)
+    return s.result()
 
 
 def _may_improve(sums, sigma, active, n_used_f, root):

@@ -62,6 +62,13 @@ ledger terms in one read.  ``fused=False`` runs the stepped searches (one
 read per round), as do replacement sampling and ``reuse="pic"`` under
 either value (ROADMAP A18b).  The two give identical reports.
 
+``fit_batch`` fits many independent datasets in one call
+(``core/batch.py``): under ``reuse="none"`` every lane advances one
+bandit round at a time, each round one ``build_g`` or ``swap_g`` launch
+for the whole batch; under ``reuse="pic"`` the lanes run one after
+another through this module's PIC driver.  Each fit equals the single
+fit with its seed, bit for bit.
+
 Random draws: every search takes its reference permutation, or in
 replacement mode its per-round batches, from a layout source
 (``repro_torch.core.rng``).  The default replays the JAX package's
@@ -90,12 +97,11 @@ from .pic_cache import (cache_read_or_write, carry_valid, fresh_positions,
 from .report import FitReport
 from . import rng as _rng
 
-__all__ = ["BanditPAM", "FitReport", "medoid_cache", "total_loss"]
+__all__ = ["BanditPAM", "FitReport", "FitResult", "medoid_cache",
+           "total_loss"]
 
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP {item})")
+# The JAX package's older name for the report, kept importable.
+FitResult = FitReport
 
 
 def _carry_delta(be, cols, pidx, pw, n_prefix: int, d1o, d2o, ao, d1n, d2n,
@@ -176,16 +182,18 @@ class BanditPAM:
         self.device = device
 
     # -- per-fit context -------------------------------------------------
-    def _make_context(self, data, be_name: str, layouts,
-                      res: FitReport) -> FitContext:
-        """The fit's cache regime and buffers (``engine.FitContext``)."""
+    def _make_context(self, data, be_name: str, layouts, res: FitReport,
+                      ring_rounds: Optional[int] = None) -> FitContext:
+        """The fit's cache regime and buffers (``engine.FitContext``);
+        ``ring_rounds`` replaces the PIC ring's own width (a batch's)."""
         n = data.shape[0]
         be = get_stats_backend(be_name)
         B = self.batch_size
         dev = data.device
         if self.reuse == "pic":
             perm = _rng.as_device_index(layouts.fixed_perm(n), dev)
-            W = resolve_cache_rounds(-(-n // B), B, self.cache_width)
+            W = (resolve_cache_rounds(-(-n // B), B, self.cache_width)
+                 if ring_rounds is None else ring_rounds)
             width = W * B
             # The cyclic tiling's prefix at the ring's width; positions
             # past n are weight-0 padding.
@@ -268,6 +276,7 @@ class BanditPAM:
         found, fresh = [], []
         for i in range(self.k):
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
+                ctx.count_round("build")
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux))
                 dnear_b = dnear.index_select(0, ref_idx)
@@ -354,6 +363,7 @@ class BanditPAM:
                             init_rounds=c_rounds)
 
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
+                ctx.count_round("swap")
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux))
                 d1_b, d2_b, a_b = (v.index_select(0, ref_idx)
@@ -431,6 +441,12 @@ class BanditPAM:
         default the JAX package's threefry chain for ``self.seed``,
         computed on the fit's device.
         """
+        return self._fit(data, warm_start, layouts)[0]
+
+    def _fit(self, data, warm_start=None, layouts=None,
+             ring_rounds: Optional[int] = None):
+        """:meth:`fit` with the PIC ring's width given (``fit_batch``'s
+        PIC lanes); returns the report and the fit's context."""
         dev = resolve_device(self.device)
         data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
         if data.ndim != 2:
@@ -455,7 +471,7 @@ class BanditPAM:
                                      self.k if ws is None else 0)
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
-        ctx = self._make_context(data, be_name, layouts, res)
+        ctx = self._make_context(data, be_name, layouts, res, ring_rounds)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
@@ -487,7 +503,31 @@ class BanditPAM:
                                  if not ph.endswith("_cached"))
         res.cached_evals = sum(v for ph, v in res.evals_by_phase.items()
                                if ph.endswith("_cached"))
-        return res
+        return res, ctx
 
     def fit_batch(self, datasets, seeds=None):
-        raise _not_ported("fit_batch", "A10")
+        """Fit a batch of INDEPENDENT datasets (``core/batch.py``).
+
+        ``datasets`` is a ``[B, n, d]`` array or tensor, or a list of
+        ``[n_i, d]`` ones with ragged ``n_i``; ``seeds`` the per-fit seeds
+        (default: ``self.seed`` for every fit).  Each fit equals
+        ``BanditPAM(seed=seeds[i]).fit(datasets[i])`` bit for bit:
+        medoids, loss, swap history, build rounds and ledger.  Needs
+        ``sampling="permutation"`` and ``cache_cols=0``.  Returns a
+        :class:`~repro_torch.core.report.BatchFitReport`.
+        """
+        from .batch import fit_batch
+        return fit_batch(self, datasets, seeds)
+
+    def fit_predict(self, data) -> np.ndarray:
+        """Fit and return the in-sample labels, ``[n]`` int32: each
+        point's nearest medoid (first index on ties), one top-2 pass
+        through the fit's stats backend."""
+        res = self.fit(data)
+        dev = resolve_device(self.device)
+        data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
+        be_name = resolve_stats_backend(self.backend, self.metric, dev)
+        _, _, assign = medoid_cache(
+            data, torch.as_tensor(res.medoids).to(dev), metric=self.metric,
+            backend=be_name)
+        return assign.cpu().numpy()

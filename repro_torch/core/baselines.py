@@ -57,6 +57,9 @@ FASTERPAM_BLOCK = 256 * 128
 VORONOI_TILE = 4096
 
 
+# The JAX package's name for the baselines' report, kept importable.
+BaselineResult = FitReport
+
 def _setup(data, metric, backend: str, device: DeviceLike):
     dev = resolve_device(device)
     metric = resolve_metric(metric)

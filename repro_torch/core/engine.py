@@ -49,6 +49,25 @@ sampling's fallback and behind PAM (:func:`exact_build_means`,
 sums' candidates to those rows of ``data``, m of them (FasterPAM's
 candidate blocks).
 
+The lane forms carry ``fit_batch`` (``core/batch.py``): L independent
+fits padded to ``[L, n_pad, d]`` (:class:`LaneData`), each round's
+statistics for every lane at once::
+
+    build_stats_lanes(lanes, ref_idx, dnear_b, w, lead, *, metric, run)
+                                                            -> 3 × [L, n_pad]
+    swap_stats_lanes(lanes, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *,
+                     metric, run)                           -> 3 × [L, k·n_pad]
+    top2_lanes(lanes, med_idx, *, metric, live=None)        -> 3 × [L, n_pad]
+
+``ref_idx`` ``[L, B]`` indexes each lane's own rows, ``lead`` is ``[L]``
+(a SWAP leader ``c·n_pad + x``), ``run`` ``[L]`` int32, and ``live``
+(a ``[L]`` bool device tensor) leaves a lane's top-2 unwritten.  Lane
+l's values are the single form's on its own ``[n_l, d]`` slice, bit for
+bit: ``"cuda"`` launches the lane kernels once a round, and the plain
+backend loops over the lanes with its single forms (:class:`_LaneLoop`).
+Entries past a lane's ``n_l`` and the entries of a masked lane are for
+the caller to discard.
+
 The ``*_from_d`` forms take a resident ``[n, B]`` distance block ``dxy``
 (a round's slice of the PIC column ring, the warm block, or the whole
 ring in the carried-moment repair) in place of the points, so they do no
@@ -299,10 +318,127 @@ def host_read(values, report=None, phase: str = "") -> list:
 
 
 # ---------------------------------------------------------------------------
+# Lanes: a batch of independent fits padded to one shape (fit_batch)
+# ---------------------------------------------------------------------------
+
+# Lane row stride granule: every lane's slice starts 64 bytes past the
+# previous one's start, so a lane's rows and its [n_pad] vectors share the
+# alignment of a fresh allocation's (the vectorised loads of the plain
+# reductions and GEMMs see the layout a single fit gives them).
+LANE_ROW_GRANULE = 16
+
+
+@dataclasses.dataclass
+class LaneData:
+    """L datasets padded to ``data`` ``[L, n_pad, d]`` (zero rows past
+    each lane's ``ns[l]``), with ``rows`` ``[L]`` int32 (the same counts)
+    and ``base`` ``[L]`` int64 (each lane's first row in ``flat``) on the
+    data's device."""
+
+    data: torch.Tensor
+    ns: list
+    rows: torch.Tensor
+    base: torch.Tensor
+
+    @classmethod
+    def pad(cls, arrays, device) -> "LaneData":
+        """Pad ``[n_i, d]`` float32 tensors on ``device`` to one lane
+        tensor whose lane stride is a multiple of ``LANE_ROW_GRANULE``."""
+        ns = [int(a.shape[0]) for a in arrays]
+        g = LANE_ROW_GRANULE
+        n_pad = -(-max(ns) // g) * g
+        data = torch.zeros((len(arrays), n_pad, arrays[0].shape[1]),
+                           dtype=torch.float32, device=device)
+        for i, a in enumerate(arrays):
+            data[i, :ns[i]] = a
+        lanes = torch.arange(len(ns), device=device)
+        return cls(data=data, ns=ns,
+                   rows=torch.as_tensor(ns, dtype=torch.int32).to(device),
+                   base=lanes * n_pad)
+
+    @property
+    def n_pad(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.data.view(-1, self.data.shape[2])
+
+    def lane(self, i: int) -> torch.Tensor:
+        """Lane ``i``'s own ``[n_i, d]`` rows (a view)."""
+        return self.data[i, :self.ns[i]]
+
+    def groups(self):
+        """``(n, [lanes])`` for each distinct n, in first-lane order."""
+        out: Dict[int, list] = {}
+        for i, n in enumerate(self.ns):
+            out.setdefault(n, []).append(i)
+        return list(out.items())
+
+    def gather(self, idx: torch.Tensor) -> torch.Tensor:
+        """The rows ``idx`` ``[L, m]`` of each lane: ``[L, m, d]``."""
+        g = (idx + self.base[:, None]).reshape(-1)
+        return self.flat.index_select(0, g).view(idx.shape[0], idx.shape[1],
+                                                 -1)
+
+
+def _lane_out(lanes: LaneData, parts, arms: int):
+    """Stack per-lane results (``parts[l]`` of ``arms·n_l`` arms, arm
+    ``(c, x)`` at ``c·n_l + x``) into ``[L, arms·n_pad]`` zeros."""
+    L, n_pad = len(lanes.ns), lanes.n_pad
+    dev = lanes.data.device
+    outs = []
+    for q in range(3):
+        o = torch.zeros((L, arms, n_pad), dtype=torch.float32, device=dev)
+        for i, n in enumerate(lanes.ns):
+            o[i, :, :n] = parts[i][q].view(arms, n)
+        outs.append(o.view(L, arms * n_pad))
+    return tuple(outs)
+
+
+class _LaneLoop:
+    """The lane forms as a loop of the backend's single forms over each
+    lane's own slice, so lane l's values are the single form's bits."""
+
+    def build_stats_lanes(self, lanes, ref_idx, dnear_b, w, lead, *, metric,
+                          run=None):
+        parts = [self.build_stats(lanes.lane(i), ref_idx[i], dnear_b[i],
+                                  w[i], None if lead is None else lead[i],
+                                  metric=metric)
+                 for i in range(len(lanes.ns))]
+        return _lane_out(lanes, parts, 1)
+
+    def swap_stats_lanes(self, lanes, ref_idx, d1_b, d2_b, assign_b, w, k,
+                         lead, *, metric, run=None):
+        parts = []
+        for i, n in enumerate(lanes.ns):
+            lead_i = None
+            if lead is not None:
+                # Arm (c, x) is c·n_pad + x in the batch, c·n_i + x alone.
+                lead_i = lead[i] // lanes.n_pad * n + lead[i] % lanes.n_pad
+            parts.append(self.swap_stats(lanes.lane(i), ref_idx[i], d1_b[i],
+                                         d2_b[i], assign_b[i], w[i], k,
+                                         lead_i, metric=metric))
+        return _lane_out(lanes, parts, k)
+
+    def top2_lanes(self, lanes, med_idx, *, metric, live=None):
+        L, n_pad = len(lanes.ns), lanes.n_pad
+        dev = lanes.data.device
+        d1 = torch.zeros((L, n_pad), dtype=torch.float32, device=dev)
+        d2 = torch.zeros_like(d1)
+        assign = torch.zeros((L, n_pad), dtype=torch.int32, device=dev)
+        for i, n in enumerate(lanes.ns):
+            x = lanes.lane(i)
+            d1[i, :n], d2[i, :n], assign[i, :n] = self.top2(
+                x, x[med_idx[i]], metric=metric)
+        return d1, d2, assign
+
+
+# ---------------------------------------------------------------------------
 # StatsBackend implementations
 # ---------------------------------------------------------------------------
 
-class TorchStatsBackend:
+class TorchStatsBackend(_LaneLoop):
     """Plain PyTorch statistics: any kernel metric, any device."""
 
     name = "torch"
@@ -439,6 +575,62 @@ class CudaStatsBackend:
     def top2(self, x, med_pts, *, metric):
         return self._ops(x).stream_top2(x, med_pts, metric=metric)
 
+    # -- the lane forms: one launch a round for every lane ---------------
+    # A lane round's leader row: each lane's leader against its own batch,
+    # the diagonal blocks of one pairwise launch per LEAD_GROUP lanes
+    # (the kernels give a pair the same bits at every shape).
+    LEAD_GROUP = 64
+
+    def _lead_rows(self, ops, lanes, lead_rows, y, metric):
+        L, b = y.shape[0], y.shape[1]
+        pts = lanes.flat.index_select(0, lead_rows + lanes.base)
+        out = []
+        for lo in range(0, L, self.LEAD_GROUP):
+            hi = min(lo + self.LEAD_GROUP, L)
+            blk = ops.pairwise_distance(
+                pts[lo:hi], y[lo:hi].reshape((hi - lo) * b, -1), metric)
+            diag = torch.arange(hi - lo, device=y.device)
+            out.append(blk.view(hi - lo, hi - lo, b)[diag, diag])
+        return out[0] if len(out) == 1 else torch.cat(out)
+
+    def build_stats_lanes(self, lanes, ref_idx, dnear_b, w, lead, *, metric,
+                          run=None):
+        ops = self._ops(lanes.data)
+        y = lanes.gather(ref_idx)
+        lead_g = None
+        if lead is not None:
+            dl = self._lead_rows(ops, lanes, lead, y, metric)
+            lead_g = torch.where(torch.isinf(dnear_b), dl,
+                                 torch.clamp_max(dl - dnear_b, 0.0)) * w
+        return ops.build_g_lanes_stats(lanes.data, y, dnear_b, w, lead_g,
+                                       rows=lanes.rows, metric=metric,
+                                       run=run)
+
+    def swap_stats_lanes(self, lanes, ref_idx, d1_b, d2_b, assign_b, w, k,
+                         lead, *, metric, run=None):
+        ops = self._ops(lanes.data)
+        y = lanes.gather(ref_idx)
+        lead_g = None
+        if lead is not None:
+            n_pad = lanes.n_pad
+            dl = self._lead_rows(ops, lanes, lead % n_pad, y, metric)
+            m1 = torch.minimum(dl, d1_b)
+            corr = torch.minimum(dl, d2_b) - m1
+            lead_g = (m1 - d1_b) + (assign_b == (lead // n_pad)[:, None]).to(
+                dl.dtype) * corr
+        s, q, c = ops.swap_g_lanes_stats(lanes.data, y, d1_b, d2_b, assign_b,
+                                         w, k, lead_g, rows=lanes.rows,
+                                         metric=metric, run=run)
+        L = y.shape[0]
+        return s.view(L, -1), q.view(L, -1), c.view(L, -1)
+
+    def top2_lanes(self, lanes, med_idx, *, metric, live=None):
+        ops = self._ops(lanes.data)
+        rows = (lanes.rows if live is None
+                else torch.where(live, lanes.rows, 0).to(torch.int32))
+        return ops.stream_top2_lanes(lanes.data, lanes.gather(med_idx),
+                                     rows=rows, metric=metric)
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -500,7 +692,7 @@ def resolve_stats_backend(backend: Optional[str], metric: str,
 @dataclasses.dataclass
 class FitContext:
     """What one ``BanditPAM.fit`` threads between its phases (the JAX
-    package's single-fit fields; the batched ones wait for ROADMAP A10).
+    package's single-fit fields; a batch's lanes are :class:`LaneData`).
 
     ``mode`` is the cache regime:
 
@@ -525,3 +717,8 @@ class FitContext:
     cache: Optional[PicCache] = None          # the ring ("pic")
     dwarm: Optional[torch.Tensor] = None      # [n, C] warm block ("warm")
     free_rounds: int = 0                      # rounds in dwarm ("warm")
+    # Rounds enqueued per phase (a ``fit_batch`` PIC lane's dispatches).
+    rounds_by_phase: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count_round(self, phase: str) -> None:
+        self.rounds_by_phase[phase] = self.rounds_by_phase.get(phase, 0) + 1

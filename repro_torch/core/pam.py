@@ -31,6 +31,9 @@ from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
 from .report import FitReport
 
 
+# The JAX package's name for PAM's report, kept importable.
+PAMResult = FitReport
+
 def pam(data, k: int, metric: str = "l2", max_swaps: Optional[int] = None,
         fastpam1: bool = True, *, backend: str = "auto",
         device: DeviceLike = None) -> FitReport:

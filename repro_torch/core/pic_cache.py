@@ -28,8 +28,9 @@ while ``hw ≤ W`` (:func:`carry_valid`).
 The port's fit loop runs on the host, so ``hw`` and ``fresh_pos`` are
 Python ints and a fresh block is written through in place
 (``cols[:, s:s+B].copy_(dxy)``), the counterpart of the JAX package's
-buffer donation.  The sharded ring waits for ROADMAP A13, the batched
-ring width (``resolve_batch_cache_rounds``) for A10.
+buffer donation.  The sharded ring waits for ROADMAP A13.  A batch of
+fits (``fit_batch``) gives every lane one ring width,
+:func:`resolve_batch_cache_rounds`.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from typing import Callable, Optional
 import torch
 
 __all__ = ["PicCache", "DEFAULT_CACHE_ROUNDS", "resolve_cache_rounds",
-           "make_cache", "shard_slot_read_write", "cache_read_or_write",
+           "resolve_batch_cache_rounds", "make_cache",
+           "shard_slot_read_write", "cache_read_or_write",
            "cache_advance", "carry_valid", "fresh_positions"]
 
 # Default ring width in round-blocks: fits up to n = 3,200 at B = 100
@@ -84,6 +86,16 @@ def resolve_cache_rounds(n_rounds_max: int, batch_size: int,
             f"cache_width={cache_width} is narrower than one round-batch "
             f"(batch_size={batch_size}); need cache_width >= batch_size")
     return max(1, min(n_rounds_max, cache_width // batch_size))
+
+
+def resolve_batch_cache_rounds(ns, batch_size: int,
+                               cache_width: Optional[int] = None) -> int:
+    """One ring width for a batch of fits (``fit_batch``): the maximum of
+    each fit's own width, so every lane has at least the ring it would
+    have alone (a fit that does not recycle alone does not recycle in the
+    batch); a lane with a smaller n leaves its trailing slots cold."""
+    return max(resolve_cache_rounds(-(-int(n) // batch_size), batch_size,
+                                    cache_width) for n in ns)
 
 
 def make_cache(n_rows: int, block: int, rounds: int,

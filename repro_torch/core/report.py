@@ -22,12 +22,15 @@ counts the driver's device-to-host reads per phase (``build``, ``swap``),
 each one ``engine.host_read`` that waits for the device: the port's
 counterpart of the reads the JAX package's ``FitGuard`` polices.
 ``dispatches_by_phase`` has no torch meaning and stays empty.
+
+:class:`BatchFitReport` is ``fit_batch``'s result: one ``FitReport`` a
+fit and the batch's own counts.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -58,3 +61,57 @@ class FitReport:
             "cached": int(self.cached_evals),
             "by_phase": {k: int(v) for k, v in self.evals_by_phase.items()},
         }
+
+
+@dataclass
+class BatchFitReport:
+    """The result of one batched multi-fit (``BanditPAM.fit_batch`` /
+    ``KMedoids.fit_batch``), field for field the JAX package's.
+
+    ``reports`` holds one full :class:`FitReport` a fit (medoids, loss,
+    swap history, build rounds and the fresh/cached ledger), equal to the
+    single fit's for the same seed; a lane has no walls or reads of its
+    own, so their ``wall_by_phase`` and ``host_reads_by_phase`` are
+    empty.  The batch-level fields are the whole batch's:
+
+    * ``dispatches_by_phase``: the batched round launches per phase.  A
+      round of the lockstep batch (``reuse="none"``) is ONE ``build_g``
+      or ``swap_g`` launch on the card for every lane (one loop over the
+      lanes on the plain backend), rounds enqueued past every lane's
+      stop included; the count does not grow with the batch.  Under
+      ``reuse="pic"`` the lanes run one after another through the
+      single-fit PIC driver, and the count is the sum of every lane's
+      rounds.
+    * ``host_reads_by_phase``: the batch's device-to-host reads per phase
+      (``engine.host_read``); under ``reuse="pic"`` the sum of every
+      lane's.
+    * ``wall_by_phase``: seconds per phase for the whole batch, on the
+      host around work that ends in a device synchronisation.
+    * ``medoids`` / ``loss``: the stacked ``[B, k]`` / ``[B]`` views.
+    * ``labels``: stacked ``[B, n_max]`` in-sample assignments (filled by
+      the facade; 0 past a fit's ``n_valid``).
+    * ``n_valid``: each fit's n.
+
+    The container is sequence-like: ``len(batch)``, ``batch[i]`` and
+    iteration give the per-fit reports.
+    """
+
+    reports: List[FitReport]
+    medoids: np.ndarray                     # [B, k]
+    loss: np.ndarray                        # [B]
+    n_valid: Optional[np.ndarray] = None    # [B] logical n per fit
+    labels: Optional[np.ndarray] = None     # [B, n_max]
+    solver: str = ""
+    metric: str = ""
+    wall_by_phase: Dict[str, float] = field(default_factory=dict)
+    dispatches_by_phase: Dict[str, int] = field(default_factory=dict)
+    host_reads_by_phase: Dict[str, int] = field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return len(self.reports)
+
+    def __getitem__(self, i: int) -> FitReport:
+        return self.reports[i]
+
+    def __iter__(self) -> Iterator[FitReport]:
+        return iter(self.reports)

@@ -85,11 +85,14 @@ class SeedLayouts:
             self._subs.append(sub)
         return self._subs[s]
 
+    def perm_key(self, phase: str, i: int) -> threefry.Key:
+        """The key of search ``i``'s permutation: ``split(sub)[1]``."""
+        return threefry.split(self.search_key(phase, i))[1]
+
     def perm_on(self, phase: str, i: int, n: int,
                 device: torch.device) -> torch.Tensor:
         """``{phase}_perm(i, n)`` computed on ``device``."""
-        return threefry.permutation(
-            threefry.split(self.search_key(phase, i))[1], n, device)
+        return threefry.permutation(self.perm_key(phase, i), n, device)
 
     def fixed_perm(self, n: int) -> torch.Tensor:
         return threefry.permutation(self.ckey, n, self.device)

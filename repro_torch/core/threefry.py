@@ -175,6 +175,30 @@ def permutation(key: Key, n: int, device="cpu") -> torch.Tensor:
     return x
 
 
+def permutations(keys: Sequence[Key], n: int,
+                 device="cpu") -> torch.Tensor:
+    """``[permutation(key, n) for key in keys]`` as one ``[len(keys), n]``
+    int64 tensor, each round's bits and stable sort computed for every
+    key at once (the JAX package's vmapped ``_batch_perms``).  A stable
+    sort's order is a function of its keys alone, so each row is
+    :func:`permutation`'s bit for bit."""
+    n = int(n)
+    keys = list(keys)
+    x = torch.arange(n, dtype=torch.int64, device=device).expand(
+        len(keys), n)
+    for _ in range(shuffle_rounds(n)):
+        subs = []
+        for i, key in enumerate(keys):
+            keys[i], sub = split(key)
+            subs.append(sub)
+        k1, k2 = (torch.tensor([sub[j] for sub in subs], dtype=torch.int64)
+                  .to(device)[:, None] for j in (0, 1))
+        order = torch.sort(_bits(k1, k2, n, device), dim=1,
+                           stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x
+
+
 def choice(key: Key, n: int, shape, replace: bool = True,
            device="cpu") -> torch.Tensor:
     """``jax.random.choice(key, n, shape, replace)`` (uniform weights)."""

@@ -52,6 +52,14 @@ SIGNATURES = {
                           _P],
     "rt_stream_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                          _I, _I, _I, _P],
+    # The lane axis (fit_batch): (lanes, n_pad) after the outputs, the
+    # per-lane row counts (``const int*``) and, for the round kernels, the
+    # per-lane run flags before the stream.
+    "rt_build_g_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I,
+                         _I, _P, _P, _P],
+    "rt_swap_g_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _I, _I, _I, _P, _P, _P],
+    "rt_top2_lanes": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

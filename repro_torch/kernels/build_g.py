@@ -12,6 +12,13 @@ every run, and at B <= 512 the bits of ``stream_build_g``.
 
 ``build_g_torch`` is the plain version (the engine's Eq. 6 math over a
 materialised ``[m, B]`` block).  ``launches`` counts kernel launches.
+
+The lane axis (``fit_batch``): ``launch_lanes`` runs the same kernel over
+L padded fits ``[L, n_pad, d]`` in one launch (``rt_build_g_lanes``),
+each lane with its own batch, run flag and row count, and gives lane l
+the bits of a single launch on its own slice.  ``build_g_lanes_torch``,
+its plain version, loops over the lanes with ``build_g_torch``;
+``lane_launches`` counts the lane kernel's launches.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from . import build as _build
 from .pairwise import METRIC_IDS
 
 launches = 0
+lane_launches = 0
 
 
 def build_g_torch(x, y, dnear_b, w, lead_g, metric: str, run=None):
@@ -51,4 +59,46 @@ def launch(x, y, dnear_b, w, lead_g, metric: str, run=None):
         torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "build_g kernel")
+    return sums, sq, cross
+
+
+def lane_rows(rows, lanes: int, n_pad: int):
+    """Each lane's row count as host ints (``rows`` a CPU tensor or None)."""
+    return [n_pad] * lanes if rows is None else [int(v) for v in rows]
+
+
+def build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows, metric: str,
+                        run=None):
+    """Plain version of the lane kernel: ``build_g_torch`` on each lane's
+    ``[rows[l], d]`` slice, into ``[L, n_pad]`` zeros (the rows past a
+    lane's count stay 0); every lane is computed whatever its flag."""
+    lanes, n_pad = x.shape[0], x.shape[1]
+    outs = [torch.zeros((lanes, n_pad), dtype=torch.float32,
+                        device=x.device) for _ in range(3)]
+    for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
+        part = build_g_torch(x[i, :n], y[i], dnear_b[i], w[i], lead_g[i],
+                             metric)
+        for o, v in zip(outs, part):
+            o[i, :n] = v
+    return tuple(outs)
+
+
+def launch_lanes(x, y, dnear_b, w, lead_g, rows, metric: str, run=None):
+    """Run the lane kernel on validated CUDA tensors (see ``ops``):
+    outputs ``[L, n_pad]``, unwritten past each lane's rows and in every
+    lane whose run flag reads 0."""
+    global lane_launches
+    lanes, n_pad, d = x.shape
+    b = y.shape[1]
+    sums, sq, cross = (torch.empty((lanes, n_pad), dtype=torch.float32,
+                                   device=x.device) for _ in range(3))
+    code = _build.lib().rt_build_g_lanes(
+        x.data_ptr(), y.data_ptr(), dnear_b.data_ptr(), w.data_ptr(),
+        lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
+        lanes, n_pad, b, d, METRIC_IDS[metric],
+        None if rows is None else rows.data_ptr(),
+        None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    lane_launches += 1
+    _build.check(code, "build_g lane kernel")
     return sums, sq, cross

@@ -29,6 +29,16 @@
 // a launch and leaves the outputs unwritten (the caller discards them).
 // The flag changes nothing else: arithmetic, tile and walk order are the
 // same, so a flag of 1 gives the bits of NULL.
+//
+// The lane axis (rt_build_g_lanes, fit_batch).  L independent fits padded
+// to [L, n_pad, d] run as one launch: blockIdx.y is the lane, each lane
+// with its own batch [B, d], dnear / w / lg [B], run flag and row count
+// rows[l] <= n_pad, and outputs [L, n_pad].  A block offsets every
+// pointer to its lane and runs the single launch's body with m = rows[l]:
+// blocks past rows[l] and every block of a lane whose flag reads 0
+// return at once, and the unwritten outputs are for the caller to
+// discard.  Lane l therefore gives the bits of rt_build_g on its own
+// [rows[l], d] slice; rt_build_g is the same kernel with one lane.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -48,12 +58,24 @@ build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                const float* __restrict__ dnear, const float* __restrict__ w,
                const float* __restrict__ lg, float* __restrict__ sums,
                float* __restrict__ sq, float* __restrict__ cross, int64_t m,
-               int64_t b, int d, bool vec, const int* __restrict__ run) {
-  if (run != nullptr && *run == 0) return;  // a masked round: the whole block
+               int64_t b, int d, bool vec, const int* __restrict__ run,
+               const int* __restrict__ rows, int64_t n_pad) {
+  const int lane = blockIdx.y;
+  if (run != nullptr && run[lane] == 0) return;  // a masked round or lane
+  if (rows != nullptr) m = rows[lane];
+  const int64_t row0 = (int64_t)blockIdx.x * W::BM;
+  if (row0 >= m) return;  // past the lane's rows: the whole block
+  x += lane * n_pad * d;
+  y += lane * b * d;
+  dnear += lane * b;
+  w += lane * b;
+  lg += lane * b;
+  sums += lane * n_pad;
+  sq += lane * n_pad;
+  cross += lane * n_pad;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* dt = smem;  // [BM][DT_LD] over the stages, after each mainloop
-  const int64_t row0 = (int64_t)blockIdx.x * W::BM;
   const int tx = W::tx(), ty = W::ty();
   const int row = threadIdx.x;
   float p[SUBS][3];  // (sums, sq, cross) partials of each residue
@@ -91,14 +113,17 @@ build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-}  // namespace
-
-extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
-                          const float* w, const float* lg, float* sums,
-                          float* sq, float* cross, int64_t m, int64_t b, int d,
-                          int metric, const int* run, void* stream) {
-  if (m <= 0) return cudaSuccess;
-  const unsigned grid = (unsigned)((m + W::BM - 1) / W::BM);
+// One launch over `lanes` lanes of m rows (rows: each lane's count, NULL:
+// m for every lane).
+int launch(const float* x, const float* y, const float* dnear, const float* w,
+           const float* lg, float* sums, float* sq, float* cross, int64_t m,
+           int64_t b, int d, int metric, const int* run, const int* rows,
+           int lanes, void* stream) {
+  if (m <= 0 || lanes <= 0) return cudaSuccess;
+  if (lanes > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((m + W::BM - 1) / W::BM), (unsigned)lanes);
+  // Lane bases are whole rows apart, so every lane shares lane 0's
+  // alignment when d % 4 == 0.
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -108,7 +133,30 @@ extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
         (int)W::SMEM);
     if (e != cudaSuccess) return (int)e;
     build_g_kernel<M><<<grid, W::NT, W::SMEM, st>>>(
-        x, y, dnear, w, lg, sums, sq, cross, m, b, d, vec, run);
+        x, y, dnear, w, lg, sums, sq, cross, m, b, d, vec, run, rows, m);
   });
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rt_build_g(const float* x, const float* y, const float* dnear,
+                          const float* w, const float* lg, float* sums,
+                          float* sq, float* cross, int64_t m, int64_t b, int d,
+                          int metric, const int* run, void* stream) {
+  return launch(x, y, dnear, w, lg, sums, sq, cross, m, b, d, metric, run,
+                nullptr, 1, stream);
+}
+
+// The lane axis: x [lanes, n_pad, d], y [lanes, b, d], dnear / w / lg
+// [lanes, b], outputs [lanes, n_pad]; run and rows [lanes] (NULL: every
+// lane runs, over all n_pad rows).
+extern "C" int rt_build_g_lanes(const float* x, const float* y,
+                                const float* dnear, const float* w,
+                                const float* lg, float* sums, float* sq,
+                                float* cross, int64_t lanes, int64_t n_pad,
+                                int64_t b, int d, int metric, const int* rows,
+                                const int* run, void* stream) {
+  return launch(x, y, dnear, w, lg, sums, sq, cross, n_pad, b, d, metric, run,
+                rows, (int)lanes, stream);
 }

@@ -61,6 +61,15 @@
 // min(s, b')).  That is the merge.  A set whose values are all +inf or
 // NaN keeps the initial (+inf, none, +inf); a row with no finite value
 // gets assign 0, as the sequential scan's initial arg.
+//
+// The lane axis (rt_top2_lanes, fit_batch).  L independent fits padded to
+// [L, n_pad, d] against their own medoids [L, k, d] run as one launch:
+// blockIdx.y is the lane, rows[l] <= n_pad its row count, and the outputs
+// are [L, n_pad].  A block offsets every pointer to its lane and runs the
+// single launch's body with n = rows[l]; blocks past rows[l] return at
+// once, and the outputs past a lane's rows stay unwritten.  Lane l gives
+// the bits of rt_top2 on its own slice; rt_top2 is the same kernel with
+// one lane.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -120,12 +129,21 @@ template <int M, class C>
 __global__ void __launch_bounds__(C::NT, C::MINB)
 top2_kernel(const float* __restrict__ x, const float* __restrict__ med,
             float* __restrict__ d1, float* __restrict__ d2,
-            int* __restrict__ assign, int64_t n, int k, int d, bool vec) {
+            int* __restrict__ assign, int64_t n, int k, int d, bool vec,
+            const int* __restrict__ rows, int64_t n_pad) {
+  const int fit = blockIdx.y;  // the lane of the lane axis
+  if (rows != nullptr) n = rows[fit];
+  const int64_t a0 = (int64_t)blockIdx.x * C::BM;
+  if (a0 >= n) return;  // past the lane's rows: the whole block
+  x += fit * n_pad * d;
+  med += (int64_t)fit * k * d;
+  d1 += fit * n_pad;
+  d2 += fit * n_pad;
+  assign += fit * n_pad;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int OWN = (C::RM + C::TX - 1) / C::TX;  // rows a lane keeps
   static_assert(32 % C::TX == 0, "a row's lanes share a warp");
-  const int64_t a0 = (int64_t)blockIdx.x * C::BM;
   const int tx = C::tx(), ty = C::ty();
   float run_b[OWN], run_s[OWN];
   int run_a[OWN];
@@ -184,23 +202,24 @@ top2_kernel(const float* __restrict__ x, const float* __restrict__ med,
 template <int M, class C>
 cudaError_t launch(const float* x, const float* med, float* d1, float* d2,
                    int* assign, int64_t n, int k, int d, bool vec,
-                   cudaStream_t st) {
-  const unsigned grid = (unsigned)((n + C::BM - 1) / C::BM);
+                   const int* rows, int lanes, cudaStream_t st) {
+  const dim3 grid((unsigned)((n + C::BM - 1) / C::BM), (unsigned)lanes);
   auto kernel = top2_kernel<M, C>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, C::NT, C::SMEM, st>>>(x, med, d1, d2, assign, n, k, d, vec);
+  kernel<<<grid, C::NT, C::SMEM, st>>>(x, med, d1, d2, assign, n, k, d, vec,
+                                       rows, n);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int rt_top2(const float* x, const float* med, float* d1, float* d2,
-                       int* assign, int64_t n, int k, int d, int metric,
-                       void* stream) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return cudaSuccess;
+// One launch over `lanes` lanes of n rows (rows: each lane's count, NULL:
+// n for every lane).
+int top2(const float* x, const float* med, float* d1, float* d2, int* assign,
+         int64_t n, int k, int d, int metric, const int* rows, int lanes,
+         void* stream) {
+  if (k < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || lanes <= 0) return cudaSuccess;
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)med % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -209,17 +228,35 @@ extern "C" int rt_top2(const float* x, const float* med, float* d1, float* d2,
     switch (shape) {
       case 0:
         return (int)launch<M, Narrow>(x, med, d1, d2, assign, n, k, d, vec,
-                                      st);
+                                      rows, lanes, st);
       case 1:
         return (int)launch<M, Mid40>(x, med, d1, d2, assign, n, k, d, vec,
-                                     st);
+                                     rows, lanes, st);
       case 2:
         return (int)launch<M, Mid72>(x, med, d1, d2, assign, n, k, d, vec,
-                                     st);
+                                     rows, lanes, st);
       default:
         return (int)launch<M, Wide>(x, med, d1, d2, assign, n, k, d, vec,
-                                    st);
+                                    rows, lanes, st);
     }
   });
   return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int rt_top2(const float* x, const float* med, float* d1, float* d2,
+                       int* assign, int64_t n, int k, int d, int metric,
+                       void* stream) {
+  return top2(x, med, d1, d2, assign, n, k, d, metric, nullptr, 1, stream);
+}
+
+// The lane axis: x [lanes, n_pad, d], med [lanes, k, d], outputs
+// [lanes, n_pad]; rows [lanes] (NULL: n_pad rows in every lane).
+extern "C" int rt_top2_lanes(const float* x, const float* med, float* d1,
+                             float* d2, int* assign, int64_t lanes,
+                             int64_t n_pad, int k, int d, int metric,
+                             const int* rows, void* stream) {
+  return top2(x, med, d1, d2, assign, n_pad, k, d, metric, rows, (int)lanes,
+              stream);
 }

@@ -66,6 +66,18 @@
 // costs a launch and leaves the outputs unwritten (the caller discards
 // them).  Nothing else changes, so a flag of 1 gives the bits of NULL.
 // rt_stream_swap_g passes NULL.
+//
+// The lane axis (rt_swap_g_lanes, fit_batch).  L independent fits padded
+// to [L, n_pad, d] run as one launch: blockIdx.y is the lane, each lane
+// with its own batch [B, d], d1 / d2 / assign / w / lg [B], run flag and
+// row count rows[l] <= n_pad, and outputs [L, k, n_pad].  A block offsets
+// every pointer to its lane (and its scratch to its own (lane, block)
+// slot) and walks the lane's ceil(rows[l] / 128) row tiles with the
+// single launch's body; every block of a lane whose flag reads 0 returns
+// at once, and the unwritten outputs are for the caller to discard.  A
+// row tile is computed by one block whatever the grid, so lane l gives
+// the bits of rt_swap_g on its own [rows[l], d] slice; rt_swap_g and
+// rt_stream_swap_g are the same kernel with one lane.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -109,8 +121,21 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
               const float* __restrict__ lg, float* __restrict__ sums,
               float* __restrict__ sq, float* __restrict__ cross, int64_t m,
               int64_t r, int d, int k, int64_t period, bool vec,
-              float* __restrict__ scratch, const int* __restrict__ run) {
-  if (run != nullptr && *run == 0) return;  // a masked round: the whole block
+              float* __restrict__ scratch, const int* __restrict__ run,
+              const int* __restrict__ rows, int64_t n_pad) {
+  const int lane = blockIdx.y;
+  if (run != nullptr && run[lane] == 0) return;  // a masked round or lane
+  if (rows != nullptr) m = rows[lane];
+  x += lane * n_pad * d;
+  y += lane * r * d;
+  d1 += lane * r;
+  d2 += lane * r;
+  assign += lane * r;
+  w += lane * r;
+  lg += lane * r;
+  sums += lane * k * n_pad;
+  sq += lane * k * n_pad;
+  cross += lane * k * n_pad;
   extern __shared__ float4 smem4[];
   const int kc = k < KC_MAX ? k : KC_MAX;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -128,8 +153,9 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   float4* const keep4 =
       scratch == nullptr
           ? nullptr
-          : reinterpret_cast<float4*>(scratch + (size_t)blockIdx.x * W::BM *
-                                                    SUBS * 3 * k);
+          : reinterpret_cast<float4*>(
+                scratch + ((size_t)lane * gridDim.x + blockIdx.x) * W::BM *
+                              SUBS * 3 * k);
   const int tx = W::tx(), ty = W::ty();
   const int gi = threadIdx.x % R, sub = threadIdx.x / R;
   const int64_t ntiles = (m + W::BM - 1) / W::BM;
@@ -198,7 +224,7 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const int i = e % R, c = (e / R) % kcc, q = e / (R * kcc);
                 const int64_t row = row0 + g * R + i;
                 if (row >= m) continue;
-                float* o = outs[q] + (int64_t)(c0 + c) * m + row;
+                float* o = outs[q] + (int64_t)(c0 + c) * n_pad + row;
                 *o = (t0 == 0 ? 0.f : *o) +
                      rt::swap_fold_ld<SUBS>(gred, bins, kcc, R, q, c, i);
               }
@@ -217,13 +243,16 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// Launch over a reference set of r rows walked in tiles of `period`.
+// Launch over a reference set of r rows walked in tiles of `period`, for
+// `lanes` lanes of m rows each (rows: each lane's count, NULL: m).
 template <int M>
 cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
                           const float* d2, const int* assign, const float* w,
                           const float* lg, float* sums, float* sq,
                           float* cross, int64_t m, int64_t r, int d, int k,
-                          int64_t period, const int* run, cudaStream_t st) {
+                          int64_t period, const int* run, const int* rows,
+                          int lanes, cudaStream_t st) {
+  if (lanes > 65535) return cudaErrorInvalidValue;
   const int kc = k < KC_MAX ? k : KC_MAX;
   const size_t smem = (size_t)(red_offset(kc) + GROUPS * GRED) * sizeof(float);
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
@@ -245,15 +274,17 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
         &per_sm, swap_g_kernel<M>, W::NT, smem);
     if (e != cudaSuccess) return e;
     const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-    grid = ntiles < slots ? ntiles : slots;
+    const int64_t per_lane = slots / lanes > 1 ? slots / lanes : 1;
+    grid = ntiles < per_lane ? ntiles : per_lane;
     e = cudaMallocAsync(reinterpret_cast<void**>(&scratch),
-                        (size_t)grid * W::BM * SUBS * 3 * k * sizeof(float),
+                        (size_t)lanes * grid * W::BM * SUBS * 3 * k *
+                            sizeof(float),
                         st);
     if (e != cudaSuccess) return e;
   }
-  swap_g_kernel<M><<<(unsigned)grid, W::NT, smem, st>>>(
-      x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k, period, vec,
-      scratch, run);
+  swap_g_kernel<M><<<dim3((unsigned)grid, (unsigned)lanes), W::NT, smem,
+                     st>>>(x, y, d1, d2, assign, w, lg, sums, sq, cross, m,
+                           r, d, k, period, vec, scratch, run, rows, m);
   e = cudaGetLastError();
   if (scratch != nullptr) {
     const cudaError_t f = cudaFreeAsync(scratch, st);
@@ -284,7 +315,37 @@ extern "C" int rt_swap_g(const float* x, const float* y, const float* d1,
   }
   RT_METRIC_SWITCH(metric, M, {
     return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, b, d, k, b, run, st);
+                                 m, b, d, k, b, run, nullptr, 1, st);
+  });
+  return cudaSuccess;
+}
+
+// The lane axis: x [lanes, n_pad, d], y [lanes, b, d], d1 / d2 / assign /
+// w / lg [lanes, b], outputs [lanes, k, n_pad]; run and rows [lanes]
+// (NULL: every lane runs, over all n_pad rows).
+extern "C" int rt_swap_g_lanes(const float* x, const float* y,
+                               const float* d1, const float* d2,
+                               const int* assign, const float* w,
+                               const float* lg, float* sums, float* sq,
+                               float* cross, int64_t lanes, int64_t n_pad,
+                               int64_t b, int d, int k, int metric,
+                               const int* rows, const int* run, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (n_pad <= 0 || lanes <= 0) return cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (b < 1) {  // no column: every statistic is 0
+    float* const outs[3] = {sums, sq, cross};
+    for (float* o : outs) {
+      const cudaError_t e = cudaMemsetAsync(
+          o, 0, (size_t)lanes * k * n_pad * sizeof(float), st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return cudaSuccess;
+  }
+  RT_METRIC_SWITCH(metric, M, {
+    return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
+                                 n_pad, b, d, k, b, run, rows, (int)lanes,
+                                 st);
   });
   return cudaSuccess;
 }
@@ -301,7 +362,8 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
   cudaStream_t st = (cudaStream_t)stream;
   RT_METRIC_SWITCH(metric, M, {
     return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, r, d, k, REF_TILE, nullptr, st);
+                                 m, r, d, k, REF_TILE, nullptr, nullptr, 1,
+                                 st);
   });
   return cudaSuccess;
 }

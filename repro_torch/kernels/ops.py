@@ -13,6 +13,13 @@ of the tensors alone:
 ``launch_counts()`` / ``reset_launch_counts()`` read and clear the
 per-kernel launch counters, which show that a run went through the
 kernels.
+
+The lane entry points (``build_g_lanes_stats``, ``swap_g_lanes_stats``,
+``stream_top2_lanes``) carry ``fit_batch``: L independent fits padded to
+``[L, n_pad, d]`` in one launch, each lane with its own inputs, its row
+count ``rows[l]`` and, for the round kernels, its run flag; lane l gives
+the bits of the single entry point on its ``[rows[l], d]`` slice.  Their
+plain versions loop over the lanes with the single plain versions.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ _KERNELS = {"pairwise": (_pairwise, "launches"),
             "swap_g_from_cache": (_swap_g, "cached_launches"),
             "top2": (_stream_g, "top2_launches"),
             "stream_build_g": (_stream_g, "stream_build_launches"),
-            "stream_swap_g": (_stream_g, "stream_swap_launches")}
+            "stream_swap_g": (_stream_g, "stream_swap_launches"),
+            "build_g_lanes": (_build_g, "lane_launches"),
+            "swap_g_lanes": (_swap_g, "lane_launches"),
+            "top2_lanes": (_stream_g, "top2_lane_launches")}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -83,6 +93,32 @@ def _run_flag(what: str, run: Optional[torch.Tensor], like: torch.Tensor
         _check(run.dtype == torch.int32 and run.numel() == 1
                and run.device == like.device, what,
                f"run must be a one-element int32 tensor on {like.device}")
+
+
+def _lane_vec(what: str, v: Optional[torch.Tensor], lanes: int,
+              like: torch.Tensor, name: str) -> None:
+    """A per-lane run flag or row count: ``[lanes]`` int32 on the data's
+    device."""
+    if v is not None:
+        _check(v.dtype == torch.int32 and v.shape == (lanes,)
+               and v.device == like.device and v.is_contiguous(), what,
+               f"{name} must be a contiguous [{lanes}] int32 tensor on "
+               f"{like.device}")
+
+
+def _lanes_in(what: str, x: torch.Tensor, y: torch.Tensor,
+              rows: Optional[torch.Tensor], run: Optional[torch.Tensor],
+              vectors) -> None:
+    """Shapes of a lane round kernel's inputs: x [L, n_pad, d], y
+    [L, B, d], the per-lane batch vectors [L, B], rows and run [L]."""
+    _check(x.ndim == 3 and y.ndim == 3 and x.shape[0] == y.shape[0]
+           and x.shape[2] == y.shape[2], what,
+           f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    lanes, b = y.shape[0], y.shape[1]
+    _check(all(t.shape == (lanes, b) for t in vectors), what,
+           "the batch vectors must be [L, B]")
+    _lane_vec(what, rows, lanes, x, "rows")
+    _lane_vec(what, run, lanes, x, "run")
 
 
 def _f32(what: str, *tensors: torch.Tensor) -> None:
@@ -259,3 +295,74 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
                                             int(k), lead_g, metric)
     return _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
                                          lead_g, metric)
+
+
+def build_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
+                        dnear_b: torch.Tensor, w: torch.Tensor,
+                        lead_g: Optional[torch.Tensor] = None, *,
+                        rows: Optional[torch.Tensor] = None,
+                        metric: str = "l2",
+                        run: Optional[torch.Tensor] = None) -> Stats:
+    """``build_g_stats`` over L lanes in one launch: x ``[L, n_pad, d]``,
+    y ``[L, B, d]``, dnear_b / w / lead_g ``[L, B]``, rows and run ``[L]``
+    int32 (None: n_pad rows, every lane runs).  Returns (Σg, Σg², Σg·g_lead),
+    ``[L, n_pad]`` each; past a lane's rows and in a lane whose flag reads
+    0 the kernel leaves them unwritten, for the caller to discard."""
+    what = "build_g_lanes_stats"
+    if lead_g is None:
+        lead_g = torch.zeros_like(dnear_b)
+    cuda = _on_cuda(what, metric, x, y, dnear_b, w, lead_g)
+    _f32(what, x, y, dnear_b, w, lead_g)
+    _lanes_in(what, x, y, rows, run, (dnear_b, w, lead_g))
+    if cuda:
+        return _build_g.launch_lanes(x, y, dnear_b, w, lead_g, rows, metric,
+                                     run)
+    return _build_g.build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows,
+                                        metric, run)
+
+
+def swap_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
+                       d1_b: torch.Tensor, d2_b: torch.Tensor,
+                       assign_b: torch.Tensor, w: torch.Tensor, k: int,
+                       lead_g: Optional[torch.Tensor] = None, *,
+                       rows: Optional[torch.Tensor] = None,
+                       metric: str = "l2",
+                       run: Optional[torch.Tensor] = None) -> Stats:
+    """``swap_g_stats`` over L lanes in one launch: x ``[L, n_pad, d]``,
+    y ``[L, B, d]``, the batch vectors ``[L, B]``, rows and run as in
+    :func:`build_g_lanes_stats`.  Returns (Σg, Σg², Σg·g_lead), each
+    ``[L, k, n_pad]``: lane l's arm (c, x) at ``[l, c, x]``."""
+    what = "swap_g_lanes_stats"
+    if lead_g is None:
+        lead_g = torch.zeros_like(d1_b)
+    cuda = _on_cuda(what, metric, x, y, d1_b, d2_b, assign_b, w, lead_g)
+    _f32(what, x, y, d1_b, d2_b, w, lead_g)
+    _check(assign_b.dtype == torch.int32, what,
+           f"assign_b must be int32, got {assign_b.dtype}")
+    _lanes_in(what, x, y, rows, run, (d1_b, d2_b, assign_b, w, lead_g))
+    _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    if cuda:
+        return _swap_g.launch_lanes(x, y, d1_b, d2_b, assign_b, w, int(k),
+                                    lead_g, rows, metric, run)
+    return _swap_g.swap_g_lanes_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
+                                      lead_g, rows, metric, run)
+
+
+def stream_top2_lanes(x: torch.Tensor, med_pts: torch.Tensor, *,
+                      rows: Optional[torch.Tensor] = None,
+                      metric: str = "l2") -> Stats:
+    """``stream_top2`` over L lanes in one launch: x ``[L, n_pad, d]``
+    against each lane's medoids ``[L, k, d]``, rows ``[L]`` int32 (None:
+    n_pad).  Returns (d1, d2, assign int32), ``[L, n_pad]`` each,
+    unwritten past a lane's rows."""
+    what = "stream_top2_lanes"
+    cuda = _on_cuda(what, metric, x, med_pts)
+    _f32(what, x, med_pts)
+    _check(x.ndim == 3 and med_pts.ndim == 3
+           and x.shape[0] == med_pts.shape[0]
+           and x.shape[2] == med_pts.shape[2] and med_pts.shape[1] >= 1,
+           what, f"shapes {tuple(x.shape)} x {tuple(med_pts.shape)}")
+    _lane_vec(what, rows, x.shape[0], x, "rows")
+    if cuda:
+        return _stream_g.launch_top2_lanes(x, med_pts, rows, metric)
+    return _stream_g.top2_lanes_torch(x, med_pts, rows, metric)

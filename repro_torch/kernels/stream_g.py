@@ -29,6 +29,13 @@
   over each 512-column tile in 104-column steps; ``stream_swap_g`` is
   ``csrc/swap_g.cu``'s kernel with that walk and takes any k >= 1.
 
+The lane axis (``fit_batch``): ``launch_top2_lanes`` runs the top-2
+kernel over L padded fits ``[L, n_pad, d]`` against their own medoids
+``[L, k, d]`` in one launch (``rt_top2_lanes``), each lane with its row
+count, into ``[L, n_pad]``; lane l gets the bits of a single launch on
+its own slice.  ``top2_lanes_torch`` is its plain version (a loop of
+``top2_torch``) and ``top2_lane_launches`` its counter.
+
 Each kernel has its plain version here (``top2_torch``,
 ``stream_build_g_torch``, ``stream_swap_g_torch``: the engine's walks)
 and its own launch counter (``top2_launches``,
@@ -42,9 +49,11 @@ import torch
 from ..core.engine import (_stream_build_stats, _stream_swap_stats,
                            _stream_top2)
 from . import build as _build
+from .build_g import lane_rows
 from .pairwise import METRIC_IDS
 
 top2_launches = 0
+top2_lane_launches = 0
 stream_build_launches = 0
 stream_swap_launches = 0
 
@@ -121,3 +130,36 @@ def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
     stream_swap_launches += 1
     _build.check(code, "stream_swap_g kernel")
     return sums, sq, cross
+
+
+def top2_lanes_torch(x, med, rows, metric: str):
+    """Plain version of the lane kernel: ``top2_torch`` on each lane's
+    ``[rows[l], d]`` slice against its medoids, into ``[L, n_pad]`` zeros
+    (assign int32)."""
+    lanes, n_pad = x.shape[0], x.shape[1]
+    d1 = torch.zeros((lanes, n_pad), dtype=torch.float32, device=x.device)
+    d2 = torch.zeros_like(d1)
+    assign = torch.zeros((lanes, n_pad), dtype=torch.int32, device=x.device)
+    for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
+        if n:
+            d1[i, :n], d2[i, :n], assign[i, :n] = top2_torch(x[i, :n], med[i],
+                                                             metric)
+    return d1, d2, assign
+
+
+def launch_top2_lanes(x, med, rows, metric: str):
+    """Run the lane top-2 kernel on validated CUDA tensors (see ``ops``):
+    outputs ``[L, n_pad]``, unwritten past each lane's rows."""
+    global top2_lane_launches
+    lanes, n_pad, d = x.shape
+    k = med.shape[1]
+    d1 = torch.empty((lanes, n_pad), dtype=torch.float32, device=x.device)
+    d2 = torch.empty_like(d1)
+    assign = torch.empty((lanes, n_pad), dtype=torch.int32, device=x.device)
+    code = _build.lib().rt_top2_lanes(
+        x.data_ptr(), med.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        assign.data_ptr(), lanes, n_pad, k, d, METRIC_IDS[metric],
+        None if rows is None else rows.data_ptr(), _stream(x))
+    top2_lane_launches += 1
+    _build.check(code, "top2 lane kernel")
+    return d1, d2, assign

@@ -29,6 +29,13 @@ the bins are held a chunk of 32 at a time.
 ``swap_g_torch`` and ``swap_g_from_cache_torch`` are the plain versions
 (the engine's one-hot form).  ``launches`` and ``cached_launches`` count
 the two kernels' launches.
+
+The lane axis (``fit_batch``): ``launch_lanes`` runs ``swap_g``'s kernel
+over L padded fits ``[L, n_pad, d]`` in one launch (``rt_swap_g_lanes``),
+each lane with its own batch, medoid cache slice, run flag and row count,
+into ``[L, k, n_pad]``; lane l gets the bits of a single launch on its
+own slice.  ``swap_g_lanes_torch``, its plain version, loops over the
+lanes with ``swap_g_torch``; ``lane_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -38,10 +45,12 @@ import torch
 from ..core.distances import pairwise
 from ..core.engine import _swap_batch_stats
 from . import build as _build
+from .build_g import lane_rows
 from .pairwise import METRIC_IDS
 
 launches = 0
 cached_launches = 0
+lane_launches = 0
 
 
 def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
@@ -94,4 +103,42 @@ def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
         torch.cuda.current_stream(dxy.device).cuda_stream)
     cached_launches += 1
     _build.check(code, "swap_g_from_cache kernel")
+    return sums, sq, cross
+
+
+def swap_g_lanes_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
+                       metric: str, run=None):
+    """Plain version of the lane kernel: ``swap_g_torch`` on each lane's
+    ``[rows[l], d]`` slice, into ``[L, k, n_pad]`` zeros; every lane is
+    computed whatever its flag."""
+    lanes, n_pad = x.shape[0], x.shape[1]
+    outs = [torch.zeros((lanes, k, n_pad), dtype=torch.float32,
+                        device=x.device) for _ in range(3)]
+    for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
+        part = swap_g_torch(x[i, :n], y[i], d1_b[i], d2_b[i], assign_b[i],
+                            w[i], k, lead_g[i], metric)
+        for o, v in zip(outs, part):
+            o[i, :, :n] = v
+    return tuple(outs)
+
+
+def launch_lanes(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
+                 metric: str, run=None):
+    """Run the lane kernel on validated CUDA tensors (see ``ops``):
+    outputs ``[L, k, n_pad]``, unwritten past each lane's rows and in
+    every lane whose run flag reads 0."""
+    global lane_launches
+    lanes, n_pad, d = x.shape
+    b = y.shape[1]
+    sums, sq, cross = (torch.empty((lanes, k, n_pad), dtype=torch.float32,
+                                   device=x.device) for _ in range(3))
+    code = _build.lib().rt_swap_g_lanes(
+        x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
+        assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
+        sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), lanes, n_pad, b, d,
+        k, METRIC_IDS[metric], None if rows is None else rows.data_ptr(),
+        None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    lane_launches += 1
+    _build.check(code, "swap_g lane kernel")
     return sums, sq, cross

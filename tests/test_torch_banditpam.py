@@ -192,13 +192,16 @@ def test_unported_solvers_raise(solver):
 
 
 def test_unported_entry_points_raise():
+    """``fit_batch`` is ported (``tests/test_torch_multifit.py``); the
+    sharded solver still raises with its ROADMAP item through every
+    entry point, the batched one included."""
     X = datasets.mnist_like(40, seed=0, d=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        BanditPAM(2, device="cpu").fit_batch([X, X])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        KMedoids(k=2, device="cpu").fit_batch([X, X])
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        KMedoids(k=2, solver="banditpam_dist", device="cpu").fit_batch([X, X])
     with pytest.raises(KeyError):
         KMedoids(k=2, solver="nope", device="cpu").fit(X)
+    with pytest.raises(KeyError):
+        KMedoids(k=2, solver="nope", device="cpu").fit_batch([X, X])
 
 
 def test_generator_layouts_are_seeded_and_ordered():
@@ -240,6 +243,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     files = sorted((ROOT / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 15
+    assert ROOT / "repro_torch" / "core" / "batch.py" in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -255,3 +259,37 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# Names of the JAX package's ``__all__`` lists that have no counterpart in
+# the port, each with its reason.
+JIT_ONLY = {
+    # A memoised jitted predict closure keyed on its trace shape; the
+    # port's predict is eager (a CUDA graph of a request is ROADMAP A20).
+    "get_predict_fn",
+    # The metrics with a Pallas kernel; the port's are
+    # ``repro_torch.kernels.ops.KERNEL_METRICS``.
+    "PALLAS_METRICS",
+}
+
+
+@pytest.mark.parametrize("module", ["api", "core"])
+def test_public_names_match_the_jax_package(module):
+    """Every public name of ``repro.api`` / ``repro.core`` is public in the
+    port too, but the jit-only ones (``JIT_ONLY``)."""
+    import importlib
+    want = set(importlib.import_module(f"repro.{module}").__all__)
+    port = importlib.import_module(f"repro_torch.{module}")
+    got = set(port.__all__)
+    assert want - JIT_ONLY <= got, sorted(want - JIT_ONLY - got)
+    assert all(hasattr(port, name) for name in got)
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_fit_predict_matches_jax(metric):
+    X = datasets.mnist_like(300, seed=4, d=16)
+    got = BanditPAM(3, metric=metric, seed=2, device="cpu").fit_predict(X)
+    want = JBanditPAM(3, metric=metric, seed=2,
+                      backend="jnp").fit_predict(X)
+    assert got.dtype == np.int32 and got.shape == (300,)
+    np.testing.assert_array_equal(got, np.asarray(want))

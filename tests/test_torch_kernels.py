@@ -270,6 +270,14 @@ def test_plain_path_never_counts_launches():
                             torch.zeros(6, dtype=torch.int32), k=2)
     ops.swap_g_stats_cached(torch.ones(20, 6), ones, ones,
                             torch.zeros(6, dtype=torch.int32), ones, 2)
+    x3, y3 = torch.from_numpy(x)[None], torch.from_numpy(y)[None]
+    lane = torch.ones(1, 6)
+    ops.build_g_lanes_stats(x3, y3, lane, lane)
+    ops.swap_g_lanes_stats(x3, y3, lane, lane,
+                           torch.zeros(1, 6, dtype=torch.int32), lane, 2)
+    ops.stream_top2_lanes(x3, y3)
     assert ops.launch_counts() == {"pairwise": 0, "build_g": 0, "swap_g": 0,
                                    "swap_g_from_cache": 0, "top2": 0,
-                                   "stream_build_g": 0, "stream_swap_g": 0}
+                                   "stream_build_g": 0, "stream_swap_g": 0,
+                                   "build_g_lanes": 0, "swap_g_lanes": 0,
+                                   "top2_lanes": 0}
