@@ -142,6 +142,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    against ``"torch"`` ``fit_batch`` on 4 ragged ``code_blobs`` lanes:
    each equal to its own loop exactly, the two within phase 4's
    allowance.  All raising; the phase prints its wall.
+9. the sharded fit (``dist_paths``; ``[dist]`` lines): (a) at world size
+   1 on nccl, ``KMedoids(k=10, solver="banditpam_dist",
+   metric="l2").fit`` on the main path's 60,000 rows, then with
+   ``reuse="pic"`` (the default ring), each counted from 0: wall, host
+   reads and all-reduces by phase, ledger, fallbacks, peak memory,
+   launches (pairwise, swap_g_from_cache and top2 must run), the loss
+   against a plain ``total_loss`` and whether the medoids are PAM's;
+   ``pairwise`` and ``swap_g_from_cache`` at its round's [60,000 x 128]
+   held to their plain versions and timed; (b) ``backend="cuda"``
+   against ``"torch"`` at world size 1 on ``N_PARITY`` ``code_blobs``
+   (the ledger within 0.1 %, the leader's allowance); (c) two gloo ranks
+   spawned on the one card, on the first 8,000 rows (``backend="cuda"``,
+   ``reuse="none"`` and ``"pic"``) and on (b)'s ``code_blobs`` (cuda and
+   torch): every rank's report identical, cuda within (b)'s allowance
+   of torch.  Every process group has a timeout and is destroyed at the
+   phase's end.  All raising; the phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) and pairwise/build_g/swap_g/top2's from
@@ -2033,6 +2049,219 @@ def batch_paths(torch, dev):
     return rows
 
 
+# Phase 9: the sharded fit (ROADMAP A13).  NCCL takes one rank a device,
+# so the card runs world size 1 on nccl at the main path's size, and two
+# gloo ranks on the one card on the first DIST_ROWS rows.
+DIST_ROWS = 8000
+DIST_B = 128                # the sharded fit's default batch (b_loc at S=1)
+DIST_KERNELS = ("pairwise", "swap_g_from_cache", "top2")
+DIST_TIMEOUT = 600          # s: each process group's collectives, the ranks
+
+
+def _dist_world1():
+    """A one-rank nccl group on the card: the default group of this
+    process, with a timeout."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    log(f"[dist] nccl group: world size {dist.get_world_size()}, backend "
+        f"{dist.get_backend()}")
+
+
+def dist_fits(torch, X, dev, Xnp, pam_fit):
+    """Phase 9 (a): ``KMedoids(k=10, solver="banditpam_dist",
+    metric="l2").fit`` on the main path's 60,000 rows at world size 1 on
+    nccl, then the same fit with ``reuse="pic"`` (the default ring), each
+    with the launch and all-reduce counts set to 0 just before it: wall,
+    host reads and all-reduces by phase, ledger, fallbacks, peak memory
+    and launches (pairwise, swap_g_from_cache and top2 must run), the
+    loss against a plain ``total_loss`` (raising), and whether its
+    medoids equal PAM's (measured, not asserted).  Returns each fit's
+    counts."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import distributed, total_loss
+    from repro_torch.kernels import ops
+    counts = {}
+    for name, kw in (("none", {}), ("pic", {"reuse": "pic"})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        distributed.reset_allreduce_counts()
+        t0 = time.perf_counter()
+        est = KMedoids(k=10, solver="banditpam_dist", metric="l2", seed=0,
+                       **kw).fit(Xnp[:N_FIT])
+        fit_s = time.perf_counter() - t0
+        c = counts[name] = ops.launch_counts()
+        ar = distributed.allreduce_counts()
+        r = est.report_
+        log(f"[dist] (a) {name}: medoids {r.medoids.tolist()} loss "
+            f"{r.loss!r} n_swaps {r.n_swaps} converged {r.converged} "
+            f"swap_exact_fallbacks {r.swap_exact_fallbacks}")
+        log(f"[dist] (a) {name}: evals_by_phase {r.evals_by_phase} fresh "
+            f"{r.distance_evals} cached {r.cached_evals} build_rounds "
+            f"{r.build_rounds}")
+        log(f"[dist] (a) {name}: wall_by_phase {r.wall_by_phase} fit "
+            f"{fit_s:.3f} s (data upload included); host_reads_by_phase "
+            f"{r.host_reads_by_phase}; allreduces_by_phase {ar}")
+        log(f"[dist] (a) {name}: kernel launches {c}; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        if min(c[nm] for nm in DIST_KERNELS) < 1:
+            raise AssertionError(f"a kernel of the sharded fit never ran: "
+                                 f"{c}")
+        if ar.get("build", 0) != sum(r.build_rounds):
+            raise AssertionError(f"all-reduces {ar} != one a BUILD round")
+        if len(set(r.medoids.tolist())) != 10:
+            raise AssertionError("bad sharded-fit medoids")
+        data = X[:N_FIT].contiguous()
+        med_t = torch.as_tensor(r.medoids, device=dev)
+        plain = float(total_loss(data, med_t, metric="l2", backend="torch"))
+        if not abs(plain - r.loss) <= 1e-5 * abs(plain):
+            raise AssertionError(f"sharded loss {r.loss} != plain {plain}")
+        log(f"[claim] sharded BanditPAM ({name}) medoids == PAM's: "
+            f"{sorted(r.medoids.tolist()) == sorted(pam_fit.medoids.tolist())}"
+            f"; loss / PAM loss {r.loss / pam_fit.loss!r}")
+    return counts
+
+
+def dist_kernel_times(torch, X, dev):
+    """Phase 9, the kernels at the sharded round's shapes at world size 1
+    (B = 128, l2, k = 10): ``pairwise`` at [60,000 x 128] and
+    ``swap_g_from_cache`` over that block with a leader row and weight-0
+    slots, each held to its plain version with phase 3's tolerances
+    (raising) and timed beside it, the library call where there is one,
+    and its bound."""
+    from repro_torch.kernels import ops, pairwise, swap_g
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = X[:N_FIT].contiguous()
+    n, d, k, b = x.shape[0], x.shape[1], 10, DIST_B
+    y = x[torch.randint(0, n, (b,), generator=gen).to(dev)].contiguous()
+    got = ops.pairwise_distance(x, y, "l2")
+    want = pairwise.pairwise_torch(x, y, metric="l2")
+    err = check_close(f"pairwise[{n}x{b}]", got, want,
+                      dist_tol("l2", float(want.max())))
+    ms = time_ms(lambda: ops.pairwise_distance(x, y, "l2"))
+    pms = time_ms(lambda: pairwise.pairwise_torch(x, y, metric="l2"))
+    lms = time_ms(lambda: torch.cdist(x, y))
+    bms, bby = bound_ms(2.0 * n * b * d, 4.0 * (n * d + b * d + n * b))
+    log(f"[dist] pairwise [{n} x {b}] (a sharded round's block): kernel "
+        f"{ms:.4f} ms  plain {pms:.4f} ms  torch.cdist {lms:.4f} ms  bound "
+        f"{bms:.4f} ms ({bby})  max_abs_err {err:.3e}")
+    med = x[torch.randperm(n, generator=gen)[:k].to(dev)].contiguous()
+    d1, d2, a = ops.stream_top2(y, med, metric="l2")
+    w = torch.ones(b, device=dev)
+    w[-5:] = 0.0
+    lg = (torch.randn(b, generator=gen) * 3).to(dev)
+    dxy = got
+    got = ops.swap_g_stats_cached(dxy, d1, d2, a, w, k, lg)
+    want = swap_g.swap_g_from_cache_torch(dxy, d1, d2, a, w, k, lg)
+    lim = swap_abs_sums(dxy, d1, d2, a, w, k, lg)
+    err = max(check_close(f"swap_g_from_cache[{n}x{b}] {nm}", g, wv,
+                          2 * b * 2.0 ** -24 * li, rtol=0.0)
+              for nm, g, wv, li in zip(("sums", "sq", "cross"), got, want,
+                                       lim))
+    ms = time_ms(lambda: ops.swap_g_stats_cached(dxy, d1, d2, a, w, k, lg))
+    pms = time_ms(lambda: swap_g.swap_g_from_cache_torch(dxy, d1, d2, a, w,
+                                                         k, lg), reps=5)
+    cols = float((w != 0).sum())
+    bms, bby = bound_ms(0.0, 4.0 * (n * cols + 5 * b + 3 * k * n))
+    log(f"[dist] swap_g_from_cache [{n} x {b}] (a sharded SWAP round, "
+        f"k={k}): kernel {ms:.4f} ms  plain {pms:.4f} ms  library -  bound "
+        f"{bms:.4f} ms ({bby})  max_abs_err {err:.3e}")
+    del dxy, got, want
+    torch.cuda.empty_cache()
+
+
+def dist_parity(torch, dev):
+    """Phase 9 (b): ``backend="cuda"`` against ``"torch"`` at world size 1
+    on ``N_PARITY`` integer points in 10 blobs (``code_blobs``), both
+    reuse modes: medoids, swaps, build rounds and fallbacks equal, the
+    ledger within 0.1 % (the leader's allowance, ROADMAP §C: the sharded
+    fit always runs the leader).  Raising."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import datasets
+    Xb = datasets.code_blobs(N_PARITY, 10, seed=0)
+    for name, kw in (("none", {}), ("pic", {"reuse": "pic"})):
+        fits = {}
+        for be in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            fits[be] = KMedoids(10, solver="banditpam_dist", metric="l2",
+                                seed=0, backend=be, **kw).fit(Xb).report_
+            log(f"[dist] (b) {name} backend={be:5s} medoids "
+                f"{fits[be].medoids.tolist()} swaps {fits[be].n_swaps} "
+                f"evals {fits[be].evals_by_phase} "
+                f"({time.perf_counter() - t0:.2f} s)")
+        same_fit(fits["cuda"], fits["torch"], f"(b) sharded {name} on "
+                 f"code_blobs", 0, ledger_rtol=1e-3)
+
+
+def dist_ranks(torch, Xnp):
+    """Phase 9 (c): two gloo ranks spawned on the one card (one set of
+    processes), on the first ``DIST_ROWS`` rows with ``backend="cuda"``,
+    ``reuse="none"`` and ``"pic"``, and on (b)'s ``code_blobs`` with
+    ``backend="cuda"`` and ``"torch"``: every rank's report identical
+    (the loss bits included), and each cuda fit on ``code_blobs`` within
+    (b)'s allowance of the two-rank torch fit.  (On the real-valued rows
+    the kernels' and cuBLAS's last bits move kills, and a SWAP exact
+    fallback pays n per surviving candidate: on an H100 the two-rank
+    SWAP ledgers at 8,000 rows were 71,272,192 against 70,612,928.)
+    Raising."""
+    from repro_torch.core import datasets, distributed
+    Xb = datasets.code_blobs(N_PARITY, 10, seed=0)
+    cases, names = [], []
+    for name, kw in (("none", {}), ("pic", {"reuse": "pic"})):
+        cases.append((Xnp[:DIST_ROWS], 10, dict(kw, backend="cuda")))
+        names.append((f"{DIST_ROWS} rows", name, "cuda"))
+        for be in ("cuda", "torch"):
+            cases.append((Xb, 10, dict(kw, backend=be)))
+            names.append(("code_blobs", name, be))
+    t0 = time.perf_counter()
+    out = distributed.spawn_fits(cases, 2, backend="gloo", device="cuda",
+                                 timeout=DIST_TIMEOUT)
+    log(f"[dist] (c) 2 gloo ranks, {len(cases)} fits: "
+        f"{time.perf_counter() - t0:.1f} s (spawn and the kernels' load "
+        f"included)")
+    reps = {}
+    for (data, name, be), ranks in zip(names, out):
+        what = f"(c) {data} {name} {be}"
+        for i, rf in enumerate(ranks):
+            same_report(rf.report, ranks[0].report, f"{what} rank {i} vs "
+                        f"rank 0")
+            if rf.allreduces != ranks[0].allreduces:
+                raise AssertionError(f"{what}: the ranks' all-reduces differ")
+        r = reps[data, name, be] = ranks[0].report
+        log(f"[dist] {what}: medoids {r.medoids.tolist()} loss {r.loss!r} "
+            f"swaps {r.n_swaps} fallbacks {r.swap_exact_fallbacks} evals "
+            f"{r.evals_by_phase} wall_by_phase {r.wall_by_phase} "
+            f"host_reads_by_phase {r.host_reads_by_phase} "
+            f"allreduces_by_phase {ranks[0].allreduces}")
+    for name in ("none", "pic"):
+        same_fit(reps["code_blobs", name, "cuda"],
+                 reps["code_blobs", name, "torch"],
+                 f"(c) 2 ranks {name} on code_blobs", 0, ledger_rtol=1e-3)
+
+
+def dist_paths(torch, X, dev, Xnp, pam_fit):
+    """Phase 9: (a) with the kernels at its shapes and (b) on one nccl
+    rank (the group destroyed at the phase's end, raising or not), then
+    (c) on two spawned gloo ranks.  Returns (a)'s launch counts."""
+    import torch.distributed as dist
+    _dist_world1()
+    try:
+        counts = dist_fits(torch, X, dev, Xnp, pam_fit)
+        dist_kernel_times(torch, X, dev)
+        dist_parity(torch, dev)
+    finally:
+        dist.destroy_process_group()
+    dist_ranks(torch, Xnp)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2083,6 +2312,9 @@ def main() -> int:
     t8 = time.perf_counter()
     lane_rows = batch_paths(torch, dev)
     log(f"[batch] phase 8 wall {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    counts_dist = dist_paths(torch, X, dev, Xnp, pam_fit)
+    log(f"[dist] phase 9 wall {time.perf_counter() - t9:.1f} s")
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -2112,6 +2344,10 @@ def main() -> int:
                     for nm in sorted(counts_phase7) if counts_phase7[nm]))
     log("[launches] phase 8, the ragged batch (b): " + ", ".join(
         f"{r['name']} {r['launches']}" for r in lane_rows))
+    log("[launches] phase 9, the sharded fits at world size 1 (a): "
+        + "; ".join(f"{name} " + ", ".join(f"{nm} {c[nm]}" for nm in sorted(c)
+                                          if c[nm])
+                    for name, c in counts_dist.items()))
     log(card)
     log(json.dumps({"kernels": rows + lane_rows}))
     log(json.dumps({"ok": True, "device": {

@@ -29,9 +29,12 @@ accounting) and ``fastpam1`` (n² per SWAP step; the same medoids), the
 baselines ``fasterpam``, ``voronoi``, ``clarans`` and ``clara``
 (``core.baselines``) and ``onebatchpam`` (``core.onebatch``).  All of
 them run through the stats backend and so take ``backend=``; only the
-bandit solvers read ``layouts=``.  ``banditpam_dist``, the sharded fit,
-is known by name and raises ``NotImplementedError`` with its ROADMAP
-item.  ``banditpam`` and ``banditpam_pp`` have batched entry points.
+bandit solvers read ``layouts=``.  ``banditpam_dist`` is the sharded fit
+(``core.distributed``) over the process group ``group=`` (default: the
+WORLD group once ``torch.distributed`` is initialised, else one shard);
+it draws its own stratified batches and refuses ``layouts=``.
+``banditpam`` and ``banditpam_pp`` have batched entry points; the
+sharded fit has none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,9 +52,6 @@ Solver = Callable[..., FitReport]
 _SOLVERS: Dict[str, Solver] = {}
 _BATCH_SOLVERS: Dict[str, Callable] = {}
 _ACCEPTS_BACKEND: set = set()
-
-# Solvers of the JAX package that later slices port, by ROADMAP item.
-NOT_PORTED = {"banditpam_dist": "A13"}
 
 # Solvers that accept the adaptive-search knobs (baseline / sampling /
 # cache_cols / ...).
@@ -77,10 +77,6 @@ def register_solver(name: str, fn: Solver, *,
 
 def get_solver(name: str) -> Solver:
     if name not in _SOLVERS:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"solver {name!r} is not ported to repro_torch yet "
-                f"(ROADMAP {NOT_PORTED[name]})")
         raise KeyError(f"unknown solver {name!r}; have {sorted(_SOLVERS)}")
     return _SOLVERS[name]
 
@@ -140,6 +136,19 @@ def _banditpam_pp_batch(datasets, k, *, metric, seed, device, seeds=None,
                             device=device, seeds=seeds, **params)
 
 
+def _banditpam_dist(data, k, *, metric, seed, device, layouts=None,
+                    **params):
+    # The sharded fit over a process group (stratified per-shard draws,
+    # all-reduce-composed statistics); imported lazily, as in the JAX
+    # package's registry.
+    from ..core.distributed import DistributedBanditPAM
+    if layouts is not None:
+        raise ValueError("solver 'banditpam_dist' draws its own stratified "
+                         "batches; it takes no layouts")
+    return DistributedBanditPAM(k, params.pop("group", None), metric=metric,
+                                seed=seed, device=device, **params).fit(data)
+
+
 def _pam(data, k, *, metric, seed, device, layouts=None, **params):
     # Deterministic: seed and layouts intentionally unused.
     return pam(data, k, metric=metric, fastpam1=False, device=device,
@@ -171,3 +180,4 @@ register_solver("banditpam", _banditpam, accepts_backend=True,
                 batch_fn=_banditpam_batch)
 register_solver("banditpam_pp", _banditpam_pp, accepts_backend=True,
                 batch_fn=_banditpam_pp_batch)
+register_solver("banditpam_dist", _banditpam_dist, accepts_backend=True)

@@ -9,7 +9,13 @@ the batch source:
   tiled cyclically to ``ceil(n/B)·B`` slots with weight 0 on the slots
   past ``n``; the CI carries the finite-population factor
   ``sqrt(max(1 − n_used/n, 0))``, so at full budget the running mean is
-  the exact mean and the survivors resolve without an exact pass;
+  the exact mean and the survivors resolve without an exact pass.
+  ``layout=`` gives the slots and weights explicitly (:class:`Layout`,
+  the JAX package's ``perm_idx`` / ``perm_w``): the sharded fit's
+  stratified walk, whose weight-0 padding falls into early rounds, so a
+  round counts its weights (``b_eff = Σw``) and ``n_used`` is their
+  running sum; the cyclic tiling is the layout :func:`cyclic_layout`
+  makes;
 * replacement sampling (``draw=``, the paper's §3.2 as printed): each
   round's batch is B i.i.d. uniform draws (``draw(rnd)``), every weight
   1, no finite-population factor.  When the budget (n_used ≥ n) runs out
@@ -111,6 +117,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .engine import host_read
@@ -179,6 +186,47 @@ def default_count(active: torch.Tensor) -> torch.Tensor:
     return torch.sum(active, dtype=torch.int64)
 
 
+class Layout(NamedTuple):
+    """A permutation-sampling schedule: round r reads slots
+    ``[r·B, (r+1)·B)`` of ``idx`` (reference indices) and ``w`` ({0,1}
+    weights), device tensors of ``R·B`` slots; ``sizes[r]`` is the
+    round's Σw (host ints) and ``n_new[r]`` the samples after it, an
+    ``[R]`` int64 device tensor.  The weights cover every reference point
+    exactly once (Σ sizes == n_ref), so the budget ends at full
+    coverage."""
+    idx: torch.Tensor
+    w: torch.Tensor
+    sizes: Tuple[int, ...]
+    n_new: torch.Tensor
+
+
+def cyclic_layout(perm: torch.Tensor, n_ref: int, batch_size: int
+                  ) -> Layout:
+    """The single fit's layout: ``perm`` tiled cyclically
+    (:func:`tile_perm`), every round B slots but the last; its tables are
+    made on the device, with no copy from the host."""
+    B = int(batch_size)
+    idx, w = tile_perm(perm, n_ref, B)
+    R = -(-n_ref // B)
+    n_new = torch.clamp_max(torch.arange(1, R + 1, device=perm.device) * B,
+                            n_ref)
+    return Layout(idx, w, tuple(min(B, n_ref - r * B) for r in range(R)),
+                  n_new)
+
+
+def explicit_layout(idx: np.ndarray, w: np.ndarray, batch_size: int,
+                    device) -> Layout:
+    """A layout from host arrays (``[R·B]`` slot indices and {0,1}
+    weights), e.g. the sharded fit's stratified one; one copy to
+    ``device``."""
+    B = int(batch_size)
+    sizes = np.count_nonzero(np.asarray(w).reshape(-1, B), axis=1)
+    return Layout(torch.as_tensor(np.asarray(idx, np.int64)).to(device),
+                  torch.as_tensor(np.asarray(w, np.float32)).to(device),
+                  tuple(int(v) for v in sizes),
+                  torch.as_tensor(np.cumsum(sizes)).to(device))
+
+
 def tile_perm(perm: torch.Tensor, n_ref: int, batch_size: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cyclic layout: ``perm`` (``[n_ref]``, or ``[G, n_ref]`` for G
@@ -209,7 +257,7 @@ class _Search:
     """
 
     def __init__(self, *, n_arms, n_ref, batch_size, log_term, active_init,
-                 perm, draw, count_fn, baseline, stop_when_positive,
+                 layout, draw, count_fn, baseline, stop_when_positive,
                  free_rounds, free_lo, init_sums, init_sqsums, init_rounds,
                  resident):
         dev = active_init.device
@@ -223,17 +271,18 @@ class _Search:
         self.stop_when_positive = stop_when_positive
         self.free = (free_lo, free_rounds)
         self.resident = resident
+        self.layout = layout
         f32 = dict(dtype=torch.float32, device=dev)
-        n_new = torch.arange(1, -(-n_ref // B) + 1, device=dev) * B
-        if perm is not None:
-            self.perm_idx, self.perm_w = tile_perm(perm, n_ref, B)
-            n_new = torch.clamp_max(n_new, n_ref)
+        if layout is not None:
+            n_new = layout.n_new
+            # Samples after r rounds, r = 0..R, for the final pick.
+            self.n_cum = torch.cat([torch.zeros_like(n_new[:1]), n_new])
         else:
-            self.perm_idx = None
+            n_new = torch.arange(1, -(-n_ref // B) + 1, device=dev) * B
             self.ones = torch.ones((B,), **f32)
         self.n_new_f = n_new.to(torch.float32)
         self.root = torch.sqrt(log_term / self.n_new_f)
-        if perm is not None:
+        if layout is not None:
             n_eff_f = self.scalar(n_ref)
             self.fpc = torch.sqrt(torch.clamp_min(
                 1.0 - self.n_new_f / n_eff_f, 0.0))
@@ -242,8 +291,8 @@ class _Search:
         self.n_cached = torch.zeros_like(self.n_evals)
         self.done = torch.zeros_like(self.n_evals)
         self.r0 = int(init_rounds) if init_sums is not None else 0
-        # Σ perm_w over the carried prefix, for the cyclic tiling.
-        self.n_used = min(self.r0 * B, n_ref)
+        # Σ w over the carried prefix (min(r0·B, n) for the cyclic tiling).
+        self.n_used = sum(layout.sizes[:self.r0]) if layout is not None else 0
         if self.use_lead:
             self.arms = torch.arange(n_arms, device=dev)
             self.lead = torch.zeros((), dtype=torch.int64, device=dev)
@@ -283,11 +332,11 @@ class _Search:
         update, selected by ``running`` in the device-resident loop.
         Returns whether this was a leader search's pilot round."""
         B = self.B
-        if self.perm_idx is not None:
+        if self.layout is not None:
             lo = rnd * B
-            ref_idx = self.perm_idx[lo:lo + B]
-            w = self.perm_w[lo:lo + B]
-            b_eff = min(B, self.n_ref - lo)
+            ref_idx = self.layout.idx[lo:lo + B]
+            w = self.layout.w[lo:lo + B]
+            b_eff = self.layout.sizes[rnd]
         else:
             ref_idx, w, b_eff = self.draw(rnd), self.ones, B
         kw = {}
@@ -311,7 +360,7 @@ class _Search:
                 sq_b / b_eff_f - batch_mean * batch_mean, 0.0)
             new["sigma"] = sigma = torch.sqrt(batch_var) + SIGMA_FLOOR
         ci = sigma * self.root[rnd]
-        if self.perm_idx is not None:
+        if self.layout is not None:
             ci = ci * self.fpc[rnd]
         active = self.active
         ucb = torch.where(active, mu_hat + ci, float("inf"))
@@ -382,8 +431,9 @@ class _Search:
                             + self.count_fn(self.active) * self.n_ref)
         else:
             rounds = self.done + self.r0
-            cap = self.n_ref if self.perm_idx is not None else None
-            n_used_f = torch.clamp(rounds * self.B, 1, cap).to(torch.float32)
+            n_used = (rounds * self.B if self.layout is None
+                      else self.n_cum.index_select(0, rounds.view(1))[0])
+            n_used_f = torch.clamp_min(n_used, 1).to(torch.float32)
             mu_sel = torch.where(self.active, self.sums / n_used_f,
                                  float("inf"))
         return DeviceResult(best=torch.argmin(mu_sel), n_evals=self.n_evals,
@@ -399,6 +449,7 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
                   batch_size: int, log_term: torch.Tensor,
                   active_init: torch.Tensor,
                   perm: Optional[torch.Tensor] = None,
+                  layout: Optional[Layout] = None,
                   draw: Optional[DrawFn] = None,
                   exact_fn: Optional[ExactFn] = None,
                   count_fn: CountFn = default_count,
@@ -413,9 +464,11 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     """Run one best-arm identification (one BUILD assignment or one SWAP
     pick) and leave its result on the device.
 
-    Give ``perm`` ([n_ref] int64, permutation sampling) or ``draw``
-    (``rnd -> [B]`` int64 indices, replacement sampling, with
-    ``exact_fn() -> [n_arms]`` exact means for the fallback).
+    Give ``perm`` ([n_ref] int64, permutation sampling, tiled
+    cyclically), ``layout`` (a :class:`Layout`, permutation sampling over
+    explicit slots) or ``draw`` (``rnd -> [B]`` int64 indices,
+    replacement sampling, with ``exact_fn() -> [n_arms]`` exact means for
+    the fallback).
     ``stats_fn(ref_idx[B], w[B], lead) -> (sums, sqsums, cross)`` returns
     the per-arm weighted batch sums of g, g² and g·g_lead (``lead`` is
     the leader arm as a 0-d int64 device tensor, or None when no
@@ -434,9 +487,14 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     state, on the stepped loop.  Every read goes through
     ``engine.host_read``, counted under ``phase`` in ``report``.
     """
-    if (perm is None) == (draw is None):
-        raise ValueError("give exactly one of perm (permutation sampling) "
-                         "and draw (replacement sampling)")
+    if (perm is not None) + (layout is not None) + (draw is not None) != 1:
+        raise ValueError("give exactly one of perm or layout (permutation "
+                         "sampling) and draw (replacement sampling)")
+    if perm is not None:
+        layout = cyclic_layout(perm, n_ref, batch_size)
+    elif layout is not None and sum(layout.sizes) != n_ref:
+        raise ValueError(f"the layout's weights cover {sum(layout.sizes)} "
+                         f"reference points, not n_ref={n_ref}")
     if draw is not None and exact_fn is None:
         raise ValueError("replacement sampling needs exact_fn for the "
                          "exact fallback")
@@ -444,14 +502,14 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
         raise ValueError(f"unknown baseline mode {baseline!r}")
     if (init_sums is None) != (init_sqsums is None):
         raise ValueError("init_sums and init_sqsums must be given together")
-    if init_sums is not None and perm is None:
+    if init_sums is not None and layout is None:
         raise ValueError("carried statistics require permutation sampling "
                          "over a fixed perm")
-    if resident and perm is None:
+    if resident and layout is None:
         raise ValueError("the device-resident loop needs permutation "
                          "sampling (replacement sampling: ROADMAP A18b)")
     s = _Search(n_arms=n_arms, n_ref=n_ref, batch_size=batch_size,
-                log_term=log_term, active_init=active_init, perm=perm,
+                log_term=log_term, active_init=active_init, layout=layout,
                 draw=draw, count_fn=count_fn, baseline=baseline,
                 stop_when_positive=stop_when_positive,
                 free_rounds=free_rounds, free_lo=free_lo,
@@ -474,7 +532,7 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
             # The stepped round's one read: the verdict and the survivors.
             going, n_active = host_read([s.running, s.n_active], report,
                                         phase)
-    used_exact = perm is None and n_active > 1
+    used_exact = draw is not None and n_active > 1
     return s.result(exact_fn, used_exact)
 
 

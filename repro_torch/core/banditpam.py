@@ -104,6 +104,22 @@ __all__ = ["BanditPAM", "FitReport", "FitResult", "medoid_cache",
 FitResult = FitReport
 
 
+def _repair_weights(pidx, pw, n_prefix: int, old, new):
+    """The carried repair's weights over the ring's positions: ``pw`` on
+    the permutation prefix ``[0, n_prefix)`` where the point ``pidx``'s
+    (d1, d2, assign) moved from ``old`` to ``new`` (each a triple of
+    per-point vectors), 0 elsewhere; with the old and new triples at the
+    positions.  Exact comparison finds the changed points: an unchanged
+    entry of the medoid cache is a bit-identical recomputation."""
+    in_prefix = (torch.arange(pidx.shape[0], device=pidx.device)
+                 < n_prefix).to(torch.float32)
+    b = tuple(v[pidx] for v in old)
+    c = tuple(v[pidx] for v in new)
+    changed = ((b[0] != c[0]) | (b[1] != c[1]) | (b[2] != c[2])).to(
+        torch.float32)
+    return pw * in_prefix * changed, b, c
+
+
 def _carry_delta(be, cols, pidx, pw, n_prefix: int, d1o, d2o, ao, d1n, d2n,
                  an, sums, sqsums, k: int):
     """Re-validate carried SWAP arm statistics after an accepted swap.
@@ -116,23 +132,17 @@ def _carry_delta(be, cols, pidx, pw, n_prefix: int, d1o, d2o, ao, d1n, d2n,
     the backend's cache-served SWAP statistics over the WHOLE ring
     ``cols`` [n, W·B] with weight ``pw·in_prefix·changed`` (the
     ``swap_g_from_cache`` kernel on the card), so the repair costs no
-    fresh evaluation.  Exact comparison finds the changed points: an
-    unchanged entry of the medoid cache is a bit-identical recomputation.
-    The caller guarantees ``n_prefix ≤ W·B`` and that no round was
-    recycled, so ring slots are the identity map of positions.
+    fresh evaluation (:func:`_repair_weights`).  The caller guarantees
+    ``n_prefix ≤ W·B`` and that no round was recycled, so ring slots are
+    the identity map of positions.
 
     Returns ``(sums', sqsums', n_changed)``, ``n_changed`` a 0-d int64
     tensor (positions repaired).
     """
-    width = cols.shape[1]
-    in_prefix = (torch.arange(width, device=cols.device)
-                 < n_prefix).to(torch.float32)
-    b1, b2, ba = d1o[pidx], d2o[pidx], ao[pidx]
-    c1, c2, ca = d1n[pidx], d2n[pidx], an[pidx]
-    changed = ((b1 != c1) | (b2 != c2) | (ba != ca)).to(torch.float32)
-    w = pw * in_prefix * changed
-    s_old, q_old, _ = be.swap_stats_from_d(cols, b1, b2, ba, w, k, None)
-    s_new, q_new, _ = be.swap_stats_from_d(cols, c1, c2, ca, w, k, None)
+    w, b, c = _repair_weights(pidx, pw, n_prefix, (d1o, d2o, ao),
+                              (d1n, d2n, an))
+    s_old, q_old, _ = be.swap_stats_from_d(cols, *b, w, k, None)
+    s_new, q_new, _ = be.swap_stats_from_d(cols, *c, w, k, None)
     return (sums - s_old + s_new, sqsums - q_old + q_new,
             torch.count_nonzero(w))
 

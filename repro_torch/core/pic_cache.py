@@ -28,8 +28,10 @@ while ``hw ≤ W`` (:func:`carry_valid`).
 The port's fit loop runs on the host, so ``hw`` and ``fresh_pos`` are
 Python ints and a fresh block is written through in place
 (``cols[:, s:s+B].copy_(dxy)``), the counterpart of the JAX package's
-buffer donation.  The sharded ring waits for ROADMAP A13.  A batch of
-fits (``fit_batch``) gives every lane one ring width,
+buffer donation.  The sharded fit (``core.distributed``) gives each rank
+the ring of the columns its own rows produce, ``[n, W·b_loc]``, read and
+written through :func:`shard_slot_read_write`.  A batch of fits
+(``fit_batch``) gives every lane one ring width,
 :func:`resolve_batch_cache_rounds`.
 """
 

@@ -164,13 +164,13 @@ def test_cuda_backend_refuses_cpu_tensors():
     {"warm_start": [0, 1, 2]}, {"solver": "banditpam_dist"},
 ])
 def test_unported_knobs_raise(kw):
-    """The facade's knobs that are not ported yet raise with their
-    ROADMAP item (the metrics "precomputed" and callables are ported:
-    ``tests/test_torch_metrics.py``).  ``warm_start`` is no facade knob
-    in the JAX package either: its registry hands it to the ``BanditPAM``
-    constructor, which raises ``TypeError``, and the port raises the
-    same (a warm start goes through ``BanditPAM.fit`` and the serving
-    layer)."""
+    """The facade's knobs raise as the JAX package's do, and the sharded
+    solver, the last one ported, fits (the metrics "precomputed" and
+    callables are ported: ``tests/test_torch_metrics.py``).
+    ``warm_start`` is no facade knob in the JAX package either: its
+    registry hands it to the ``BanditPAM`` constructor, which raises
+    ``TypeError``, and the port raises the same (a warm start goes
+    through ``BanditPAM.fit`` and the serving layer)."""
     X = datasets.mnist_like(40, seed=0, d=16)
     if "warm_start" in kw:
         with pytest.raises(TypeError) as want:
@@ -180,24 +180,35 @@ def test_unported_knobs_raise(kw):
         assert str(got.value) == str(want.value)
         assert "unexpected keyword argument 'warm_start'" in str(got.value)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        KMedoids(3, device="cpu", **kw).fit(X)
+    est = KMedoids(3, device="cpu", **kw).fit(X)
+    assert est.report_.solver == "banditpam_dist"
+    assert est.labels_.shape == (40,) and len(set(est.medoids_)) == 3
 
 
 @pytest.mark.parametrize("solver", ["banditpam_dist"])
 def test_unported_solvers_raise(solver):
+    """No solver of the JAX registry raises any more: the sharded fit on
+    one shard (no process group) gives the JAX facade's medoids on a
+    one-device mesh (``tests/test_torch_distributed.py`` holds it at 1, 2
+    and 4 shards)."""
     X = datasets.mnist_like(40, seed=0, d=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        KMedoids(k=2, solver=solver, device="cpu").fit(X)
+    got = KMedoids(k=2, solver=solver, device="cpu").fit(X)
+    want = JKMedoids(k=2, solver=solver, backend="jnp").fit(X)
+    assert got.medoids_.tolist() == np.asarray(want.medoids_).tolist()
+    np.testing.assert_array_equal(got.labels_, np.asarray(want.labels_))
 
 
 def test_unported_entry_points_raise():
-    """``fit_batch`` is ported (``tests/test_torch_multifit.py``); the
-    sharded solver still raises with its ROADMAP item through every
-    entry point, the batched one included."""
+    """``fit_batch`` on the sharded solver raises the JAX package's
+    ``ValueError`` (neither package has a batched sharded fit), and
+    unknown names raise ``KeyError`` through both entry points."""
     X = datasets.mnist_like(40, seed=0, d=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(ValueError) as want:
+        JKMedoids(k=2, solver="banditpam_dist").fit_batch([X, X])
+    with pytest.raises(ValueError) as got:
         KMedoids(k=2, solver="banditpam_dist", device="cpu").fit_batch([X, X])
+    assert str(got.value) == str(want.value)
+    assert "has no batched entrypoint" in str(got.value)
     with pytest.raises(KeyError):
         KMedoids(k=2, solver="nope", device="cpu").fit(X)
     with pytest.raises(KeyError):
@@ -244,6 +255,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 15
     assert ROOT / "repro_torch" / "core" / "batch.py" in files
+    assert ROOT / "repro_torch" / "core" / "distributed.py" in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

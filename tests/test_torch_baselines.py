@@ -189,16 +189,19 @@ def test_facade_matches_jax(solver, params):
 
 
 def test_registry_matches_jax():
-    """Every solver of the JAX registry is here but the sharded fit, and
-    the recommended params agree."""
-    assert registry.NOT_PORTED == {"banditpam_dist": "A13"}
-    assert (set(registry.available_solvers()) | set(registry.NOT_PORTED)
-            == set(jregistry.available_solvers()))
+    """Every solver of the JAX registry is here, the sharded fit
+    included, with the same batched entry points, and the recommended
+    params agree."""
+    assert not hasattr(registry, "NOT_PORTED")
+    assert registry.available_solvers() == jregistry.available_solvers()
+    assert (registry.available_batch_solvers()
+            == jregistry.available_batch_solvers())
     assert registry.BANDIT_SOLVERS == jregistry.BANDIT_SOLVERS
     for name in jregistry.available_solvers():
         assert registry.default_params(name) == jregistry.default_params(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        registry.get_solver("banditpam_dist")
+        assert callable(registry.get_solver(name))
+    assert registry.default_params("banditpam_dist") == {}
+    assert registry.solver_accepts_backend("banditpam_dist")
 
 
 def test_baselines_take_a_backend():
