@@ -4,18 +4,17 @@ Counterpart of ``repro.core.adaptive.adaptive_search``: a batched UCB /
 successive-elimination best-arm search.  Two sampling modes, chosen by
 the batch source:
 
-* permutation sampling (``perm=``, paper Appendix 2.2): the batches are
-  consecutive slices of one random permutation of the reference set,
-  tiled cyclically to ``ceil(n/B)·B`` slots with weight 0 on the slots
-  past ``n``; the CI carries the finite-population factor
-  ``sqrt(max(1 − n_used/n, 0))``, so at full budget the running mean is
-  the exact mean and the survivors resolve without an exact pass.
-  ``layout=`` gives the slots and weights explicitly (:class:`Layout`,
-  the JAX package's ``perm_idx`` / ``perm_w``): the sharded fit's
-  stratified walk, whose weight-0 padding falls into early rounds, so a
+* permutation sampling (``layout=``, paper Appendix 2.2): the batches
+  are consecutive slices of a :class:`Layout`, reference indices and
+  {0,1} weights (the JAX package's ``perm_idx`` / ``perm_w``).  The
+  single fit's is :func:`cyclic_layout`, one random permutation of the
+  reference set tiled cyclically to ``ceil(n/B)·B`` slots with weight 0
+  on the slots past ``n``; the sharded fit's stratified walk
+  (:func:`explicit_layout`) has weight-0 padding in early rounds, so a
   round counts its weights (``b_eff = Σw``) and ``n_used`` is their
-  running sum; the cyclic tiling is the layout :func:`cyclic_layout`
-  makes;
+  running sum.  The CI carries the finite-population factor
+  ``sqrt(max(1 − n_used/n, 0))``, so at full budget the running mean is
+  the exact mean and the survivors resolve without an exact pass;
 * replacement sampling (``draw=``, the paper's §3.2 as printed): each
   round's batch is B i.i.d. uniform draws (``draw(rnd)``), every weight
   1, no finite-population factor.  When the budget (n_used ≥ n) runs out
@@ -448,7 +447,6 @@ class _Search:
 def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
                   batch_size: int, log_term: torch.Tensor,
                   active_init: torch.Tensor,
-                  perm: Optional[torch.Tensor] = None,
                   layout: Optional[Layout] = None,
                   draw: Optional[DrawFn] = None,
                   exact_fn: Optional[ExactFn] = None,
@@ -464,11 +462,9 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     """Run one best-arm identification (one BUILD assignment or one SWAP
     pick) and leave its result on the device.
 
-    Give ``perm`` ([n_ref] int64, permutation sampling, tiled
-    cyclically), ``layout`` (a :class:`Layout`, permutation sampling over
-    explicit slots) or ``draw`` (``rnd -> [B]`` int64 indices,
-    replacement sampling, with ``exact_fn() -> [n_arms]`` exact means for
-    the fallback).
+    Give ``layout`` (a :class:`Layout`, permutation sampling) or ``draw``
+    (``rnd -> [B]`` int64 indices, replacement sampling, with
+    ``exact_fn() -> [n_arms]`` exact means for the fallback).
     ``stats_fn(ref_idx[B], w[B], lead) -> (sums, sqsums, cross)`` returns
     the per-arm weighted batch sums of g, g² and g·g_lead (``lead`` is
     the leader arm as a 0-d int64 device tensor, or None when no
@@ -487,12 +483,10 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     state, on the stepped loop.  Every read goes through
     ``engine.host_read``, counted under ``phase`` in ``report``.
     """
-    if (perm is not None) + (layout is not None) + (draw is not None) != 1:
-        raise ValueError("give exactly one of perm or layout (permutation "
-                         "sampling) and draw (replacement sampling)")
-    if perm is not None:
-        layout = cyclic_layout(perm, n_ref, batch_size)
-    elif layout is not None and sum(layout.sizes) != n_ref:
+    if (layout is None) == (draw is None):
+        raise ValueError("give exactly one of layout (permutation sampling) "
+                         "and draw (replacement sampling)")
+    if layout is not None and sum(layout.sizes) != n_ref:
         raise ValueError(f"the layout's weights cover {sum(layout.sizes)} "
                          f"reference points, not n_ref={n_ref}")
     if draw is not None and exact_fn is None:

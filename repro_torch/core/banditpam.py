@@ -86,7 +86,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .adaptive import device_search, log_term_f32
+from .adaptive import cyclic_layout, device_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
 from .engine import (FitContext, exact_build_means, exact_swap_means,
@@ -253,18 +253,22 @@ class BanditPAM:
         the fit's fixed one, or its per-round draws), the baseline, and
         the rounds the context's cache serves."""
         kw = dict(baseline=self.baseline)
+        B = self.batch_size
         if ctx.mode == "pic":
-            W = ctx.cache.rounds_cap(self.batch_size)
-            kw.update(perm=ctx.perm, aux=ctx, free_rounds=ctx.cache.hw,
+            W = ctx.cache.rounds_cap(B)
+            kw.update(layout=cyclic_layout(ctx.perm, n, B), aux=ctx,
+                      free_rounds=ctx.cache.hw,
                       free_lo=max(ctx.cache.hw - W, 0))
         elif ctx.mode == "warm":
-            kw.update(perm=ctx.perm, aux=ctx, free_rounds=ctx.free_rounds)
+            kw.update(layout=cyclic_layout(ctx.perm, n, B), aux=ctx,
+                      free_rounds=ctx.free_rounds)
         elif self.sampling == "permutation":
-            kw["perm"] = layouts.perm_on(phase, s, n, dev)
+            kw["layout"] = cyclic_layout(layouts.perm_on(phase, s, n, dev),
+                                         n, B)
         else:
             draw = getattr(layouts, f"{phase}_draw")
             kw["draw"] = lambda rnd: _rng.as_device_index(
-                draw(s, rnd, n, self.batch_size), dev)
+                draw(s, rnd, n, B), dev)
         return kw
 
     # -- BUILD ----------------------------------------------------------

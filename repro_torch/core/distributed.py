@@ -60,10 +60,9 @@ order, so one flat group covers both mesh shapes.  Every rank calls
 
 ``host_reads_by_phase`` counts the fit's reads as every port fit does;
 :func:`allreduce_counts` counts the all-reduces by phase (every rank
-makes the same ones).  :func:`spawn_ranks` / :func:`spawn_fits` run
-ranks as processes on this host (``gloo`` on the CPU; on the card
-``gloo`` with several ranks on one device, or ``nccl`` with one rank a
-device).  ``MedoidCurator`` is the JAX package's curation entry point.
+makes the same ones).  :func:`spawn_fits` runs fits on ranks of a
+``gloo`` group, each a process of this host (on the CPU, or several on
+one card).  ``MedoidCurator`` is the JAX package's curation entry point.
 """
 
 from __future__ import annotations
@@ -72,7 +71,7 @@ import datetime
 import multiprocessing
 import socket
 import time
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +92,7 @@ from .report import FitReport
 
 __all__ = ["DistributedBanditPAM", "MedoidCurator", "RankFit",
            "allreduce_counts", "default_group", "reset_allreduce_counts",
-           "spawn_fits", "spawn_ranks"]
+           "spawn_fits"]
 
 _BUILD_TAG = 0x5EED
 _SWAP_TAG = 0x50A9
@@ -573,41 +572,47 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, fn, args, world, backend, init, timeout, device,
-               threads, queue):
-    if threads is not None:
-        torch.set_num_threads(threads)
+class RankFit(NamedTuple):
+    """One rank's fit: its report and its all-reduces by phase."""
+    report: FitReport
+    allreduces: Dict[str, int]
+
+
+def _rank_main(rank, cases, world, init, timeout, device, queue):
     if device == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=init, world_size=world,
+    dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=timeout))
     try:
-        queue.put((rank, fn(rank, *args)))
+        out = []
+        for data, k, params in cases:
+            reset_allreduce_counts()
+            rep = DistributedBanditPAM(k, device=device, **params).fit(data)
+            out.append(RankFit(rep, allreduce_counts()))
+        queue.put((rank, out))
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn: Callable, world_size: int, args: tuple = (), *,
-                backend: str = "gloo", device: str = "cpu",
-                timeout: float = 600.0,
-                threads: Optional[int] = None) -> List[Any]:
-    """Run ``fn(rank, *args)`` in ``world_size`` new processes of this
-    host, each a rank of a fresh process group (``backend``, address
-    ``tcp://127.0.0.1:<free port>``, collective timeout ``timeout`` s)
-    that is its default group; ``device="cuda"`` sets rank r's device to
-    ``r mod device_count``, ``threads`` each rank's intra-op threads
-    (ranks on one host share its cores).  ``fn`` must be importable by
-    name (a module-level function).  Returns each rank's return value,
-    in rank order.  A rank that raises, or a run past ``timeout``
-    seconds, stops every rank and raises; every process is ended before
-    returning."""
+def spawn_fits(cases, world_size: int, *, device: str = "cpu",
+               timeout: float = 600.0) -> List[List[RankFit]]:
+    """Fit ``DistributedBanditPAM(k, **params).fit(data)`` for each
+    ``(data, k, params)`` of ``cases`` on ``world_size`` ranks of a
+    ``gloo`` group, each a new process of this host (one set of
+    processes for every case; address ``tcp://127.0.0.1:<free port>``,
+    collective timeout ``timeout`` s).  ``device="cuda"`` puts rank r on
+    card ``r mod device_count``: gloo takes CUDA tensors, so several
+    ranks may share one card.  Returns, for each case, every rank's
+    :class:`RankFit` in rank order.  A rank that raises, or a run past
+    ``timeout`` seconds, stops every rank and raises; every process is
+    ended before returning."""
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.SimpleQueue()
     init = f"tcp://127.0.0.1:{_free_port()}"
     procs = torch.multiprocessing.start_processes(
-        _rank_main, args=(fn, args, world_size, backend, init, timeout,
-                          device, threads, queue),
+        _rank_main, args=(list(cases), world_size, init, timeout, device,
+                          queue),
         nprocs=world_size, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     out: Dict[int, Any] = {}
@@ -629,32 +634,4 @@ def spawn_ranks(fn: Callable, world_size: int, args: tuple = (), *,
             if p.is_alive():
                 p.kill()
                 p.join()
-    return [out[r] for r in range(world_size)]
-
-
-class RankFit(NamedTuple):
-    """One rank's fit: its report and its all-reduces by phase."""
-    report: FitReport
-    allreduces: Dict[str, int]
-
-
-def _fit_cases(rank, cases, device):
-    out = []
-    for data, k, params in cases:
-        reset_allreduce_counts()
-        rep = DistributedBanditPAM(k, device=device, **params).fit(data)
-        out.append(RankFit(rep, allreduce_counts()))
-    return out
-
-
-def spawn_fits(cases, world_size: int, *, backend: str = "gloo",
-               device: str = "cpu", timeout: float = 600.0,
-               threads: Optional[int] = None) -> List[List[RankFit]]:
-    """Fit ``DistributedBanditPAM(k, **params).fit(data)`` for each
-    ``(data, k, params)`` of ``cases`` on ``world_size`` ranks of this
-    host (:func:`spawn_ranks`), in one set of processes; returns, for
-    each case, every rank's :class:`RankFit` in rank order."""
-    per_rank = spawn_ranks(_fit_cases, world_size, (list(cases), device),
-                           backend=backend, device=device, timeout=timeout,
-                           threads=threads)
-    return [list(fits) for fits in zip(*per_rank)]
+    return [list(fits) for fits in zip(*(out[r] for r in range(world_size)))]

@@ -90,8 +90,7 @@ def test_two_gloo_ranks_on_the_card(cuda):
     X = datasets.code_blobs(2000, 10, seed=2)
     cases = [(X, 10, {"backend": be, "reuse": r})
              for r in ("none", "pic") for be in ("cuda", "torch")]
-    out = tdist.spawn_fits(cases, 2, backend="gloo", device="cuda",
-                           timeout=TIMEOUT)
+    out = tdist.spawn_fits(cases, 2, device="cuda", timeout=TIMEOUT)
     for ranks in out:
         a, b = ranks[0].report, ranks[1].report
         assert a.medoids.tolist() == b.medoids.tolist()

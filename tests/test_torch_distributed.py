@@ -134,6 +134,14 @@ def jax_refs(jax_proc):
     return json.loads(out.strip().splitlines()[-1])
 
 
+def _spawn(cases, shards):
+    """``spawn_fits`` on ``shards`` gloo ranks, one intra-op thread each
+    (the spawned processes read ``OMP_NUM_THREADS``)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("OMP_NUM_THREADS", "1")
+        return tdist.spawn_fits(cases, shards, timeout=TIMEOUT)
+
+
 @pytest.fixture(scope="module")
 def port_fits():
     """Every multi-shard case on the port's gloo ranks: one set of
@@ -143,8 +151,7 @@ def port_fits():
         names = [nm for nm, c in CASES.items() if c[0] == shards]
         cases = [(datasets.mnist_like(n, seed=ds), k, params)
                  for _, (n, ds), k, params in (CASES[nm] for nm in names)]
-        fits = tdist.spawn_fits(cases, shards, timeout=TIMEOUT, threads=1)
-        out.update(zip(names, fits))
+        out.update(zip(names, _spawn(cases, shards)))
     return out
 
 
@@ -240,39 +247,74 @@ def test_pic_layout_matches_jax(n, shards, mesh1):
 
 # -- the search over an explicit layout --------------------------------------
 
-def _explicit(monkeypatch):
-    """Route every cyclic search of ``BanditPAM.fit`` through an explicit
-    layout made on the host from the same permutation."""
+def _host_built(monkeypatch):
+    """Route every search of ``BanditPAM.fit`` through a layout made on
+    the host (``explicit_layout``) from the cyclic one's tables."""
     orig = banditpam.device_search
 
     def spy(**kw):
-        perm = kw.pop("perm", None)
-        if perm is not None:
-            idx, w = adaptive.tile_perm(perm, kw["n_ref"], kw["batch_size"])
+        lay = kw.get("layout")
+        if lay is not None:
             kw["layout"] = adaptive.explicit_layout(
-                idx.numpy(), w.numpy(), kw["batch_size"], perm.device)
+                lay.idx.numpy(), lay.w.numpy(), kw["batch_size"],
+                lay.idx.device)
         return orig(**kw)
 
     monkeypatch.setattr(banditpam, "device_search", spy)
 
 
-@pytest.mark.parametrize("kw", [
+SEARCH_MODES = [
     {}, {"fused": False}, {"baseline": "leader"}, {"reuse": "pic"},
     {"reuse": "pic", "cache_width": 200, "baseline": "leader"},
-    {"cache_cols": 200}])
-def test_explicit_cyclic_layout_gives_todays_report(kw, monkeypatch):
-    """``adaptive``'s search over the cyclic tiling given as an explicit
-    layout returns the report it returns today, loss bits included, in
-    the fused and stepped loops, with the leader, the PIC carry and the
-    warm block."""
+    {"cache_cols": 200}]
+
+
+@pytest.mark.parametrize("kw", SEARCH_MODES)
+def test_host_built_layout_gives_the_device_built_report(kw, monkeypatch):
+    """``adaptive``'s search over the cyclic tiling's tables copied from
+    the host (the sharded fit's route) returns the report of the tables
+    made on the device, loss bits included, in the fused and stepped
+    loops, with the leader, the PIC carry and the warm block."""
     X = datasets.mnist_like(300, seed=4, d=16)
     want = BanditPAM(3, seed=1, device="cpu", **kw).fit(X)
-    _explicit(monkeypatch)
+    _host_built(monkeypatch)
     got = BanditPAM(3, seed=1, device="cpu", **kw).fit(X)
     for f in ("swap_history", "build_rounds", "evals_by_phase", "n_swaps",
               "converged", "loss", "host_reads_by_phase"):
         assert getattr(got, f) == getattr(want, f), f
     assert got.medoids.tolist() == want.medoids.tolist()
+
+
+# The reports of SEARCH_MODES' fits at one intra-op thread from the search
+# before it took an explicit layout (it tiled ``perm`` itself), loss bits
+# as float.hex: every mode swaps 299 for 293 once, with loss 0x1.955b02p+7.
+_BEFORE_LAYOUT = [
+    ({"build": 179700, "swap": 129300}, {"build": 1, "swap": 3}),
+    ({"build": 179700, "swap": 129300}, {"build": 13, "swap": 11}),
+    ({"build": 173100, "swap": 128500}, {"build": 1, "swap": 3}),
+    ({"build": 90900, "build_cached": 120300, "swap": 3600,
+      "swap_cached": 143800}, {"build": 13, "swap": 8}),
+    ({"build": 150900, "build_cached": 60500, "swap": 63600,
+      "swap_cached": 66400}, {"build": 13, "swap": 11}),
+    ({"cache_warm": 60000, "build": 34900, "swap": 25800},
+     {"build": 1, "swap": 3}),
+]
+
+
+@pytest.mark.parametrize("kw,before", zip(SEARCH_MODES, _BEFORE_LAYOUT))
+def test_explicit_cyclic_layout_gives_todays_report(kw, before):
+    """The single fit, whose search now walks ``cyclic_layout``, returns
+    the report the search gave when it tiled the permutation itself:
+    medoids, swaps, build rounds, ledger, host reads and loss bits."""
+    X = datasets.mnist_like(300, seed=4, d=16)
+    r = BanditPAM(3, seed=1, device="cpu", **kw).fit(X)
+    loss = float.fromhex("0x1.955b020000000p+7")
+    assert r.medoids.tolist() == [293, 91, 114]
+    assert [(int(a), int(b), float(c)) for a, b, c in r.swap_history] == [
+        (299, 293, loss)]
+    assert (r.build_rounds, r.n_swaps, r.converged) == ([3, 3, 3], 1, True)
+    assert (r.evals_by_phase, r.host_reads_by_phase) == before
+    assert float(r.loss) == loss
 
 
 def test_layout_must_cover_the_references():
@@ -284,7 +326,8 @@ def test_layout_must_cover_the_references():
     with pytest.raises(ValueError, match="cover 20"):
         adaptive.device_search(n_ref=30, **kw)
     with pytest.raises(ValueError, match="exactly one"):
-        adaptive.device_search(n_ref=20, perm=torch.arange(20), **kw)
+        adaptive.device_search(n_ref=20, draw=lambda rnd: torch.arange(10),
+                               **kw)
 
 
 # -- one shard, in this process ----------------------------------------------
@@ -419,5 +462,4 @@ def test_a_rank_that_raises_ends_the_ranks():
     """A rank's error reaches the caller and every rank's process ends
     (each group also has a collective timeout)."""
     with pytest.raises(Exception, match="need n > k"):
-        tdist.spawn_fits([(datasets.mnist_like(3, seed=0), 3, {})], 2,
-                         timeout=TIMEOUT, threads=1)
+        _spawn([(datasets.mnist_like(3, seed=0), 3, {})], 2)

@@ -59,7 +59,8 @@ def _searches(n, k, metric, X, bperms, sperm):
             stats_fn=tstats, n_arms=n_arms, n_ref=n, batch_size=100,
             log_term=adaptive.log_term_f32(delta, "cpu"),
             active_init=_t(active), count_fn=count_t,
-            perm=_t(perm).long(), baseline="leader")
+            layout=adaptive.cyclic_layout(_t(perm).long(), n, 100),
+            baseline="leader")
         out["jax"].append((int(want.best), int(want.rounds),
                            int(want.n_evals)))
         out["port"].append((got.best, got.rounds, got.n_evals))
