@@ -21,8 +21,9 @@ at a PIC round's [60,000 x 100] block and over a full [60,000 x 60,000]
 ring with 5 % of the weights set, the carried-moment repair; ``rt_top2``
 at n = 60,000 and k = 1, 10, 17, 40, 65 and 200, at predict's
 [10,000 x 10] and at d = 783, which takes the 4-byte copies).  A
-checkout whose ``rt_build_g`` and ``rt_swap_g`` take the run flag gets
-it at 1 (a device int), as the device-resident fit passes it.  Each
+checkout whose entries take the run flag gets it at 1 (a device int),
+as the device-resident fit passes it, and ``rt_pairwise`` its output's
+row stride at r.  Each
 case is timed base, change, change, base (CUDA events, ``--reps``
 launches after 3 warm-up launches each; fewer after one for the
 streaming cases at r = 6,000 and, 2, at r = 60,000, the full exact
@@ -85,10 +86,10 @@ def cases(torch, X, reps, only=(), metric_id=0):
     flag = torch.ones(1, dtype=torch.int32, device=X.device)
 
     def flagged(fn, *args):
-        """Call a round kernel with the run flag at 1 before the stream,
-        as the device-resident fit passes it, where the checkout's kernel
-        takes one; a base from before the flag gets none (kept while such
-        bases are compared)."""
+        """Call a kernel with the run flag at 1 before the stream, as the
+        device-resident fit passes it, where the checkout's kernel takes
+        one; a base from before the flag gets none (kept while such bases
+        are compared)."""
         if len(fn.argtypes) == len(args) + 1:
             args = args[:-1] + (p(flag), args[-1])
         return fn(*args)
@@ -107,8 +108,12 @@ def cases(torch, X, reps, only=(), metric_id=0):
             return [torch.empty((a.shape[0], b.shape[0]), device=X.device)]
 
         def call(lib, outs, st):
-            return lib.rt_pairwise(p(a), p(b), p(outs[0]), a.shape[0],
-                                   b.shape[0], d, metric_id, st)
+            fn = lib.rt_pairwise
+            if len(fn.argtypes) == 8:   # a base without ldo and the flag
+                return fn(p(a), p(b), p(outs[0]), a.shape[0], b.shape[0], d,
+                          metric_id, st)
+            return fn(p(a), p(b), p(outs[0]), a.shape[0], b.shape[0],
+                      b.shape[0], d, metric_id, p(flag), st)
         return make, call
 
     def build_g(b):
@@ -161,9 +166,9 @@ def cases(torch, X, reps, only=(), metric_id=0):
             return [torch.empty(n_fit, device=X.device) for _ in range(3)]
 
         def call(lib, o, st):
-            return lib.rt_stream_build_g(p(x), p(y), p(dn), p(w), p(lg),
-                                         p(o[0]), p(o[1]), p(o[2]), n_fit, r,
-                                         d, metric_id, st)
+            return flagged(lib.rt_stream_build_g, p(x), p(y), p(dn), p(w),
+                           p(lg), p(o[0]), p(o[1]), p(o[2]), n_fit, r, d,
+                           metric_id, st)
         return make, call
 
     def top2(yy, k):
@@ -185,9 +190,9 @@ def cases(torch, X, reps, only=(), metric_id=0):
                     for _ in range(3)]
 
         def call(lib, o, st):
-            return lib.rt_stream_swap_g(p(x), p(y), p(d1), p(d2), p(a), p(w),
-                                        p(lg), p(o[0]), p(o[1]), p(o[2]),
-                                        n_fit, r, d, k, metric_id, st)
+            return flagged(lib.rt_stream_swap_g, p(x), p(y), p(d1), p(d2),
+                           p(a), p(w), p(lg), p(o[0]), p(o[1]), p(o[2]),
+                           n_fit, r, d, k, metric_id, st)
         return make, call
 
     def top2_case(xx, k, dd=d):
@@ -217,9 +222,10 @@ def cases(torch, X, reps, only=(), metric_id=0):
                     for _ in range(3)]
 
         def call(lib, o, st):
-            return lib.rt_swap_g_from_cache(
-                p(dxy), dxy.stride(0), p(d1), p(d2), p(a), p(w), p(lg),
-                p(o[0]), p(o[1]), p(o[2]), n_fit, b, k, st)
+            return flagged(
+                lib.rt_swap_g_from_cache, p(dxy), dxy.stride(0), p(d1),
+                p(d2), p(a), p(w), p(lg), p(o[0]), p(o[1]), p(o[2]), n_fit,
+                b, k, st)
         return make, call
 
     med = rows(10)

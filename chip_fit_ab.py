@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Time full-size fits of this checkout against another checkout's on one
+NVIDIA GPU, in turns, and check that the two give the same reports.
+
+Run from the repository root, with the other checkout unpacked in a
+directory (for example the parent commit, from ``git archive``)::
+
+    python3 chip_fit_ab.py --base build/parent
+
+Each turn is one process that imports the ``repro_torch`` of one
+checkout (built by its own ``repro_torch/kernels/build.py``) and fits
+``mnist_like(60000, seed=0)`` (d = 784, k = 10, l2, seed 0) in each
+configuration of ``--fits`` (all by default):
+
+* ``pic``: ``KMedoids(k=10, reuse="pic")``, the default 32-round ring;
+* ``pic_full``: ``reuse="pic", cache_width=60000, cache_cols=3200``;
+* ``pic_stepped``: ``pic`` with ``fused=False``;
+* ``replacement``: ``sampling="replacement", baseline="leader"``;
+* ``serve``: ``MedoidService(10, "l2").fit``, the service's initial fit.
+
+The turns run base, change, change, base.  Each fit prints its wall by
+phase and host reads by phase; the two checkouts' medoids, swaps, build
+rounds, ledgers and losses must be equal (raising).  Prints the card's
+name and power limit and, as its last line, one JSON object with every
+fit of every turn.  Exits with an error without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FITS = ("pic", "pic_full", "pic_stepped", "replacement", "serve")
+N_FIT = 60000
+
+
+def worker(root: str, fits) -> None:
+    """One turn: the fits of ``fits`` with ``root``'s package, one JSON
+    line each."""
+    sys.path.insert(0, root)
+    import torch
+    from repro_torch.api import KMedoids
+    from repro_torch.core.datasets import mnist_like
+    from repro_torch.kernels import build
+    from repro_torch.serve import MedoidService
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.lib()
+    X = mnist_like(N_FIT, seed=0)
+    kws = {"pic": dict(reuse="pic"),
+           "pic_full": dict(reuse="pic", cache_width=N_FIT, cache_cols=3200),
+           "pic_stepped": dict(reuse="pic", fused=False),
+           "replacement": dict(sampling="replacement", baseline="leader")}
+    for name in fits:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "serve":
+            r = MedoidService(10, "l2").fit(X).last_report
+        else:
+            r = KMedoids(k=10, metric="l2", seed=0, **kws[name]).fit(
+                X).report_
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "fit": name, "call_s": time.perf_counter() - t0,
+            "wall_by_phase": r.wall_by_phase,
+            "host_reads_by_phase": r.host_reads_by_phase,
+            "report": [r.medoids.tolist(), [h[:2] for h in r.swap_history],
+                       r.build_rounds, r.evals_by_phase, float(r.loss)]}),
+            flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", help="the other checkout's root")
+    ap.add_argument("--fits", default=",".join(FITS))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    fits = [f for f in args.fits.split(",") if f]
+    if any(f not in FITS for f in fits):
+        ap.error(f"--fits takes {FITS}")
+    if args.worker:
+        worker(args.worker, fits)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_fit_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.base or not os.path.isdir(os.path.join(args.base,
+                                                       "repro_torch")):
+        ap.error("--base must be a checkout with repro_torch/")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    roots = {"base": os.path.abspath(args.base), "change": ROOT}
+    out = []
+    for turn, side in enumerate(("base", "change", "change", "base")):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             roots[side], "--fits", ",".join(fits)],
+            capture_output=True, text=True, timeout=1800, cwd=roots[side])
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"turn {turn} ({side}) failed")
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                rec = dict(json.loads(line), side=side, turn=turn)
+                out.append(rec)
+                print(f"[ab] turn {turn} {side:6s} {rec['fit']:12s} "
+                      f"wall_by_phase {rec['wall_by_phase']} "
+                      f"host_reads_by_phase {rec['host_reads_by_phase']} "
+                      f"call {rec['call_s']:.3f} s", flush=True)
+    for name in fits:
+        reps = {json.dumps(r["report"]) for r in out if r["fit"] == name}
+        print(f"[ab] {name}: the same report in every turn: "
+              f"{len(reps) == 1}", flush=True)
+        if len(reps) != 1:
+            raise AssertionError(f"{name}: the reports differ")
+    print(card)
+    print(json.dumps({"card": card, "fits": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

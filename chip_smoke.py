@@ -38,9 +38,11 @@ Phases, each of which raises (exit code != 0) on any failure:
    its plain version at a PIC round's [60,000 x 100] and the ring fill's
    [60,000 x 3,200], and timed at [60,000 x 100], [1 x 60,000] (a BUILD
    d_near row) and [1 x 100] (a leader row) beside ``torch.cdist``.
-   The round kernels' run flag (``run_flag_checks``): build_g and swap_g
-   with the flag at 1 give the bits of no flag (raising), and a masked
-   launch (flag 0) is timed beside a real one;
+   The run flag (``run_flag_checks``): build_g, swap_g, pairwise (into a
+   slot of a ring, row stride 3,200), swap_g_from_cache and the two
+   streaming kernels (m = r = 60,000) with the flag at 1 give the bits of
+   no flag (raising), pairwise with it at 0 leaves its ring untouched
+   (raising), and a masked launch (flag 0) is timed beside a real one;
 4. fit parity on the card: ``backend="cuda"`` against ``backend="torch"``
    on the same draws must give identical medoids, swap history and
    build rounds, and a loss within rtol 1e-5, for the default fit
@@ -65,9 +67,12 @@ Phases, each of which raises (exit code != 0) on any failure:
    replacement fits' allowance; the cuda fit's launch counts are
    printed); then the two drivers (``driver_parity``): ``backend="cuda"``
    with ``fused=True`` (device-resident searches) against
-   ``fused=False`` (stepped) for the defaults, the leader, the early stop
-   and the warm block ``cache_cols=1000``, whose reports must be
-   identical, the loss bits included;
+   ``fused=False`` (stepped) for the defaults, the leader, the early stop,
+   the warm block ``cache_cols=1000``, replacement sampling with the
+   leader and with the early stop, and ``reuse="pic"`` at the default
+   ring, at ``cache_width=200`` and at the full width with
+   ``cache_cols=1000``, whose reports must be identical, the loss bits
+   included (host reads printed);
 5. the main path at full size: ``KMedoids(k=10, solver="banditpam",
    metric="l2").fit`` on 60,000 MNIST-like points of d=784, then
    ``predict`` on 10,000 more, with every kernel's launch count from that
@@ -82,13 +87,17 @@ Phases, each of which raises (exit code != 0) on any failure:
    included, launched >= 1 times) and ``KMedoids(k=10,
    solver="pam").fit`` (exactly 10 streaming BUILD passes and one
    streaming SWAP pass per iteration), with wall by phase, ledger,
-   fallbacks, launches and peak memory, whether each BanditPAM fit's
+   fallbacks, launches and peak memory (the replacement + leader fit
+   again under the stepped driver, whose report must be the fused one's,
+   with both drivers' walls and host reads), whether each BanditPAM fit's
    medoids equal PAM's (the paper's claim, measured and not asserted)
    and the loss ratios; PAM's loss is checked against a plain
    ``total_loss``; then BanditPAM++ (``pic_paths``): the default ring
    and the full 60,000-column ring with a warm block, each counted on
    its own, each launching ``swap_g_from_cache``, the full ring running
-   the carried-moment repair.
+   the carried-moment repair, and each again under the stepped driver
+   (the same report and repairs, raising; both drivers' walls and host
+   reads).
 
 6. the other solvers, the threefry draws and the non-kernel metrics
    (``threefry_answers``, ``solver_paths``, ``solver_parity``): (a) the
@@ -476,27 +485,58 @@ def kernel_checks(torch, X, dev):
 
 
 def run_flag_checks(torch, res, dev):
-    """Phase 3, the round kernels' run flag at the main path's shapes
-    (l2): with the flag at 1, build_g and swap_g give the bits of no flag
-    (equal bits, raising); a masked launch (flag 0, a round enqueued
-    after its search stopped) is timed beside the real one."""
+    """Phase 3, the run flag at the main path's shapes (l2): with the flag
+    at 1, build_g, swap_g, pairwise (into a slot of the default PIC ring,
+    row stride 3,200), swap_g_from_cache (a cached round) and the two
+    streaming kernels (the exact fallbacks, m = r = 60,000) give the bits
+    of no flag (equal bits, raising); with it at 0 pairwise leaves its
+    ring, sentinel-filled, untouched (raising); a masked launch (flag 0:
+    a round enqueued after its search stopped, a round that is not
+    written through, a search with no fallback) is timed beside the real
+    one."""
     from repro_torch.kernels import ops
     flag = {v: torch.tensor([v], dtype=torch.int32, device=dev)
             for v in (0, 1)}
     _, x, y, dn, w, lg = res["build_g/finite"]
     _, _, _, d1, d2, a, ws, k, lgs = res["swap_g"]
+    n = x.shape[0]
+    ring = torch.full((n, 32 * B), float("nan"), device=dev)
+    slot = ring[:, 5 * B:6 * B]
+    dxy = ops.pairwise_distance(x, y, "l2")
+    full = {"dn": torch.full((n,), float("inf"), device=dev),
+            "w": torch.ones(n, device=dev), "lg": torch.zeros(n, device=dev)}
+    full["d1"], full["d2"], full["a"] = ops.stream_top2(
+        x, x[:k].contiguous(), metric="l2")
     calls = {
         "build_g": lambda run: ops.build_g_stats(x, y, dn, w, lg,
                                                  metric="l2", run=run),
         "swap_g": lambda run: ops.swap_g_stats(x, y, d1, d2, a, ws, k, lgs,
-                                               metric="l2", run=run)}
+                                               metric="l2", run=run),
+        "pairwise": lambda run: (ops.pairwise_distance(
+            x, y, "l2", out=slot, run=run).clone(),),
+        "swap_g_from_cache": lambda run: ops.swap_g_stats_cached(
+            dxy, d1, d2, a, ws, k, lgs, run=run),
+        "stream_build_g": lambda run: ops.stream_build_g_stats(
+            x, x, full["dn"], full["w"], full["lg"], metric="l2", run=run),
+        "stream_swap_g": lambda run: ops.stream_swap_g_stats(
+            x, x, full["d1"], full["d2"], full["a"], full["w"], k,
+            full["lg"], metric="l2", run=run)}
+    ops.pairwise_distance(x, y, "l2", out=slot, run=flag[0])
+    torch.cuda.synchronize()
+    if not bool(ring.isnan().all()):
+        raise AssertionError("pairwise with run flag 0 wrote into the ring")
+    log("[check] pairwise[l2] run flag 0 leaves its ring slot untouched: "
+        "True")
     for name, call in calls.items():
+        stream = name.startswith("stream_")
         require_equal(f"{name}[l2] run flag 1 == no flag", call(flag[1]),
                       call(None))
-        real = time_ms(lambda: call(flag[1]))
+        reps = (3, 1) if stream else (20, 3)
+        real = time_ms(lambda: call(flag[1]), *reps)
         masked = time_ms(lambda: call(flag[0]))
-        log(f"[time] {name:9s} masked launch (flag 0) {masked:.4f} ms  "
+        log(f"[time] {name:17s} masked launch (flag 0) {masked:.4f} ms  "
             f"beside the real launch (flag 1) {real:.4f} ms")
+    del ring
 
 
 def top2_large_k(torch, x, med10, dev):
@@ -952,20 +992,32 @@ def driver_parity(torch, X, dev):
     """Phase 4, the two drivers on the card: ``backend="cuda"`` with
     ``fused=True`` (device-resident searches, masked rounds through the
     kernels' run flag) against ``fused=False`` (one read a round), on the
-    same draws, for the defaults, the leader, the early stop and the warm
-    block ``cache_cols=1000``.  The reports must be identical (raising):
+    same draws, for the defaults, the leader, the early stop, the warm
+    block ``cache_cols=1000``, replacement sampling with the leader and
+    with the early stop (the exact fallback decided on the device), and
+    the PIC ring at the default width (41 rounds in 32: it recycles), at
+    ``cache_width=200`` and at the full width with ``cache_cols=1000``
+    (the carried repair).  The reports must be identical (raising):
     medoids, swap history with its losses, build rounds, ledger,
-    fallbacks, swaps, convergence and the loss bits."""
+    fallbacks, swaps, convergence and the loss bits; each fit's host
+    reads are printed."""
     import numpy as np
     from repro_torch.core import BanditPAM, rng
     n, k = N_PARITY, 5
     data = X[:n].contiguous()
     prng = np.random.default_rng(18)
-    perms = (np.stack([prng.permutation(n) for _ in range(k)]),
+    perms = [np.stack([prng.permutation(n) for _ in range(k)]),
              np.stack([prng.permutation(n) for _ in range(4 * k + 10)]),
-             None, None, prng.permutation(n))
+             prng.permutation(n)]
+    r = -(-n // B)
+    perms[2:2] = [prng.integers(0, n, (k, r, B)),
+                  prng.integers(0, n, (4 * k + 10, r, B))]
     for kw in ({}, {"baseline": "leader"}, {"swap_early_stop": True},
-               {"cache_cols": 1000}):
+               {"cache_cols": 1000},
+               {"sampling": "replacement", "baseline": "leader"},
+               {"sampling": "replacement", "swap_early_stop": True},
+               {"reuse": "pic"}, {"reuse": "pic", "cache_width": 200},
+               {"reuse": "pic", "cache_width": n, "cache_cols": 1000}):
         fits = {}
         for fused in (True, False):
             t0 = time.perf_counter()
@@ -1224,6 +1276,9 @@ def exact_paths(torch, X, dev, Xnp, perm_fit):
     if min(c[nm] for nm in MAIN_KERNELS + ("stream_build_g",
                                            "stream_swap_g")) < 1:
         raise AssertionError(f"a kernel of the replacement fit never ran: {c}")
+    stepped_driver(torch, Xnp, "replacement+leader",
+                   dict(solver="banditpam", sampling="replacement",
+                        baseline="leader"), fits["replacement+leader"])
     p = fits["pam"]
     c = counts["pam"]
     n_passes = p.n_swaps + int(p.converged)
@@ -1246,6 +1301,28 @@ def exact_paths(torch, X, dev, Xnp, perm_fit):
     return counts, p
 
 
+def stepped_driver(torch, Xnp, name, kw, fused_fit):
+    """Phase 5, a full-size fit again under the stepped driver
+    (``fused=False``, one read a round), counted from 0: its report must
+    be the fused fit's (identical, raising); both print wall and host
+    reads by phase."""
+    from repro_torch.api import KMedoids
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    est = KMedoids(k=10, metric="l2", seed=0, fused=False, **kw).fit(
+        Xnp[:N_FIT])
+    fit_s = time.perf_counter() - t0
+    stepped = est.report_
+    same_report(fused_fit, stepped, f"{name} at full size, fused vs stepped")
+    for drv, rep in (("fused", fused_fit), ("stepped", stepped)):
+        log(f"[driver] {name} {drv}: wall_by_phase {rep.wall_by_phase} "
+            f"host_reads_by_phase {rep.host_reads_by_phase}")
+    log(f"[driver] {name} stepped: fit {fit_s:.3f} s (data upload "
+        f"included); launches {ops.launch_counts()}")
+
+
 def pic_paths(torch, X, dev, Xnp, pam_fit):
     """Phase 5, BanditPAM++ at full size on the main path's rows, each
     fit with the launch counts set to 0 just before it and read just
@@ -1258,7 +1335,9 @@ def pic_paths(torch, X, dev, Xnp, pam_fit):
     ``swap_g_from_cache``) runs in every SWAP iteration after the first.
     The repairs are counted by wrapping ``banditpam._carry_delta``.  Each
     fit must launch ``swap_g_from_cache``; (b) must report a non-zero
-    ``swap_cached`` and at least one repair.  Returns the counts."""
+    ``swap_cached`` and at least one repair.  Each is then fitted again
+    under the stepped driver (``stepped_driver``), which must give its
+    report and its repairs.  Returns the counts."""
     from repro_torch.api import KMedoids
     from repro_torch.core import banditpam, total_loss
     from repro_torch.kernels import ops
@@ -1315,6 +1394,11 @@ def pic_paths(torch, X, dev, Xnp, pam_fit):
             if name == "pic_full" and not (
                     r.evals_by_phase["swap_cached"] > 0 and changed):
                 raise AssertionError("the full ring ran no carried repair")
+            repairs.clear()
+            stepped_driver(torch, Xnp, name, kw, r)
+            if [int(v) for v in repairs] != changed:
+                raise AssertionError(f"{name}: the stepped fit repaired "
+                                     f"{[int(v) for v in repairs]}")
     finally:
         banditpam._carry_delta = orig
     return counts

@@ -56,22 +56,33 @@ One round is one function (``_Search.round``) that two loops share:
   Every state update of a round is masked by a device flag
   ``running = (#survivors > 1) ∧ verdict`` (the tallies add
   ``cost·running``, the kills are ``kill ∧ running``, the moments and
-  the leader are selected) and the stats kernels take the flag too, so a round enqueued after the stop changes nothing: not
-  the moments, not the ledger, not the leader, not the round count.
-  The host reads ``running`` once every ``ROUNDS_PER_READ`` rounds and
-  stops enqueueing once it reads 0; the result stays on the device
-  (:class:`DeviceResult`) for the caller to read with its own.  The
-  permutation schedule is static, so each round's slice, its effective
-  size, the σ round and the cache-served split are host ints known when
-  the round is enqueued.
+  the leader are selected) and the stats kernels take the flag too, so
+  a round enqueued after the stop changes nothing: not the moments, not
+  the ledger, not the leader, not the round count.  The host reads
+  ``running`` once every ``ROUNDS_PER_READ`` rounds and stops enqueueing
+  once it reads 0; the result stays on the device (:class:`DeviceResult`)
+  for the caller to read with its own.  The schedule is static, so each
+  round's slice (or draw), its effective size and the σ round are host
+  ints known when the round is enqueued.  Every sampling mode runs it:
+  under replacement sampling a round past the stop takes its batch from
+  the search's own draws (``draw(rnd)``, a slice already on the device
+  under ``rng.from_seed``), and the exact fallback is decided on the
+  device (``used_exact = #survivors > 1``, the JAX package's
+  ``lax.cond``): the streaming pass runs with that flag as its run
+  flag, ``torch.where`` picks the exact or the sampled means, and the
+  fallback's ``count_fn·n`` is charged times the flag.  A caller whose
+  state moves with the rounds a search ran (the PIC ring) asks for them
+  on the host (``rounds_to_host``): the flag's reads carry the round
+  count, and a search that ran to its budget with no read after its
+  stop is read once more at its end.
 
 In both loops the leader is a 0-d device index from the pilot round on.
 
 Both loops run the same arithmetic on the same values, so they return
-the same result bit for bit.  Replacement sampling (its draws come from
-one generator in round order, so a round enqueued past the stop would
-use up draws) and the PIC searches (their ring state is host ints) keep
-the stepped loop; ROADMAP A18b.
+the same result bit for bit.  The caller keeps one source on the
+stepped loop: draws from one generator in consumption order
+(``rng.from_generator``), where a round enqueued past the stop would use
+up draws of the searches after it (``BanditPAM._fit``).
 
 Cache-seeded searches (BanditPAM++ and the paper's App 2.2 warm block),
 permutation sampling over a FIXED permutation shared by every search:
@@ -87,8 +98,8 @@ permutation sampling over a FIXED permutation shared by every search:
   ``n_used`` = Σ ``perm_w`` over that prefix and σ from the carried
   moments;
 * ``aux``: the caller's state (the fit's ``FitContext``, holding the PIC
-  ring), handed to ``stats_fn`` with the round index; being host state,
-  the ring is updated in place.
+  ring), handed to ``stats_fn`` with the round index; the ring is
+  updated in place.
 
 The lane axis (``lane_search``, ``fit_batch``): L independent
 permutation searches, one per fit of a padded batch, advance one round
@@ -114,7 +125,7 @@ search up to ``n·n`` cached reads, at n = 60,000); the port's do not.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -138,7 +149,7 @@ ROUNDS_PER_READ = 32
 StatsFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 CountFn = Callable[[torch.Tensor], torch.Tensor]
 DrawFn = Callable[[int], torch.Tensor]
-ExactFn = Callable[[], torch.Tensor]
+ExactFn = Callable[..., torch.Tensor]
 
 
 class SearchResult(NamedTuple):
@@ -153,25 +164,32 @@ class SearchResult(NamedTuple):
 
 
 class DeviceResult(NamedTuple):
-    """A search's result as it stands on the device: 0-d int64 tensors
-    but ``used_exact``, which the host knows."""
+    """A search's result as it stands on the device: 0-d int64 tensors,
+    and ``used_exact``, a host bool or (a replacement search of the
+    device-resident loop) a 0-d device bool.  ``rounds_h`` is ``rounds``
+    on the host where the search knows it (the stepped loop, or
+    ``rounds_to_host``), else None."""
     best: torch.Tensor
     n_evals: torch.Tensor
     rounds: torch.Tensor
     n_survivors: torch.Tensor
-    used_exact: bool
+    used_exact: Union[bool, torch.Tensor]
     n_evals_cached: torch.Tensor
     sums: torch.Tensor
     sqsums: torch.Tensor
+    rounds_h: Optional[int] = None
 
     def read(self, report=None, phase: str = "search") -> SearchResult:
         """The result on the host, in one ``engine.host_read``."""
-        best, n_evals, rounds, n_surv, n_cached = host_read(
-            [self.best, self.n_evals, self.rounds, self.n_survivors,
-             self.n_evals_cached], report, phase)
-        return SearchResult(best=best, n_evals=n_evals, rounds=rounds,
-                            n_survivors=n_surv, used_exact=self.used_exact,
-                            n_evals_cached=n_cached, sums=self.sums,
+        used = self.used_exact
+        on_device = [used] if torch.is_tensor(used) else []
+        vals = host_read([self.best, self.n_evals, self.rounds,
+                          self.n_survivors, self.n_evals_cached]
+                         + on_device, report, phase)
+        return SearchResult(best=vals[0], n_evals=vals[1], rounds=vals[2],
+                            n_survivors=vals[3],
+                            used_exact=bool(vals[5]) if on_device else used,
+                            n_evals_cached=vals[4], sums=self.sums,
                             sqsums=self.sqsums)
 
 
@@ -421,19 +439,29 @@ class _Search:
         self.running = going
         return pilot
 
-    def result(self, exact_fn, used_exact: bool) -> "DeviceResult":
+    def _sampled_means(self) -> torch.Tensor:
+        rounds = self.done + self.r0
+        n_used = (rounds * self.B if self.layout is None
+                  else self.n_cum.index_select(0, rounds.view(1))[0])
+        return self.sums / torch.clamp_min(n_used, 1).to(torch.float32)
+
+    def result(self, exact_fn, used_exact) -> "DeviceResult":
         """The pick: the FIRST index minimising the survivors' means, the
-        exact ones when ``used_exact``."""
-        if used_exact:
+        exact ones where ``used_exact`` holds: a host bool (the stepped
+        loop), or a 0-d device bool (the resident loop), which is the
+        exact pass's run flag and selects between the two means."""
+        if torch.is_tensor(used_exact):
+            exact = exact_fn(run=used_exact.to(torch.int32).reshape(1))
+            mu = torch.where(used_exact, exact, self._sampled_means())
+            mu_sel = torch.where(self.active, mu, float("inf"))
+            self.n_evals = (self.n_evals + self.count_fn(self.active)
+                            * self.n_ref * used_exact)
+        elif used_exact:
             mu_sel = torch.where(self.active, exact_fn(), float("inf"))
             self.n_evals = (self.n_evals
                             + self.count_fn(self.active) * self.n_ref)
         else:
-            rounds = self.done + self.r0
-            n_used = (rounds * self.B if self.layout is None
-                      else self.n_cum.index_select(0, rounds.view(1))[0])
-            n_used_f = torch.clamp_min(n_used, 1).to(torch.float32)
-            mu_sel = torch.where(self.active, self.sums / n_used_f,
+            mu_sel = torch.where(self.active, self._sampled_means(),
                                  float("inf"))
         return DeviceResult(best=torch.argmin(mu_sel), n_evals=self.n_evals,
                             rounds=self.done + self.r0,
@@ -457,14 +485,14 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
                   init_sums: Optional[torch.Tensor] = None,
                   init_sqsums: Optional[torch.Tensor] = None,
                   init_rounds: int = 0, aux: Any = None,
-                  resident: bool = False, report=None,
-                  phase: str = "search") -> "DeviceResult":
+                  resident: bool = False, rounds_to_host: bool = False,
+                  report=None, phase: str = "search") -> "DeviceResult":
     """Run one best-arm identification (one BUILD assignment or one SWAP
     pick) and leave its result on the device.
 
     Give ``layout`` (a :class:`Layout`, permutation sampling) or ``draw``
     (``rnd -> [B]`` int64 indices, replacement sampling, with
-    ``exact_fn() -> [n_arms]`` exact means for the fallback).
+    ``exact_fn(run=None) -> [n_arms]`` exact means for the fallback).
     ``stats_fn(ref_idx[B], w[B], lead) -> (sums, sqsums, cross)`` returns
     the per-arm weighted batch sums of g, g² and g·g_lead (``lead`` is
     the leader arm as a 0-d int64 device tensor, or None when no
@@ -475,12 +503,15 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     index.  The cache seeds (``free_*``, ``init_*``) are in the module
     docstring.
 
-    ``resident=True`` runs the device-resident loop, which needs
-    permutation sampling; it passes ``stats_fn`` the keyword ``run``, a
-    ``[1]`` int32 device flag that is 0 for a round enqueued after the
-    stop (the round's result is discarded; a kernel may skip its work).
-    The caller keeps PIC searches, whose ``stats_fn`` updates host ring
-    state, on the stepped loop.  Every read goes through
+    ``resident=True`` runs the device-resident loop under either
+    sampling mode; it passes ``stats_fn`` the keyword ``run``, a ``[1]``
+    int32 device flag that is 0 for a round enqueued after the stop (the
+    round's result is discarded; a kernel may skip its work, and a PIC
+    ``stats_fn`` leaves its ring as it was), and a replacement search's
+    ``exact_fn`` the keyword ``run``, its fallback flag.  ``draw`` must
+    then give every round up to the budget's without consuming another
+    search's draws.  ``rounds_to_host=True`` fills ``rounds_h`` there
+    too, at most one read more.  Every read goes through
     ``engine.host_read``, counted under ``phase`` in ``report``.
     """
     if (layout is None) == (draw is None):
@@ -499,9 +530,6 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     if init_sums is not None and layout is None:
         raise ValueError("carried statistics require permutation sampling "
                          "over a fixed perm")
-    if resident and layout is None:
-        raise ValueError("the device-resident loop needs permutation "
-                         "sampling (replacement sampling: ROADMAP A18b)")
     s = _Search(n_arms=n_arms, n_ref=n_ref, batch_size=batch_size,
                 log_term=log_term, active_init=active_init, layout=layout,
                 draw=draw, count_fn=count_fn, baseline=baseline,
@@ -515,19 +543,39 @@ def device_search(*, stats_fn: StatsFn, n_arms: int, n_ref: int,
     if not resident:
         going, n_active = host_read([s.running, s.n_active], report, phase)
     rnd = s.r0
+    seen = []            # the round count, read with the flag
     while s.n_used < n_ref and going:
         if s.round(rnd, stats_fn, aux, lead):
             lead = s.lead
         rnd += 1
         if resident:
             if (rnd - s.r0) % every == 0 and s.n_used < n_ref:
-                (going,) = host_read([s.running], report, phase)
+                going, *seen = host_read(
+                    [s.running] + [s.done] * rounds_to_host, report, phase)
         else:
             # The stepped round's one read: the verdict and the survivors.
             going, n_active = host_read([s.running, s.n_active], report,
                                         phase)
-    used_exact = draw is not None and n_active > 1
-    return s.result(exact_fn, used_exact)
+    done = None
+    if not resident:
+        done = rnd - s.r0                    # every enqueued round ran
+    elif rounds_to_host:
+        if rnd == s.r0:
+            done = 0
+        elif going:
+            # Ran to its budget with no read after its stop: once more.
+            (done,) = host_read([s.done], report, phase)
+        else:
+            (done,) = seen
+    if draw is None:
+        used_exact = False
+    elif resident:
+        # The JAX package's lax.cond, decided on the device.
+        used_exact = torch.sum(s.active, dtype=torch.int64) > 1
+    else:
+        used_exact = n_active > 1
+    return s.result(exact_fn, used_exact)._replace(
+        rounds_h=None if done is None else done + s.r0)
 
 
 def adaptive_search(*, report=None, phase: str = "search",

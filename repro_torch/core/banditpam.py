@@ -52,15 +52,24 @@ reference permutation walked by every search (``layouts.fixed_perm``):
 The drivers (``fused``), the counterparts of the JAX package's: every
 device-to-host read goes through ``engine.host_read`` and is counted in
 ``FitReport.host_reads_by_phase``.  ``fused=True`` (the default) runs the
-device-resident searches (``adaptive.py``) under permutation sampling,
-warm block included: a BUILD pick stays a device index that updates the
-medoid mask and ``d_near`` on the device, so BUILD reads its searches'
-flags once every ``adaptive.ROUNDS_PER_READ`` rounds and its picks and
-ledger once at its end; a SWAP iteration reads its search's flags the
-same way, then the pick, the candidate loss, the accept bit and the
-ledger terms in one read.  ``fused=False`` runs the stepped searches (one
-read per round), as do replacement sampling and ``reuse="pic"`` under
-either value (ROADMAP A18b).  The two give identical reports.
+device-resident searches (``adaptive.py``) in every sampling and cache
+mode: a BUILD pick stays a device index that updates the medoid mask and
+``d_near`` on the device, so BUILD reads its searches' flags once every
+``adaptive.ROUNDS_PER_READ`` rounds and its picks and ledger once at its
+end; a SWAP iteration reads its search's flags the same way, then the
+pick, the candidate loss, the accept bit and the ledger terms in one
+read.  Replacement sampling decides its exact fallback on the device.
+Under ``reuse="pic"`` the ring's window moves a search at a time
+(``pic_cache.search_read_or_write`` / ``search_advance``): a round past
+its search's stop passes its run flag to the pairwise launch that would
+write its slot, and the host learns each search's round count with the
+flag's reads (a BUILD search that ran to its budget while the window
+could still grow is read once more), with BUILD's end read, or with the
+SWAP iteration's read.  ``fused=False`` runs the stepped
+searches (one read per round), and so, by one rule, does a replacement
+fit whose draws come from ``rng.from_generator``: it draws in
+consumption order, so a round enqueued past a search's stop would shift
+every later search's draws.  The two give identical reports.
 
 ``fit_batch`` fits many independent datasets in one call
 (``core/batch.py``): under ``reuse="none"`` every lane advances one
@@ -92,8 +101,8 @@ from .distances import check_data, resolve_metric
 from .engine import (FitContext, exact_build_means, exact_swap_means,
                      get_stats_backend, host_read, medoid_cache,
                      resolve_stats_backend, stream_columns, total_loss)
-from .pic_cache import (cache_read_or_write, carry_valid, fresh_positions,
-                        make_cache, resolve_cache_rounds)
+from .pic_cache import (carry_valid, make_cache, resolve_cache_rounds,
+                        search_advance, search_read_or_write)
 from .report import FitReport
 from . import rng as _rng
 
@@ -231,21 +240,20 @@ class BanditPAM:
                               dwarm=dwarm, free_rounds=c // B)
         return FitContext(mode="none", backend=be_name)
 
-    def _cached_block(self, be, data, ref_idx, rnd: int, ctx: FitContext):
+    def _cached_block(self, be, data, ref_idx, rnd: int, ctx: FitContext,
+                      run=None):
         """Round ``rnd``'s ``[n, B]`` distance block from the context's
-        cache (PIC: from the ring, or fresh and written through), or
-        None for a fresh fused round (warm mode past the warm block)."""
+        cache (PIC: from the ring, or fresh, a new round written straight
+        into its slot under the round's flag ``run``), or None for a fresh
+        fused round (warm mode past the warm block)."""
         B = self.batch_size
         if ctx.mode == "warm":
             if rnd >= ctx.free_rounds:
                 return None
             return ctx.dwarm[:, rnd * B:(rnd + 1) * B]
-        n = data.shape[0]
-        dxy, _ = cache_read_or_write(be, data, ref_idx, metric=self.metric,
-                                     batch_size=B, rnd=rnd,
-                                     b_eff=min(B, n - rnd * B),
-                                     cache=ctx.cache)
-        return dxy
+        return search_read_or_write(be, data, ref_idx, metric=self.metric,
+                                    batch_size=B, rnd=rnd, hw0=ctx.cache.hw,
+                                    cache=ctx.cache, run=run)
 
     def _search_kw(self, layouts, phase: str, s: int, n: int, dev,
                    ctx: FitContext) -> dict:
@@ -266,9 +274,8 @@ class BanditPAM:
             kw["layout"] = cyclic_layout(layouts.perm_on(phase, s, n, dev),
                                          n, B)
         else:
-            draw = getattr(layouts, f"{phase}_draw")
-            kw["draw"] = lambda rnd: _rng.as_device_index(
-                draw(s, rnd, n, B), dev)
+            kw["draw"] = lambda rnd: layouts.draw_on(phase, s, rnd, n, B,
+                                                     dev)
         return kw
 
     # -- BUILD ----------------------------------------------------------
@@ -287,36 +294,46 @@ class BanditPAM:
         dnear = torch.full((n,), float("inf"), dtype=torch.float32,
                            device=dev)
         med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-        found, fresh = [], []
+        found, later = [], []   # later: searches charged at BUILD's end
+        fresh0 = ctx.cache.fresh_pos if pic else 0
         for i in range(self.k):
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
                 ctx.count_round("build")
                 dxy = (None if aux is None
-                       else self._cached_block(be, data, ref_idx, rnd, aux))
+                       else self._cached_block(be, data, ref_idx, rnd, aux,
+                                               run))
                 dnear_b = dnear.index_select(0, ref_idx)
                 if dxy is None:
                     return be.build_stats(data, ref_idx, dnear_b, w, lead,
                                           metric=self.metric, run=run)
                 return be.build_stats_from_d(dxy, dnear_b, w, lead)
 
-            def exact_fn():
-                return exact_build_means(be, data, dnear, metric=self.metric)
+            def exact_fn(run=None):
+                return exact_build_means(be, data, dnear, metric=self.metric,
+                                         run=run)
 
-            fresh0 = ctx.cache.fresh_pos if pic else 0
+            kw = self._search_kw(layouts, "build", i, n, dev, ctx)
+            # A search moves the ring's window only while hw is short of
+            # the budget's last round; then the next search needs its
+            # round count at once.  Past that the window stays put, and
+            # the search's fresh rounds are charged with BUILD's end read.
+            grows = pic and ctx.cache.hw < len(kw["layout"].sizes)
             sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=n, n_ref=n, batch_size=self.batch_size,
                 log_term=log_term, active_init=torch.logical_not(med_mask),
-                resident=resident, report=res, phase="build",
-                **self._search_kw(layouts, "build", i, n, dev, ctx))
+                resident=resident, rounds_to_host=grows, report=res,
+                phase="build", **kw)
+            if grows:
+                search_advance(ctx.cache, ctx.cache.hw, 0, sr.rounds_h,
+                               kw["layout"].sizes, self.batch_size)
+            elif pic:
+                later.append(i)
             best = sr.best.reshape(1)
             med_mask.index_fill_(0, best, True)
             dnear = torch.minimum(dnear, be.pairwise(
                 data.index_select(0, best), data, metric=self.metric)[0])
             found.append(sr)
-            if pic:
-                # n per fresh column position, on host ints.
-                fresh.append(fresh_positions(fresh0, ctx.cache))
         k = self.k
         vals = host_read([s.best for s in found] + [s.rounds for s in found]
                          + [s.n_evals_cached if pic else s.n_evals
@@ -324,7 +341,12 @@ class BanditPAM:
         medoids = vals[:k]
         res.build_rounds.extend(vals[k:2 * k])
         if pic:
-            res.evals_by_phase["build"] = n * sum(fresh) + n * k
+            for i in later:
+                search_advance(ctx.cache, ctx.cache.hw, 0, vals[k + i],
+                               kw["layout"].sizes, self.batch_size)
+            # n per fresh column position.
+            res.evals_by_phase["build"] = (n * (ctx.cache.fresh_pos - fresh0)
+                                           + n * k)
             res.evals_by_phase["build_cached"] = sum(vals[2 * k:])
         else:
             res.evals_by_phase["build"] = sum(vals[2 * k:]) + n * k
@@ -379,28 +401,29 @@ class BanditPAM:
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
                 ctx.count_round("swap")
                 dxy = (None if aux is None
-                       else self._cached_block(be, data, ref_idx, rnd, aux))
+                       else self._cached_block(be, data, ref_idx, rnd, aux,
+                                               run))
                 d1_b, d2_b, a_b = (v.index_select(0, ref_idx)
                                    for v in (d1, d2, assign))
                 if dxy is None:
                     return be.swap_stats(data, ref_idx, d1_b, d2_b, a_b, w,
                                          k, lead, metric=self.metric,
                                          run=run)
-                return be.swap_stats_from_d(dxy, d1_b, d2_b, a_b, w, k, lead)
+                return be.swap_stats_from_d(dxy, d1_b, d2_b, a_b, w, k, lead,
+                                            run=run)
 
-            def exact_fn():
+            def exact_fn(run=None):
                 return exact_swap_means(be, data, d1, d2, assign, k,
-                                        metric=self.metric)
+                                        metric=self.metric, run=run)
 
-            fresh0 = ctx.cache.fresh_pos if pic else 0
+            kw = self._search_kw(layouts, "swap", t, n, dev, ctx)
             sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn,
                 n_arms=k * n, n_ref=n, batch_size=B,
                 log_term=log_term,
                 active_init=torch.logical_not(med_mask).repeat(k),
                 count_fn=count_fn, stop_when_positive=self.swap_early_stop,
-                resident=resident, report=res, phase="swap",
-                **seed, **self._search_kw(layouts, "swap", t, n, dev, ctx))
+                resident=resident, report=res, phase="swap", **seed, **kw)
             cand = med_t.index_copy(0, (sr.best // n).reshape(1),
                                     (sr.best % n).reshape(1))
             new_loss = total_loss(data, cand, metric=self.metric,
@@ -408,17 +431,22 @@ class BanditPAM:
             # The JAX package's accept rule, float32 on the device.
             accept = new_loss < prev_loss - 1e-7 * torch.clamp_min(
                 torch.abs(prev_loss), 1.0)
-            # The iteration's one read.
+            # The iteration's one read, with the fallback flag where the
+            # resident loop decided it on the device.
+            used = sr.used_exact
             (best_h, new_loss_h, accept_h, n_evals_h, n_cached_h,
-             n_changed_h, rounds_h) = host_read(
+             n_changed_h, rounds_h, *used_h) = host_read(
                  [sr.best, new_loss, accept, sr.n_evals, sr.n_evals_cached,
-                  n_changed, sr.rounds], res, "swap")
-            res.swap_exact_fallbacks += int(sr.used_exact)
+                  n_changed, sr.rounds]
+                 + ([used] if torch.is_tensor(used) else []), res, "swap")
+            res.swap_exact_fallbacks += int(used_h[0] if used_h else used)
             if pic:
                 # Fresh: n per fresh column position; cached: the rounds
                 # served from the ring plus n per repaired point.
-                swap_evals += 2 * n * k + n * fresh_positions(fresh0,
-                                                              ctx.cache)
+                fresh0 = ctx.cache.fresh_pos
+                search_advance(ctx.cache, ctx.cache.hw, seed.get(
+                    "init_rounds", 0), rounds_h, kw["layout"].sizes, B)
+                swap_evals += 2 * n * k + n * (ctx.cache.fresh_pos - fresh0)
                 swap_cached += n_cached_h + n * n_changed_h
                 carry = (sr.sums, sr.sqsums, rounds_h, d1, d2, assign)
             else:
@@ -489,10 +517,13 @@ class BanditPAM:
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
-        # The device-resident searches (ROADMAP A18) run under
-        # permutation sampling outside the PIC ring; the rest step.
-        resident = (self.fused and self.sampling == "permutation"
-                    and ctx.mode != "pic")
+        # The device-resident searches run every mode but one: replacement
+        # draws taken from one generator in consumption order, where a
+        # round enqueued past a search's stop would use up the draws of
+        # the searches after it.
+        resident = self.fused and not (
+            self.sampling == "replacement"
+            and isinstance(layouts, _rng.GeneratorLayouts))
         if ws is None:
             medoids, med_t, med_mask = self._build(data, ctx, layouts, res,
                                                    resident)

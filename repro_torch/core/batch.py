@@ -32,11 +32,11 @@ kernels give each lane the single launch's bits; the plain backend loops
 over the lanes), so every fit equals ``BanditPAM(seed=seeds[i]).fit``
 bit for bit: medoids, loss, swap history, build rounds and ledger.
 
-``reuse="pic"`` (``banditpam_pp``): the port's PIC fits keep their ring
-state on the host (ROADMAP A18b), so its lanes run one after another
-through the single-fit PIC driver, every lane with the batch's ring
-width (``pic_cache.resolve_batch_cache_rounds``, the JAX package's
-rule).  The lockstep PIC batch is ROADMAP A10b.
+``reuse="pic"`` (``banditpam_pp``): the lanes run one after another
+through the single-fit PIC driver (the device-resident one under
+``fused=True``, its ring's state on the device), every lane with the
+batch's ring width (``pic_cache.resolve_batch_cache_rounds``, the JAX
+package's rule).  The lockstep PIC batch is ROADMAP A10b.
 """
 
 from __future__ import annotations

@@ -45,8 +45,8 @@ order, so one flat group covers both mesh shapes.  Every rank calls
   carried per-arm moments are repaired from each rank's ring, with one
   more all-reduce (the JAX ``_carry_smap``).
 * **The loops.** Both modes run the stepped search (one host read a
-  round): replacement sampling and the PIC ring are the single fit's
-  stepped modes too (ROADMAP A18b).  The leader baseline is always on.
+  round, the rank's ring state in host ints); its device-resident loop
+  is ROADMAP A23.  The leader baseline is always on.
   BUILD updates ``d_near`` with one ``pairwise`` row a pick; SWAP
   refreshes the medoid cache and scores the candidate with ``top2``
   (``engine.medoid_cache`` / ``total_loss``); the exact fallback walks

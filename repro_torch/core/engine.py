@@ -19,17 +19,17 @@ kernel metrics and ``"torch"`` on the CPU.  The registry stays open
 Backend contract (every method takes and returns tensors on the data's
 device)::
 
-    pairwise(x, y, *, metric)                               -> [m, r]
+    pairwise(x, y, *, metric, out=None, run=None)           -> [m, r]
     build_stats(data, ref_idx, dnear_b, w, lead, *, metric, run=None)
                                                             -> 3 × [n]
     build_stats_from_d(dxy, dnear_b, w, lead)               -> 3 × [n]
     swap_stats(data, ref_idx, d1_b, d2_b, assign_b, w, k, lead, *, metric,
                run=None)                                    -> 3 × [k·n]
-    swap_stats_from_d(dxy, d1_b, d2_b, assign_b, w, k, lead)
+    swap_stats_from_d(dxy, d1_b, d2_b, assign_b, w, k, lead, run=None)
                                                             -> 3 × [k·n]
-    stream_build_sums(data, dnear, *, metric)               -> [n]
-    stream_swap_sums(data, d1, d2, assign, k, *, metric, rows=None)
-                                                            -> [k·m]
+    stream_build_sums(data, dnear, *, metric, run=None)     -> [n]
+    stream_swap_sums(data, d1, d2, assign, k, *, metric, rows=None,
+                     run=None)                              -> [k·m]
     top2(x, med_pts, *, metric)                    -> (d1, d2, assign)
 
 The round statistics are (Σg, Σg², Σg·g_lead) over the batch, where
@@ -37,8 +37,11 @@ The round statistics are (Σg, Σg², Σg·g_lead) over the batch, where
 is zeros and costs nothing) as a 0-d int64 device index, read without
 a sync.  ``run`` is the
 device-resident search's ``[1]`` int32 flag, 0 for a round enqueued after
-the stop: the kernels return at once, the plain math runs all the same,
-and the search discards the round's result either way.  Arm
+the stop (for the streaming sums: for a search that needs no exact
+fallback): the kernels return at once, the plain math runs all the same,
+and the search discards the result either way.  ``pairwise`` writes into
+``out`` where one is given (a slot of the PIC ring, any row stride), and
+there a flag of 0 leaves ``out`` as it was on both backends.  Arm
 ``(medoid c, candidate x)`` of the SWAP statistics sits at flat index
 ``c·n + x``, the JAX package's order, so a SWAP leader ``lead`` is
 medoid ``lead // n`` and candidate ``lead % n``.  The streaming sums are
@@ -84,6 +87,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.pairwise import pairwise_plain
 from .distances import pairwise
 from .pic_cache import PicCache
 
@@ -199,24 +203,38 @@ def _stream_swap_stats(x, y, d1, d2, assign, w, k: int, lead_g,
     return _stream_walk(x, y, w, tile_fn, lambda m: (k, m))
 
 
-def exact_build_means(be, data, dnear, *, metric: str) -> torch.Tensor:
+def _skipped_on_host(run: Optional[torch.Tensor]) -> bool:
+    """A run flag of 0 on the CPU, where the host reads it without waiting
+    for a device: the plain pass it guards is skipped there.  A flag on
+    a device is never read; its kernels return at once instead."""
+    return run is not None and run.device.type == "cpu" and not bool(run)
+
+
+def exact_build_means(be, data, dnear, *, metric: str,
+                      run: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact BUILD objective over the full reference set (Algorithm 1
     lines 13–15, and PAM's BUILD step): per-arm mean g, [n].  One
     streaming pass through the backend; the division is tensor by
-    tensor."""
+    tensor.  ``run`` is the device-resident search's fallback flag: where
+    it reads 0 the result is for the caller to discard."""
     n = data.shape[0]
-    return be.stream_build_sums(data, dnear, metric=metric) / torch.full(
+    if _skipped_on_host(run):
+        return torch.zeros((n,), dtype=torch.float32)
+    return be.stream_build_sums(data, dnear, metric=metric,
+                                run=run) / torch.full(
         (), float(n), dtype=torch.float32, device=data.device)
 
 
-def exact_swap_means(be, data, d1, d2, assign, k: int, *, metric: str
-                     ) -> torch.Tensor:
+def exact_swap_means(be, data, d1, d2, assign, k: int, *, metric: str,
+                     run: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact SWAP objective over the flattened (medoid, candidate) arm
-    set: per-arm mean g, [k·n]; the same streaming form as
+    set: per-arm mean g, [k·n]; the same streaming form and ``run`` as
     :func:`exact_build_means`."""
     n = data.shape[0]
-    return be.stream_swap_sums(data, d1, d2, assign, k,
-                               metric=metric) / torch.full(
+    if _skipped_on_host(run):
+        return torch.zeros((k * n,), dtype=torch.float32)
+    return be.stream_swap_sums(data, d1, d2, assign, k, metric=metric,
+                               run=run) / torch.full(
         (), float(n), dtype=torch.float32, device=data.device)
 
 
@@ -443,8 +461,8 @@ class TorchStatsBackend(_LaneLoop):
 
     name = "torch"
 
-    def pairwise(self, x, y, *, metric):
-        return pairwise(x, y, metric=metric)
+    def pairwise(self, x, y, *, metric, out=None, run=None):
+        return pairwise_plain(x, y, metric, out, run)
 
     def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
                     run=None):
@@ -469,7 +487,8 @@ class TorchStatsBackend(_LaneLoop):
             pairwise(data, data.index_select(0, ref_idx), metric=metric),
             d1_b, d2_b, assign_b, w, k, lead)
 
-    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead):
+    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead,
+                          run=None):
         lead_g = None
         if lead is not None:
             n = dxy.shape[0]
@@ -478,11 +497,11 @@ class TorchStatsBackend(_LaneLoop):
         s, q, c = _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
-    def stream_build_sums(self, data, dnear, *, metric):
+    def stream_build_sums(self, data, dnear, *, metric, run=None):
         return _stream_build_stats(data, data, dnear, None, None, metric)[0]
 
     def stream_swap_sums(self, data, d1, d2, assign, k, *, metric,
-                         rows=None):
+                         rows=None, run=None):
         x = data if rows is None else data.index_select(0, rows)
         return _stream_swap_stats(x, data, d1, d2, assign, None, k, None,
                                   metric)[0].reshape(-1)
@@ -516,8 +535,8 @@ class CudaStatsBackend:
         from ..kernels import ops
         return ops
 
-    def pairwise(self, x, y, *, metric):
-        return self._ops(x).pairwise_distance(x, y, metric)
+    def pairwise(self, x, y, *, metric, out=None, run=None):
+        return self._ops(x).pairwise_distance(x, y, metric, out=out, run=run)
 
     def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
                     run=None):
@@ -550,7 +569,8 @@ class CudaStatsBackend:
         return TorchStatsBackend.build_stats_from_d(self, dxy, dnear_b, w,
                                                     lead)
 
-    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead):
+    def swap_stats_from_d(self, dxy, d1_b, d2_b, assign_b, w, k, lead,
+                          run=None):
         ops = self._ops(dxy)
         lead_g = None
         if lead is not None:
@@ -559,18 +579,20 @@ class CudaStatsBackend:
             dl = dxy.index_select(0, (lead % n).view(1))[0]
             lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, lead // n)
         s, q, c = ops.swap_g_stats_cached(dxy, d1_b, d2_b, assign_b, w, k,
-                                          lead_g)
+                                          lead_g, run=run)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
-    def stream_build_sums(self, data, dnear, *, metric):
+    def stream_build_sums(self, data, dnear, *, metric, run=None):
         return self._ops(data).stream_build_g_stats(data, data, dnear,
-                                                    metric=metric)[0]
+                                                    metric=metric,
+                                                    run=run)[0]
 
     def stream_swap_sums(self, data, d1, d2, assign, k, *, metric,
-                         rows=None):
+                         rows=None, run=None):
         x = data if rows is None else data.index_select(0, rows)
         return self._ops(data).stream_swap_g_stats(
-            x, data, d1, d2, assign, k=k, metric=metric)[0].reshape(-1)
+            x, data, d1, d2, assign, k=k, metric=metric,
+            run=run)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
         return self._ops(x).stream_top2(x, med_pts, metric=metric)

@@ -25,14 +25,22 @@ The carried-moment repair reads the permutation prefix of the ring; that
 prefix is resident, and slots are the identity map of rounds, exactly
 while ``hw ≤ W`` (:func:`carry_valid`).
 
-The port's fit loop runs on the host, so ``hw`` and ``fresh_pos`` are
-Python ints and a fresh block is written through in place
-(``cols[:, s:s+B].copy_(dxy)``), the counterpart of the JAX package's
-buffer donation.  The sharded fit (``core.distributed``) gives each rank
-the ring of the columns its own rows produce, ``[n, W·b_loc]``, read and
-written through :func:`shard_slot_read_write`.  A batch of fits
-(``fit_batch``) gives every lane one ring width,
-:func:`resolve_batch_cache_rounds`.
+``hw`` and ``fresh_pos`` are Python ints.  The single fit moves them a
+search at a time: a search's rounds run in order from its first, so
+within it the window is the one its first round saw, and each round's
+access follows from the search's starting ``hw`` alone
+(:func:`search_read_or_write`): served from its slot, a NEW round
+(``r ≥ hw``) computed by the backend's pairwise path straight into its
+slot, a recycled one into a block of its own.  A round enqueued after its
+search stopped (the device-resident loop's masked round) passes a run
+flag of 0, so its pairwise launch writes nothing, and the host charges
+only the rounds the search ran once it knows their count
+(:func:`search_advance`).  The sharded fit (``core.distributed``) gives
+each rank the ring of the columns its own rows produce, ``[n, W·b_loc]``,
+read and written a round at a time through :func:`shard_slot_read_write`
+(a fresh block copied in place, the counterpart of the JAX package's
+buffer donation).  A batch of fits (``fit_batch``) gives every lane one
+ring width, :func:`resolve_batch_cache_rounds`.
 """
 
 from __future__ import annotations
@@ -44,8 +52,8 @@ import torch
 
 __all__ = ["PicCache", "DEFAULT_CACHE_ROUNDS", "resolve_cache_rounds",
            "resolve_batch_cache_rounds", "make_cache",
-           "shard_slot_read_write", "cache_read_or_write",
-           "cache_advance", "carry_valid", "fresh_positions"]
+           "shard_slot_read_write", "cache_advance", "carry_valid", "fresh_positions",
+           "search_read_or_write", "search_advance"]
 
 # Default ring width in round-blocks: fits up to n = 3,200 at B = 100
 # never recycle, and the ring stays O(n·W·B) at large n.
@@ -137,17 +145,42 @@ def cache_advance(cache: PicCache, rnd: int, b_eff: int,
     return cache
 
 
-def cache_read_or_write(be, data: torch.Tensor, ref_idx: torch.Tensor, *,
-                        metric: str, batch_size: int, rnd: int, b_eff: int,
-                        cache: PicCache):
-    """One PIC access in a bandit round: round ``rnd``'s ``[n, B]`` block,
-    from the ring or fresh through the backend's pairwise path (``b_eff``
-    effective positions).  Returns ``(dxy, cache)``; the cache is
-    updated in place."""
-    dxy = shard_slot_read_write(
-        cache.cols, rnd, cache.hw, batch_size,
-        lambda: be.pairwise(data, data[ref_idx], metric=metric))
-    return dxy, cache_advance(cache, rnd, b_eff, cache.rounds_cap(batch_size))
+def search_read_or_write(be, data: torch.Tensor, ref_idx: torch.Tensor, *,
+                         metric: str, batch_size: int, rnd: int, hw0: int,
+                         cache: PicCache,
+                         run: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Round ``rnd``'s ``[n, B]`` block in a search that started at
+    high-water mark ``hw0``: from its slot when in the window
+    ``[max(hw0 − W, 0), hw0)``; a NEW round (``rnd ≥ hw0``) computed by
+    the backend's pairwise path straight into its slot ``cols[:, s:s+B]``;
+    a recycled one (``rnd < hw0 − W``) into a block of its own, not
+    written through (that would evict a newer round).  ``run`` is the
+    round's flag (None: it runs): at 0 the slot keeps its bytes.  The
+    state moves with :func:`search_advance` at the search's end."""
+    W = cache.rounds_cap(batch_size)
+    s = (rnd % W) * batch_size
+    slot = cache.cols[:, s:s + batch_size]
+    if _in_window(rnd, hw0, W):
+        return slot
+    y = data.index_select(0, ref_idx)
+    if rnd >= hw0:
+        return be.pairwise(data, y, metric=metric, out=slot, run=run)
+    return be.pairwise(data, y, metric=metric, run=run)
+
+
+def search_advance(cache: PicCache, hw0: int, r0: int, r_end: int, sizes,
+                   block: int) -> PicCache:
+    """After a search from high-water mark ``hw0`` ran rounds
+    ``[r0, r_end)``: charge the effective positions ``sizes[r]`` of each
+    round outside the window (first computations and recycled rounds
+    alike) and move ``hw`` past the last one.  The same state as
+    :func:`cache_advance` after each of those rounds in turn."""
+    W = cache.rounds_cap(block)
+    cache.fresh_pos += sum(sizes[r] for r in range(r0, r_end)
+                           if not _in_window(r, hw0, W))
+    if r_end > r0:
+        cache.hw = max(hw0, r_end)
+    return cache
 
 
 def carry_valid(cache: PicCache, block: int) -> bool:

@@ -128,6 +128,12 @@ class SeedLayouts:
     def swap_draw(self, t: int, rnd: int, n: int, b: int) -> torch.Tensor:
         return self._draw("swap", t, rnd, n, b)
 
+    def draw_on(self, phase: str, i: int, rnd: int, n: int, b: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_draw(i, rnd, n, b)`` on ``device``: a row of the
+        search's batches, already there, so no copy and no read."""
+        return self._draw(phase, i, rnd, n, b).to(device)
+
 
 class GeneratorLayouts:
     """Draws from one seeded ``torch.Generator``.  Draws are sequential,
@@ -190,6 +196,11 @@ class GeneratorLayouts:
     def swap_draw(self, t: int, rnd: int, n: int, b: int) -> torch.Tensor:
         return self._draw("swap", t, rnd, n, b)
 
+    def draw_on(self, phase: str, i: int, rnd: int, n: int, b: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_draw(i, rnd, n, b)`` on ``device`` (drawn there)."""
+        return self._draw(phase, i, rnd, n, b).to(device)
+
 
 class ArrayLayouts:
     """Draws given up front: permutations ``build[k, n]`` and
@@ -239,6 +250,18 @@ class ArrayLayouts:
 
     def swap_draw(self, t: int, rnd: int, n: int, b: int) -> np.ndarray:
         return _draw_row(self.swap_draws, t, rnd, n, b, "swap")
+
+    def draw_on(self, phase: str, i: int, rnd: int, n: int, b: int,
+                device: torch.device) -> torch.Tensor:
+        """``{phase}_draw(i, rnd, n, b)`` as a row of the phase's draws on
+        ``device``, uploaded whole at the phase's first request (as
+        :meth:`perm_on`)."""
+        getattr(self, f"{phase}_draw")(i, rnd, n, b)          # validates
+        key = (f"{phase}_draws", str(device))
+        if key not in self._uploaded:
+            self._uploaded[key] = as_device_index(
+                getattr(self, f"{phase}_draws"), device)
+        return self._uploaded[key][i, rnd]
 
 
 def _check(p, what: str, ndim: int) -> Optional[np.ndarray]:

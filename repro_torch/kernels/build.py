@@ -37,21 +37,22 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 
 # C signatures: pointers and the stream are c_void_p, sizes c_int64/c_int.
-# rt_build_g and rt_swap_g take a run flag (``const int*``, NULL: run)
-# before the stream.
+# Every entry but rt_top2 takes a run flag (``const int*``, NULL: run)
+# before the stream; rt_pairwise also takes its output's row stride after
+# the column count.
 SIGNATURES = {
-    "rt_pairwise": [_P, _P, _P, _I64, _I64, _I, _I, _P],
+    "rt_pairwise": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _P],
     "rt_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P,
                    _P],
     "rt_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                   _I, _P, _P],
     "rt_swap_g_from_cache": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                             _I64, _I, _P],
+                             _I64, _I, _P, _P],
     "rt_top2": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "rt_stream_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
-                          _P],
+                          _P, _P],
     "rt_stream_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                         _I, _I, _I, _P],
+                         _I, _I, _I, _P, _P],
     # The lane axis (fit_batch): (lanes, n_pad) after the outputs, the
     # per-lane row counts (``const int*``) and, for the round kernels, the
     # per-lane run flags before the stream.

@@ -21,6 +21,15 @@
 // consecutive threads store consecutive floats of a row of out; ragged
 // rows and columns are masked.  There is no feature-axis split: the
 // mainloop loops over any d.
+//
+// Output row stride and run flag.  out's rows are ldo floats apart (ldo
+// >= r), so a PIC round's fresh block is written straight into its slot
+// of the column ring (cols[:, s:s+B], ldo = W*B).  `run` (NULL: run) is
+// the device-resident search's flag: where it reads 0 every block returns
+// before its first load and out is left as it was, which is what keeps a
+// masked round, or a round that must not be written through, from
+// touching the ring.  Neither changes the arithmetic, tile or order, so
+// ldo = r and a flag of 1 give the bits of the plain launch.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -31,8 +40,9 @@ namespace {
 template <int M, class C, bool SWAP_AB>
 __global__ void __launch_bounds__(C::NT, C::MINB)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                float* __restrict__ out, int64_t m, int64_t r, int d,
-                bool vec) {
+                float* __restrict__ out, int64_t m, int64_t r, int64_t ldo,
+                int d, bool vec, const int* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;  // masked: out is untouched
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
@@ -60,13 +70,14 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int j = SWAP_AB ? e / C::BM : e % C::BN;
     const int64_t ga = a0 + i, gb = b0 + j;
     if (ga >= ma || gb >= mb) continue;
-    out[SWAP_AB ? gb * r + ga : ga * r + gb] = dt[i * LDT + j];
+    out[SWAP_AB ? gb * ldo + ga : ga * ldo + gb] = dt[i * LDT + j];
   }
 }
 
 template <int M, class C, bool SWAP_AB>
 cudaError_t launch(const float* x, const float* y, float* out, int64_t m,
-                   int64_t r, int d, bool vec, cudaStream_t st) {
+                   int64_t r, int64_t ldo, int d, bool vec, const int* run,
+                   cudaStream_t st) {
   const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
   const dim3 grid((unsigned)((ma + C::BM - 1) / C::BM),
                   (unsigned)((mb + C::BN - 1) / C::BN));
@@ -74,15 +85,17 @@ cudaError_t launch(const float* x, const float* y, float* out, int64_t m,
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, C::NT, C::SMEM, st>>>(x, y, out, m, r, d, vec);
+  kernel<<<grid, C::NT, C::SMEM, st>>>(x, y, out, m, r, ldo, d, vec,
+                                       run);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int rt_pairwise(const float* x, const float* y, float* out,
-                           int64_t m, int64_t r, int d, int metric,
-                           void* stream) {
+                           int64_t m, int64_t r, int64_t ldo, int d,
+                           int metric, const int* run, void* stream) {
+  if (ldo < r) return (int)cudaErrorInvalidValue;
   if (m <= 0 || r <= 0) return cudaSuccess;
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)y % 16 == 0;
@@ -90,10 +103,13 @@ extern "C" int rt_pairwise(const float* x, const float* y, float* out,
   using Narrow = rt::NarrowTile;
   RT_METRIC_SWITCH(metric, M, {
     if (r <= Narrow::BN)
-      return (int)launch<M, Narrow, false>(x, y, out, m, r, d, vec, st);
+      return (int)launch<M, Narrow, false>(x, y, out, m, r, ldo, d, vec, run,
+                                              st);
     if (m <= Narrow::BN)
-      return (int)launch<M, Narrow, true>(x, y, out, m, r, d, vec, st);
-    return (int)launch<M, rt::WideTile, false>(x, y, out, m, r, d, vec, st);
+      return (int)launch<M, Narrow, true>(x, y, out, m, r, ldo, d, vec, run,
+                                             st);
+    return (int)launch<M, rt::WideTile, false>(x, y, out, m, r, ldo, d, vec,
+                                                   run, st);
   });
   return cudaSuccess;
 }

@@ -36,6 +36,12 @@
 // 2 + 3 at its end; the tile sum goes to running totals that start at 0,
 // in walk order, kept in shared memory beside the stages.  At r <= 512
 // that is build_g's fold, so the two kernels' sums are equal bit for bit.
+//
+// The run flag.  `run` (NULL: run) is the device-resident search's exact
+// fallback flag (more than one survivor at the budget's end): where it
+// reads 0 every block returns before its first load, so a search that
+// resolves without the pass costs a launch, and the outputs are unwritten
+// (the caller discards them).  A flag of 1 gives the bits of NULL.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
@@ -65,7 +71,8 @@ stream_build_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ w, const float* __restrict__ lg,
                       float* __restrict__ sums, float* __restrict__ sq,
                       float* __restrict__ cross, int64_t m, int64_t r, int d,
-                      bool vec) {
+                      bool vec, const int* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;  // no fallback: nothing to do
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* dt = smem;  // [BM][DT_LD] over the stages, after each mainloop
@@ -120,7 +127,7 @@ extern "C" int rt_stream_build_g(const float* x, const float* y,
                                  const float* dnear, const float* w,
                                  const float* lg, float* sums, float* sq,
                                  float* cross, int64_t m, int64_t r, int d,
-                                 int metric, void* stream) {
+                                 int metric, const int* run, void* stream) {
   if (r < 1) return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
   const unsigned grid = (unsigned)((m + W::BM - 1) / W::BM);
@@ -133,7 +140,7 @@ extern "C" int rt_stream_build_g(const float* x, const float* y,
         (int)BUILD_SMEM);
     if (e != cudaSuccess) return (int)e;
     stream_build_g_kernel<M><<<grid, W::NT, BUILD_SMEM, st>>>(
-        x, y, dnear, w, lg, sums, sq, cross, m, r, d, vec);
+        x, y, dnear, w, lg, sums, sq, cross, m, r, d, vec, run);
   });
   return (int)cudaGetLastError();
 }

@@ -65,7 +65,7 @@
 // before its first load, so a round enqueued after the search stopped
 // costs a launch and leaves the outputs unwritten (the caller discards
 // them).  Nothing else changes, so a flag of 1 gives the bits of NULL.
-// rt_stream_swap_g passes NULL.
+// rt_stream_swap_g takes it too: there it is the exact fallback's flag.
 //
 // The lane axis (rt_swap_g_lanes, fit_batch).  L independent fits padded
 // to [L, n_pad, d] run as one launch: blockIdx.y is the lane, each lane
@@ -356,14 +356,14 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
                                 const int* assign, const float* w,
                                 const float* lg, float* sums, float* sq,
                                 float* cross, int64_t m, int64_t r, int d,
-                                int k, int metric, void* stream) {
+                                int k, int metric, const int* run,
+                                void* stream) {
   if (k < 1 || r < 1) return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   RT_METRIC_SWITCH(metric, M, {
     return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, r, d, k, REF_TILE, nullptr, nullptr, 1,
-                                 st);
+                                 m, r, d, k, REF_TILE, run, nullptr, 1, st);
   });
   return cudaSuccess;
 }

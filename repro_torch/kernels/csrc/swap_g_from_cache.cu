@@ -34,6 +34,11 @@
 // from the first walk), so every bin gets the same adds in the same
 // order at every k.  No atomics, no global scratch: 59,904 B of shared
 // memory at k <= 10, at most 93,696 B.
+//
+// The run flag.  `run` (NULL: run) is the device-resident search's "still
+// running" flag: where it reads 0 every block returns before its first
+// load and the outputs are unwritten (the caller discards them).  Nothing
+// else changes, so a flag of 1 gives the bits of NULL.
 #include <limits.h>
 #include <stdint.h>
 
@@ -132,7 +137,8 @@ swap_g_from_cache_kernel(const float* __restrict__ dxy, int64_t ld,
                          const float* __restrict__ lg,
                          float* __restrict__ sums, float* __restrict__ sq,
                          float* __restrict__ cross, int64_t m, int64_t b,
-                         int k) {
+                         int k, const int* __restrict__ run) {
+  if (run != nullptr && *run == 0) return;  // a masked round
   extern __shared__ float4 smem4[];
   const int kc = k < KC_MAX ? k : KC_MAX;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -197,7 +203,7 @@ extern "C" int rt_swap_g_from_cache(const float* dxy, int64_t ld,
                                     const int* assign, const float* w,
                                     const float* lg, float* sums, float* sq,
                                     float* cross, int64_t m, int64_t b, int k,
-                                    void* stream) {
+                                    const int* run, void* stream) {
   if (k < 1 || b < 1 || ld < b || b > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (m <= 0) return cudaSuccess;
@@ -210,6 +216,6 @@ extern "C" int rt_swap_g_from_cache(const float* dxy, int64_t ld,
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((m + R - 1) / R);
   swap_g_from_cache_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      dxy, ld, d1, d2, assign, w, lg, sums, sq, cross, m, b, k);
+      dxy, ld, d1, d2, assign, w, lg, sums, sq, cross, m, b, k, run);
   return (int)cudaGetLastError();
 }

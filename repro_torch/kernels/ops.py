@@ -127,16 +127,29 @@ def _f32(what: str, *tensors: torch.Tensor) -> None:
 
 
 def pairwise_distance(x: torch.Tensor, y: torch.Tensor,
-                      metric: str = "l2") -> torch.Tensor:
-    """``[m, d] x [r, d] -> [m, r]`` dissimilarities."""
+                      metric: str = "l2", *,
+                      out: Optional[torch.Tensor] = None,
+                      run: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[m, d] x [r, d] -> [m, r]`` dissimilarities, into ``out`` where
+    given (``[m, r]`` float32, adjacent columns, any row stride: a slot of
+    the PIC column ring).  ``run`` ([1] int32, optional): where it reads 0
+    the kernel returns at once and the output is left as it was."""
     what = "pairwise_distance"
     cuda = _on_cuda(what, metric, x, y)
     _f32(what, x, y)
     _check(x.ndim == 2 and y.ndim == 2 and x.shape[1] == y.shape[1], what,
            f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    if out is not None:
+        _check(out.shape == (x.shape[0], y.shape[0])
+               and out.dtype == torch.float32 and out.device == x.device
+               and (out.stride(1) == 1 or out.shape[1] == 1)
+               and out.stride(0) >= out.shape[1], what,
+               f"out must be a [{x.shape[0]}, {y.shape[0]}] float32 tensor "
+               f"on {x.device} with adjacent columns")
+    _run_flag(what, run, x)
     if cuda:
-        return _pairwise.launch(x, y, metric)
-    return _pairwise.pairwise_torch(x, y, metric=metric)
+        return _pairwise.launch(x, y, metric, out, run)
+    return _pairwise.pairwise_plain(x, y, metric, out, run)
 
 
 def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
@@ -194,12 +207,14 @@ def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
 def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,
                         d2_b: torch.Tensor, assign_b: torch.Tensor,
                         w: torch.Tensor, k: int,
-                        lead_g: Optional[torch.Tensor] = None) -> Stats:
+                        lead_g: Optional[torch.Tensor] = None, *,
+                        run: Optional[torch.Tensor] = None) -> Stats:
     """``swap_g_stats`` served from a resident distance block: ``dxy``
     [m, B] is a slice of the PIC column ring (one round, or the whole
     ring in the carried-moment repair), read in place: its columns must
     be adjacent (``stride(1) == 1``), its row stride is free.  Returns
-    (Σg, Σg², Σg·g_lead), each ``[k, m]``; no distance work."""
+    (Σg, Σg², Σg·g_lead), each ``[k, m]``; no distance work.  ``run`` as
+    in :func:`build_g_stats`."""
     what = "swap_g_stats_cached"
     if lead_g is None:
         lead_g = torch.zeros_like(d1_b)
@@ -217,11 +232,12 @@ def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,
     _check(all(t.shape == (b,) for t in (d1_b, d2_b, assign_b, w, lead_g)),
            what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    _run_flag(what, run, dxy)
     if cuda:
         return _swap_g.launch_cached(dxy, d1_b, d2_b, assign_b, w, int(k),
-                                     lead_g)
+                                     lead_g, run)
     return _swap_g.swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w,
-                                           int(k), lead_g)
+                                           int(k), lead_g, run)
 
 
 def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,
@@ -242,11 +258,13 @@ def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,
 def stream_build_g_stats(x: torch.Tensor, yref: torch.Tensor,
                          dnear: torch.Tensor, w: Optional[torch.Tensor] = None,
                          lead_g: Optional[torch.Tensor] = None,
-                         *, metric: str = "l2") -> Stats:
+                         *, metric: str = "l2",
+                         run: Optional[torch.Tensor] = None) -> Stats:
     """Streaming BUILD statistics (Σg, Σg², Σg·g_lead) per arm, [m] each,
     over the WHOLE reference set ``yref`` [r, d] (r unbounded): one
     launch walks it in 512-column tiles.  ``w`` defaults to ones and
-    ``lead_g`` to zeros."""
+    ``lead_g`` to zeros; ``run`` as in :func:`build_g_stats` (the exact
+    fallback's flag)."""
     what = "stream_build_g_stats"
     if w is None:
         w = torch.ones_like(dnear)
@@ -260,20 +278,24 @@ def stream_build_g_stats(x: torch.Tensor, yref: torch.Tensor,
     _check(dnear.shape == (r,) and w.shape == (r,) and lead_g.shape == (r,),
            what, "dnear, w and lead_g must be [r]")
     _check(r >= 1, what, "the reference set is empty")
+    _run_flag(what, run, x)
     if cuda:
-        return _stream_g.launch_stream_build(x, yref, dnear, w, lead_g, metric)
-    return _stream_g.stream_build_g_torch(x, yref, dnear, w, lead_g, metric)
+        return _stream_g.launch_stream_build(x, yref, dnear, w, lead_g, metric,
+                                             run)
+    return _stream_g.stream_build_g_torch(x, yref, dnear, w, lead_g, metric,
+                                          run)
 
 
 def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
                         d1: torch.Tensor, d2: torch.Tensor,
                         assign: torch.Tensor, w: Optional[torch.Tensor] = None,
                         k: int = 1, lead_g: Optional[torch.Tensor] = None,
-                        *, metric: str = "l2") -> Stats:
+                        *, metric: str = "l2",
+                        run: Optional[torch.Tensor] = None) -> Stats:
     """Streaming SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
     ``[k, m]``, over the WHOLE reference set ``yref`` [r, d]: arm
     (medoid c, candidate x) at ``[c, x]``.  ``w`` defaults to ones and
-    ``lead_g`` to zeros."""
+    ``lead_g`` to zeros; ``run`` as in :func:`stream_build_g_stats`."""
     what = "stream_swap_g_stats"
     if w is None:
         w = torch.ones_like(d1)
@@ -290,11 +312,12 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
            what, "d1, d2, assign, w and lead_g must be [r]")
     _check(r >= 1, what, "the reference set is empty")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    _run_flag(what, run, x)
     if cuda:
         return _stream_g.launch_stream_swap(x, yref, d1, d2, assign, w,
-                                            int(k), lead_g, metric)
+                                            int(k), lead_g, metric, run)
     return _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
-                                         lead_g, metric)
+                                         lead_g, metric, run)
 
 
 def build_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,

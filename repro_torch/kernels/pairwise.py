@@ -14,8 +14,14 @@ stores from a shared-memory tile) is described in the sources.  There is
 no feature-axis split (the TPU kernel's ``DK_MAX``): the mainloop loops
 over any d.
 
+The kernel writes into a given output of any row stride (a PIC round's
+slot of the column ring, ``cols[:, s:s+B]``) and takes a run flag: where
+it reads 0 the output is left as it was.
+
 ``pairwise_torch`` is the plain version: the registry metric of
-``repro_torch.core.distances``.  ``launches`` counts kernel launches.
+``repro_torch.core.distances``; ``pairwise_plain`` gives it the
+kernel's ``out`` / ``run`` contract.  ``launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -29,18 +35,39 @@ METRIC_IDS = {"l2": 0, "l2sq": 1, "cosine": 2, "l1": 3}
 
 launches = 0
 
-__all__ = ["METRIC_IDS", "launch", "launches", "pairwise_torch"]
+__all__ = ["METRIC_IDS", "launch", "launches", "pairwise_plain",
+           "pairwise_torch"]
 
 
-def launch(x: torch.Tensor, y: torch.Tensor, metric: str) -> torch.Tensor:
-    """Run the CUDA kernel on validated CUDA tensors (see ``ops``)."""
+def pairwise_plain(x, y, metric: str, out=None, run=None):
+    """Plain version with the kernel's contract: the block is copied into
+    ``out`` where one is given, which keeps its values where the run flag
+    reads 0; without ``out`` a masked block is the caller's to
+    discard."""
+    dxy = pairwise_torch(x, y, metric=metric)
+    if out is None:
+        return dxy
+    if run is not None:
+        dxy = torch.where(run.bool(), dxy, out)
+    return out.copy_(dxy)
+
+
+def launch(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
+           run=None) -> torch.Tensor:
+    """Run the CUDA kernel on validated CUDA tensors (see ``ops``): into
+    ``out`` (unit column stride, any row stride) or a new ``[m, r]``
+    tensor; a run flag ``run`` ([1] int32) that reads 0 leaves the output
+    unwritten (counted as a launch all the same)."""
     global launches
     m, d = x.shape
     r = y.shape[0]
-    out = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    if out is None:
+        out = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    ldo = out.stride(0) if m > 1 else r
     code = _build.lib().rt_pairwise(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), m, r, d,
-        METRIC_IDS[metric], torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), m, r, ldo, d,
+        METRIC_IDS[metric], None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "pairwise kernel")
     return out

@@ -64,17 +64,19 @@ def top2_torch(x, med, metric: str):
     return _stream_top2(x, med, metric)
 
 
-def stream_build_g_torch(x, yref, dnear, w, lead_g, metric: str):
+def stream_build_g_torch(x, yref, dnear, w, lead_g, metric: str, run=None):
     """Plain version: ``(Σg, Σg², Σg·g_lead)`` over all of ``yref``,
     ``[m]`` each, walked in 512-column tiles (tail padded at weight 0)
-    added in walk order (``engine._stream_build_stats``)."""
+    added in walk order (``engine._stream_build_stats``), whatever the
+    run flag says."""
     return _stream_build_stats(x, yref, dnear, w, lead_g, metric)
 
 
 def stream_swap_g_torch(x, yref, d1, d2, assign, w, k: int, lead_g,
-                        metric: str):
+                        metric: str, run=None):
     """Plain version: ``(Σg, Σg², Σg·g_lead)`` over all of ``yref``,
-    ``[k, m]`` each, the same walk (``engine._stream_swap_stats``)."""
+    ``[k, m]`` each, the same walk (``engine._stream_swap_stats``),
+    whatever the run flag says."""
     return _stream_swap_stats(x, yref, d1, d2, assign, w, k, lead_g, metric)
 
 
@@ -98,8 +100,9 @@ def launch_top2(x, med, metric: str):
     return d1, d2, assign
 
 
-def launch_stream_build(x, yref, dnear, w, lead_g, metric: str):
-    """Run the streaming BUILD kernel on validated CUDA tensors."""
+def launch_stream_build(x, yref, dnear, w, lead_g, metric: str, run=None):
+    """Run the streaming BUILD kernel on validated CUDA tensors; a run
+    flag that reads 0 leaves the outputs unwritten."""
     global stream_build_launches
     m, d = x.shape
     r = yref.shape[0]
@@ -108,15 +111,17 @@ def launch_stream_build(x, yref, dnear, w, lead_g, metric: str):
     code = _build.lib().rt_stream_build_g(
         x.data_ptr(), yref.data_ptr(), dnear.data_ptr(), w.data_ptr(),
         lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
-        m, r, d, METRIC_IDS[metric], _stream(x))
+        m, r, d, METRIC_IDS[metric], None if run is None else run.data_ptr(),
+        _stream(x))
     stream_build_launches += 1
     _build.check(code, "stream_build_g kernel")
     return sums, sq, cross
 
 
 def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
-                       metric: str):
-    """Run the streaming SWAP kernel on validated CUDA tensors."""
+                       metric: str, run=None):
+    """Run the streaming SWAP kernel on validated CUDA tensors; a run flag
+    that reads 0 leaves the outputs unwritten."""
     global stream_swap_launches
     m, d = x.shape
     r = yref.shape[0]
@@ -126,7 +131,7 @@ def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
         x.data_ptr(), yref.data_ptr(), d1.data_ptr(), d2.data_ptr(),
         assign.data_ptr(), w.data_ptr(), lead_g.data_ptr(), sums.data_ptr(),
         sq.data_ptr(), cross.data_ptr(), m, r, d, k, METRIC_IDS[metric],
-        _stream(x))
+        None if run is None else run.data_ptr(), _stream(x))
     stream_swap_launches += 1
     _build.check(code, "stream_swap_g kernel")
     return sums, sq, cross

@@ -61,9 +61,11 @@ def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
                              assign_b, w, k, lead_g)
 
 
-def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
+def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g,
+                            run=None):
     """Plain version of the cached kernel: ``(Σg, Σg², Σg·g_lead)`` of a
-    given ``[m, B]`` distance block, each ``[k, m]``."""
+    given ``[m, B]`` distance block, each ``[k, m]``, computed whatever
+    the run flag says."""
     return _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
 
 
@@ -88,9 +90,10 @@ def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
     return sums, sq, cross
 
 
-def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
+def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, run=None):
     """Run the cached kernel on validated CUDA tensors (see ``ops``):
-    ``dxy`` [m, B] with unit column stride and any row stride."""
+    ``dxy`` [m, B] with unit column stride and any row stride; a run flag
+    that reads 0 leaves the outputs unwritten."""
     global cached_launches
     m, b = dxy.shape
     ld = dxy.stride(0) if m > 1 else b
@@ -100,6 +103,7 @@ def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g):
         dxy.data_ptr(), ld, d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, k,
+        None if run is None else run.data_ptr(),
         torch.cuda.current_stream(dxy.device).cuda_stream)
     cached_launches += 1
     _build.check(code, "swap_g_from_cache kernel")

@@ -681,17 +681,31 @@ def test_round_kernels_run_flag(cuda, metric, kernel, b):
 
 @pytest.mark.parametrize("kw", [{}, {"baseline": "leader"},
                                 {"swap_early_stop": True},
-                                {"cache_cols": 700}])
+                                {"cache_cols": 700},
+                                {"sampling": "replacement",
+                                 "baseline": "leader"},
+                                {"sampling": "replacement",
+                                 "swap_early_stop": True},
+                                {"reuse": "pic"},
+                                {"reuse": "pic", "cache_width": 300},
+                                {"reuse": "pic", "cache_width": 1500,
+                                 "cache_cols": 700}])
 def test_cuda_fused_fit_equals_stepped_fit(cuda, kw):
     """On the card the device-resident driver (masked rounds through the
-    kernels' run flag) and the stepped driver give the same report, loss
-    bits included, and the fused one reads the device far less often."""
+    kernels' run flag; replacement sampling's exact fallback through the
+    streaming kernels' flag; the PIC ring's window moved a search at a
+    time, a new round's block written by pairwise straight into its slot
+    under the round's flag) and the
+    stepped driver give the same report, loss bits included, and the
+    fused one reads the device far less often."""
     n, k = 1500, 4
     X = datasets.mnist_like(n, seed=6)
     p = np.random.default_rng(0)
     perms = (np.stack([p.permutation(n) for _ in range(k)]),
              np.stack([p.permutation(n) for _ in range(4 * k + 10)]),
-             None, None, p.permutation(n))
+             p.integers(0, n, (k, -(-n // B), B)),
+             p.integers(0, n, (4 * k + 10, -(-n // B), B)),
+             p.permutation(n))
     fits = [BanditPAM(k, backend="cuda", device=cuda, fused=f, **kw).fit(
         X, layouts=rng.from_numpy(*perms)) for f in (True, False)]
     a, b_ = fits
@@ -699,3 +713,87 @@ def test_cuda_fused_fit_equals_stepped_fit(cuda, kw):
     assert a.build_rounds == b_.build_rounds
     assert a.swap_history == b_.swap_history and a.loss == b_.loss
     assert a.host_reads_by_phase["build"] < b_.host_reads_by_phase["build"]
+
+
+def _sentinel_unwritten(outs):
+    return all(bool((o.view(torch.int32) == 0x7fbadbad).all()) for o in outs)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kernel", ["pairwise", "swap_g_from_cache",
+                                    "stream_build_g", "stream_swap_g"])
+def test_flagged_kernels_run_flag(cuda, metric, kernel):
+    """The run flag of the four kernels that gained it for the resident
+    loop (a PIC round's pairwise into its ring slot, the cached SWAP
+    round, the two exact fallbacks): at 1 the outputs equal the bits of
+    no flag (NULL), and at 0 every block returns at once and an output
+    filled with a sentinel is left untouched.  pairwise writes into a
+    column slice of a ring (row stride 4·B), the others are called
+    through their C entries with outputs the test owns."""
+    from repro_torch.kernels import build as kbuild
+    n, d, k, r = 1300, 64, 10, 700
+    x = _x(n, d, 31, cuda)
+    g = torch.Generator().manual_seed(7)
+    y = x[torch.randperm(n, generator=g)[:B].to(cuda)].contiguous()
+    flag = {v: torch.tensor([v], dtype=torch.int32, device=cuda)
+            for v in (0, 1)}
+    st = torch.cuda.current_stream(cuda).cuda_stream
+    mid = pairwise.METRIC_IDS[metric]
+    P = lambda t: t.data_ptr()
+
+    def sentinel(*shape):
+        return torch.full(shape, 0x7fbadbad, dtype=torch.int32,
+                          device=cuda).view(torch.float32)
+
+    if kernel == "pairwise":
+        ring = sentinel(n, 4 * B)
+        want = (ops.pairwise_distance(x, y, metric),)
+
+        def call(run):
+            slot = ring[:, B:2 * B]
+            ops.pairwise_distance(x, y, metric, out=slot, run=run)
+            return (slot,)
+        outs = lambda: (ring,)
+    else:
+        med = x[torch.randperm(n, generator=g)[:k].to(cuda)].contiguous()
+        yr = x[:r].contiguous() if kernel.startswith("stream") else y
+        m = yr.shape[0]
+        w = torch.ones(m, device=cuda)
+        w[::9] = 0.0
+        lg = torch.randn(m, generator=g).to(cuda)
+        d1, d2, a = ops.stream_top2(yr, med, metric=metric)
+        dn = d1.clone()
+        dn[::7] = float("inf")
+        shape = (n,) if kernel == "stream_build_g" else (k, n)
+        bufs = [sentinel(*shape) for _ in range(3)]
+        lib = kbuild.lib()
+        dxy = ops.pairwise_distance(x, y, metric)
+
+        def call(run):
+            rp = None if run is None else P(run)
+            o = [P(t) for t in bufs]
+            if kernel == "swap_g_from_cache":
+                code = lib.rt_swap_g_from_cache(
+                    P(dxy), B, P(d1), P(d2), P(a), P(w), P(lg), *o, n, B, k,
+                    rp, st)
+            elif kernel == "stream_build_g":
+                code = lib.rt_stream_build_g(P(x), P(yr), P(dn), P(w), P(lg),
+                                             *o, n, r, d, mid, rp, st)
+            else:
+                code = lib.rt_stream_swap_g(P(x), P(yr), P(d1), P(d2), P(a),
+                                            P(w), P(lg), *o, n, r, d, k, mid,
+                                            rp, st)
+            kbuild.check(code, kernel)
+            return tuple(t.clone() for t in bufs)
+        outs = lambda: bufs
+        want = None
+    call(flag[0])
+    torch.cuda.synchronize()
+    assert _sentinel_unwritten(outs())
+    got = call(flag[1])
+    ref = call(None) if want is None else want
+    for gv, rv in zip(got, ref):
+        assert torch.equal(gv, rv)
+    if kernel == "pairwise":
+        # Only the slot was written; the rest of the ring kept its bytes.
+        assert _sentinel_unwritten((ring[:, :B], ring[:, 2 * B:]))

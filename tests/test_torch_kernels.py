@@ -235,28 +235,70 @@ def test_wrappers_validate_inputs():
         ops.build_g_stats(_t(x), _t(y), torch.ones(5), torch.ones(6))
 
 
-@pytest.mark.parametrize("kernel", ["build_g", "swap_g"])
+@pytest.mark.parametrize("kernel", ["build_g", "swap_g", "pairwise",
+                                    "swap_g_from_cache", "stream_build_g",
+                                    "stream_swap_g"])
 def test_plain_versions_take_the_run_flag(kernel):
-    """The round kernels' run flag (0: a round enqueued after its search
-    stopped) reaches the plain versions too, which compute all the same:
-    the search discards a masked round's statistics whatever computed
-    them.  A flag that is not one int32 element is refused."""
+    """The run flag (0: a round enqueued after its search stopped, or a
+    search that needs no exact fallback) reaches the plain versions too,
+    which compute all the same: the search discards a masked result
+    whatever computed it.  A flag that is not one int32 element is
+    refused."""
     x, y = _data(30, 6, 4)
     ones = torch.ones(6)
+    a0 = torch.zeros(6, dtype=torch.int32)
     if kernel == "build_g":
         def call(run):
             return ops.build_g_stats(_t(x), _t(y), ones, ones, run=run)
+    elif kernel == "swap_g":
+        def call(run):
+            return ops.swap_g_stats(_t(x), _t(y), ones, 2 * ones, a0, ones,
+                                    2, run=run)
+    elif kernel == "pairwise":
+        def call(run):
+            return (ops.pairwise_distance(_t(x), _t(y), run=run),)
+    elif kernel == "swap_g_from_cache":
+        dxy = torch.from_numpy(np.abs(_data(6, 30, 6)[1]))
+
+        def call(run):
+            return ops.swap_g_stats_cached(dxy, ones, 2 * ones, a0, ones, 2,
+                                           run=run)
+    elif kernel == "stream_build_g":
+        def call(run):
+            return ops.stream_build_g_stats(_t(x), _t(y), ones, run=run)
     else:
         def call(run):
-            return ops.swap_g_stats(_t(x), _t(y), ones, 2 * ones,
-                                    torch.zeros(6, dtype=torch.int32), ones,
-                                    2, run=run)
+            return ops.stream_swap_g_stats(_t(x), _t(y), ones, 2 * ones, a0,
+                                           k=2, run=run)
     want = call(None)
     for flag in (0, 1):
         for g, w in zip(call(torch.tensor([flag], dtype=torch.int32)), want):
             assert torch.equal(g, w)
     with pytest.raises(ValueError, match="run"):
         call(torch.tensor([1]))
+
+
+def test_plain_pairwise_into_a_ring_slot_keeps_it_at_flag_0():
+    """``pairwise_distance(out=...)`` writes into a column slice of a ring
+    (any row stride), as a PIC round's new block does; at run flag 0 the
+    slice keeps its values, as the kernel leaves it unwritten; and the
+    torch stats backend honours the same contract."""
+    x, y = _data(30, 6, 4)
+    want = ops.pairwise_distance(_t(x), _t(y))
+    for pairwise in (lambda o, r: ops.pairwise_distance(_t(x), _t(y),
+                                                        out=o, run=r),
+                     lambda o, r: tengine.TorchStatsBackend().pairwise(
+                         _t(x), _t(y), metric="l2", out=o, run=r)):
+        ring = torch.full((30, 4 * 6), -1.0)
+        slot = ring[:, 6:12]
+        pairwise(slot, torch.tensor([0], dtype=torch.int32))
+        assert bool((ring == -1.0).all())
+        pairwise(slot, torch.tensor([1], dtype=torch.int32))
+        assert torch.equal(slot, want)
+        assert bool((ring[:, :6] == -1.0).all())
+        assert bool((ring[:, 12:] == -1.0).all())
+    with pytest.raises(ValueError, match="out"):
+        ops.pairwise_distance(_t(x), _t(y), out=torch.zeros(30, 5))
 
 
 def test_plain_path_never_counts_launches():

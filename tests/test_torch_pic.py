@@ -231,8 +231,14 @@ class _JaxIdBackend:
 
 
 class _TorchIdBackend:
-    def pairwise(self, x, y, *, metric):
-        return torch.zeros((x.shape[0], 1)) + y[:, 0][None, :]
+    def pairwise(self, x, y, *, metric, out=None, run=None):
+        # The backend contract's out / run: a flag of 0 keeps out.
+        dxy = torch.zeros((x.shape[0], 1)) + y[:, 0][None, :]
+        if out is None:
+            return dxy
+        if run is not None:
+            dxy = torch.where(run.bool(), dxy, out)
+        return out.copy_(dxy)
 
 
 def test_ring_bookkeeping_matches_jax_over_recycling_rounds():
@@ -253,9 +259,11 @@ def test_ring_bookkeeping_matches_jax_over_recycling_rounds():
         jdxy, jc = jpic.cache_read_or_write(
             _JaxIdBackend(), jd, jnp.asarray(ref), metric="l2",
             batch_size=b, rnd=rnd, b_eff=b_eff, cache=jc)
-        tdxy, tc = pic_cache.cache_read_or_write(
-            _TorchIdBackend(), td, _t(ref), metric="l2", batch_size=b,
-            rnd=rnd, b_eff=b_eff, cache=tc)
+        # The sharded fit's access a round at a time.
+        tdxy = pic_cache.shard_slot_read_write(
+            tc.cols, rnd, tc.hw, b,
+            lambda: _TorchIdBackend().pairwise(td, td[_t(ref)], metric="l2"))
+        pic_cache.cache_advance(tc, rnd, b_eff, W)
         np.testing.assert_array_equal(tdxy.numpy(), np.asarray(jdxy))
         np.testing.assert_array_equal(tdxy[0].numpy(), ref)
         np.testing.assert_array_equal(tc.cols.numpy(), np.asarray(jc.cols))
@@ -265,6 +273,52 @@ def test_ring_bookkeeping_matches_jax_over_recycling_rounds():
     # Both kinds of access happened: window hits and evicted replays.
     assert any(served) and not all(served)
     assert tc.hw == 6 and tc.fresh_pos > 6 * b - 3
+
+
+def test_search_ring_matches_jax_over_recycling_searches():
+    """The single fit's ring access a search at a time
+    (``search_read_or_write`` from the search's starting ``hw``, the
+    state moved by ``search_advance`` at its end) against the JAX ring a
+    round at a time, over searches that serve, write and recycle rounds:
+    the same blocks, bytes, ``hw`` and ``fresh_pos``.  Each search is
+    followed by rounds enqueued after its stop (run flag 0), which leave
+    the ring as it was."""
+    n, b, W = 57, 10, 3
+    data = np.zeros((n, 2), np.float32)
+    data[:, 0] = np.arange(n)
+    perm = np.random.default_rng(0).permutation(n)
+    idx = np.tile(perm, 2)
+    sizes = [min(b, n - r * b) for r in range(6)]
+    jc = jpic.make_cache(n, b, W)
+    tc = pic_cache.make_cache(n, b, W, "cpu")
+    jd, td = jnp.asarray(data), _t(data)
+    flag = {v: torch.tensor([v], dtype=torch.int32) for v in (0, 1)}
+    kinds = set()
+    # (first round, rounds run): BUILD-like from 0, and carried starts.
+    for r0, ran in [(0, 2), (0, 5), (1, 1), (0, 6), (2, 3), (0, 1), (5, 1)]:
+        hw0 = tc.hw
+        for rnd in range(r0, r0 + ran):
+            ref = idx[rnd * b:(rnd + 1) * b]
+            kinds.add("served" if pic_cache._in_window(rnd, hw0, W)
+                      else "new" if rnd >= hw0 else "recycled")
+            tdxy = pic_cache.search_read_or_write(
+                _TorchIdBackend(), td, _t(ref), metric="l2", batch_size=b,
+                rnd=rnd, hw0=hw0, cache=tc, run=flag[1])
+            jdxy, jc = jpic.cache_read_or_write(
+                _JaxIdBackend(), jd, jnp.asarray(ref), metric="l2",
+                batch_size=b, rnd=rnd, b_eff=sizes[rnd], cache=jc)
+            np.testing.assert_array_equal(tdxy.numpy(), np.asarray(jdxy))
+        cols = tc.cols.clone()
+        for rnd in range(r0 + ran, 6):       # past the stop: masked
+            pic_cache.search_read_or_write(
+                _TorchIdBackend(), td, _t(idx[rnd * b:(rnd + 1) * b]),
+                metric="l2", batch_size=b, rnd=rnd, hw0=hw0, cache=tc,
+                run=flag[0])
+        assert torch.equal(tc.cols, cols)
+        pic_cache.search_advance(tc, hw0, r0, r0 + ran, sizes, b)
+        np.testing.assert_array_equal(tc.cols.numpy(), np.asarray(jc.cols))
+        assert (tc.hw, tc.fresh_pos) == (int(jc.hw), int(jc.fresh_pos))
+    assert kinds == {"served", "new", "recycled"}
 
 
 def test_resolve_cache_rounds_matches_jax():

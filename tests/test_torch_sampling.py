@@ -109,14 +109,23 @@ def test_fit_modes_match_jax_reference(n, k, metric, mode, monkeypatch):
                                 {"cache_cols": 200},
                                 {"sampling": "replacement",
                                  "baseline": "leader",
-                                 "swap_early_stop": True}])
+                                 "swap_early_stop": True},
+                                {"sampling": "replacement"},
+                                {"reuse": "pic"},
+                                {"reuse": "pic", "cache_width": 40},
+                                {"reuse": "pic", "cache_width": 200,
+                                 "cache_cols": 400},
+                                {"reuse": "pic", "baseline": "leader"}])
 def test_stepped_loop_gives_the_fused_report(kw):
-    """``fused=True`` runs the device-resident searches under permutation
-    sampling (defaults, leader, early stop, the warm block) and the
-    stepped ones under replacement sampling; ``fused=False`` the stepped
-    ones throughout.  The reports are identical, the loss bits included.
-    A batch of 20 gives searches of up to 15 rounds, past the stop of
-    most of them."""
+    """``fused=True`` runs the device-resident searches in every mode:
+    permutation sampling (defaults, leader, early stop, the warm block),
+    replacement sampling with its exact fallback decided on the device,
+    and the PIC ring with its state on the device (a ring of the whole
+    permutation, which runs the carried repair, a 2-round ring that
+    recycles, a warm block, the leader); ``fused=False`` the stepped ones
+    throughout.  The reports are identical, the loss bits included.  A
+    batch of 20 gives searches of up to 15 rounds, past the stop of most
+    of them."""
     n, k = 300, 3
     X = jdatasets.mnist_like(n, seed=2)
     a = BanditPAM(k, device="cpu", fused=True, seed=4, batch_size=20,
