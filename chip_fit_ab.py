@@ -16,7 +16,13 @@ configuration of ``--fits`` (all by default):
 * ``pic_full``: ``reuse="pic", cache_width=60000, cache_cols=3200``;
 * ``pic_stepped``: ``pic`` with ``fused=False``;
 * ``replacement``: ``sampling="replacement", baseline="leader"``;
-* ``serve``: ``MedoidService(10, "l2").fit``, the service's initial fit.
+* ``serve``: ``MedoidService(10, "l2").fit``, the service's initial fit;
+* ``batch``, ``batch_pp``: ``KMedoids(k=5, solver="banditpam")`` and
+  ``solver="banditpam_pp"`` ``.fit_batch`` (the leader) on
+  ``chip_smoke.py`` phase 8 (a)'s 64 fits of ``mnist_like(256,
+  seed=i)``, seeds 0-63;
+* ``ragged``, ``ragged_pp``: the same at k = 10 on phase 8 (b)'s 8 ragged
+  fits of ``mnist_like(5,000 + 1,037·i, seed=100 + i)``, seeds 0-7.
 
 The turns run base, change, change, base.  Each fit prints its wall by
 phase and host reads by phase; the two checkouts' medoids, swaps, build
@@ -35,8 +41,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FITS = ("pic", "pic_full", "pic_stepped", "replacement", "serve")
+FITS = ("pic", "pic_full", "pic_stepped", "replacement", "serve", "batch",
+        "batch_pp", "ragged", "ragged_pp")
 N_FIT = 60000
+# Phase 8's batches of chip_smoke.py: (fits' n, k).
+BATCHES = {"batch": ((256,) * 64, 5),
+           "ragged": (tuple(5000 + 1037 * i for i in range(8)), 10)}
 
 
 def worker(root: str, fits) -> None:
@@ -55,11 +65,25 @@ def worker(root: str, fits) -> None:
            "pic_full": dict(reuse="pic", cache_width=N_FIT, cache_cols=3200),
            "pic_stepped": dict(reuse="pic", fused=False),
            "replacement": dict(sampling="replacement", baseline="leader")}
+    def summary(r):
+        return [r.medoids.tolist(), [h[:2] for h in r.swap_history],
+                r.build_rounds, r.evals_by_phase, float(r.loss)]
+
     for name in fits:
+        batch = BATCHES.get(name.replace("_pp", ""))
+        if batch is not None:
+            ns, k = batch
+            seed0 = 0 if len(set(ns)) == 1 else 100
+            Xs = [mnist_like(n, seed=seed0 + i) for i, n in enumerate(ns)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if name == "serve":
             r = MedoidService(10, "l2").fit(X).last_report
+        elif batch is not None:
+            solver = "banditpam_pp" if name.endswith("_pp") else "banditpam"
+            r = KMedoids(k=k, solver=solver, metric="l2", seed=0,
+                         baseline="leader").fit_batch(
+                             Xs, seeds=list(range(len(ns))))
         else:
             r = KMedoids(k=10, metric="l2", seed=0, **kws[name]).fit(
                 X).report_
@@ -68,8 +92,8 @@ def worker(root: str, fits) -> None:
             "fit": name, "call_s": time.perf_counter() - t0,
             "wall_by_phase": r.wall_by_phase,
             "host_reads_by_phase": r.host_reads_by_phase,
-            "report": [r.medoids.tolist(), [h[:2] for h in r.swap_history],
-                       r.build_rounds, r.evals_by_phase, float(r.loss)]}),
+            "report": ([summary(f) for f in r] if batch is not None
+                       else summary(r))}),
             flush=True)
 
 

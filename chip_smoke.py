@@ -136,18 +136,24 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``batch_parity``; ``[batch]`` lines), ``KMedoids(...,
    solver_params=default_params(s)).fit_batch`` (the leader): (a) the JAX
    package's multi-fit benchmark shape, 64 fits of ``mnist_like(256,
-   seed=i)``, d = 784, k = 5, seeds 0-63, for ``banditpam`` (lockstep
-   lanes) and ``banditpam_pp`` (PIC lanes one after another); (b) 8
-   ragged fits of ``mnist_like`` with n_i = 5,000 + 1,037·i, d = 784,
-   k = 10, ``banditpam``; each batch against the loop of its single fits
-   (every report identical, the loss bits included), both paths' walls
-   by phase, host reads by phase and launches by kernel, counted from 0
-   on each; (c) the lane kernels (``build_g_lanes``, ``swap_g_lanes`` at
-   k = 10 and 65, ``top2_lanes``) at (b)'s padded shape with lane 3's
-   run flag at 0: every running lane equal bit for bit to the single
-   launch on its slice, within phase 3's tolerances of the plain lane
-   version, each timed beside the loop of single launches and the plain
-   version, with its bound over the running lanes; (d) ``backend="cuda"``
+   seed=i)``, d = 784, k = 5, seeds 0-63, for ``banditpam`` and
+   ``banditpam_pp`` (both in lockstep lanes, the latter each lane with
+   its PIC ring); (b) 8 ragged fits of ``mnist_like`` with n_i = 5,000 +
+   1,037·i, d = 784, k = 10, ``banditpam`` and ``banditpam_pp`` (a ring
+   of 32 rounds, so every lane's ring recycles); each batch against the
+   loop of its single fits (every report identical, the loss bits
+   included), both paths' walls by phase, host reads by phase and
+   launches by kernel, counted from 0 on each, every lane kernel of the
+   batch's path launched; (c) the lane kernels (``build_g_lanes``,
+   ``swap_g_lanes`` at k = 10 and 65, ``top2_lanes``, and the PIC
+   batch's ``pairwise_lanes`` into (b)'s ring and
+   ``swap_g_from_cache_lanes`` from it, at a round's and at the repair's
+   shape) at (b)'s padded shape with one lane's run flag at 0: every
+   running lane equal bit for bit to the single launch on its slice,
+   within phase 3's tolerances of the plain lane version, each timed
+   beside the loop of single launches and the plain version, with its
+   bound over the running lanes (``pairwise_lanes`` also beside a
+   batched ``torch.cdist``); (d) ``backend="cuda"``
    against ``"torch"`` ``fit_batch`` on 4 ragged ``code_blobs`` lanes:
    each equal to its own loop exactly, the two within phase 4's
    allowance.  All raising; the phase prints its wall.
@@ -171,7 +177,9 @@ Phases, each of which raises (exit code != 0) on any failure:
    raising; the phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
-ragged batch (b) and pairwise/build_g/swap_g/top2's from
+ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
+from its ``banditpam_pp`` run, the others from its ``banditpam`` run)
+and pairwise/build_g/swap_g/top2's from
 the default fit + predict (pairwise's row is timed at predict's
 [10,000 x 10] and says so under ``shape``), the streaming kernels' from the replacement
 + leader fit and ``swap_g_from_cache``'s from the full-ring PIC fit;
@@ -1891,6 +1899,11 @@ BATCH_FITS, BATCH_N, BATCH_K = 64, 256, 5
 RAGGED_N = tuple(5000 + 1037 * i for i in range(8))
 RAGGED_K = 10
 LANE_KERNELS = ("build_g_lanes", "swap_g_lanes", "top2_lanes")
+# The PIC batch's (banditpam_pp) lane kernels, and its ring at (b): the
+# default 32 rounds of B columns and the scratch, [8, 12,272, 33·B].
+PIC_LANE_KERNELS = ("pairwise_lanes", "swap_g_from_cache_lanes",
+                    "top2_lanes")
+PIC_RING_ROUNDS = 32
 
 
 def _sum_phases(reports, field):
@@ -2069,9 +2082,180 @@ def lane_kernel_checks(torch, Xs, dev):
              2.0 * sum(lanes.ns) * 10 * d,
              4.0 * (sum(lanes.ns) * d + L * 10 * d + 3 * sum(lanes.ns)),
              names=("d1", "d2"))
+    rows += pic_lane_kernel_checks(torch, lanes, y, w, lg, run, live, dmax,
+                                   gen, dev)
     # The k = 65 SWAP row is printed; the kernels line keeps one row per
     # lane kernel.
     return [r for r in rows if "[" not in r["name"]]
+
+
+def pic_lane_kernel_checks(torch, lanes, y, w, lg, run, live, dmax, gen,
+                           dev):
+    """Phase 8 (c), the PIC batch's lane kernels on (b)'s ring ``[L,
+    n_pad, 33·B]``: ``pairwise_lanes`` writes each lane's fresh block at
+    its column (slot 5, lane 1 in the scratch, lane 3 at flag 0), then
+    ``swap_g_from_cache_lanes`` reads them back (k = 10), and the repair's
+    shape (every lane's whole ring, about 5 % of the weights set); each
+    running lane equal to the single launch on its block bit for bit, and
+    within phase 3's tolerances of the plain lane version (the distance
+    tolerance; the SWAP sums ``2·B·2^-24·Σ|t_j|``).  The ``d_near`` rows
+    ([1 × n_l] a lane) are held and timed too.  Returns the two rows."""
+    from repro_torch.kernels import ops, pairwise, swap_g
+    L, n_pad, d = lanes.data.shape
+    W = PIC_RING_ROUNDS
+    store = torch.zeros((L, n_pad, (W + 1) * B), device=dev)
+    # Every slot holds distances of its own batch, as a filled ring does.
+    for r in range(W):
+        refs = torch.stack([torch.randint(0, n, (B,), generator=gen)
+                            for n in lanes.ns]).to(dev)
+        ops.pairwise_lanes(lanes.data, lanes.gather(refs).contiguous(), "l2",
+                           out=store, col=torch.full((L,), r * B,
+                                                     dtype=torch.int64,
+                                                     device=dev),
+                           xrows=lanes.rows)
+    col = torch.full((L,), (5 % W) * B, dtype=torch.int64, device=dev)
+    col[1] = W * B
+    cols = col.tolist()
+    kept = store[3, :, cols[3]:cols[3] + B].clone()
+    pw_kw = dict(out=store, col=col, xrows=lanes.rows, run=run)
+    ops.pairwise_lanes(lanes.data, y, "l2", **pw_kw)
+
+    def single_pw(i):
+        n, c = lanes.ns[i], cols[i]
+        return ops.pairwise_distance(lanes.lane(i), y[i], "l2",
+                                     out=store[i, :n, c:c + B],
+                                     run=run[i:i + 1])
+
+    blocks = [store[i, :lanes.ns[i], cols[i]:cols[i] + B].clone()
+              for i in range(L)]
+    for i in live:
+        require_equal(f"pairwise_lanes lane {i} (n={lanes.ns[i]}, col "
+                      f"{cols[i]}) == single launch", (blocks[i],),
+                      (ops.pairwise_distance(lanes.lane(i), y[i], "l2"),))
+    require_equal("pairwise_lanes lane 3 at flag 0 keeps its slot",
+                  (store[3, :, cols[3]:cols[3] + B],), (kept,))
+    plain = pairwise.pairwise_lanes_plain(lanes.data, y, "l2",
+                                          torch.zeros_like(store), col,
+                                          lanes.rows, None, run)
+    tol = dist_tol("l2", dmax)
+    pw_err = max(check_close(f"pairwise_lanes[{i}]", blocks[i],
+                             plain[i, :lanes.ns[i], cols[i]:cols[i] + B],
+                             tol) for i in live)
+    del plain
+    nlive = sum(lanes.ns[i] for i in live)
+    ms = time_ms(lambda: ops.pairwise_lanes(lanes.data, y, "l2", **pw_kw))
+    loop_ms = time_ms(lambda: [single_pw(i) for i in range(L)])
+    pms = time_ms(lambda: pairwise.pairwise_lanes_plain(
+        lanes.data, y, "l2", None, None, lanes.rows, None, run), reps=3,
+        warm=1)
+    lms = time_ms(lambda: torch.cdist(lanes.data, y))
+    bms, bby = bound_ms(2.0 * nlive * B * d,
+                        4.0 * (nlive * d + len(live) * B * d + nlive * B))
+    log(f"[batch] time pairwise_lanes  lanes {ms:.4f} ms  loop of {L} single "
+        f"launches {loop_ms:.4f} ms  plain {pms:.4f} ms  batched torch.cdist "
+        f"{lms:.4f} ms  bound {bms * 1e3:.1f} us ({bby})  share of bound "
+        f"{bms / ms:.3f}")
+    rows = [{"name": "pairwise_lanes", "route": "cuda",
+             "source": "repro_torch/kernels/csrc/pairwise.cu",
+             "replaces": "src/repro/kernels/pairwise.py:74", "launches": 0,
+             "max_abs_err": pw_err, "ms": ms, "plain_ms": pms,
+             "bound_ms": bms, "bound_by": bby, "library_ms": lms,
+             "loop_ms": loop_ms,
+             "shape": f"{L} lanes [n_l x {B}] into a ring slot, n "
+                      f"{min(lanes.ns)}-{max(lanes.ns)} (pad {n_pad}), d {d}"}]
+    # The d_near rows: each lane's pick against its own rows.
+    picks = torch.stack([torch.randint(0, n, (1,), generator=gen)
+                         for n in lanes.ns]).to(dev)
+    xp = lanes.gather(picks).contiguous()
+    dn = ops.pairwise_lanes(xp, lanes.data, "l2", yrows=lanes.rows)
+    for i in range(L):
+        require_equal(f"pairwise_lanes d_near row lane {i} == single launch",
+                      (dn[i, 0, :lanes.ns[i]],),
+                      (ops.pairwise_distance(xp[i], lanes.lane(i), "l2")[0],))
+    dms = time_ms(lambda: ops.pairwise_lanes(xp, lanes.data, "l2",
+                                             yrows=lanes.rows))
+    dloop = time_ms(lambda: [ops.pairwise_distance(xp[i], lanes.lane(i),
+                                                   "l2") for i in range(L)])
+    log(f"[batch] time pairwise_lanes d_near rows [1 x n_l] x {L}: lanes "
+        f"{dms:.4f} ms  loop of {L} single launches {dloop:.4f} ms")
+
+    # swap_g_from_cache over the same blocks, then at the repair's shape.
+    k = 10
+    med = torch.stack([lanes.lane(i)[torch.randperm(n, generator=gen)[
+        :k].to(dev)] for i, n in enumerate(lanes.ns)]).contiguous()
+    d1, d2, a = ops.stream_top2_lanes(y, med, metric="l2")
+    lead = lg.contiguous()
+
+    def swap_case(name, b, c, vecs, run_, timed):
+        d1_, d2_, a_, w_, lg_ = vecs
+        kw = dict(col=c, rows=lanes.rows, run=run_)
+        got = ops.swap_g_from_cache_lanes_stats(store, d1_, d2_, a_, w_, k,
+                                                lg_, **kw)
+        cs = [0] * L if c is None else c.tolist()
+
+        def single(i):
+            n = lanes.ns[i]
+            return ops.swap_g_stats_cached(
+                store[i, :n, cs[i]:cs[i] + b], d1_[i], d2_[i], a_[i], w_[i],
+                k, lg_[i], run=None if run_ is None else run_[i:i + 1])
+
+        on = [i for i in range(L) if run_ is None or int(run_[i])]
+        for i in on:
+            require_equal(f"swap_g_from_cache_lanes[{name}] lane {i} == "
+                          f"single launch", tuple(g[i, :, :lanes.ns[i]]
+                                                  for g in got), single(i))
+        want = swap_g.swap_g_from_cache_lanes_torch(store, d1_, d2_, a_, w_,
+                                                    k, lg_, c, lanes.rows)
+        err = 0.0
+        for i in on:
+            n = lanes.ns[i]
+            lim = swap_abs_sums(store[i, :n, cs[i]:cs[i] + b], d1_[i],
+                                d2_[i], a_[i], w_[i], k, lg_[i])
+            err = max([err] + [check_close(
+                f"swap_g_from_cache_lanes[{name}][{i}] {nm}", g[i, :, :n],
+                wv[i, :, :n], 2 * b * 2.0 ** -24 * at, rtol=0.0)
+                for nm, g, wv, at in zip(("sums", "sq", "cross"), got, want,
+                                         lim)])
+        del want
+        if not timed:
+            return err
+        ms = time_ms(lambda: ops.swap_g_from_cache_lanes_stats(
+            store, d1_, d2_, a_, w_, k, lg_, **kw))
+        loop_ms = time_ms(lambda: [single(i) for i in range(L)])
+        pms = time_ms(lambda: swap_g.swap_g_from_cache_lanes_torch(
+            store, d1_, d2_, a_, w_, k, lg_, c, lanes.rows), reps=3, warm=1)
+        nb = sum(4.0 * (lanes.ns[i] * float((w_[i] != 0).sum()) + 5 * b
+                        + 3 * k * lanes.ns[i]) for i in on)
+        bms, bby = bound_ms(0.0, nb)
+        log(f"[batch] time swap_g_from_cache_lanes[{name}]  lanes {ms:.4f} ms"
+            f"  loop of {L} single launches {loop_ms:.4f} ms  plain "
+            f"{pms:.4f} ms  library -  bound {bms * 1e3:.1f} us ({bby})  "
+            f"share of bound {bms / ms:.3f}")
+        return {"name": "swap_g_from_cache_lanes", "route": "cuda",
+                "source": "repro_torch/kernels/csrc/swap_g_from_cache.cu",
+                "replaces": "src/repro/kernels/swap_g.py:118", "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": bby, "library_ms": None,
+                "loop_ms": loop_ms,
+                "shape": f"{L} lanes [n_l x {b}] ring blocks, k {k}, n "
+                         f"{min(lanes.ns)}-{max(lanes.ns)} (pad {n_pad})"}
+
+    row = swap_case("round", B, col, (d1, d2, a, w, lead), run, True)
+    # The repair: each lane's whole ring, its positions' medoid cache and
+    # about 5 % of the weights set; lanes 2 and 6 carry nothing.
+    pos = torch.stack([torch.randint(0, n, (W * B,), generator=gen)
+                       for n in lanes.ns]).to(dev)
+    rd1, rd2, ra = ops.stream_top2_lanes(lanes.gather(pos).contiguous(), med,
+                                         metric="l2")
+    rw = (torch.rand((L, W * B), generator=gen) < 0.05).float().to(dev)
+    rrun = torch.ones((L,), dtype=torch.int32, device=dev)
+    rrun[2] = rrun[6] = 0
+    rep_err = swap_case("repair", W * B, None,
+                        (rd1, rd2, ra, rw, torch.zeros_like(rw)), rrun, False)
+    row["max_abs_err"] = max(row["max_abs_err"], rep_err)
+    del store
+    torch.cuda.empty_cache()
+    return rows + [row]
 
 
 def batch_parity(torch, dev):
@@ -2125,18 +2309,31 @@ def batch_paths(torch, dev):
     small = [mnist_like(BATCH_N, seed=i) for i in range(BATCH_FITS)]
     ragged = [mnist_like(n, seed=100 + i) for i, n in enumerate(RAGGED_N)]
     log(f"[batch] data made in {time.perf_counter() - t0:.1f} s")
-    for solver in ("banditpam", "banditpam_pp"):
-        batch_vs_loop(torch, f"(a) {solver} {BATCH_FITS} x mnist_like("
-                      f"{BATCH_N}), k={BATCH_K}", solver, small,
-                      list(range(BATCH_FITS)), BATCH_K)
-    counts, _ = batch_vs_loop(torch, f"(b) banditpam ragged n={RAGGED_N}, "
-                              f"k={RAGGED_K}", "banditpam", ragged,
-                              list(range(len(RAGGED_N))), RAGGED_K)
-    if min(counts[nm] for nm in LANE_KERNELS) < 1:
-        raise AssertionError(f"a lane kernel never ran in (b): {counts}")
+    for solver, kernels in (("banditpam", LANE_KERNELS),
+                            ("banditpam_pp", PIC_LANE_KERNELS)):
+        counts, _ = batch_vs_loop(torch, f"(a) {solver} {BATCH_FITS} x "
+                                  f"mnist_like({BATCH_N}), k={BATCH_K}",
+                                  solver, small, list(range(BATCH_FITS)),
+                                  BATCH_K)
+        if min(counts[nm] for nm in kernels) < 1:
+            raise AssertionError(f"a lane kernel never ran in (a) {solver}: "
+                                 f"{counts}")
+    counts = {}
+    for solver, kernels in (("banditpam", LANE_KERNELS),
+                            ("banditpam_pp", PIC_LANE_KERNELS)):
+        counts[solver], _ = batch_vs_loop(
+            torch, f"(b) {solver} ragged n={RAGGED_N}, k={RAGGED_K}", solver,
+            ragged, list(range(len(RAGGED_N))), RAGGED_K)
+        if min(counts[solver][nm] for nm in kernels) < 1:
+            raise AssertionError(f"a lane kernel never ran in (b) {solver}: "
+                                 f"{counts[solver]}")
     rows = lane_kernel_checks(torch, ragged, dev)
+    # Each row's launches come from (b)'s batch that runs it: the PIC
+    # kernels from banditpam_pp's, the others from banditpam's.
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        solver = ("banditpam_pp" if row["name"] in PIC_LANE_KERNELS[:2]
+                  else "banditpam")
+        row["launches"] = counts[solver][row["name"]]
     batch_parity(torch, dev)
     return rows
 

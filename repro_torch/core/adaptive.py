@@ -113,7 +113,12 @@ stops once every lane reads 0.  Every per-lane quantity is the single
 search's elementwise arithmetic on the lane's own values (min, argmin
 and integer counts are exact over any arm set), and pad arms start
 inactive, so each lane returns the single search's result bit for bit.
-The single-fit ``_Search`` is left as it is.
+The PIC batch gives each lane the single search's cache seeds: its own
+window of served rounds (``free``) and its own carried start (``r0_l``:
+``n_used`` the lane's prefix, σ from its carried moments, its pilot at
+``r0_l``, the early stop checked at the start); the lockstep runs from
+the smallest start of a live lane, a lane before its own masked as a
+lane past its budget is.  The single-fit ``_Search`` is left as it is.
 
 ``SearchResult`` (and :class:`DeviceResult`) return the final ``sums``
 / ``sqsums`` for the next search's carry.  ``n_evals`` and
@@ -131,6 +136,7 @@ import numpy as np
 import torch
 
 from .engine import host_read
+from .pic_cache import to_device
 
 # Per-arm sub-Gaussianity floor: keeps CIs finite for degenerate arms whose
 # first-batch returns are constant (e.g. duplicated points).
@@ -587,10 +593,18 @@ def adaptive_search(*, report=None, phase: str = "search",
 
 
 class LaneResult(NamedTuple):
-    """A lane search's result on the device: ``[L]`` int64 tensors."""
+    """A lane search's result on the device: ``[L]`` int64 tensors (and
+    the final ``[L, arms]`` moments); ``rounds`` counts each lane's
+    carried rounds too, as :class:`SearchResult` does.  ``rounds_h`` is
+    ``rounds`` on the host where the search was asked for it
+    (``rounds_to_host``), else None."""
     best: torch.Tensor
     n_evals: torch.Tensor
     rounds: torch.Tensor
+    n_evals_cached: Optional[torch.Tensor] = None
+    sums: Optional[torch.Tensor] = None
+    sqsums: Optional[torch.Tensor] = None
+    rounds_h: Optional[list] = None
 
 
 class _LaneSearch:
@@ -599,11 +613,21 @@ class _LaneSearch:
     ``perm_idx`` / ``perm_w`` are ``[L, R_max·B]``: each lane's cyclic
     tiling (``tile_perm``) padded with index 0 at weight 0; ``n_ref`` the
     lanes' reference counts (host ints) and ``n_dev`` the same ``[L]`` on
-    the device; ``log_term`` ``[L]`` float32.
+    the device; ``log_term`` ``[L]`` float32.  The cache seeds are the
+    single search's, per lane: ``free`` ``[L, R_max]`` bool marks the
+    rounds served from the caller's cache (charged to ``n_evals_cached``),
+    and ``init_rounds[l]`` (a host int, or None for a cold lane) with the
+    rows of ``init_sums`` / ``init_sqsums`` ``[L, arms]`` is lane l's
+    carried start.  Lockstep runs from the smallest start of a ``live``
+    lane (a host list; None: every lane), the lanes that are not live
+    having no arm left; a lane before its start is masked, as a lane past
+    its budget is.
     """
 
     def __init__(self, *, n_ref, n_dev, batch_size, log_term, active_init,
-                 perm_idx, perm_w, count_fn, baseline, stop_when_positive):
+                 perm_idx, perm_w, count_fn, baseline, stop_when_positive,
+                 free=None, init_sums=None, init_sqsums=None,
+                 init_rounds=None, live=None):
         dev = active_init.device
         L, n_arms = active_init.shape
         self.B = B = int(batch_size)
@@ -614,13 +638,29 @@ class _LaneSearch:
         self.count_fn = count_fn
         self.use_lead = baseline == "leader"
         self.stop_when_positive = stop_when_positive
+        self.free = free
         f32 = dict(dtype=torch.float32, device=dev)
+        carried = ([False] * L if init_rounds is None
+                   else [r is not None for r in init_rounds])
+        self.r0 = [0 if not c else int(r)
+                   for c, r in zip(carried, init_rounds or carried)]
+        live = [True] * L if live is None else live
+        self.r_start = min((r for r, on in zip(self.r0, live) if on),
+                           default=R)
+        self.r_last = max(self.r0)
         steps = torch.arange(self.R, device=dev)
         nd = n_dev.to(torch.int64)[:, None]
+        if self.r_last == 0:
+            r0 = torch.zeros((L, 1), dtype=torch.int64, device=dev)
+        else:
+            r0 = to_device(self.r0, torch.int64, dev)[:, None]
+        self.r0_dev = r0[:, 0]
         # Samples after round r, clamped to each lane's n, as the single
-        # search's table; a lane's rounds past its budget are masked.
+        # search's table; a lane's rounds before its start and past its
+        # budget are masked.
         n_new = torch.minimum((steps + 1)[None, :] * B, nd)       # [L, R]
-        self.budget = steps[None, :] < (nd + B - 1) // B          # [L, R]
+        self.pre = steps[None, :] < r0                            # [L, R]
+        self.budget = (steps[None, :] < (nd + B - 1) // B) & ~self.pre
         self.b_eff = torch.clamp(nd - steps[None, :] * B, 0, B)   # [L, R]
         self.b_eff_f = self.b_eff.to(torch.float32)
         self.n_new_f = n_new.to(torch.float32)
@@ -631,27 +671,46 @@ class _LaneSearch:
         self.n_cap = nd[:, 0]
         self.active = active_init.clone()
         self.n_evals = torch.zeros((L,), dtype=torch.int64, device=dev)
+        self.n_cached = torch.zeros_like(self.n_evals)
         self.done = torch.zeros_like(self.n_evals)
         if self.use_lead:
             self.arms = torch.arange(n_arms, device=dev)[None, :]
             self.lead = torch.zeros((L,), dtype=torch.int64, device=dev)
             self.d_sums = torch.zeros((L, n_arms), **f32)
             self.sigma_d = torch.full((L, n_arms), float("inf"), **f32)
-            post = n_new - n_new[:, :1]
+            # Samples since each lane's pilot round (its start).
+            post = n_new - n_new.gather(1, torch.clamp_max(r0, R - 1))
             self.post_f = post.to(torch.float32)
             self.root_d = torch.sqrt(lt / self.post_f)
         self.sums = torch.zeros((L, n_arms), **f32)
         self.sqsums = torch.zeros((L, n_arms), **f32)
         self.sigma = torch.full((L, n_arms), float("inf"), **f32)
         self.running = torch.sum(self.active, dim=1, dtype=torch.int64) > 1
+        if any(carried):
+            # σ from each carried lane's moments (every arm has the lane's
+            # prefix of samples); a cold lane starts from zeros.
+            c = to_device(carried, torch.bool, dev)[:, None]
+            n0_f = torch.clamp_min(torch.minimum(r0 * B, nd), 1).to(
+                torch.float32)
+            mu0 = init_sums / n0_f
+            sigma0 = torch.sqrt(torch.clamp_min(
+                init_sqsums / n0_f - mu0 * mu0, 0.0)) + SIGMA_FLOOR
+            self.sums = torch.where(c, init_sums, self.sums)
+            self.sqsums = torch.where(c, init_sqsums, self.sqsums)
+            self.sigma = torch.where(c, sigma0, self.sigma)
+            if stop_when_positive:
+                lcb = self.sums / n0_f - self.sigma * torch.sqrt(lt / n0_f)
+                may = torch.min(torch.where(self.active, lcb, float("inf")),
+                                dim=1).values <= 0.0
+                self.running = self.running & (may | ~c[:, 0])
 
-    def round(self, rnd: int, stats_fn, lead) -> bool:
+    def round(self, rnd: int, stats_fn, lead) -> None:
         """Round ``rnd`` of every lane: one ``stats_fn`` call, then each
-        lane's state update, selected by its flag ``on`` (still running
-        and within its budget).  Returns whether it was the pilot."""
+        lane's state update, selected by its flag ``on`` (started, still
+        running and within its budget)."""
         ref_idx, w = self.perm_idx[rnd], self.perm_w[rnd]
         on = self.running & self.budget[:, rnd]
-        sums_b, sq_b, cross_b = stats_fn(ref_idx, w, lead,
+        sums_b, sq_b, cross_b = stats_fn(rnd, ref_idx, w, lead,
                                          on.to(torch.int32))
 
         # ---- raw statistics (paper) ----
@@ -660,6 +719,7 @@ class _LaneSearch:
         mu_hat = new["sums"] / n_new_f
         sigma = self.sigma
         if rnd == 0:                                              # Eq. 11
+            # Only the lanes that start at round 0 run it.
             b_eff_f = self.b_eff_f[:, :1]
             batch_mean = sums_b / b_eff_f
             batch_var = torch.clamp_min(
@@ -672,22 +732,34 @@ class _LaneSearch:
         lcb = mu_hat - ci
         kill = lcb > torch.min(ucb, dim=1, keepdim=True).values
 
-        # ---- differenced statistics vs the pilot leader ----
-        pilot = self.use_lead and rnd == 0
-        if pilot:
-            new["lead"] = torch.argmin(torch.where(active, mu_hat,
-                                                   float("inf")), dim=1)
-        elif self.use_lead:
+        # ---- differenced statistics vs each lane's pilot leader ----
+        # Where the lanes' starts differ, each lane's pilot, differenced
+        # rounds and σ_d round are selected by masks; where every lane
+        # is past its pilot (or all start at 0) no mask is needed.
+        mixed = rnd <= self.r_last and self.r_last > 0
+        if self.use_lead and self.r_start <= rnd <= self.r_last:
+            lead = torch.argmin(torch.where(active, mu_hat, float("inf")),
+                                dim=1)
+            new["lead"] = (torch.where(self.r0_dev == rnd, lead, self.lead)
+                           if mixed else lead)
+        if self.use_lead and rnd > self.r_start:
+            after = (self.r0_dev < rnd)[:, None] if mixed else None
             li = self.lead[:, None]
             d_b = sums_b - sums_b.gather(1, li)
             dsq_b = sq_b - 2.0 * cross_b + sq_b.gather(1, li)
             new["d_sums"] = d_sums = self.d_sums + d_b
+            if after is not None:
+                new["d_sums"] = torch.where(after, d_sums, self.d_sums)
             sigma_d = self.sigma_d
-            if rnd == 1:
-                b_eff_f = self.b_eff_f[:, 1:2]
+            if rnd <= self.r_last + 1:
+                b_eff_f = self.b_eff_f[:, rnd:rnd + 1]
                 d_mean = d_b / b_eff_f
-                new["sigma_d"] = sigma_d = torch.sqrt(torch.clamp_min(
+                sigma_d = torch.sqrt(torch.clamp_min(
                     dsq_b / b_eff_f - d_mean * d_mean, 0.0)) + SIGMA_FLOOR
+                if self.r_last > 0:
+                    first = (self.r0_dev + 1 == rnd)[:, None]
+                    sigma_d = torch.where(first, sigma_d, self.sigma_d)
+                new["sigma_d"] = sigma_d
             mu_d = d_sums / self.post_f[:, rnd:rnd + 1]
             root = self.root_d[:, rnd:rnd + 1]
             ci_d = sigma_d * root
@@ -695,16 +767,22 @@ class _LaneSearch:
             eps_d = LEAD_TIE_REL * sigma * root
             kill_d = ((mu_d - ci_d)
                       > torch.min(ucb_d, dim=1, keepdim=True).values + eps_d)
-            kill = kill | (kill_d & (self.arms != li))
+            kill_d = kill_d & (self.arms != li)
+            kill = kill | (kill_d if after is None else kill_d & after)
 
-        # A lane past its stop or its budget counts nothing, kills
-        # nothing, and keeps its moments and its leader.
+        # A lane before its start, past its stop or past its budget counts
+        # nothing, kills nothing, and keeps its moments and its leader.
         cost = self.count_fn(active) * self.b_eff[:, rnd] * on
         kill = kill & on[:, None]
         new = {k: torch.where(on if v.ndim == 1 else on[:, None], v,
                               getattr(self, k))
                for k, v in new.items()}
-        self.n_evals = self.n_evals + cost
+        if self.free is None:
+            self.n_evals = self.n_evals + cost
+        else:
+            served = self.free[:, rnd]
+            self.n_cached = self.n_cached + cost * served
+            self.n_evals = self.n_evals + cost * ~served
         self.active = active & ~kill
         going = torch.sum(self.active, dim=1, dtype=torch.int64) > 1
         if self.stop_when_positive:
@@ -715,38 +793,51 @@ class _LaneSearch:
         self.done = self.done + on
         for k, v in new.items():
             setattr(self, k, v)
-        self.running = going & on
-        return pilot
+        going = going & on
+        if rnd < self.r_last:
+            # A lane that has not started keeps its flag.
+            going = going | (self.running & self.pre[:, rnd])
+        self.running = going
 
-    def result(self) -> LaneResult:
+    def result(self, rounds_h=None) -> LaneResult:
         """Each lane's pick: the FIRST index minimising its survivors'
         means."""
-        n_used_f = torch.minimum(torch.clamp_min(self.done * self.B, 1),
+        rounds = self.done + self.r0_dev
+        n_used_f = torch.minimum(torch.clamp_min(rounds * self.B, 1),
                                  self.n_cap).to(torch.float32)
         mu_sel = torch.where(self.active, self.sums / n_used_f[:, None],
                              float("inf"))
         return LaneResult(best=torch.argmin(mu_sel, dim=1),
-                          n_evals=self.n_evals, rounds=self.done)
+                          n_evals=self.n_evals, rounds=rounds,
+                          n_evals_cached=self.n_cached, sums=self.sums,
+                          sqsums=self.sqsums, rounds_h=rounds_h)
 
 
 def lane_search(*, stats_fn, n_ref, n_dev, batch_size: int,
                 log_term: torch.Tensor, active_init: torch.Tensor,
                 perm_idx: torch.Tensor, perm_w: torch.Tensor,
                 count_fn=None, baseline: str = "none",
-                stop_when_positive: bool = False, report=None,
+                stop_when_positive: bool = False, free=None, init_sums=None,
+                init_sqsums=None, init_rounds=None, live=None,
+                rounds_to_host: bool = False, report=None,
                 phase: str = "search", rounds_log=None) -> LaneResult:
     """Run L permutation searches in lockstep, the device-resident loop
     with a lane axis, and leave the ``[L]`` results on the device.
 
-    ``stats_fn(ref_idx [L, B], w [L, B], lead, run) -> 3 × [L, arms]``
-    gives every lane's batch statistics in one call (``lead`` ``[L]``
-    int64 or None before the pilot round, ``run`` the lanes' ``[L]``
-    int32 flags: a lane at 0 is discarded).  ``count_fn(active [L, arms])
-    -> [L]`` int64 (default: #active arms).  The host reads the lanes'
-    flags once every ``ROUNDS_PER_READ`` rounds through
-    ``engine.host_read`` (counted under ``phase`` in ``report``) and
-    stops once all read 0; ``rounds_log`` (a dict) counts the rounds
-    enqueued under ``phase``.
+    ``stats_fn(rnd, ref_idx [L, B], w [L, B], lead, run) -> 3 × [L,
+    arms]`` gives every lane's batch statistics of round ``rnd`` in one
+    call (``lead`` ``[L]`` int64 or None before the first pilot round,
+    ``run`` the lanes' ``[L]`` int32 flags: a lane at 0 is discarded).
+    ``count_fn(active [L, arms]) -> [L]`` int64 (default: #active arms).
+    The cache seeds (``free``, ``init_*``) and ``live`` are
+    :class:`_LaneSearch`'s.
+    The host reads the lanes' flags once every ``ROUNDS_PER_READ`` rounds
+    through ``engine.host_read`` (counted under ``phase`` in ``report``)
+    and stops once all read 0; ``rounds_to_host`` reads the lanes' round
+    counts with the flags, and once more at the end when the last read
+    did not see every lane stop (the single search's rule), into
+    ``rounds_h``.  ``rounds_log`` (a dict) counts the rounds enqueued
+    under ``phase``.
     """
     if baseline not in ("none", "leader"):
         raise ValueError(f"unknown baseline mode {baseline!r}")
@@ -756,19 +847,34 @@ def lane_search(*, stats_fn, n_ref, n_dev, batch_size: int,
     s = _LaneSearch(n_ref=n_ref, n_dev=n_dev, batch_size=batch_size,
                     log_term=log_term, active_init=active_init,
                     perm_idx=perm_idx, perm_w=perm_w, count_fn=count_fn,
-                    baseline=baseline, stop_when_positive=stop_when_positive)
+                    baseline=baseline, stop_when_positive=stop_when_positive,
+                    free=free, init_sums=init_sums, init_sqsums=init_sqsums,
+                    init_rounds=init_rounds, live=live)
     lead = None
-    going, rnd = True, 0
+    going, rnd = True, s.r_start
+    seen = []            # the round counts, read with the flags
     while rnd < s.R and going:
-        if s.round(rnd, stats_fn, lead):
+        s.round(rnd, stats_fn, lead)
+        if s.use_lead:
             lead = s.lead
         rnd += 1
         if rounds_log is not None:
             rounds_log[phase] = rounds_log.get(phase, 0) + 1
-        if rnd % ROUNDS_PER_READ == 0 and rnd < s.R:
-            (flags,) = host_read([s.running], report, phase)
+        if (rnd - s.r_start) % ROUNDS_PER_READ == 0 and rnd < s.R:
+            flags, *seen = host_read([s.running] + [s.done] * rounds_to_host,
+                                     report, phase)
             going = any(flags)
-    return s.result()
+    done = None
+    if rounds_to_host:
+        if rnd == s.r_start:
+            done = [0] * len(n_ref)
+        elif going:
+            # Ran to the budget with no read after every lane's stop.
+            (done,) = host_read([s.done], report, phase)
+        else:
+            (done,) = seen
+    return s.result(None if done is None
+                    else [d + r for d, r in zip(done, s.r0)])
 
 
 def _may_improve(sums, sigma, active, n_used_f, root):

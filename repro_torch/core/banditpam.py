@@ -72,11 +72,13 @@ consumption order, so a round enqueued past a search's stop would shift
 every later search's draws.  The two give identical reports.
 
 ``fit_batch`` fits many independent datasets in one call
-(``core/batch.py``): under ``reuse="none"`` every lane advances one
-bandit round at a time, each round one ``build_g`` or ``swap_g`` launch
-for the whole batch; under ``reuse="pic"`` the lanes run one after
-another through this module's PIC driver.  Each fit equals the single
-fit with its seed, bit for bit.
+(``core/batch.py``): every lane advances one bandit round at a time,
+each round one ``build_g`` or ``swap_g`` launch for the whole batch, or
+under ``reuse="pic"`` one lane ``pairwise`` launch for the fresh blocks
+of every lane's ring and the served statistics (SWAP: one lane
+``swap_g_from_cache`` launch), with :func:`_carry_delta_lanes` repairing
+every carrying lane's moments at once.  Each fit equals the single fit
+with its seed, bit for bit.
 
 Random draws: every search takes its reference permutation, or in
 replacement mode its per-round batches, from a layout source
@@ -156,6 +158,35 @@ def _carry_delta(be, cols, pidx, pw, n_prefix: int, d1o, d2o, ao, d1n, d2n,
             torch.count_nonzero(w))
 
 
+def _carry_delta_lanes(be, lanes, ring, pidx, pw, n_prefix, old, new,
+                       sums, sqsums, k: int, run):
+    """:func:`_carry_delta` for every carrying lane of a PIC batch at once
+    (``fit_batch``): ``pidx`` / ``pw`` ``[L, W·B]`` each lane's tiling at
+    its ring's width, ``n_prefix`` ``[L]`` int64 the carried prefixes,
+    ``old`` / ``new`` the lanes' ``[L, n_pad]`` triples, ``sums`` /
+    ``sqsums`` ``[L, k·n_pad]``, and ``run`` ``[L]`` int32 the carrying
+    lanes.  The two passes are one lane ``swap_g_from_cache`` launch each
+    over every lane's whole ring (``ring`` a ``pic_cache.LaneRing``), with
+    each lane's :func:`_repair_weights`; lane l gets the single repair's
+    bits.  Returns ``(sums', sqsums', n_changed [L])``; a lane whose flag
+    reads 0 gets values for the caller to discard."""
+    from .engine import LaneBlocks
+    in_prefix = (torch.arange(pidx.shape[1], device=pidx.device)[None, :]
+                 < n_prefix[:, None]).to(torch.float32)
+    b = tuple(v.gather(1, pidx) for v in old)
+    c = tuple(v.gather(1, pidx) for v in new)
+    changed = ((b[0] != c[0]) | (b[1] != c[1]) | (b[2] != c[2])).to(
+        torch.float32)
+    w = pw * in_prefix * changed
+    blocks = LaneBlocks(ring.store, [0] * pidx.shape[0], None, ring.scratch)
+    s_old, q_old, _ = be.swap_stats_from_d_lanes(lanes, blocks, *b, w, k,
+                                                 None, run=run)
+    s_new, q_new, _ = be.swap_stats_from_d_lanes(lanes, blocks, *c, w, k,
+                                                 None, run=run)
+    return (sums - s_old + s_new, sqsums - q_old + q_new,
+            torch.count_nonzero(w, dim=1))
+
+
 class BanditPAM:
     """k-medoids via adaptive sampling; same medoids as PAM w.h.p.
 
@@ -201,18 +232,16 @@ class BanditPAM:
         self.device = device
 
     # -- per-fit context -------------------------------------------------
-    def _make_context(self, data, be_name: str, layouts, res: FitReport,
-                      ring_rounds: Optional[int] = None) -> FitContext:
-        """The fit's cache regime and buffers (``engine.FitContext``);
-        ``ring_rounds`` replaces the PIC ring's own width (a batch's)."""
+    def _make_context(self, data, be_name: str, layouts,
+                      res: FitReport) -> FitContext:
+        """The fit's cache regime and buffers (``engine.FitContext``)."""
         n = data.shape[0]
         be = get_stats_backend(be_name)
         B = self.batch_size
         dev = data.device
         if self.reuse == "pic":
             perm = _rng.as_device_index(layouts.fixed_perm(n), dev)
-            W = (resolve_cache_rounds(-(-n // B), B, self.cache_width)
-                 if ring_rounds is None else ring_rounds)
+            W = resolve_cache_rounds(-(-n // B), B, self.cache_width)
             width = W * B
             # The cyclic tiling's prefix at the ring's width; positions
             # past n are weight-0 padding.
@@ -298,7 +327,6 @@ class BanditPAM:
         fresh0 = ctx.cache.fresh_pos if pic else 0
         for i in range(self.k):
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
-                ctx.count_round("build")
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux,
                                                run))
@@ -399,7 +427,6 @@ class BanditPAM:
                             init_rounds=c_rounds)
 
             def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
-                ctx.count_round("swap")
                 dxy = (None if aux is None
                        else self._cached_block(be, data, ref_idx, rnd, aux,
                                                run))
@@ -485,10 +512,8 @@ class BanditPAM:
         """
         return self._fit(data, warm_start, layouts)[0]
 
-    def _fit(self, data, warm_start=None, layouts=None,
-             ring_rounds: Optional[int] = None):
-        """:meth:`fit` with the PIC ring's width given (``fit_batch``'s
-        PIC lanes); returns the report and the fit's context."""
+    def _fit(self, data, warm_start=None, layouts=None):
+        """:meth:`fit`, returning the report and the fit's context."""
         dev = resolve_device(self.device)
         data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
         if data.ndim != 2:
@@ -513,7 +538,7 @@ class BanditPAM:
                                      self.k if ws is None else 0)
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
-        ctx = self._make_context(data, be_name, layouts, res, ring_rounds)
+        ctx = self._make_context(data, be_name, layouts, res)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()

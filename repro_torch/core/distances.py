@@ -11,8 +11,12 @@ float32 dissimilarities, with the JAX package's formulas and clamps:
   ``[m, chunk, d]`` intermediate stays under ``2**24`` elements.
 
 These are the plain versions of the ``pairwise`` kernel and the metric
-half of the ``"torch"`` stats backend.  On a CUDA tensor they run with
-TF32 switched off, so the products stay in full float32.
+half of the ``"torch"`` stats backend.  Their products stay in full
+float32 whatever precision the process has set: on a CUDA tensor they
+switch TF32 off, and on the CPU they pin oneDNN's float32 matrix
+products to IEEE float32 (``torch.set_float32_matmul_precision("medium")``
+or ``torch.backends.mkldnn.matmul.fp32_precision = "bf16"`` would
+otherwise send them through bf16 on a CPU with AMX-BF16).
 
 The registry is open, as in the JAX package: ``register_metric`` takes
 any ``[m, d] x [r, d] -> [m, r]`` function of tensors, and
@@ -42,12 +46,18 @@ _L1_CHUNK_ELEMS = 1 << 24
 
 
 def full_fp32(t: torch.Tensor) -> None:
-    """Switch TF32 off before a float32 product on the card: TF32 keeps
-    about three decimal digits, below what the bandit's accept rule and
-    elimination margins resolve."""
+    """Keep a float32 product in full float32 on the tensor's device:
+    TF32 off on the card, oneDNN's float32 matrix products in IEEE float32
+    on the CPU.  TF32 keeps about three decimal digits and bf16 about two,
+    below what the bandit's accept rule and elimination margins
+    resolve."""
     if t.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        return
+    mm = getattr(torch.backends.mkldnn, "matmul", None)
+    if getattr(mm, "fp32_precision", "ieee") != "ieee":
+        mm.fp32_precision = "ieee"
 
 
 def register_metric(name: str, fn: Metric) -> None:

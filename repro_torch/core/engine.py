@@ -69,7 +69,20 @@ l's values are the single form's on its own ``[n_l, d]`` slice, bit for
 bit: ``"cuda"`` launches the lane kernels once a round, and the plain
 backend loops over the lanes with its single forms (:class:`_LaneLoop`).
 Entries past a lane's ``n_l`` and the entries of a masked lane are for
-the caller to discard.
+the caller to discard.  The PIC batch adds the lane forms of the
+pairwise path and of the served statistics, over each lane's block of a
+lane ring (:class:`LaneBlocks`)::
+
+    pairwise_lanes(x, y, *, metric, out=None, col=None, xrows=None,
+                   yrows=None, run=None)                   -> [L, m, ·]
+    build_stats_from_d_lanes(lanes, blocks, dnear_b, w, lead)
+                                                            -> 3 × [L, n_pad]
+    swap_stats_from_d_lanes(lanes, blocks, d1_b, d2_b, assign_b, w, k,
+                            lead, run=None)                 -> 3 × [L, k·n_pad]
+
+``pairwise_lanes`` is ``ops.pairwise_lanes``' contract (lane l's
+``[xrows[l], d] x [yrows[l], d]`` pairs into ``out[l]`` at column
+``col[l]``, a lane at flag 0 left as it was).
 
 The ``*_from_d`` forms take a resident ``[n, B]`` distance block ``dxy``
 (a round's slice of the PIC column ring, the warm block, or the whole
@@ -83,11 +96,11 @@ columns, and :class:`FitContext` holds a fit's cache regime.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..kernels.pairwise import pairwise_plain
+from ..kernels.pairwise import pairwise_lanes_plain, pairwise_plain
 from .distances import pairwise
 from .pic_cache import PicCache
 
@@ -400,6 +413,29 @@ class LaneData:
                                                  -1)
 
 
+class LaneBlocks(NamedTuple):
+    """Each lane's ``[n_l, b]`` block of distances in a lane ring
+    ``store`` ``[L, n_pad, C]``: lane l's at columns ``[col[l], col[l] +
+    b)`` (``col`` host ints, ``col_dev`` the same ``[L]`` int64 on the
+    device, or None where every offset is 0)."""
+    store: torch.Tensor
+    col: list
+    col_dev: Optional[torch.Tensor]
+    b: int
+
+    def lane(self, i: int, n: int) -> torch.Tensor:
+        return self.store[i, :n, self.col[i]:self.col[i] + self.b]
+
+    def stacked(self) -> torch.Tensor:
+        """Every lane's ``[n_pad, b]`` block, ``[L, n_pad, b]``: a view
+        where the lanes share one offset."""
+        c = self.col[0]
+        if all(v == c for v in self.col):
+            return self.store[:, :, c:c + self.b]
+        return torch.stack([self.store[i, :, v:v + self.b]
+                            for i, v in enumerate(self.col)])
+
+
 def _lane_out(lanes: LaneData, parts, arms: int):
     """Stack per-lane results (``parts[l]`` of ``arms·n_l`` arms, arm
     ``(c, x)`` at ``c·n_l + x``) into ``[L, arms·n_pad]`` zeros."""
@@ -439,6 +475,29 @@ class _LaneLoop:
                                          lead_i, metric=metric))
         return _lane_out(lanes, parts, k)
 
+    def build_stats_from_d_lanes(self, lanes, blocks, dnear_b, w, lead):
+        parts = [self.build_stats_from_d(blocks.lane(i, n), dnear_b[i], w[i],
+                                         None if lead is None else lead[i])
+                 for i, n in enumerate(lanes.ns)]
+        return _lane_out(lanes, parts, 1)
+
+    def swap_stats_from_d_lanes(self, lanes, blocks, d1_b, d2_b, assign_b,
+                                w, k, lead, run=None):
+        zero = (torch.zeros((k * n,), dtype=torch.float32,
+                            device=lanes.data.device) for n in lanes.ns)
+        parts = []
+        for i, (n, z) in enumerate(zip(lanes.ns, zero)):
+            if _skipped_on_host(None if run is None else run[i:i + 1]):
+                parts.append((z, z, z))
+                continue
+            lead_i = None
+            if lead is not None:
+                lead_i = lead[i] // lanes.n_pad * n + lead[i] % lanes.n_pad
+            parts.append(self.swap_stats_from_d(blocks.lane(i, n), d1_b[i],
+                                                d2_b[i], assign_b[i], w[i], k,
+                                                lead_i))
+        return _lane_out(lanes, parts, k)
+
     def top2_lanes(self, lanes, med_idx, *, metric, live=None):
         L, n_pad = len(lanes.ns), lanes.n_pad
         dev = lanes.data.device
@@ -463,6 +522,11 @@ class TorchStatsBackend(_LaneLoop):
 
     def pairwise(self, x, y, *, metric, out=None, run=None):
         return pairwise_plain(x, y, metric, out, run)
+
+    def pairwise_lanes(self, x, y, *, metric, out=None, col=None,
+                       xrows=None, yrows=None, run=None):
+        return pairwise_lanes_plain(x, y, metric, out, col, xrows, yrows,
+                                    run)
 
     def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
                     run=None):
@@ -646,6 +710,54 @@ class CudaStatsBackend:
         L = y.shape[0]
         return s.view(L, -1), q.view(L, -1), c.view(L, -1)
 
+    def pairwise_lanes(self, x, y, *, metric, out=None, col=None,
+                       xrows=None, yrows=None, run=None):
+        return self._ops(x).pairwise_lanes(x, y, metric, out=out, col=col,
+                                           xrows=xrows, yrows=yrows, run=run)
+
+    def build_stats_from_d_lanes(self, lanes, blocks, dnear_b, w, lead):
+        # The single form's plain math with a lane axis: elementwise ops and
+        # row sums over B, each lane's bits those of the single [n, B]
+        # call; the leader's cross sums are one matrix-vector product per
+        # lane, as the single form's.
+        self._ops(lanes.data)
+        dxy = blocks.stacked()
+        dn = dnear_b[:, None, :]
+        g = torch.where(torch.isinf(dn), dxy,
+                        torch.clamp_max(dxy - dn, 0.0)) * w[:, None, :]
+        sums, sq = torch.sum(g, dim=2), torch.sum(g * g, dim=2)
+        if lead is None:
+            return sums, sq, torch.zeros_like(sums)
+        lg = g.gather(1, lead.view(-1, 1, 1).expand(-1, 1, g.shape[2]))
+        cross = torch.zeros_like(sums)
+        for i, n in enumerate(lanes.ns):
+            torch.mv(g[i, :n], lg[i, 0], out=cross[i, :n])
+        return sums, sq, cross
+
+    def swap_stats_from_d_lanes(self, lanes, blocks, d1_b, d2_b, assign_b,
+                                w, k, lead, run=None):
+        ops = self._ops(lanes.data)
+        lead_g = None
+        if lead is not None:
+            # The leader's distance row is a row of its lane's block.
+            n_pad = lanes.n_pad
+            L = d1_b.shape[0]
+            cols = torch.arange(blocks.b, device=d1_b.device).expand(L, -1)
+            if blocks.col_dev is not None:
+                cols = cols + blocks.col_dev[:, None]
+            row = blocks.store[torch.arange(L, device=cols.device),
+                               lead % n_pad]
+            dl = row.gather(1, cols)
+            m1 = torch.minimum(dl, d1_b)
+            corr = torch.minimum(dl, d2_b) - m1
+            lead_g = (m1 - d1_b) + (assign_b == (lead // n_pad)[:, None]).to(
+                dl.dtype) * corr
+        s, q, c = ops.swap_g_from_cache_lanes_stats(
+            blocks.store, d1_b, d2_b, assign_b, w, k, lead_g,
+            col=blocks.col_dev, rows=lanes.rows, run=run)
+        L = d1_b.shape[0]
+        return s.view(L, -1), q.view(L, -1), c.view(L, -1)
+
     def top2_lanes(self, lanes, med_idx, *, metric, live=None):
         ops = self._ops(lanes.data)
         rows = (lanes.rows if live is None
@@ -739,8 +851,3 @@ class FitContext:
     cache: Optional[PicCache] = None          # the ring ("pic")
     dwarm: Optional[torch.Tensor] = None      # [n, C] warm block ("warm")
     free_rounds: int = 0                      # rounds in dwarm ("warm")
-    # Rounds enqueued per phase (a ``fit_batch`` PIC lane's dispatches).
-    rounds_by_phase: Dict[str, int] = dataclasses.field(default_factory=dict)
-
-    def count_round(self, phase: str) -> None:
-        self.rounds_by_phase[phase] = self.rounds_by_phase.get(phase, 0) + 1

@@ -41,19 +41,34 @@ read and written a round at a time through :func:`shard_slot_read_write`
 (a fresh block copied in place, the counterpart of the JAX package's
 buffer donation).  A batch of fits (``fit_batch``) gives every lane one
 ring width, :func:`resolve_batch_cache_rounds`.
+
+The batch's lanes (:class:`LaneRing`, ``fit_batch`` under ``reuse="pic"``)
+keep their rings in one ``[L, n_pad, (W+1)·B]`` tensor: lane l's ring is
+its first ``W·B`` columns, with the single fit's slots, and its last B
+columns are the lane's scratch, where a recycled round's fresh block
+goes (never into the ring).  Each lane keeps its own host ``hw`` and
+``fresh_pos``.  Every lane's round r uses the same slot ``(r mod W)·B``;
+only the choice (served, new or recycled) differs between lanes, and it
+follows from each lane's ``hw`` at the search's start, so
+:func:`lane_plan` builds the ``[R, L]`` choice table once per search and
+:func:`lane_advance` moves every lane's state at its end, each lane
+exactly as :func:`search_read_or_write` / :func:`search_advance` move a
+single fit's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = ["PicCache", "DEFAULT_CACHE_ROUNDS", "resolve_cache_rounds",
            "resolve_batch_cache_rounds", "make_cache",
            "shard_slot_read_write", "cache_advance", "carry_valid", "fresh_positions",
-           "search_read_or_write", "search_advance"]
+           "search_read_or_write", "search_advance", "LaneRing", "LanePlan",
+           "make_lane_ring", "lane_plan", "lane_advance", "to_device"]
 
 # Default ring width in round-blocks: fits up to n = 3,200 at B = 100
 # never recycle, and the ring stays O(n·W·B) at large n.
@@ -168,6 +183,18 @@ def search_read_or_write(be, data: torch.Tensor, ref_idx: torch.Tensor, *,
     return be.pairwise(data, y, metric=metric, run=run)
 
 
+def _advance(hw: int, fresh_pos: int, hw0: int, r0: int, r_end: int,
+             sizes, rounds_cap: int):
+    """``(hw, fresh_pos)`` after a search from ``hw0`` ran rounds
+    ``[r0, r_end)``: each round outside the window charged its effective
+    positions ``sizes[r]``, ``hw`` moved past the last one."""
+    fresh_pos += sum(sizes[r] for r in range(r0, r_end)
+                     if not _in_window(r, hw0, rounds_cap))
+    if r_end > r0:
+        hw = max(hw0, r_end)
+    return hw, fresh_pos
+
+
 def search_advance(cache: PicCache, hw0: int, r0: int, r_end: int, sizes,
                    block: int) -> PicCache:
     """After a search from high-water mark ``hw0`` ran rounds
@@ -175,11 +202,9 @@ def search_advance(cache: PicCache, hw0: int, r0: int, r_end: int, sizes,
     round outside the window (first computations and recycled rounds
     alike) and move ``hw`` past the last one.  The same state as
     :func:`cache_advance` after each of those rounds in turn."""
-    W = cache.rounds_cap(block)
-    cache.fresh_pos += sum(sizes[r] for r in range(r0, r_end)
-                           if not _in_window(r, hw0, W))
-    if r_end > r0:
-        cache.hw = max(hw0, r_end)
+    cache.hw, cache.fresh_pos = _advance(cache.hw, cache.fresh_pos, hw0, r0,
+                                         r_end, sizes,
+                                         cache.rounds_cap(block))
     return cache
 
 
@@ -194,3 +219,116 @@ def fresh_positions(fresh_pos_before: int, cache: PicCache) -> int:
     """Positions computed fresh since ``fresh_pos_before`` (a column
     each, ``n`` evaluations, multiplied on the host)."""
     return cache.fresh_pos - fresh_pos_before
+
+
+# ---------------------------------------------------------------------------
+# The batch's lane rings (fit_batch under reuse="pic")
+# ---------------------------------------------------------------------------
+
+def to_device(values, dtype, device) -> torch.Tensor:
+    """A host table on ``device`` without waiting for the device: on a
+    card through pinned memory and an asynchronous copy (a pageable copy
+    would wait for the stream's queued work)."""
+    t = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class LaneRing:
+    """L rings of ``W`` round-blocks of ``block`` columns and their host
+    state (see the module docstring).
+
+    ``store`` is ``[L, n_pad, (W+1)·block]`` float32 on the batch's
+    device: lane l's ring is ``store[l, :n_l, :W·block]``, its scratch
+    ``store[l, :n_l, W·block:]``; ``hw[l]`` and ``fresh_pos[l]`` are lane
+    l's :class:`PicCache` fields.
+    """
+
+    store: torch.Tensor
+    block: int
+    hw: list
+    fresh_pos: list
+
+    @property
+    def rounds_cap(self) -> int:
+        return self.store.shape[2] // self.block - 1
+
+    @property
+    def scratch(self) -> int:
+        """The scratch's first column."""
+        return self.rounds_cap * self.block
+
+    @property
+    def rings(self) -> torch.Tensor:
+        """Every lane's ring, ``[L, n_pad, W·block]`` (a view)."""
+        return self.store[:, :, :self.scratch]
+
+    def carry_valid(self, lane: int) -> bool:
+        """:func:`carry_valid` for lane ``lane``."""
+        return self.hw[lane] <= self.rounds_cap
+
+
+def make_lane_ring(lanes: int, n_pad: int, block: int, rounds: int,
+                   device) -> LaneRing:
+    """``lanes`` all-cold rings of ``rounds`` slots of ``block`` columns."""
+    store = torch.zeros((lanes, n_pad, (rounds + 1) * block),
+                        dtype=torch.float32, device=device)
+    return LaneRing(store=store, block=block, hw=[0] * lanes,
+                    fresh_pos=[0] * lanes)
+
+
+class LanePlan(NamedTuple):
+    """One search's ring accesses, lane by lane (:func:`lane_plan`).
+
+    ``col[r][l]`` (host) and ``col_dev`` ``[R, L]`` int64: the first
+    column of lane l's round-r block in the ring's store (its slot, or the
+    scratch for a recycled round); ``fresh_dev`` ``[R, L]`` int32: 1 where
+    the round computes its block (a new or a recycled round), the run
+    flag of the lane ``pairwise`` launch; ``any_fresh[r]`` whether some
+    lane computes round r; ``free`` ``[L, R]`` bool: the rounds served
+    from the window, charged to the cached ledger; ``hw0`` the lanes'
+    starting ``hw``."""
+    col: list
+    col_dev: torch.Tensor
+    fresh_dev: torch.Tensor
+    any_fresh: list
+    free: torch.Tensor
+    hw0: list
+
+
+def lane_plan(ring: LaneRing, budgets, n_rounds: int) -> LanePlan:
+    """The ``[R, L]`` choice table of a search that starts now, each
+    lane's round r as :func:`search_read_or_write` would access it from
+    the lane's ``hw``: served from its slot in the window, NEW (``r ≥
+    hw``) computed into its slot, recycled computed into the scratch.
+    ``budgets[l]`` is lane l's round budget (its rounds past it are
+    masked and access nothing); ``n_rounds`` the table's R."""
+    B, W = ring.block, ring.rounds_cap
+    r = np.arange(n_rounds)[:, None]                              # [R, 1]
+    hw0 = np.asarray(ring.hw)[None, :]                            # [1, L]
+    ran = r < np.asarray(budgets)[None, :]
+    served = ran & (r >= np.maximum(hw0 - W, 0)) & (r < hw0)     # window
+    fresh = ran & ~served
+    col = np.where(fresh & (r < hw0), ring.scratch, (r % W) * B)
+    free = served.T
+    dev = ring.store.device
+    return LanePlan(col=col.tolist(), col_dev=to_device(col, torch.int64, dev),
+                    fresh_dev=to_device(fresh, torch.int32, dev),
+                    any_fresh=fresh.any(axis=1).tolist(),
+                    free=to_device(free, torch.bool, dev),
+                    hw0=list(ring.hw))
+
+
+def lane_advance(ring: LaneRing, plan: LanePlan, lanes, r0s, r_ends,
+                 sizes) -> LaneRing:
+    """After a search planned by ``plan``: lane l (of ``lanes``) ran rounds
+    ``[r0s[l], r_ends[l])``; each lane's state moves as
+    :func:`search_advance` moves a single fit's (``sizes[l]`` its
+    rounds' effective positions)."""
+    for l in lanes:
+        ring.hw[l], ring.fresh_pos[l] = _advance(
+            ring.hw[l], ring.fresh_pos[l], plan.hw0[l], r0s[l], r_ends[l],
+            sizes[l], ring.rounds_cap)
+    return ring

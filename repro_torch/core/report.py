@@ -75,16 +75,13 @@ class BatchFitReport:
     empty.  The batch-level fields are the whole batch's:
 
     * ``dispatches_by_phase``: the batched round launches per phase.  A
-      round of the lockstep batch (``reuse="none"``) is ONE ``build_g``
-      or ``swap_g`` launch on the card for every lane (one loop over the
-      lanes on the plain backend), rounds enqueued past every lane's
-      stop included; the count does not grow with the batch.  Under
-      ``reuse="pic"`` the lanes run one after another through the
-      single-fit PIC driver, and the count is the sum of every lane's
-      rounds.
+      round of the lockstep batch is ONE ``build_g`` or ``swap_g`` launch
+      on the card for every lane (``reuse="pic"``: one lane ``pairwise``
+      launch for the fresh blocks and the served statistics; one loop
+      over the lanes on the plain backend), rounds enqueued past every
+      lane's stop included; the count does not grow with the batch.
     * ``host_reads_by_phase``: the batch's device-to-host reads per phase
-      (``engine.host_read``); under ``reuse="pic"`` the sum of every
-      lane's.
+      (``engine.host_read``).
     * ``wall_by_phase``: seconds per phase for the whole batch, on the
       host around work that ends in a device synchronisation.
     * ``medoids`` / ``loss``: the stacked ``[B, k]`` / ``[B]`` views.

@@ -61,6 +61,13 @@ SIGNATURES = {
     "rt_swap_g_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                         _I64, _I, _I, _I, _P, _P, _P],
     "rt_top2_lanes": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
+    # The PIC batch's two: per-lane extents, output or input column
+    # offsets (``const int64_t*``) and run flags before the stream.
+    "rt_pairwise_lanes": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I,
+                          _P, _P, _P, _P, _P],
+    "rt_swap_g_from_cache_lanes": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _I64, _I64, _I64, _I, _P, _P,
+                                   _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

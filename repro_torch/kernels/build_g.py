@@ -28,7 +28,7 @@ import torch
 from ..core.distances import pairwise
 from ..core.engine import _build_g
 from . import build as _build
-from .pairwise import METRIC_IDS
+from .pairwise import METRIC_IDS, lane_rows
 
 launches = 0
 lane_launches = 0
@@ -60,11 +60,6 @@ def launch(x, y, dnear_b, w, lead_g, metric: str, run=None):
     launches += 1
     _build.check(code, "build_g kernel")
     return sums, sq, cross
-
-
-def lane_rows(rows, lanes: int, n_pad: int):
-    """Each lane's row count as host ints (``rows`` a CPU tensor or None)."""
-    return [n_pad] * lanes if rows is None else [int(v) for v in rows]
 
 
 def build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows, metric: str,

@@ -30,24 +30,50 @@
 // masked round, or a round that must not be written through, from
 // touching the ring.  Neither changes the arithmetic, tile or order, so
 // ldo = r and a flag of 1 give the bits of the plain launch.
+//
+// The lane axis (rt_pairwise_lanes, the PIC fit_batch).  L independent
+// problems x [L, m, d] against y [L, r, d] run as one launch: blockIdx.z
+// is the lane, each lane with its own row counts mrows[l] <= m and
+// rrows[l] <= r, its run flag, and its output at out + l * lane_out +
+// ocol[l] (rows ldo apart).  So one launch writes every lane's fresh PIC
+// block into its slot of the lane ring (ocol[l] the slot's first column)
+// or, for a recycled round, into the ring's scratch columns, while a
+// served lane's flag reads 0; and it computes every lane's d_near row
+// ([1 x n_l]).  A block offsets its pointers to its lane and runs the
+// single launch's body on the lane's extents: blocks past them, and every
+// block of a lane whose flag reads 0, return at once.  The tile is chosen
+// from the padded extents; a pair's bits do not depend on the tile, so
+// lane l gives the bits of rt_pairwise on its own slices; rt_pairwise is
+// the same kernel with one lane.
 #include <stdint.h>
 
 #include "dist_mainloop.cuh"
 
 namespace {
 
-// SWAP_AB: the tile's rows are y rows and its columns x rows.
+// SWAP_AB: the tile's rows are y rows and its columns x rows.  m and r
+// are the padded extents (each lane's x and y are m * d and r * d floats
+// apart); mrows / rrows (NULL: m / r) the lane's own.
 template <int M, class C, bool SWAP_AB>
 __global__ void __launch_bounds__(C::NT, C::MINB)
 pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 float* __restrict__ out, int64_t m, int64_t r, int64_t ldo,
-                int d, bool vec, const int* __restrict__ run) {
-  if (run != nullptr && *run == 0) return;  // masked: out is untouched
+                int d, bool vec, const int* __restrict__ run,
+                const int* __restrict__ mrows, const int* __restrict__ rrows,
+                const int64_t* __restrict__ ocol, int64_t lane_out) {
+  const int64_t lane = blockIdx.z;
+  if (run != nullptr && run[lane] == 0) return;  // masked: out is untouched
+  x += lane * m * d;
+  y += lane * r * d;
+  out += lane * lane_out + (ocol != nullptr ? ocol[lane] : 0);
+  if (mrows != nullptr) m = mrows[lane];
+  if (rrows != nullptr) r = rrows[lane];
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
   const int64_t a0 = (int64_t)blockIdx.x * C::BM;
   const int64_t b0 = (int64_t)blockIdx.y * C::BN;
+  if (a0 >= ma || b0 >= mb) return;  // past the lane's extents
   float acc[C::RM][C::RN];
   rt::dist_mainloop<M, C>(SWAP_AB ? y : x, SWAP_AB ? x : y, ma, mb, d, a0,
                           b0, vec, smem, acc);
@@ -74,29 +100,36 @@ pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+struct Lanes {
+  int64_t lanes, lane_out;
+  const int *mrows, *rrows;
+  const int64_t* ocol;
+};
+
 template <int M, class C, bool SWAP_AB>
 cudaError_t launch(const float* x, const float* y, float* out, int64_t m,
                    int64_t r, int64_t ldo, int d, bool vec, const int* run,
-                   cudaStream_t st) {
+                   const Lanes& ln, cudaStream_t st) {
   const int64_t ma = SWAP_AB ? r : m, mb = SWAP_AB ? m : r;
   const dim3 grid((unsigned)((ma + C::BM - 1) / C::BM),
-                  (unsigned)((mb + C::BN - 1) / C::BN));
+                  (unsigned)((mb + C::BN - 1) / C::BN), (unsigned)ln.lanes);
   auto kernel = pairwise_kernel<M, C, SWAP_AB>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, C::NT, C::SMEM, st>>>(x, y, out, m, r, ldo, d, vec,
-                                       run);
+  kernel<<<grid, C::NT, C::SMEM, st>>>(x, y, out, m, r, ldo, d, vec, run,
+                                       ln.mrows, ln.rrows, ln.ocol,
+                                       ln.lane_out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int rt_pairwise(const float* x, const float* y, float* out,
-                           int64_t m, int64_t r, int64_t ldo, int d,
-                           int metric, const int* run, void* stream) {
-  if (ldo < r) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || r <= 0) return cudaSuccess;
+int dispatch(const float* x, const float* y, float* out, int64_t m,
+             int64_t r, int64_t ldo, int d, int metric, const int* run,
+             const Lanes& ln, void* stream) {
+  if (ldo < r || ln.lanes > 65535) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || r <= 0 || ln.lanes <= 0) return cudaSuccess;
+  // Lane bases are whole rows apart, so every lane shares lane 0's
+  // alignment when d % 4 == 0.
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -104,12 +137,35 @@ extern "C" int rt_pairwise(const float* x, const float* y, float* out,
   RT_METRIC_SWITCH(metric, M, {
     if (r <= Narrow::BN)
       return (int)launch<M, Narrow, false>(x, y, out, m, r, ldo, d, vec, run,
-                                              st);
+                                              ln, st);
     if (m <= Narrow::BN)
       return (int)launch<M, Narrow, true>(x, y, out, m, r, ldo, d, vec, run,
-                                             st);
+                                             ln, st);
     return (int)launch<M, rt::WideTile, false>(x, y, out, m, r, ldo, d, vec,
-                                                   run, st);
+                                                   run, ln, st);
   });
   return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" int rt_pairwise(const float* x, const float* y, float* out,
+                           int64_t m, int64_t r, int64_t ldo, int d,
+                           int metric, const int* run, void* stream) {
+  return dispatch(x, y, out, m, r, ldo, d, metric, run,
+                  Lanes{1, 0, nullptr, nullptr, nullptr}, stream);
+}
+
+// The lane axis: x [lanes, m, d], y [lanes, r, d]; lane l's output at
+// out + l * lane_out + ocol[l], rows ldo apart; mrows, rrows and run
+// [lanes] (NULL: m rows, r rows, every lane runs), ocol [lanes] int64
+// (NULL: 0).  ocol[l] + rrows[l] must not pass the row's ldo floats.
+extern "C" int rt_pairwise_lanes(const float* x, const float* y, float* out,
+                                 int64_t lanes, int64_t m, int64_t r,
+                                 int64_t lane_out, int64_t ldo, int d,
+                                 int metric, const int* mrows,
+                                 const int* rrows, const int64_t* ocol,
+                                 const int* run, void* stream) {
+  return dispatch(x, y, out, m, r, ldo, d, metric, run,
+                  Lanes{lanes, lane_out, mrows, rrows, ocol}, stream);
 }

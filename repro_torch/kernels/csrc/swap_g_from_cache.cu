@@ -39,6 +39,20 @@
 // running" flag: where it reads 0 every block returns before its first
 // load and the outputs are unwritten (the caller discards them).  Nothing
 // else changes, so a flag of 1 gives the bits of NULL.
+//
+// The lane axis (rt_swap_g_from_cache_lanes, the PIC fit_batch).  L
+// independent fits run as one launch: blockIdx.y is the lane, each lane
+// with its own block of distances at dxy + l * lane_stride + col[l] (rows
+// ld apart: a round's slot of the lane ring [L, n_pad, (W+1)*B], a
+// recycled round's scratch columns, or the whole ring in the repair), its
+// d1 / d2 / assign / w / lg [B], row count rows[l], run flag, and outputs
+// [k, n_pad] at l * k * n_pad.  A block offsets its pointers to its lane
+// and runs the single launch's body with m = rows[l]; blocks past it and
+// every block of a lane whose flag reads 0 return at once.  Lane l thus
+// gives the bits of rt_swap_g_from_cache on its own block;
+// rt_swap_g_from_cache is the same kernel with one lane.  A per-lane
+// column offset, not a staging copy, is how a recycled lane's block is
+// read: one launch serves every lane with no copy.
 #include <limits.h>
 #include <stdint.h>
 
@@ -137,8 +151,24 @@ swap_g_from_cache_kernel(const float* __restrict__ dxy, int64_t ld,
                          const float* __restrict__ lg,
                          float* __restrict__ sums, float* __restrict__ sq,
                          float* __restrict__ cross, int64_t m, int64_t b,
-                         int k, const int* __restrict__ run) {
-  if (run != nullptr && *run == 0) return;  // a masked round
+                         int k, const int* __restrict__ run,
+                         int64_t lane_stride, const int64_t* __restrict__ col,
+                         const int* __restrict__ rows) {
+  // m is the padded row count: the outputs' stride between clusters.
+  const int64_t ln = blockIdx.y, ldk = m;
+  if (run != nullptr && run[ln] == 0) return;  // a masked round or lane
+  if (rows != nullptr) m = rows[ln];
+  const int64_t row0 = (int64_t)blockIdx.x * R;
+  if (row0 >= m) return;  // past the lane's rows: the whole block
+  dxy += ln * lane_stride + (col != nullptr ? col[ln] : 0);
+  d1 += ln * b;
+  d2 += ln * b;
+  assign += ln * b;
+  w += ln * b;
+  lg += ln * b;
+  sums += ln * k * ldk;
+  sq += ln * k * ldk;
+  cross += ln * k * ldk;
   extern __shared__ float4 smem4[];
   const int kc = k < KC_MAX ? k : KC_MAX;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -148,7 +178,6 @@ swap_g_from_cache_kernel(const float* __restrict__ dxy, int64_t ld,
   float* const buf0 = red + 3 * SUBS * R + s * WARP;
   int* const list = reinterpret_cast<int*>(buf0 + 2 * BUF);
   float* const outs[3] = {sums, sq, cross};
-  const int64_t row0 = (int64_t)blockIdx.x * R;
   const int64_t nq = b > s ? (b - s + 3) / 4 : 0;  // residue-s columns
   for (int c0 = 0; c0 < k; c0 += kc) {
     const int kcc = k - c0 < kc ? k - c0 : kc;
@@ -189,11 +218,34 @@ swap_g_from_cache_kernel(const float* __restrict__ dxy, int64_t ld,
     for (int e = threadIdx.x; e < 3 * kcc * R; e += NT) {
       const int i = e % R, c = (e / R) % kcc, q = e / (R * kcc);
       if (row0 + i >= m) continue;
-      outs[q][(int64_t)(c0 + c) * m + row0 + i] =
+      outs[q][(int64_t)(c0 + c) * ldk + row0 + i] =
           rt::swap_fold_ld<SUBS>(red, bins, kcc, R, q, c, i);
     }
     __syncthreads();  // the next chunk's bins go over these
   }
+}
+
+// One launch over `lanes` lanes of m (padded) rows.
+int launch(const float* dxy, int64_t lane_stride, int64_t ld,
+           const int64_t* col, const float* d1, const float* d2,
+           const int* assign, const float* w, const float* lg, float* sums,
+           float* sq, float* cross, int64_t lanes, int64_t m, int64_t b, int k,
+           const int* rows, const int* run, void* stream) {
+  if (k < 1 || b < 1 || ld < b || b > INT_MAX || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (m <= 0 || lanes <= 0) return cudaSuccess;
+  const int kc = k < KC_MAX ? k : KC_MAX;
+  const size_t smem =
+      (size_t)(SUBS * 3 * kc * R + 3 * SUBS * R + SUBS * WARP) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      swap_g_from_cache_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((m + R - 1) / R), (unsigned)lanes);
+  swap_g_from_cache_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      dxy, ld, d1, d2, assign, w, lg, sums, sq, cross, m, b, k, run,
+      lane_stride, col, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -204,18 +256,20 @@ extern "C" int rt_swap_g_from_cache(const float* dxy, int64_t ld,
                                     const float* lg, float* sums, float* sq,
                                     float* cross, int64_t m, int64_t b, int k,
                                     const int* run, void* stream) {
-  if (k < 1 || b < 1 || ld < b || b > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (m <= 0) return cudaSuccess;
-  const int kc = k < KC_MAX ? k : KC_MAX;
-  const size_t smem =
-      (size_t)(SUBS * 3 * kc * R + 3 * SUBS * R + SUBS * WARP) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      swap_g_from_cache_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((m + R - 1) / R);
-  swap_g_from_cache_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      dxy, ld, d1, d2, assign, w, lg, sums, sq, cross, m, b, k, run);
-  return (int)cudaGetLastError();
+  return launch(dxy, 0, ld, nullptr, d1, d2, assign, w, lg, sums, sq, cross,
+                1, m, b, k, nullptr, run, stream);
+}
+
+// The lane axis: lane l's block at dxy + l * lane_stride + col[l] (col
+// NULL: 0), rows ld apart; d1 / d2 / assign / w / lg [lanes, b]; outputs
+// [lanes, k, m]; rows and run [lanes] (NULL: m rows, every lane runs).
+// col[l] + b must not pass the row's ld floats.
+extern "C" int rt_swap_g_from_cache_lanes(
+    const float* dxy, int64_t lane_stride, int64_t ld, const int64_t* col,
+    const float* d1, const float* d2, const int* assign, const float* w,
+    const float* lg, float* sums, float* sq, float* cross, int64_t lanes,
+    int64_t m, int64_t b, int k, const int* rows, const int* run,
+    void* stream) {
+  return launch(dxy, lane_stride, ld, col, d1, d2, assign, w, lg, sums, sq,
+                cross, lanes, m, b, k, rows, run, stream);
 }

@@ -19,7 +19,10 @@ The lane entry points (``build_g_lanes_stats``, ``swap_g_lanes_stats``,
 ``[L, n_pad, d]`` in one launch, each lane with its own inputs, its row
 count ``rows[l]`` and, for the round kernels, its run flag; lane l gives
 the bits of the single entry point on its ``[rows[l], d]`` slice.  Their
-plain versions loop over the lanes with the single plain versions.
+plain versions loop over the lanes with the single plain versions.  The
+PIC batch adds two (``pairwise_lanes``, ``swap_g_from_cache_lanes_stats``)
+that write or read each lane's block of a lane ring ``[L, n_pad, C]`` at
+the lane's own column offset.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ _KERNELS = {"pairwise": (_pairwise, "launches"),
             "stream_swap_g": (_stream_g, "stream_swap_launches"),
             "build_g_lanes": (_build_g, "lane_launches"),
             "swap_g_lanes": (_swap_g, "lane_launches"),
-            "top2_lanes": (_stream_g, "top2_lane_launches")}
+            "top2_lanes": (_stream_g, "top2_lane_launches"),
+            "pairwise_lanes": (_pairwise, "lane_launches"),
+            "swap_g_from_cache_lanes": (_swap_g, "cached_lane_launches")}
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -119,6 +124,16 @@ def _lanes_in(what: str, x: torch.Tensor, y: torch.Tensor,
            "the batch vectors must be [L, B]")
     _lane_vec(what, rows, lanes, x, "rows")
     _lane_vec(what, run, lanes, x, "run")
+
+
+def _lane_cols(what: str, col: Optional[torch.Tensor], lanes: int,
+               like: torch.Tensor) -> None:
+    """Per-lane column offsets: ``[lanes]`` int64 on the data's device."""
+    if col is not None:
+        _check(col.dtype == torch.int64 and col.shape == (lanes,)
+               and col.device == like.device and col.is_contiguous(), what,
+               f"col must be a contiguous [{lanes}] int64 tensor on "
+               f"{like.device}")
 
 
 def _f32(what: str, *tensors: torch.Tensor) -> None:
@@ -389,3 +404,92 @@ def stream_top2_lanes(x: torch.Tensor, med_pts: torch.Tensor, *,
     if cuda:
         return _stream_g.launch_top2_lanes(x, med_pts, rows, metric)
     return _stream_g.top2_lanes_torch(x, med_pts, rows, metric)
+
+
+def pairwise_lanes(x: torch.Tensor, y: torch.Tensor, metric: str = "l2", *,
+                   out: Optional[torch.Tensor] = None,
+                   col: Optional[torch.Tensor] = None,
+                   xrows: Optional[torch.Tensor] = None,
+                   yrows: Optional[torch.Tensor] = None,
+                   run: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``pairwise_distance`` over L lanes in one launch: x ``[L, m, d]``
+    against y ``[L, r, d]``, lane l over its first ``xrows[l]`` and
+    ``yrows[l]`` rows (``[L]`` int32; None: m and r).  Into ``out``
+    ``[L, m, C]`` (float32, adjacent columns, any row and lane stride: a
+    lane ring) at columns ``[col[l], col[l] + r_l)`` of lane l (``col``
+    ``[L]`` int64, None: 0; the caller keeps ``col[l] + r_l <= C``), or
+    into a new ``[L, m, r]`` tensor.  A lane whose flag ``run[l]`` reads 0
+    and the entries past a lane's rows are left as they were (unwritten
+    in a new tensor)."""
+    what = "pairwise_lanes"
+    cuda = _on_cuda(what, metric, x, y)
+    _f32(what, x, y)
+    _check(x.ndim == 3 and y.ndim == 3 and x.shape[0] == y.shape[0]
+           and x.shape[2] == y.shape[2], what,
+           f"shapes {tuple(x.shape)} x {tuple(y.shape)}")
+    lanes, m, r = x.shape[0], x.shape[1], y.shape[1]
+    if out is not None:
+        _check(out.ndim == 3 and out.shape[:2] == (lanes, m)
+               and out.shape[2] >= r and out.dtype == torch.float32
+               and out.device == x.device
+               and (out.stride(2) == 1 or out.shape[2] == 1)
+               and out.stride(1) >= out.shape[2], what,
+               f"out must be an [{lanes}, {m}, >= {r}] float32 tensor on "
+               f"{x.device} with adjacent columns")
+    _check(out is not None or col is None, what, "col needs out")
+    _lane_cols(what, col, lanes, x)
+    _lane_vec(what, xrows, lanes, x, "xrows")
+    _lane_vec(what, yrows, lanes, x, "yrows")
+    _lane_vec(what, run, lanes, x, "run")
+    if cuda:
+        return _pairwise.launch_lanes(x, y, metric, out, col, xrows, yrows,
+                                      run)
+    return _pairwise.pairwise_lanes_plain(x, y, metric, out, col, xrows,
+                                          yrows, run)
+
+
+def swap_g_from_cache_lanes_stats(dxy: torch.Tensor, d1_b: torch.Tensor,
+                                  d2_b: torch.Tensor, assign_b: torch.Tensor,
+                                  w: torch.Tensor, k: int,
+                                  lead_g: Optional[torch.Tensor] = None, *,
+                                  col: Optional[torch.Tensor] = None,
+                                  rows: Optional[torch.Tensor] = None,
+                                  run: Optional[torch.Tensor] = None
+                                  ) -> Stats:
+    """``swap_g_stats_cached`` over L lanes in one launch: lane l's block
+    is ``dxy[l, :rows[l], col[l]:col[l] + B]`` of a lane ring ``dxy``
+    ``[L, n_pad, C]`` (adjacent columns, any row and lane stride; ``col``
+    ``[L]`` int64, None: 0; the caller keeps ``col[l] + B <= C``), the
+    batch vectors ``[L, B]``, rows and run ``[L]`` int32 as in
+    :func:`build_g_lanes_stats`.  Returns (Σg, Σg², Σg·g_lead), each
+    ``[L, k, n_pad]``: lane l's arm (c, x) at ``[l, c, x]``, unwritten past
+    a lane's rows and in a lane whose flag reads 0."""
+    what = "swap_g_from_cache_lanes_stats"
+    if lead_g is None:
+        lead_g = torch.zeros_like(d1_b)
+    _check(dxy.ndim == 3, what,
+           f"dxy must be [L, n_pad, C], got {tuple(dxy.shape)}")
+    _check(dxy.stride(2) == 1 or dxy.shape[2] == 1, what,
+           "dxy's columns must be adjacent (stride(2) == 1)")
+    cuda = _on_cuda(what, None, d1_b, d2_b, assign_b, w, lead_g)
+    _check(dxy.device == d1_b.device, what,
+           f"tensors on {dxy.device} and {d1_b.device}")
+    _f32(what, dxy, d1_b, d2_b, w, lead_g)
+    _check(assign_b.dtype == torch.int32, what,
+           f"assign_b must be int32, got {assign_b.dtype}")
+    lanes, b = dxy.shape[0], d1_b.shape[-1]
+    _check(b >= 1 and b <= dxy.shape[2], what,
+           f"a block of {b} columns in a ring of {dxy.shape[2]}")
+    _check(all(t.shape == (lanes, b)
+               for t in (d1_b, d2_b, assign_b, w, lead_g)), what,
+           "the batch vectors must be [L, B]")
+    _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    _lane_cols(what, col, lanes, dxy)
+    _lane_vec(what, rows, lanes, dxy, "rows")
+    _lane_vec(what, run, lanes, dxy, "run")
+    if cuda:
+        return _swap_g.launch_cached_lanes(dxy, d1_b, d2_b, assign_b, w,
+                                           int(k), lead_g, col, rows, run)
+    return _swap_g.swap_g_from_cache_lanes_torch(dxy, d1_b, d2_b, assign_b, w,
+                                                 int(k), lead_g, col, rows,
+                                                 run)

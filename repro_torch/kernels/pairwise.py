@@ -18,10 +18,19 @@ The kernel writes into a given output of any row stride (a PIC round's
 slot of the column ring, ``cols[:, s:s+B]``) and takes a run flag: where
 it reads 0 the output is left as it was.
 
+The lane axis (the PIC ``fit_batch``): ``launch_lanes`` runs the same
+kernel over L problems ``[L, m, d] x [L, r, d]`` in one launch
+(``rt_pairwise_lanes``), each lane with its own row counts, run flag and
+output column offset, so one launch writes every lane's fresh PIC block
+into its ring slot (or a recycled round's scratch columns) and computes
+every lane's ``d_near`` row; lane l gets the bits of a single launch on
+its own slices.
+
 ``pairwise_torch`` is the plain version: the registry metric of
 ``repro_torch.core.distances``; ``pairwise_plain`` gives it the
-kernel's ``out`` / ``run`` contract.  ``launches`` counts kernel
-launches.
+kernel's ``out`` / ``run`` contract, and ``pairwise_lanes_plain`` loops
+it over the lanes.  ``launches`` and ``lane_launches`` count the two
+entry points' launches.
 """
 
 from __future__ import annotations
@@ -34,9 +43,16 @@ from . import build as _build
 METRIC_IDS = {"l2": 0, "l2sq": 1, "cosine": 2, "l1": 3}
 
 launches = 0
+lane_launches = 0
 
-__all__ = ["METRIC_IDS", "launch", "launches", "pairwise_plain",
+__all__ = ["METRIC_IDS", "lane_rows", "launch", "launch_lanes", "launches",
+           "lane_launches", "pairwise_lanes_plain", "pairwise_plain",
            "pairwise_torch"]
+
+
+def lane_rows(rows, lanes: int, n_pad: int):
+    """Each lane's row count as host ints (``rows`` a CPU tensor or None)."""
+    return [n_pad] * lanes if rows is None else [int(v) for v in rows]
 
 
 def pairwise_plain(x, y, metric: str, out=None, run=None):
@@ -70,4 +86,54 @@ def launch(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
         torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "pairwise kernel")
+    return out
+
+
+def pairwise_lanes_plain(x, y, metric: str, out=None, col=None, xrows=None,
+                         yrows=None, run=None):
+    """Plain version of the lane kernel: :func:`pairwise_plain` on each
+    lane's ``[xrows[l], d] x [yrows[l], d]`` slices, into
+    ``out[l, :m_l, col[l]:col[l] + r_l]`` (a lane at flag 0 keeps it), or
+    into a new ``[L, m, r]`` zeros tensor.  A lane whose flag reads 0 on
+    the CPU is skipped, as the kernel skips it."""
+    lanes, m, r = x.shape[0], x.shape[1], y.shape[1]
+    if out is None:
+        out = torch.zeros((lanes, m, r), dtype=torch.float32,
+                          device=x.device)
+    cols = [0] * lanes if col is None else [int(c) for c in col]
+    for i, (mi, ri) in enumerate(zip(lane_rows(xrows, lanes, m),
+                                     lane_rows(yrows, lanes, r))):
+        flag = None if run is None else run[i:i + 1]
+        if flag is not None and flag.device.type == "cpu" and not bool(flag):
+            continue
+        pairwise_plain(x[i, :mi], y[i, :ri], metric,
+                       out[i, :mi, cols[i]:cols[i] + ri], flag)
+    return out
+
+
+def launch_lanes(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
+                 col=None, xrows=None, yrows=None, run=None) -> torch.Tensor:
+    """Run the lane kernel on validated CUDA tensors (see ``ops``): into
+    ``out`` ``[L, m, C]`` at each lane's column offset ``col[l]`` (unit
+    column stride, any row and lane stride), or a new ``[L, m, r]``
+    tensor; past a lane's rows and in a lane whose flag reads 0 the output
+    is left as it was."""
+    global lane_launches
+    lanes, m, d = x.shape
+    r = y.shape[1]
+    if out is None:
+        out = torch.empty((lanes, m, r), dtype=torch.float32,
+                          device=x.device)
+    ldo = out.stride(1) if m > 1 else out.shape[2]
+    lane_out = out.stride(0) if lanes > 1 else 0
+    code = _build.lib().rt_pairwise_lanes(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, m, r, lane_out,
+        ldo, d, METRIC_IDS[metric],
+        None if xrows is None else xrows.data_ptr(),
+        None if yrows is None else yrows.data_ptr(),
+        None if col is None else col.data_ptr(),
+        None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    lane_launches += 1
+    _build.check(code, "pairwise lane kernel")
     return out

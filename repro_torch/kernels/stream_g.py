@@ -49,8 +49,7 @@ import torch
 from ..core.engine import (_stream_build_stats, _stream_swap_stats,
                            _stream_top2)
 from . import build as _build
-from .build_g import lane_rows
-from .pairwise import METRIC_IDS
+from .pairwise import METRIC_IDS, lane_rows
 
 top2_launches = 0
 top2_lane_launches = 0

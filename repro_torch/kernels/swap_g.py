@@ -36,6 +36,12 @@ each lane with its own batch, medoid cache slice, run flag and row count,
 into ``[L, k, n_pad]``; lane l gets the bits of a single launch on its
 own slice.  ``swap_g_lanes_torch``, its plain version, loops over the
 lanes with ``swap_g_torch``; ``lane_launches`` counts its launches.
+``launch_cached_lanes`` does the same for ``swap_g_from_cache``
+(``rt_swap_g_from_cache_lanes``, the PIC batch): each lane reads its own
+resident block at its own column offset of a lane ring ``[L, n_pad, C]``
+(a round's slot, a recycled round's scratch columns, or the whole ring
+in the carried-moment repair); ``swap_g_from_cache_lanes_torch`` loops
+``swap_g_from_cache_torch`` and ``cached_lane_launches`` counts it.
 """
 
 from __future__ import annotations
@@ -45,12 +51,12 @@ import torch
 from ..core.distances import pairwise
 from ..core.engine import _swap_batch_stats
 from . import build as _build
-from .build_g import lane_rows
-from .pairwise import METRIC_IDS
+from .pairwise import METRIC_IDS, lane_rows
 
 launches = 0
 cached_launches = 0
 lane_launches = 0
+cached_lane_launches = 0
 
 
 def swap_g_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g,
@@ -145,4 +151,48 @@ def launch_lanes(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     lane_launches += 1
     _build.check(code, "swap_g lane kernel")
+    return sums, sq, cross
+
+
+def swap_g_from_cache_lanes_torch(dxy, d1_b, d2_b, assign_b, w, k: int,
+                                  lead_g, col, rows, run=None):
+    """Plain version of the cached lane kernel: ``swap_g_from_cache_torch``
+    on each lane's block ``dxy[l, :rows[l], col[l]:col[l] + B]``, into
+    ``[L, k, n_pad]`` zeros; every lane is computed whatever its flag."""
+    lanes, n_pad = dxy.shape[0], dxy.shape[1]
+    b = d1_b.shape[1]
+    cols = [0] * lanes if col is None else [int(c) for c in col]
+    outs = [torch.zeros((lanes, k, n_pad), dtype=torch.float32,
+                        device=dxy.device) for _ in range(3)]
+    for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
+        part = swap_g_from_cache_torch(dxy[i, :n, cols[i]:cols[i] + b],
+                                       d1_b[i], d2_b[i], assign_b[i], w[i], k,
+                                       lead_g[i])
+        for o, v in zip(outs, part):
+            o[i, :, :n] = v
+    return tuple(outs)
+
+
+def launch_cached_lanes(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, col,
+                        rows, run=None):
+    """Run the cached lane kernel on validated CUDA tensors (see ``ops``):
+    ``dxy`` ``[L, n_pad, C]`` with unit column stride, lane l's block at
+    columns ``[col[l], col[l] + B)``; outputs ``[L, k, n_pad]``, unwritten
+    past each lane's rows and in every lane whose run flag reads 0."""
+    global cached_lane_launches
+    lanes, n_pad = dxy.shape[0], dxy.shape[1]
+    b = d1_b.shape[1]
+    ld = dxy.stride(1) if n_pad > 1 else dxy.shape[2]
+    sums, sq, cross = (torch.empty((lanes, k, n_pad), dtype=torch.float32,
+                                   device=dxy.device) for _ in range(3))
+    code = _build.lib().rt_swap_g_from_cache_lanes(
+        dxy.data_ptr(), dxy.stride(0), ld,
+        None if col is None else col.data_ptr(), d1_b.data_ptr(),
+        d2_b.data_ptr(), assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
+        sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), lanes, n_pad, b, k,
+        None if rows is None else rows.data_ptr(),
+        None if run is None else run.data_ptr(),
+        torch.cuda.current_stream(dxy.device).cuda_stream)
+    cached_lane_launches += 1
+    _build.check(code, "swap_g_from_cache lane kernel")
     return sums, sq, cross

@@ -77,6 +77,38 @@ def test_pairwise_plain_matches_jax_kernel(metric, shape):
     _close(got, ref.pairwise_ref(_t(x), _t(y), metric).numpy(), atol)
 
 
+@pytest.mark.parametrize("metric", ["l2", "l2sq", "cosine"])
+@pytest.mark.parametrize("state", ["set_float32_matmul_precision", "mkldnn"])
+def test_plain_distances_stay_float32_under_a_reduced_matmul_precision(
+        state, metric):
+    """ROADMAP C3: a process-wide float32 matmul precision below full
+    float32 (``medium``, or oneDNN's ``bf16`` fpmath, which a CPU with
+    AMX-BF16 honours) must not reach the port's plain distances, which
+    pin IEEE float32 themselves; held to float64 as
+    test_pairwise_plain_matches_jax_kernel holds them."""
+    from repro_torch.core.distances import pairwise
+    mm = torch.backends.mkldnn.matmul
+    saved = (torch.get_float32_matmul_precision(), mm.fp32_precision)
+    try:
+        if state == "mkldnn":
+            mm.fp32_precision = "bf16"
+        else:
+            torch.set_float32_matmul_precision("medium")
+        x, y = _data(130, 100, 17)
+        exact = _f64_pairwise(x, y, metric)
+        atol = 1e-5 * np.abs(exact).max()
+        _close(ops.pairwise_distance(_t(x), _t(y), metric).numpy(), exact,
+               atol)
+        if state == "mkldnn":
+            mm.fp32_precision = "bf16"
+        else:
+            torch.set_float32_matmul_precision("medium")
+        _close(pairwise(_t(x), _t(y), metric=metric).numpy(), exact, atol)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        mm.fp32_precision = saved[1]
+
+
 def _build_inputs(m, d, seed):
     x, y = _data(m, B, d, seed)
     rng = np.random.default_rng(seed + 1)
@@ -318,8 +350,13 @@ def test_plain_path_never_counts_launches():
     ops.swap_g_lanes_stats(x3, y3, lane, lane,
                            torch.zeros(1, 6, dtype=torch.int32), lane, 2)
     ops.stream_top2_lanes(x3, y3)
+    ops.pairwise_lanes(x3, y3)
+    ops.swap_g_from_cache_lanes_stats(torch.ones(1, 20, 6), lane, lane,
+                                      torch.zeros(1, 6, dtype=torch.int32),
+                                      lane, 2)
     assert ops.launch_counts() == {"pairwise": 0, "build_g": 0, "swap_g": 0,
                                    "swap_g_from_cache": 0, "top2": 0,
                                    "stream_build_g": 0, "stream_swap_g": 0,
                                    "build_g_lanes": 0, "swap_g_lanes": 0,
-                                   "top2_lanes": 0}
+                                   "top2_lanes": 0, "pairwise_lanes": 0,
+                                   "swap_g_from_cache_lanes": 0}
