@@ -160,10 +160,18 @@ Phases, each of which raises (exit code != 0) on any failure:
 9. the sharded fit (``dist_paths``; ``[dist]`` lines): (a) at world size
    1 on nccl, ``KMedoids(k=10, solver="banditpam_dist",
    metric="l2").fit`` on the main path's 60,000 rows, then with
-   ``reuse="pic"`` (the default ring), each counted from 0: wall, host
-   reads and all-reduces by phase, ledger, fallbacks, peak memory,
-   launches (pairwise, swap_g_from_cache and top2 must run), the loss
-   against a plain ``total_loss`` and whether the medoids are PAM's;
+   ``reuse="pic"`` (the default ring), each on the device-resident loop
+   (the default) and then with ``fused=False`` (the stepped loop), each
+   counted from 0: wall, host reads and all-reduces by phase, ledger,
+   fallbacks, peak memory, launches (pairwise, swap_g_from_cache and
+   top2 must run in the resident fit), the two reports identical, the
+   resident fit reading fewer times (BUILD under 300 reads) with its
+   all-reduces within one a BUILD round run and 31 more a search, the
+   stepped fit's exactly one a round run, the loss against a plain
+   ``total_loss`` and whether the medoids are PAM's; one
+   ``torch.profiler`` run of the resident ``reuse="none"`` fit on the
+   first 20,000 rows (busy and idle share, device time by kernel, host
+   time by operator);
    ``pairwise`` and ``swap_g_from_cache`` at its round's [60,000 x 128]
    held to their plain versions and timed; (b) ``backend="cuda"``
    against ``"torch"`` at world size 1 on ``N_PARITY`` ``code_blobs``
@@ -1166,18 +1174,17 @@ def driver_paths(torch, X, Xnp, fused_fit, fused_counts):
                     rep)
 
 
-def profile_fit(torch, data, fused, name, unprofiled):
-    """One fit of the default configuration under ``torch.profiler``:
-    the union of the device's activity intervals (kernels, copies,
-    memsets) over the fit's host wall is its busy share, the rest its idle
-    share; the device time by kernel name follows, longest first, then
-    the host's self time by operator.  The tables are read from the
-    profiler's raw events (its ``key_averages`` takes minutes over the
-    million events of a fit)."""
+def profile_fit(torch, data, fused, name, unprofiled, solver="banditpam"):
+    """One fit of the default configuration of ``solver`` under
+    ``torch.profiler``: the union of the device's activity intervals
+    (kernels, copies, memsets) over the fit's host wall is its busy share,
+    the rest its idle share; the device time by kernel name follows,
+    longest first, then the host's self time by operator.  The tables are
+    read from the profiler's raw events (its ``key_averages`` takes
+    minutes over the million events of a fit)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import KMedoids
-    est = KMedoids(k=10, solver="banditpam", metric="l2", seed=0,
-                   fused=fused)
+    est = KMedoids(k=10, solver=solver, metric="l2", seed=0, fused=fused)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1208,10 +1215,12 @@ def profile_fit(torch, data, fused, name, unprofiled):
             busy += b - last
             last = b
     r = est.report_
-    log(f"[profile] {name}: fit wall {wall:.3f} s under the profiler "
-        f"(wall_by_phase {r.wall_by_phase}; unprofiled "
-        f"{unprofiled.wall_by_phase})"
-        f"; {len(ivs)} device activities")
+    log(f"[profile] {name}: fit of {data.shape[0]} rows, wall {wall:.3f} s "
+        f"under the profiler (wall_by_phase {r.wall_by_phase}; rounds "
+        f"{sum(r.build_rounds)} BUILD, host reads {r.host_reads_by_phase}"
+        + ("" if unprofiled is None
+           else f"; unprofiled {unprofiled.wall_by_phase}")
+        + f"); {len(ivs)} device activities")
     if not ivs:
         raise AssertionError(f"{name}: the profiler recorded no device "
                              "activity")
@@ -1240,8 +1249,9 @@ def profile_fit(torch, data, fused, name, unprofiled):
     for nm, (cnt, tot) in sorted(own.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"[profile] {name}:   {tot / 1e6:10.3f} ms  {cnt:7d} x  "
             f"{tot / 1e3 / cnt:7.2f} us  {nm[:60]}")
-    log(f"[profile] {name}: same report as unprofiled: "
-        f"{r.evals_by_phase == unprofiled.evals_by_phase}; trace read in "
+    same = ("" if unprofiled is None else f"same report as unprofiled: "
+            f"{r.evals_by_phase == unprofiled.evals_by_phase}; ")
+    log(f"[profile] {name}: {same}trace read in "
         f"{time.perf_counter() - t1:.1f} s")
 
 
@@ -2345,11 +2355,17 @@ DIST_ROWS = 8000
 DIST_B = 128                # the sharded fit's default batch (b_loc at S=1)
 DIST_KERNELS = ("pairwise", "swap_g_from_cache", "top2")
 DIST_TIMEOUT = 600          # s: each process group's collectives, the ranks
+DIST_MAX_BUILD_READS = 300  # (a): the resident BUILD's reads stay below
+# Rows of the profiled resident fit: a round's host work does not depend on
+# n, and a third of the main path's rows reads its trace in a third of the
+# time.
+DIST_PROFILE_ROWS = 20000
 
 
 def _dist_world1():
     """A one-rank nccl group on the card: the default group of this
-    process, with a timeout."""
+    process, with a timeout; one all-reduce starts its communicator, so
+    that no fit's wall holds the start."""
     import datetime
     import socket
     import torch.distributed as dist
@@ -2359,6 +2375,9 @@ def _dist_world1():
     dist.init_process_group(
         "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
         timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    import torch
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
     log(f"[dist] nccl group: world size {dist.get_world_size()}, backend "
         f"{dist.get_backend()}")
 
@@ -2367,44 +2386,78 @@ def dist_fits(torch, X, dev, Xnp, pam_fit):
     """Phase 9 (a): ``KMedoids(k=10, solver="banditpam_dist",
     metric="l2").fit`` on the main path's 60,000 rows at world size 1 on
     nccl, then the same fit with ``reuse="pic"`` (the default ring), each
-    with the launch and all-reduce counts set to 0 just before it: wall,
-    host reads and all-reduces by phase, ledger, fallbacks, peak memory
-    and launches (pairwise, swap_g_from_cache and top2 must run), the
-    loss against a plain ``total_loss`` (raising), and whether its
-    medoids equal PAM's (measured, not asserted).  Returns each fit's
-    counts."""
+    on the device-resident loop (the default, the main path) and then
+    with ``fused=False``, each with the launch and all-reduce counts set
+    to 0 just before it: wall, host reads and all-reduces by phase,
+    ledger, fallbacks, peak memory and launches (pairwise,
+    swap_g_from_cache and top2 must run in the resident fit); the two
+    reports identical, the resident fit's reads fewer in each phase and
+    under ``DIST_MAX_BUILD_READS`` in BUILD, its BUILD all-reduces within
+    one a round run and ``ROUNDS_PER_READ − 1`` more a search, the
+    stepped fit's one a round run; the loss against a plain
+    ``total_loss`` (all raising), and whether its medoids equal PAM's
+    (measured, not asserted).  Returns each resident fit's counts."""
     from repro_torch.api import KMedoids
-    from repro_torch.core import distributed, total_loss
+    from repro_torch.core import adaptive, distributed, total_loss
     from repro_torch.kernels import ops
+    per = adaptive.ROUNDS_PER_READ
     counts = {}
     for name, kw in (("none", {}), ("pic", {"reuse": "pic"})):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        distributed.reset_allreduce_counts()
-        t0 = time.perf_counter()
-        est = KMedoids(k=10, solver="banditpam_dist", metric="l2", seed=0,
-                       **kw).fit(Xnp[:N_FIT])
-        fit_s = time.perf_counter() - t0
-        c = counts[name] = ops.launch_counts()
-        ar = distributed.allreduce_counts()
-        r = est.report_
-        log(f"[dist] (a) {name}: medoids {r.medoids.tolist()} loss "
-            f"{r.loss!r} n_swaps {r.n_swaps} converged {r.converged} "
-            f"swap_exact_fallbacks {r.swap_exact_fallbacks}")
-        log(f"[dist] (a) {name}: evals_by_phase {r.evals_by_phase} fresh "
-            f"{r.distance_evals} cached {r.cached_evals} build_rounds "
-            f"{r.build_rounds}")
-        log(f"[dist] (a) {name}: wall_by_phase {r.wall_by_phase} fit "
-            f"{fit_s:.3f} s (data upload included); host_reads_by_phase "
-            f"{r.host_reads_by_phase}; allreduces_by_phase {ar}")
-        log(f"[dist] (a) {name}: kernel launches {c}; peak device memory "
-            f"{torch.cuda.max_memory_allocated()} bytes")
-        if min(c[nm] for nm in DIST_KERNELS) < 1:
-            raise AssertionError(f"a kernel of the sharded fit never ran: "
-                                 f"{c}")
-        if ar.get("build", 0) != sum(r.build_rounds):
-            raise AssertionError(f"all-reduces {ar} != one a BUILD round")
+        fits = {}
+        for loop, fused in (("resident", True), ("stepped", False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            distributed.reset_allreduce_counts()
+            t0 = time.perf_counter()
+            est = KMedoids(k=10, solver="banditpam_dist", metric="l2",
+                           seed=0, fused=fused, **kw).fit(Xnp[:N_FIT])
+            fit_s = time.perf_counter() - t0
+            c = ops.launch_counts()
+            ar = distributed.allreduce_counts()
+            r = est.report_
+            fits[loop] = (r, ar)
+            what = f"(a) {name} {loop}"
+            log(f"[dist] {what}: medoids {r.medoids.tolist()} loss "
+                f"{r.loss!r} n_swaps {r.n_swaps} converged {r.converged} "
+                f"swap_exact_fallbacks {r.swap_exact_fallbacks}")
+            log(f"[dist] {what}: evals_by_phase {r.evals_by_phase} fresh "
+                f"{r.distance_evals} cached {r.cached_evals} build_rounds "
+                f"{r.build_rounds}")
+            log(f"[dist] {what}: wall_by_phase {r.wall_by_phase} fit "
+                f"{fit_s:.3f} s (data upload included); host_reads_by_phase "
+                f"{r.host_reads_by_phase}; allreduces_by_phase {ar}")
+            log(f"[dist] {what}: kernel launches {c}; peak device memory "
+                f"{torch.cuda.max_memory_allocated()} bytes")
+            rounds = sum(r.build_rounds)
+            if fused:
+                counts[name] = c
+                if min(c[nm] for nm in DIST_KERNELS) < 1:
+                    raise AssertionError(f"a kernel of the sharded fit "
+                                         f"never ran: {c}")
+                if not (rounds <= ar.get("build", 0)
+                        <= rounds + (per - 1) * 10):
+                    raise AssertionError(f"all-reduces {ar} outside one a "
+                                         f"BUILD round run and {per - 1} "
+                                         f"more a search")
+                if r.host_reads_by_phase["build"] >= DIST_MAX_BUILD_READS:
+                    raise AssertionError(f"resident BUILD read "
+                                         f"{r.host_reads_by_phase} times")
+            elif ar.get("build", 0) != rounds:
+                raise AssertionError(f"all-reduces {ar} != one a BUILD "
+                                     f"round")
+        (r, ar), (rs, ars) = fits["resident"], fits["stepped"]
+        same_report(r, rs, f"(a) sharded {name}: resident vs stepped")
+        log(f"[dist] (a) {name}: resident / stepped: wall build "
+            f"{r.wall_by_phase['build']:.3f} / {rs.wall_by_phase['build']:.3f}"
+            f" s, swap {r.wall_by_phase['swap']:.3f} / "
+            f"{rs.wall_by_phase['swap']:.3f} s; host reads "
+            f"{r.host_reads_by_phase} / {rs.host_reads_by_phase}; "
+            f"all-reduces {ar} / {ars}")
+        if any(r.host_reads_by_phase[ph] >= rs.host_reads_by_phase[ph]
+               for ph in ("build", "swap")):
+            raise AssertionError(f"(a) {name}: the resident fit reads as "
+                                 f"often as the stepped one")
         if len(set(r.medoids.tolist())) != 10:
             raise AssertionError("bad sharded-fit medoids")
         data = X[:N_FIT].contiguous()
@@ -2538,13 +2591,19 @@ def dist_ranks(torch, Xnp):
 
 
 def dist_paths(torch, X, dev, Xnp, pam_fit):
-    """Phase 9: (a) with the kernels at its shapes and (b) on one nccl
-    rank (the group destroyed at the phase's end, raising or not), then
-    (c) on two spawned gloo ranks.  Returns (a)'s launch counts."""
+    """Phase 9: (a), one ``torch.profiler`` run of its resident
+    ``reuse="none"`` fit on the first ``DIST_PROFILE_ROWS`` rows
+    (``profile_fit``: busy and idle share, device time by kernel, host
+    time by operator), the kernels at (a)'s shapes and
+    (b) on one nccl rank (the group destroyed at the phase's end, raising
+    or not), then (c) on two spawned gloo ranks.  Returns (a)'s launch
+    counts."""
     import torch.distributed as dist
     _dist_world1()
     try:
         counts = dist_fits(torch, X, dev, Xnp, pam_fit)
+        profile_fit(torch, X[:DIST_PROFILE_ROWS].contiguous(), True,
+                    "sharded resident", None, solver="banditpam_dist")
         dist_kernel_times(torch, X, dev)
         dist_parity(torch, dev)
     finally:
@@ -2635,7 +2694,7 @@ def main() -> int:
                     for nm in sorted(counts_phase7) if counts_phase7[nm]))
     log("[launches] phase 8, the ragged batch (b): " + ", ".join(
         f"{r['name']} {r['launches']}" for r in lane_rows))
-    log("[launches] phase 9, the sharded fits at world size 1 (a): "
+    log("[launches] phase 9, the resident sharded fits at world size 1 (a): "
         + "; ".join(f"{name} " + ", ".join(f"{nm} {c[nm]}" for nm in sorted(c)
                                           if c[nm])
                     for name, c in counts_dist.items()))

@@ -32,7 +32,9 @@ them run through the stats backend and so take ``backend=``; only the
 bandit solvers read ``layouts=``.  ``banditpam_dist`` is the sharded fit
 (``core.distributed``) over the process group ``group=`` (default: the
 WORLD group once ``torch.distributed`` is initialised, else one shard);
-it draws its own stratified batches and refuses ``layouts=``.
+it draws its own stratified batches and refuses ``layouts=``, and
+``fused=False`` puts it on the stepped loop (its other params, such as
+``reuse`` and ``cache_width``, reach it the same way).
 ``banditpam`` and ``banditpam_pp`` have batched entry points; the
 sharded fit has none, as in the JAX package.
 """

@@ -202,7 +202,8 @@ class DeviceResult(NamedTuple):
 def log_term_f32(delta: float, device) -> torch.Tensor:
     """``log(1/δ)`` as the JAX package folds it: the reciprocal in
     float64, then the cast and the log in float32."""
-    return torch.log(torch.tensor(1.0 / delta, dtype=torch.float32)).to(device)
+    log_t = torch.log(torch.tensor(1.0 / delta, dtype=torch.float32))
+    return to_device(log_t, torch.float32, device)
 
 
 def default_count(active: torch.Tensor) -> torch.Tensor:
@@ -240,14 +241,14 @@ def cyclic_layout(perm: torch.Tensor, n_ref: int, batch_size: int
 def explicit_layout(idx: np.ndarray, w: np.ndarray, batch_size: int,
                     device) -> Layout:
     """A layout from host arrays (``[R·B]`` slot indices and {0,1}
-    weights), e.g. the sharded fit's stratified one; one copy to
-    ``device``."""
+    weights), e.g. the sharded fit's stratified one; copied to ``device``
+    without waiting for it (``pic_cache.to_device``)."""
     B = int(batch_size)
     sizes = np.count_nonzero(np.asarray(w).reshape(-1, B), axis=1)
-    return Layout(torch.as_tensor(np.asarray(idx, np.int64)).to(device),
-                  torch.as_tensor(np.asarray(w, np.float32)).to(device),
+    return Layout(to_device(np.asarray(idx, np.int64), torch.int64, device),
+                  to_device(np.asarray(w, np.float32), torch.float32, device),
                   tuple(int(v) for v in sizes),
-                  torch.as_tensor(np.cumsum(sizes)).to(device))
+                  to_device(np.cumsum(sizes), torch.int64, device))
 
 
 def tile_perm(perm: torch.Tensor, n_ref: int, batch_size: int

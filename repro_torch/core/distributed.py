@@ -40,14 +40,25 @@ order, so one flat group covers both mesh shapes.  Every rank calls
   sub-slice ``[s·b_loc, (s+1)·b_loc)``) as an explicit
   :class:`~repro_torch.core.adaptive.Layout`: weight-0 padding falls
   into early rounds, so a round counts its weights.  Each rank holds the
-  ``[n, W·b_loc]`` ring of the columns its own rows produce
-  (``pic_cache.shard_slot_read_write``).  After an accepted swap the
-  carried per-arm moments are repaired from each rank's ring, with one
-  more all-reduce (the JAX ``_carry_smap``).
-* **The loops.** Both modes run the stepped search (one host read a
-  round, the rank's ring state in host ints); its device-resident loop
-  is ROADMAP A23.  The leader baseline is always on.
-  BUILD updates ``d_near`` with one ``pairwise`` row a pick; SWAP
+  ``[n, W·b_loc]`` ring of the columns its own rows produce.  After an
+  accepted swap the carried per-arm moments are repaired from each
+  rank's ring, with one more all-reduce (the JAX ``_carry_smap``).
+* **The loops** (``fused``).  ``fused=True`` (the default, the JAX
+  sharded fit's way: no host read inside a phase) runs the
+  device-resident searches in both modes: every round is enqueued with
+  the search's device flag, and the host reads the flag once every
+  ``adaptive.ROUNDS_PER_READ`` rounds.  A round enqueued past the stop
+  still makes its all-reduce (its reduced statistics are discarded on
+  the device), and the flag comes from reduced statistics, bit for bit
+  the same on every rank, so every rank enqueues the same rounds and
+  the same collectives and reads at the same rounds.  The rank's ring
+  moves a search at a time, as the single fit's
+  (``pic_cache.search_read_or_write`` / ``search_advance``), and
+  replacement's exact fallback runs under its device flag.
+  ``fused=False`` steps: one host read a round, the ring moved a round
+  at a time (``pic_cache.shard_slot_read_write`` / ``cache_advance``).
+  Both give the same report bit for bit.  The leader baseline is always
+  on.  BUILD updates ``d_near`` with one ``pairwise`` row a pick; SWAP
   refreshes the medoid cache and scores the candidate with ``top2``
   (``engine.medoid_cache`` / ``total_loss``); the exact fallback walks
   the full replicated data (``stream_build_g`` / ``stream_swap_g`` on
@@ -60,7 +71,8 @@ order, so one flat group covers both mesh shapes.  Every rank calls
 
 ``host_reads_by_phase`` counts the fit's reads as every port fit does;
 :func:`allreduce_counts` counts the all-reduces by phase (every rank
-makes the same ones).  :func:`spawn_fits` runs fits on ranks of a
+makes the same ones: one a round enqueued, masked rounds included, and
+one a carried repair).  :func:`spawn_fits` runs fits on ranks of a
 ``gloo`` group, each a process of this host (on the CPU, or several on
 one card).  ``MedoidCurator`` is the JAX package's curation entry point.
 """
@@ -84,10 +96,11 @@ from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
 from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
                      host_read, medoid_cache, resolve_stats_backend,
-                     total_loss)
-from .pic_cache import (cache_advance, carry_valid, fresh_positions,
-                        make_cache, resolve_cache_rounds,
-                        shard_slot_read_write)
+                     syncs_allowed, total_loss)
+from .pic_cache import (cache_advance, carry_valid, make_cache,
+                        resolve_cache_rounds, search_advance,
+                        search_read_or_write, shard_slot_read_write,
+                        to_device)
 from .report import FitReport
 
 __all__ = ["DistributedBanditPAM", "MedoidCurator", "RankFit",
@@ -204,7 +217,8 @@ class DistributedBanditPAM:
     CUDA device); ``device="cpu"`` runs the plain path.  ``backend`` is a
     stats backend (``"auto"``, ``"cuda"``, ``"torch"``); ``reuse="pic"``
     runs the sharded PIC ring, ``cache_width`` its width in global
-    reference columns (default 32 rounds).  Seeds are not comparable with
+    reference columns (default 32 rounds).  ``fused=False`` runs the
+    stepped loop (see the module docstring).  Seeds are not comparable with
     :class:`~repro_torch.core.banditpam.BanditPAM`'s: the schedule is
     stratified per shard.
     """
@@ -213,7 +227,7 @@ class DistributedBanditPAM:
                  batch_size: int = 128, delta: Optional[float] = None,
                  max_swaps: Optional[int] = None, seed: int = 0,
                  backend: str = "auto", reuse: str = "none",
-                 cache_width: Optional[int] = None,
+                 cache_width: Optional[int] = None, fused: bool = True,
                  device: DeviceLike = None):
         if reuse not in ("none", "pic"):
             raise ValueError(f"unknown reuse mode {reuse!r}")
@@ -237,6 +251,7 @@ class DistributedBanditPAM:
         self.backend = backend
         self.reuse = reuse
         self.cache_width = cache_width
+        self.fused = fused
         self.device = device
 
     # -- this rank's view -------------------------------------------------
@@ -261,6 +276,11 @@ class DistributedBanditPAM:
 
     # -- fit ----------------------------------------------------------------
     def fit(self, data) -> FitReport:
+        return self._fit(data)[0]
+
+    def _fit(self, data) -> Tuple[FitReport, "_Fit"]:
+        """:meth:`fit`, returning the report and this rank's fit state
+        (its ring under ``reuse="pic"``)."""
         dev = resolve_device(self.device)
         data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
         if data.ndim != 2:
@@ -273,7 +293,11 @@ class DistributedBanditPAM:
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         solver="banditpam_dist", metric=str(self.metric))
         f = _Fit(self, data, be_name, res)
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+        def sync():
+            if dev.type == "cuda":
+                with syncs_allowed(dev):
+                    torch.cuda.synchronize(dev)
         sync()
         t0 = time.perf_counter()
         med_t, med_mask = f.build()
@@ -288,7 +312,7 @@ class DistributedBanditPAM:
                                  if not ph.endswith("_cached"))
         res.cached_evals = sum(v for ph, v in res.evals_by_phase.items()
                                if ph.endswith("_cached"))
-        return res
+        return res, f
 
 
 class _Fit:
@@ -311,6 +335,7 @@ class _Fit:
         self.v, self.cs = est._stratum(n)
         self.cs2 = float(np.float32(self.cs) * np.float32(self.cs))
         self.pic = est.reuse == "pic"
+        self.resident = bool(est.fused)
         if self.pic:
             _, ckey = threefry.split(threefry.PRNGKey(est.seed))
             lperm, lw, pidx_g, pw_g = _pic_layout(n, S, self.b_loc, ckey)
@@ -320,44 +345,63 @@ class _Fit:
             own = ax * n_loc + lperm[ax]
             # Row of the padded view (data_l[lidx]) and its index into the
             # replicated per-point vectors, for every walk position.
-            self.src_l = torch.as_tensor(own % n).to(dev)
-            self.gidx_l = torch.as_tensor(np.minimum(own, n - 1)).to(dev)
-            self.lw_l = torch.as_tensor(lw[ax]).to(dev)
+            self.src_l = to_device(own % n, torch.int64, dev)
+            self.gidx_l = to_device(np.minimum(own, n - 1), torch.int64, dev)
+            self.lw_l = to_device(lw[ax], torch.float32, dev)
             self.ring = make_cache(n, self.b_loc, self.W, dev)
         else:
             self.ones = torch.ones((self.b_loc,), dtype=torch.float32,
                                    device=dev)
 
     # -- one round's statistics on this rank, reduced over the ranks ------
-    def _block(self, idx: torch.Tensor) -> torch.Tensor:
-        """``pairwise(data, data_l[idx])``, ``[n, b]``; ``idx`` are rows of
-        the padded view (``src``: already mapped to rows of ``data``)."""
-        return self.be.pairwise(self.data, self.data.index_select(0, idx),
-                                metric=self.metric)
+    def _block(self, src: torch.Tensor, run=None) -> torch.Tensor:
+        """``pairwise(data, data[src])``, ``[n, b]``, under the round's
+        flag ``run``."""
+        return self.be.pairwise(self.data, self.data.index_select(0, src),
+                                metric=self.metric, run=run)
 
-    def _drawn(self, idx: torch.Tensor):
-        """A replacement round's block and the points' indices into the
-        per-point vectors: ``gidx = min(ax·n_loc + idx, n − 1)``."""
-        own = self.est.ax * self.n_loc + idx
-        return self._block(own % self.n), torch.clamp_max(own, self.n - 1)
-
-    def _pic_round(self, rnd: int):
-        """A PIC round's block (from this rank's ring, or fresh and written
-        through), its indices into the per-point vectors and weights."""
+    def _round(self, ref_idx, rnd: int, hw0: int, run=None):
+        """Round ``rnd``'s block on this rank, the points' indices into
+        the per-point vectors and their weights.  Replacement: the drawn
+        rows ``ax·n_loc + ref_idx`` of the padded view (``gidx = min(·,
+        n − 1)``).  PIC: the rank's ring, read a round at a time in the
+        stepped loop and from the search's start ``hw0`` in the resident
+        one (a NEW round written into its slot under its flag)."""
+        if not self.pic:
+            own = self.est.ax * self.n_loc + ref_idx
+            return (self._block(own % self.n, run),
+                    torch.clamp_max(own, self.n - 1), self.ones)
         lo, b = rnd * self.b_loc, self.b_loc
-        dxy = shard_slot_read_write(
-            self.ring.cols, rnd, self.ring.hw, b,
-            lambda: self._block(self.src_l[lo:lo + b]))
+        src = self.src_l[lo:lo + b]
+        if self.resident:
+            dxy = search_read_or_write(self.be, self.data, src,
+                                       metric=self.metric, batch_size=b,
+                                       rnd=rnd, hw0=hw0, cache=self.ring,
+                                       run=run)
+        else:
+            dxy = shard_slot_read_write(self.ring.cols, rnd, self.ring.hw, b,
+                                        lambda: self._block(src))
         return dxy, self.gidx_l[lo:lo + b], self.lw_l[lo:lo + b]
 
     def _finish(self, phase: str, rnd: int, s, q, c) -> Tuple:
+        """The round's one all-reduce (a masked round's too); the stepped
+        loop moves the ring past the round."""
         if self.pic:
             out = self.est._reduce(phase, s, q, c)
-            cache_advance(self.ring, rnd, self.layout.sizes[rnd], self.W)
+            if not self.resident:
+                cache_advance(self.ring, rnd, self.layout.sizes[rnd], self.W)
         else:
+            # The stratum weights, applied before the reduce.
             out = self.est._reduce(phase, s * self.cs, q * self.cs2,
                                    c * self.cs2)
         return tuple(out.view(3, -1))
+
+    def _advance(self, hw0: int, r0: int, r_end: int) -> None:
+        """The resident loop's ring after a search from ``hw0`` ran rounds
+        ``[r0, r_end)`` (the stepped loop moved it a round at a time)."""
+        if self.pic and self.resident:
+            search_advance(self.ring, hw0, r0, r_end, self.layout.sizes,
+                           self.b_loc)
 
     def _search_kw(self, phase: str, step: int) -> dict:
         if self.pic:
@@ -377,42 +421,51 @@ class _Fit:
         dnear = torch.full((n,), float("inf"), dtype=torch.float32,
                            device=dev)
         med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
-        found, fresh = [], []
+        found, later = [], []   # later: searches whose ring moves at the end
+        fresh0 = self.ring.fresh_pos if self.pic else 0
         for i in range(k):
-            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
-                if self.pic:
-                    dxy, gidx, wl = self._pic_round(rnd)
-                else:
-                    (dxy, gidx), wl = self._drawn(ref_idx), self.ones
+            hw0 = self.ring.hw if self.pic else 0
+
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
+                dxy, gidx, wl = self._round(ref_idx, rnd, hw0, run)
                 s, q, c = be.build_stats_from_d(
                     dxy, dnear.index_select(0, gidx), wl, lead)
                 return self._finish("build", rnd, s, q, c)
 
-            def exact_fn():
+            def exact_fn(run=None):
                 return exact_build_means(be, self.data, dnear,
-                                         metric=self.metric)
+                                         metric=self.metric, run=run)
 
-            fresh0 = self.ring.fresh_pos if self.pic else 0
+            # As in the single fit: while hw is short of the budget's last
+            # round the next search needs this one's round count at once;
+            # past that the window stays put until BUILD's end read.
+            grows = self.pic and hw0 < len(self.layout.sizes)
             sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn, n_arms=n, n_ref=n,
                 batch_size=self.B, log_term=log_term,
                 active_init=torch.logical_not(med_mask), baseline="leader",
-                report=res, phase="build", **self._search_kw("build", i))
+                resident=self.resident, rounds_to_host=grows, report=res,
+                phase="build", **self._search_kw("build", i))
+            if grows:
+                self._advance(hw0, 0, sr.rounds_h)
+            elif self.pic:
+                later.append(i)
             best = sr.best.reshape(1)
             med_mask.index_fill_(0, best, True)
             dnear = torch.minimum(dnear, be.pairwise(
                 self.data.index_select(0, best), self.data,
                 metric=self.metric)[0])
             found.append(sr)
-            if self.pic:
-                fresh.append(fresh_positions(fresh0, self.ring))
         vals = host_read([s.best for s in found] + [s.rounds for s in found]
                          + [s.n_evals_cached if self.pic else s.n_evals
                             for s in found], res, "build")
         res.build_rounds.extend(vals[k:2 * k])
+        for i in later:
+            self._advance(self.ring.hw, 0, vals[k + i])
         if self.pic:
             # n per fresh column position, on host ints.
-            res.evals_by_phase["build"] = n * sum(fresh) + n * k
+            res.evals_by_phase["build"] = (n * (self.ring.fresh_pos - fresh0)
+                                           + n * k)
             res.evals_by_phase["build_cached"] = sum(vals[2 * k:])
         else:
             res.evals_by_phase["build"] = sum(vals[2 * k:]) + n * k
@@ -468,41 +521,44 @@ class _Fit:
                 seed = dict(init_sums=s0, init_sqsums=q0,
                             init_rounds=carry[2])
 
-            def stats_fn(ref_idx, w, lead, rnd=None, aux=None):
-                if self.pic:
-                    dxy, gidx, wl = self._pic_round(rnd)
-                else:
-                    (dxy, gidx), wl = self._drawn(ref_idx), self.ones
+            def stats_fn(ref_idx, w, lead, rnd=None, aux=None, run=None):
+                dxy, gidx, wl = self._round(ref_idx, rnd, hw0, run)
                 s, q, c = be.swap_stats_from_d(
                     dxy, d1.index_select(0, gidx), d2.index_select(0, gidx),
-                    assign.index_select(0, gidx), wl, k, lead)
+                    assign.index_select(0, gidx), wl, k, lead, run=run)
                 return self._finish("swap", rnd, s, q, c)
 
-            def exact_fn():
+            def exact_fn(run=None):
                 return exact_swap_means(be, self.data, d1, d2, assign, k,
-                                        metric=metric)
+                                        metric=metric, run=run)
 
             fresh0 = self.ring.fresh_pos if self.pic else 0
+            hw0 = self.ring.hw if self.pic else 0
             sr = device_search(
                 stats_fn=stats_fn, exact_fn=exact_fn, n_arms=k * n, n_ref=n,
                 batch_size=self.B, log_term=log_term,
                 active_init=torch.logical_not(med_mask).repeat(k),
-                count_fn=count_fn, baseline="leader", report=res,
-                phase="swap", **seed, **self._search_kw("swap", t))
+                count_fn=count_fn, baseline="leader", resident=self.resident,
+                report=res, phase="swap", **seed,
+                **self._search_kw("swap", t))
             cand = med_t.index_copy(0, (sr.best // n).reshape(1),
                                     (sr.best % n).reshape(1))
             new_loss = total_loss(self.data, cand, metric=metric,
                                   backend=self.be_name)
-            # The iteration's one read.
-            best, new_loss, n_evals, n_cached, n_chg, rounds = host_read(
-                [sr.best, new_loss, sr.n_evals, sr.n_evals_cached,
-                 n_changed, sr.rounds], res, "swap")
-            res.swap_exact_fallbacks += int(sr.used_exact)
+            # The iteration's one read, with the fallback flag where the
+            # resident loop decided it on the device.
+            used = sr.used_exact
+            best, new_loss, n_evals, n_cached, n_chg, rounds, *used_h = (
+                host_read([sr.best, new_loss, sr.n_evals, sr.n_evals_cached,
+                           n_changed, sr.rounds]
+                          + ([used] if torch.is_tensor(used) else []),
+                          res, "swap"))
+            res.swap_exact_fallbacks += int(used_h[0] if used_h else used)
             if self.pic:
+                self._advance(hw0, seed.get("init_rounds", 0), rounds)
                 # Fresh: n per fresh column position; cached: the rounds
                 # served from the ring plus n per repaired point.
-                swap_evals += 2 * n * k + n * fresh_positions(fresh0,
-                                                              self.ring)
+                swap_evals += 2 * n * k + n * (self.ring.fresh_pos - fresh0)
                 carry = (sr.sums, sr.sqsums, rounds, d1, d2, assign)
             else:
                 swap_evals += 2 * n * k + n_evals
@@ -514,8 +570,9 @@ class _Fit:
             m_idx, x_idx = divmod(best, n)
             old = medoids[m_idx]
             medoids[m_idx] = x_idx
-            med_mask[old] = False
-            med_mask[x_idx] = True
+            # The mask moves by the device indices (no scalar copy).
+            med_mask.index_fill_(0, med_t[m_idx:m_idx + 1], False)
+            med_mask.index_fill_(0, cand[m_idx:m_idx + 1], True)
             med_t = cand
             res.swap_history.append((old, x_idx, new_loss))
             loss = new_loss

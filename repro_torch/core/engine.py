@@ -95,6 +95,7 @@ columns, and :class:`FitContext` holds a fit's cache regime.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -316,6 +317,22 @@ def total_loss(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
     return torch.sum(d1)
 
 
+@contextlib.contextmanager
+def syncs_allowed(device):
+    """Lifts ``torch.cuda``'s sync debug mode, on a CUDA ``device``, for a
+    sync the driver makes on purpose (a read, the end of a timed phase),
+    and puts it back after."""
+    mode = (torch.cuda.get_sync_debug_mode()
+            if torch.device(device).type == "cuda" else 0)
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
 def host_read(values, report=None, phase: str = "") -> list:
     """The one device-to-host read point of the fit drivers (counterpart
     of ``repro.core.engine.host_read``).
@@ -324,18 +341,21 @@ def host_read(values, report=None, phase: str = "") -> list:
     ``tolist`` of their concatenation: in their own type where they share
     one, else in int64, or in float64 where one is floating, which holds
     every float32 and every integer below 2**53 exactly), as Python ints
-    for
-    integer and bool tensors and floats otherwise, a list for a tensor of
-    several elements.  Each call adds one to
+    for integer and bool tensors and floats otherwise, a list for a tensor
+    of several elements.  Each call adds one to
     ``report.host_reads_by_phase[phase]`` when a report is given: the
-    count of the reads that wait for the device.
+    count of the reads that wait for the device.  It is the drivers' one
+    deliberate sync, so it lifts ``torch.cuda``'s sync debug mode around
+    its copy (:func:`syncs_allowed`): a fit run under
+    ``set_sync_debug_mode("error")`` raises at any other sync.
     """
     flat = [torch.as_tensor(v).reshape(-1) for v in values]
     common = (torch.float64 if any(t.dtype.is_floating_point for t in flat)
               else torch.int64)
     if len({t.dtype for t in flat}) == 1:
         common = flat[0].dtype
-    host = torch.cat([t.to(common) for t in flat]).tolist()
+    with syncs_allowed(flat[0].device):
+        host = torch.cat([t.to(common) for t in flat]).tolist()
     if report is not None:
         reads = report.host_reads_by_phase
         reads[phase] = reads.get(phase, 0) + 1

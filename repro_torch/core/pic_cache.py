@@ -37,10 +37,12 @@ flag of 0, so its pairwise launch writes nothing, and the host charges
 only the rounds the search ran once it knows their count
 (:func:`search_advance`).  The sharded fit (``core.distributed``) gives
 each rank the ring of the columns its own rows produce, ``[n, W·b_loc]``,
-read and written a round at a time through :func:`shard_slot_read_write`
-(a fresh block copied in place, the counterpart of the JAX package's
-buffer donation).  A batch of fits (``fit_batch``) gives every lane one
-ring width, :func:`resolve_batch_cache_rounds`.
+moved the same way a search at a time by its device-resident loop (the
+default); its stepped loop (``fused=False``) reads and writes it a round
+at a time through :func:`shard_slot_read_write` (a fresh block copied in
+place, the counterpart of the JAX package's buffer donation) and
+:func:`cache_advance`.  A batch of fits (``fit_batch``) gives every lane
+one ring width, :func:`resolve_batch_cache_rounds`.
 
 The batch's lanes (:class:`LaneRing`, ``fit_batch`` under ``reuse="pic"``)
 keep their rings in one ``[L, n_pad, (W+1)·B]`` tensor: lane l's ring is
@@ -66,7 +68,7 @@ import torch
 
 __all__ = ["PicCache", "DEFAULT_CACHE_ROUNDS", "resolve_cache_rounds",
            "resolve_batch_cache_rounds", "make_cache",
-           "shard_slot_read_write", "cache_advance", "carry_valid", "fresh_positions",
+           "shard_slot_read_write", "cache_advance", "carry_valid",
            "search_read_or_write", "search_advance", "LaneRing", "LanePlan",
            "make_lane_ring", "lane_plan", "lane_advance", "to_device"]
 
@@ -213,12 +215,6 @@ def carry_valid(cache: PicCache, block: int) -> bool:
     been recycled yet, so the permutation prefix is resident and slots
     are the identity map of rounds."""
     return cache.hw <= cache.rounds_cap(block)
-
-
-def fresh_positions(fresh_pos_before: int, cache: PicCache) -> int:
-    """Positions computed fresh since ``fresh_pos_before`` (a column
-    each, ``n`` evaluations, multiplied on the host)."""
-    return cache.fresh_pos - fresh_pos_before
 
 
 # ---------------------------------------------------------------------------
