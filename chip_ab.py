@@ -14,7 +14,11 @@ and called through the C interface the two share (``rt_pairwise``,
 ``rt_stream_swap_g``, ``rt_swap_g_from_cache``, ``rt_top2``), on the same
 inputs:
 ``mnist_like`` rows at MNIST's size (d = 784) and the shapes the main
-path gives each kernel (``rt_swap_g`` also at k = 64 and B = 300; the
+path gives each kernel (``rt_pairwise`` also at the sharded round's
+[60,000 x 128], once through ``rt_pairwise`` and once in the 128 x 128
+tile through ``rt_pairwise_tiled`` where a checkout has that entry, a
+base without it taking ``rt_pairwise``; ``rt_swap_g`` also at k = 64 and
+B = 300; the
 streaming kernels at m = 60,000 and r = 100, 6,000 and 60,000, k = 10,
 and ``rt_stream_swap_g`` at r = 6,000, k = 64 too; ``rt_swap_g_from_cache``
 at a PIC round's [60,000 x 100] block and over a full [60,000 x 60,000]
@@ -103,11 +107,18 @@ def cases(torch, X, reps, only=(), metric_id=0):
         idx = torch.randperm(n_fit, generator=gen)[:k].to(X.device)
         return x[idx].contiguous()
 
-    def pairwise(a, b):
+    def pairwise(a, b, tiled=None):
+        """``tiled``: a shape index that a checkout with the tiled entry
+        (``rt_pairwise_tiled``) launches; one without takes
+        ``rt_pairwise``'s own shape.  The bits must agree either way."""
         def make():
             return [torch.empty((a.shape[0], b.shape[0]), device=X.device)]
 
         def call(lib, outs, st):
+            if tiled is not None and hasattr(lib, "rt_pairwise_tiled"):
+                return lib.rt_pairwise_tiled(
+                    p(a), p(b), p(outs[0]), a.shape[0], b.shape[0],
+                    b.shape[0], d, metric_id, p(flag), tiled, st)
             fn = lib.rt_pairwise
             if len(fn.argtypes) == 8:   # a base without ldo and the flag
                 return fn(p(a), p(b), p(outs[0]), a.shape[0], b.shape[0], d,
@@ -235,6 +246,13 @@ def cases(torch, X, reps, only=(), metric_id=0):
            ("pairwise", "10000x10 (predict)", *pairwise(q, med)),
            ("pairwise", "1x60000 (d_near row)", *pairwise(x[:1], x)),
            ("pairwise", "1x100 (leader row)", *pairwise(x[5:6], rows(100))),
+           # The sharded round's block (ROADMAP B14): through rt_pairwise
+           # (two 104-column tiles in both), then in the 128 x 128 tile
+           # (shape 5 of tuning.PAIRWISE_SHAPES) where a checkout has it.
+           ("pairwise", "60000x128 (sharded round)",
+            *pairwise(x, rows(128))),
+           ("pairwise", "60000x128 (sharded round, 128x128 tile where "
+            "tiled)", *pairwise(x, rows(128), tiled=5)),
            ("build_g", "60000x100 (BUILD round)", *build_g(100)),
            ("build_g", "60000x300", *build_g(300)),
            ("swap_g", "60000x100 k=10 (SWAP round)", *swap_g(100, 10)),

@@ -22,7 +22,11 @@ configuration of ``--fits`` (all by default):
   ``chip_smoke.py`` phase 8 (a)'s 64 fits of ``mnist_like(256,
   seed=i)``, seeds 0-63;
 * ``ragged``, ``ragged_pp``: the same at k = 10 on phase 8 (b)'s 8 ragged
-  fits of ``mnist_like(5,000 + 1,037·i, seed=100 + i)``, seeds 0-7.
+  fits of ``mnist_like(5,000 + 1,037·i, seed=100 + i)``, seeds 0-7;
+* ``dist``, ``dist_pic``: ``KMedoids(k=10, solver="banditpam_dist")``
+  (B = 128), ``reuse="none"`` and ``"pic"``, at world size 1 on nccl
+  (``chip_smoke.py`` phase 9 (a)'s fits; the turn's process starts the
+  one-rank group before its first sharded fit).
 
 The turns run base, change, change, base.  Each fit prints its wall by
 phase and host reads by phase; the two checkouts' medoids, swaps, build
@@ -42,11 +46,27 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FITS = ("pic", "pic_full", "pic_stepped", "replacement", "serve", "batch",
-        "batch_pp", "ragged", "ragged_pp")
+        "batch_pp", "ragged", "ragged_pp", "dist", "dist_pic")
 N_FIT = 60000
 # Phase 8's batches of chip_smoke.py: (fits' n, k).
 BATCHES = {"batch": ((256,) * 64, 5),
            "ragged": (tuple(5000 + 1037 * i for i in range(8)), 10)}
+
+
+def world1() -> None:
+    """A one-rank nccl group for the sharded fits, on a free local port."""
+    import datetime
+    import socket
+    import torch
+    import torch.distributed as dist
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=600))
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
 
 
 def worker(root: str, fits) -> None:
@@ -64,7 +84,11 @@ def worker(root: str, fits) -> None:
     kws = {"pic": dict(reuse="pic"),
            "pic_full": dict(reuse="pic", cache_width=N_FIT, cache_cols=3200),
            "pic_stepped": dict(reuse="pic", fused=False),
-           "replacement": dict(sampling="replacement", baseline="leader")}
+           "replacement": dict(sampling="replacement", baseline="leader"),
+           "dist": dict(solver="banditpam_dist"),
+           "dist_pic": dict(solver="banditpam_dist", reuse="pic")}
+    if any(f.startswith("dist") for f in fits):
+        world1()
     def summary(r):
         return [r.medoids.tolist(), [h[:2] for h in r.swap_history],
                 r.build_rounds, r.evals_by_phase, float(r.loss)]
@@ -95,6 +119,9 @@ def worker(root: str, fits) -> None:
             "report": ([summary(f) for f in r] if batch is not None
                        else summary(r))}),
             flush=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def main() -> int:

@@ -183,6 +183,22 @@ Phases, each of which raises (exit code != 0) on any failure:
    on ``code_blobs`` (logged only on the 8,000 rows).  Every process
    group has a timeout and is destroyed at the phase's end.  All
    raising; the phase prints its wall.
+10. the tile tuner (``tile_paths``, ``repro_torch/core/tuning.py``;
+   ``[tiles]`` lines): (a) every compiled shape of every kernel against
+   the default shape's bits (the shape the unchanged ``rt_*`` entries
+   take) at the main path's shapes and at row 1e's [60,000 x 128] for
+   ``pairwise``, with the run flag at 1 (equal bits) and at 0 (outputs
+   untouched), the lane forms on a ragged lane set with one lane
+   masked, and an index the library lacks raising in every kernel;
+   (b) each shape timed beside its bound, the card's name and power
+   limit beside, the wave model's table (``TILE_US``) as JSON, the
+   configs the heuristic picks at 60,000 and 8,000 rows and the fastest
+   shape measured; (c) the default fit under the floor config (the
+   ``rt_*`` shapes, the parent's), the heuristic's and two more forced
+   through ``tuning.observe``, and the sharded fit at world size 1 on
+   nccl (B = 128) under the floor and the heuristic's: every report
+   identical to the floor's, the launch counts too.  All raising; the
+   phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -2612,6 +2628,428 @@ def dist_paths(torch, X, dev, Xnp, pam_fit):
     return counts
 
 
+# Phase 10: the tile tuner (repro_torch/core/tuning.py, ROADMAP A14): every
+# kernel's compiled shapes, held to the default shape's bits, timed, and the
+# fits under several configs.
+TILE_KERNELS = ("pairwise", "build_g", "swap_g", "stream_build_g",
+                "stream_swap_g", "top2", "swap_g_from_cache")
+TILE_LANES = (3000, 2345, 1111, 17)     # a ragged lane set, lane 3 masked
+TILE_RANK_ROWS = 8000                   # phase 9 (c)'s rank: every arm, 8,000 rows
+
+
+def _bits(t):
+    """A tensor's bits (NaNs compare equal to themselves)."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(name, got, want):
+    require_equal(name, tuple(_bits(g) for g in got),
+                  tuple(_bits(w) for w in want))
+
+
+def _must_raise(name, fn):
+    """Raise unless ``fn`` raises: a shape index the library lacks."""
+    try:
+        fn()
+    except (RuntimeError, ValueError) as e:
+        log(f"[tiles] {name}: raises ({str(e).splitlines()[0]})")
+        return
+    raise AssertionError(f"{name}: an unknown shape index did not raise")
+
+
+def _nan_outs(torch, dev, *shapes):
+    return [torch.full(sh, float("nan"), device=dev) for sh in shapes]
+
+
+def tile_bits(torch, X, dev):
+    """Phase 10 (a): every compiled shape of every kernel gives the
+    default shape's bits (the shape the unchanged ``rt_*`` entries take)
+    at the main path's shapes (60,000 x 784, B = 100, k = 10, l2; the
+    SWAP kernels at k = 65 too, swap_g at B = 300, top2 at k = 65 and
+    predict's [10,000 x 10]) and at row 1e's [60,000 x 128] for
+    pairwise; with the run flag at 1 (equal bits) and at 0 (outputs,
+    NaN-filled, untouched); the lane forms on a ragged lane set with one
+    lane masked; and an index the library lacks raises for every
+    kernel.  Raising."""
+    from repro_torch.core import tuning
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import build_g, pairwise, stream_g, swap_g
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    flag = {v: torch.tensor([v], dtype=torch.int32, device=dev)
+            for v in (0, 1)}
+    lib, p = kbuild.lib(), (lambda t: t.data_ptr())
+    st = torch.cuda.current_stream(dev).cuda_stream
+    x = X[:N_FIT].contiguous()
+    n, d = x.shape
+
+    def pick(m):
+        return x[torch.randperm(n, generator=gen)[:m].to(dev)].contiguous()
+
+    def shapes(kernel):
+        return range(len(tuning.KERNEL_SHAPES[kernel]))
+
+    checked = [0]
+
+    def each(name, kernel, default, call):
+        want = call(default)
+        for s in shapes(kernel):
+            if s != default:
+                _same_bits(f"{name} shape {s} == {default}", call(s), want)
+                checked[0] += 1
+        return want
+
+    def untouched(name, outs):
+        if not all(bool(torch.isnan(o).all()) for o in outs):
+            raise AssertionError(f"{name}: a masked launch wrote")
+
+    # pairwise: the PIC round, row 1e's block, predict, a d_near row.
+    y100, y128, med10, med65 = pick(B), pick(DIST_B), pick(10), pick(65)
+    q = X[N_FIT:N_FIT + N_QUERY].contiguous()
+    for a, b, nm in ((x, y100, "PIC round"), (x, y128, "row 1e"),
+                     (q, med10, "predict"), (x[:1], x, "d_near row")):
+        default = tuning.pairwise_index(128, 104, a.shape[0], b.shape[0])
+        each(f"pairwise [{a.shape[0]} x {b.shape[0]}] ({nm})", "pairwise",
+             default, lambda s: (pairwise.launch(a, b, "l2", shape=s),))
+    want = pairwise.launch(x, y100, "l2", shape=2)
+    for s in shapes("pairwise"):
+        ring = torch.full((n, 3 * B), float("nan"), device=dev)
+        pairwise.launch(x, y100, "l2", ring[:, B:2 * B], flag[1], shape=s)
+        _same_bits(f"pairwise shape {s} flag 1 into a ring slot",
+                   (ring[:, B:2 * B],), (want,))
+        ring.fill_(float("nan"))
+        pairwise.launch(x, y100, "l2", ring[:, B:2 * B], flag[0], shape=s)
+        untouched(f"pairwise shape {s} flag 0", (ring,))
+    L, n_pad = len(TILE_LANES), TILE_LANES[0]
+    xl = torch.stack([pick(n_pad) for _ in range(L)])
+    yl = torch.stack([pick(B) for _ in range(L)])
+    rows = torch.tensor(TILE_LANES, dtype=torch.int32, device=dev)
+    runl = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev)
+    yrows = torch.tensor([B, B, 63, B], dtype=torch.int32, device=dev)
+    col = torch.tensor([0, B, 37, 2 * B], dtype=torch.int64, device=dev)
+
+    def pw_lanes(s):
+        out = torch.full((L, n_pad, 4 * B), float("nan"), device=dev)
+        return (pairwise.launch_lanes(xl, yl, "l2", out, col, rows, yrows,
+                                      runl, shape=s),)
+    each("pairwise_lanes (ragged, lane 3 masked)", "pairwise", 2, pw_lanes)
+
+    # build_g, its lane form and stream_build_g.
+    dn = pairwise.pairwise_torch(y100, med10, metric="l2").min(dim=1).values
+    dn[:5] = float("inf")
+    w = torch.ones(B, device=dev)
+    w[-7:] = 0.0
+    lg = (torch.randn(B, generator=gen) * 3).to(dev)
+    for run in (None, flag[1]):
+        each(f"build_g [{n} x {B}] flag {None if run is None else 1}",
+             "build_g", 0, lambda s: build_g.launch(x, y100, dn, w, lg, "l2",
+                                                    run, shape=s))
+    for s in shapes("build_g"):
+        outs = _nan_outs(torch, dev, (n,), (n,), (n,))
+        kbuild.check(lib.rt_build_g_tiled(
+            p(x), p(y100), p(dn), p(w), p(lg), *map(p, outs), n, B, d, 0,
+            p(flag[0]), s, st), "build_g")
+        torch.cuda.synchronize()
+        untouched(f"build_g shape {s} flag 0", outs)
+    dnl = dn.expand(L, B).contiguous()
+    wl, lgl = w.expand(L, B).contiguous(), lg.expand(L, B).contiguous()
+
+    def ragged(outs):
+        # The running lanes' rows only: the rest are unwritten.
+        return tuple(o[..., i, :int(r)] if o.dim() == 2
+                     else o[i, ..., :int(r)]
+                     for o in outs for i, r in enumerate(TILE_LANES[:3]))
+    each("build_g_lanes (ragged, lane 3 masked)", "build_g", 0,
+         lambda s: ragged(build_g.launch_lanes(xl, yl, dnl, wl, lgl, rows,
+                                               "l2", runl, shape=s)))
+    for run in (None, flag[1]):
+        each(f"stream_build_g [{n} x {n}] flag "
+             f"{None if run is None else 1}", "stream_build_g", 0,
+             lambda s: stream_g.launch_stream_build(
+                 x, x, torch.full((n,), float("inf"), device=dev),
+                 torch.ones(n, device=dev), torch.zeros(n, device=dev), "l2",
+                 run, shape=s))
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    for s in shapes("stream_build_g"):
+        outs = _nan_outs(torch, dev, (n,), (n,), (n,))
+        kbuild.check(lib.rt_stream_build_g_tiled(
+            p(x), p(x), p(ones), p(ones), p(zeros), *map(p, outs), n, n, d,
+            0, p(flag[0]), s, st), "stream_build_g")
+        torch.cuda.synchronize()
+        untouched(f"stream_build_g shape {s} flag 0", outs)
+
+    # swap_g (B = 100 at k = 10 and 65, B = 300), its lane form,
+    # stream_swap_g.
+    for k, b in ((10, B), (65, B), (10, 3 * B)):
+        y = y100 if b == B else pick(b)
+        med = med10 if k == 10 else med65
+        d1, d2, a = stream_g.launch_top2(y, med, "l2",
+                                         shape=tuning.top2_index(
+                                             tuning.top2_tile(k)))
+        wb = torch.ones(b, device=dev)
+        wb[-5:] = 0.0
+        lgb = (torch.randn(b, generator=gen) * 3).to(dev)
+        for run in (None, flag[1]):
+            each(f"swap_g [{n} x {b}] k={k} flag "
+                 f"{None if run is None else 1}", "swap_g", 0,
+                 lambda s: swap_g.launch(x, y, d1, d2, a, wb, k, lgb, "l2",
+                                         run, shape=s))
+        for s in shapes("swap_g"):
+            outs = _nan_outs(torch, dev, *[(k, n)] * 3)
+            kbuild.check(lib.rt_swap_g_tiled(
+                p(x), p(y), p(d1), p(d2), p(a), p(wb), p(lgb),
+                *map(p, outs), n, b, d, k, 0, p(flag[0]), s, st), "swap_g")
+            torch.cuda.synchronize()
+            untouched(f"swap_g shape {s} k={k} B={b} flag 0", outs)
+    d1, d2, a = stream_g.launch_top2(yl.reshape(L * B, d), med10, "l2",
+                                     shape=0)
+    d1l, d2l, al = (v.view(L, B) for v in (d1, d2, a))
+    each("swap_g_lanes (ragged, lane 3 masked) k=10", "swap_g", 0,
+         lambda s: ragged(swap_g.launch_lanes(xl, yl, d1l, d2l, al, wl, 10,
+                                              lgl, rows, "l2", runl,
+                                              shape=s)))
+    d1, d2, a = stream_g.launch_top2(x, med10, "l2", shape=0)
+    for run in (None, flag[1]):
+        each(f"stream_swap_g [{n} x {n}] k=10 flag "
+             f"{None if run is None else 1}", "stream_swap_g", 0,
+             lambda s: stream_g.launch_stream_swap(x, x, d1, d2, a, ones, 10,
+                                                   zeros, "l2", run,
+                                                   shape=s))
+    for s in shapes("stream_swap_g"):
+        outs = _nan_outs(torch, dev, *[(10, n)] * 3)
+        kbuild.check(lib.rt_stream_swap_g_tiled(
+            p(x), p(x), p(d1), p(d2), p(a), p(ones), p(zeros),
+            *map(p, outs), n, n, d, 10, 0, p(flag[0]), s, st),
+            "stream_swap_g")
+        torch.cuda.synchronize()
+        untouched(f"stream_swap_g shape {s} flag 0", outs)
+
+    # top2 (no run flag) and its lane form.
+    for xx, med in ((x, med10), (x, med65), (q, med10)):
+        each(f"top2 [{xx.shape[0]} x {med.shape[0]}]", "top2",
+             tuning.top2_index(tuning.top2_tile(med.shape[0])),
+             lambda s: stream_g.launch_top2(xx, med, "l2", shape=s))
+    medl = torch.stack([pick(10) for _ in range(L)])
+    each("top2_lanes (ragged)", "top2", 0,
+         lambda s: ragged(stream_g.launch_top2_lanes(xl, medl, rows, "l2",
+                                                     shape=s)))
+
+    # swap_g_from_cache: its one shape, the entries the rt_* ones call.
+    dxy = pairwise.launch(x, y100, "l2", shape=2)
+    d1, d2, a = stream_g.launch_top2(y100, med10, "l2", shape=0)
+    got = swap_g.launch_cached(dxy, d1, d2, a, w, 10, lg, None, shape=0)
+    outs = _nan_outs(torch, dev, *[(10, n)] * 3)
+    kbuild.check(lib.rt_swap_g_from_cache(
+        p(dxy), B, p(d1), p(d2), p(a), p(w), p(lg), *map(p, outs), n, B, 10,
+        None, st), "swap_g_from_cache")
+    _same_bits("swap_g_from_cache shape 0 == rt_swap_g_from_cache", got,
+               tuple(outs))
+    # Unknown indices raise, in every kernel's entry (and its lane form).
+    for kernel in TILE_KERNELS:
+        bad = len(tuning.KERNEL_SHAPES[kernel])
+        calls = {
+            "pairwise": lambda: pairwise.launch(x, y100, "l2", shape=bad),
+            "build_g": lambda: build_g.launch(x, y100, dn, w, lg, "l2",
+                                              shape=bad),
+            "swap_g": lambda: swap_g.launch(x, y100, d1, d2, a, w, 10, lg,
+                                            "l2", shape=bad),
+            "stream_build_g": lambda: stream_g.launch_stream_build(
+                x[:B], y100, dn, w, lg, "l2", shape=bad),
+            "stream_swap_g": lambda: stream_g.launch_stream_swap(
+                x[:B], y100, d1, d2, a, w, 10, lg, "l2", shape=bad),
+            "top2": lambda: stream_g.launch_top2(x, med10, "l2", shape=bad),
+            "swap_g_from_cache": lambda: swap_g.launch_cached(
+                dxy, d1, d2, a, w, 10, lg, shape=bad)}
+        _must_raise(f"{kernel} shape {bad}", calls[kernel])
+    _must_raise("build_g_lanes shape 3", lambda: build_g.launch_lanes(
+        xl, yl, dnl, wl, lgl, rows, "l2", runl, shape=3))
+    log(f"[tiles] (a) {checked[0]} candidate launches held to the default "
+        f"shape's bits; every unknown index raised")
+
+
+def tile_times(torch, X, dev, card):
+    """Phase 10 (b): each compiled shape of each kernel timed at the main
+    path's shapes beside its bound (CUDA events; the card's name and
+    power limit printed beside), ``pairwise`` also at row 1e's
+    [60,000 x 128] and at phase 9 (c)'s rank, [8,000 x 64]; the
+    per-tile table the wave model reads (``tuning.TILE_US``: build_g and
+    each wide pairwise shape over one block an SM and over one full wave,
+    top2's one column tile over 60,000 rows), printed as JSON; the
+    config the heuristic picks and the fastest one measured."""
+    from repro_torch.core import tuning
+    from repro_torch.kernels import build_g, pairwise, stream_g, swap_g
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = X[:N_FIT].contiguous()
+    n, d = x.shape
+    sms = tuning.sm_count()
+
+    def pick(m):
+        return x[torch.randperm(n, generator=gen)[:m].to(dev)].contiguous()
+
+    y100, y128, y64, med10 = pick(B), pick(DIST_B), pick(64), pick(10)
+    dn = pairwise.pairwise_torch(y100, med10, metric="l2").min(dim=1).values
+    w = torch.ones(B, device=dev)
+    lg = torch.zeros(B, device=dev)
+    d1, d2, a = stream_g.launch_top2(y100, med10, "l2", shape=0)
+    log(f"[tiles] (b) {card}; {sms} SMs; times in ms, CUDA events")
+
+    def row(kernel, what, s, ms, flops, nbytes):
+        bms, bby = bound_ms(flops, nbytes)
+        bm, bn = tuning.KERNEL_SHAPES[kernel][s]
+        per = tuning.blocks_per_sm(kernel, s, 10)
+        log(f"[tiles] {kernel} {what} shape {s} ({bm} x {bn}, {per} blocks "
+            f"an SM): {ms:.4f} ms  bound {bms:.4f} ms ({bby})")
+        return ms
+
+    best = {}
+    for m, yy, what in ((n, y100, "PIC round"), (n, y128, "row 1e"),
+                        (TILE_RANK_ROWS, y64, "8,000-row rank")):
+        a_ = x[:m]
+        r = yy.shape[0]
+        ts = {s: row("pairwise", f"[{m} x {r}] ({what})", s,
+                     time_ms(lambda: pairwise.launch(a_, yy, "l2", shape=s)),
+                     2.0 * m * r * d, 4.0 * (m * d + r * d + m * r))
+              for s in range(2, len(tuning.PAIRWISE_SHAPES))}
+        best[f"pairwise {m} x {r}"] = min(ts, key=ts.get)
+    for m in (n, TILE_RANK_ROWS):
+        a_ = x[:m]
+        ts = {s: row("build_g", f"[{m} x {B}]", s,
+                     time_ms(lambda: build_g.launch(a_, y100, dn, w, lg, "l2",
+                                                    shape=s)),
+                     2.0 * m * B * d, 4.0 * (m * d + B * d + 3 * m))
+              for s in range(3)}
+        best[f"build_g {m}"] = min(ts, key=ts.get)
+        ts = {s: row("swap_g", f"[{m} x {B}] k=10", s,
+                     time_ms(lambda: swap_g.launch(a_, y100, d1, d2, a, w, 10,
+                                                   lg, "l2", shape=s)),
+                     2.0 * m * B * d, 4.0 * (m * d + B * d + 30 * m))
+              for s in range(3)}
+        best[f"swap_g {m}"] = min(ts, key=ts.get)
+    ts = {s: row("top2", f"[{n} x 10]", s,
+                 time_ms(lambda: stream_g.launch_top2(x, med10, "l2",
+                                                      shape=s)),
+                 2.0 * n * 10 * d, 4.0 * (n * d + 10 * d + 3 * n))
+          for s in range(4)}
+    best["top2 k=10"] = min(ts, key=ts.get)
+    ones, zeros, inf = (torch.ones(n, device=dev), torch.zeros(n, device=dev),
+                        torch.full((n,), float("inf"), device=dev))
+    for s in range(3):
+        row("stream_build_g", f"[{n} x {n}]", s, time_ms(
+            lambda: stream_g.launch_stream_build(x, x, inf, ones, zeros, "l2",
+                                                 shape=s), reps=2, warm=1),
+            2.0 * n * n * d, 4.0 * (2 * n * d + 6 * n))
+    dd1, dd2, aa = stream_g.launch_top2(x, med10, "l2", shape=0)
+    for s in range(3):
+        row("stream_swap_g", f"[{n} x {n}] k=10", s, time_ms(
+            lambda: stream_g.launch_stream_swap(x, x, dd1, dd2, aa, ones, 10,
+                                                zeros, "l2", shape=s),
+            reps=2, warm=1),
+            2.0 * n * n * d, 4.0 * (2 * n * d + 35 * n))
+    dxy = pairwise.launch(x, y100, "l2", shape=2)
+    row("swap_g_from_cache", f"[{n} x {B}] k=10", 0, time_ms(
+        lambda: swap_g.launch_cached(dxy, d1, d2, a, w, 10, lg, shape=0)),
+        0.0, 4.0 * (n * B + 5 * B + 30 * n))
+    # The wave model's table: one block an SM, then every SM full.
+    table = {"rows": {}, "pairwise": {}, "top2": {}}
+    for s, bm in enumerate(tuning.ROW_TILES):
+        per = tuning.blocks_per_sm("build_g", s)
+        one, full = (time_ms(lambda: build_g.launch(
+            x[:sms * c * bm], y100, dn, w, lg, "l2", shape=s)) * 1e3
+            for c in (1, per))
+        table["rows"][bm] = (round(one, 1), round(full, 1))
+    for s in range(2, len(tuning.PAIRWISE_SHAPES)):
+        bm, bn = tuning.PAIRWISE_SHAPES[s]
+        per = tuning.blocks_per_sm("pairwise", s)
+        yy = pick(bn)
+        one, full = (time_ms(lambda: pairwise.launch(
+            x[:sms * c * bm], yy, "l2", shape=s)) * 1e3 for c in (1, per))
+        table["pairwise"][f"{bm}x{bn}"] = (round(one, 1), round(full, 1))
+    for s, (bm, bn) in enumerate(tuning.TOP2_SHAPES):
+        med = pick(bn)
+        table["top2"][bn] = round(time_ms(lambda: stream_g.launch_top2(
+            x, med, "l2", shape=s)) * 1e3, 1)
+    log(f"[tiles] TILE_US {card}: {json.dumps(table)}")
+    for nn, what in ((n, "the main path"), (TILE_RANK_ROWS, "an 8,000-row "
+                                                           "rank")):
+        cfg = tuning.heuristic(nn, d, 10, tuning.current_device_kind(dev),
+                               "cuda")
+        log(f"[tiles] heuristic at n={nn} ({what}), d={d}, k=10: {cfg}")
+    log(f"[tiles] fastest measured shape by case: {best}")
+
+
+def tile_fits(torch, X, dev, Xnp):
+    """Phase 10 (c): the default fit (``KMedoids(k=10, solver=
+    "banditpam")``, 60,000 x 784, l2, seed 0) under the floor config
+    (the shapes of the unchanged ``rt_*`` entries, the parent's), under
+    the heuristic's and under two others forced through
+    ``tuning.observe``; the sharded fit (``solver="banditpam_dist"``,
+    B = 128) at world size 1 on nccl under the floor and the
+    heuristic's.  Each
+    report identical to the floor's (raising); the launch counts of each
+    fit equal too."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import tuning
+    from repro_torch.kernels import ops
+    kind = tuning.current_device_kind(dev)
+    n, d, k = N_FIT, X.shape[1], 10
+    heur = tuning.heuristic(n, d, k, kind, "cuda")
+    floor = tuning.TileConfig(tm=128, tr=104, tk=tuning.top2_tile(k, kind),
+                              dk=heur.dk)
+    others = [c for c in (tuning.TileConfig(tm=64, tr=128, tk=40, dk=heur.dk),
+                          tuning.TileConfig(tm=32, tr=104, tk=104,
+                                            dk=heur.dk))
+              if c not in (floor, heur)]
+
+    def fit(cfg, solver):
+        tuning.clear_ledger()
+        # A measured wall no fit beats: every resolve of the bucket takes
+        # cfg.
+        tuning.observe(n, d, k, cfg, {"build": 1e-9}, kind, "cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = KMedoids(k=k, solver=solver, metric="l2", seed=0).fit(
+            Xnp[:N_FIT])
+        wall = time.perf_counter() - t0
+        got = tuning.resolve_tile_config(n, d, k, kind, "cuda")
+        if got != cfg:
+            raise AssertionError(f"the ledger resolved {got}, not {cfg}")
+        r, c = est.report_, ops.launch_counts()
+        log(f"[tiles] (c) {solver} under {cfg}: medoids "
+            f"{r.medoids.tolist()} loss {r.loss!r} wall_by_phase "
+            f"{r.wall_by_phase} fit {wall:.3f} s; host_reads_by_phase "
+            f"{r.host_reads_by_phase}; launches "
+            f"{ {nm: v for nm, v in c.items() if v} }")
+        return r, c
+
+    import torch.distributed as dist
+    try:
+        for solver, cfgs in (("banditpam", [heur] + others),
+                             ("banditpam_dist", [heur])):
+            if solver == "banditpam_dist":
+                _dist_world1()
+            r0, c0 = fit(floor, solver)
+            for cfg in cfgs:
+                r, c = fit(cfg, solver)
+                same_report(r, r0, f"(c) {solver} under {cfg} vs the floor")
+                if c != c0:
+                    raise AssertionError(f"(c) {solver}: launches {c} != the "
+                                         f"floor's {c0}")
+    finally:
+        tuning.clear_ledger()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tile_paths(torch, X, dev, Xnp, card):
+    """Phase 10: (a), (b), (c)."""
+    t0 = time.perf_counter()
+    tile_bits(torch, X, dev)
+    tile_times(torch, X, dev, card)
+    tile_fits(torch, X, dev, Xnp)
+    log(f"[tiles] phase 10 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2665,6 +3103,7 @@ def main() -> int:
     t9 = time.perf_counter()
     counts_dist = dist_paths(torch, X, dev, Xnp, pam_fit)
     log(f"[dist] phase 9 wall {time.perf_counter() - t9:.1f} s")
+    tile_paths(torch, X, dev, Xnp, card)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the

@@ -100,13 +100,14 @@ import torch
 from .adaptive import cyclic_layout, device_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
-from .engine import (FitContext, exact_build_means, exact_swap_means,
-                     get_stats_backend, host_read, medoid_cache,
+from .engine import (FitContext, bind_stats_backend, exact_build_means,
+                     exact_swap_means, host_read, medoid_cache,
                      resolve_stats_backend, stream_columns, total_loss)
 from .pic_cache import (carry_valid, make_cache, resolve_cache_rounds,
                         search_advance, search_read_or_write)
 from .report import FitReport
 from . import rng as _rng
+from . import tuning
 
 __all__ = ["BanditPAM", "FitReport", "FitResult", "medoid_cache",
            "total_loss"]
@@ -234,11 +235,16 @@ class BanditPAM:
     # -- per-fit context -------------------------------------------------
     def _make_context(self, data, be_name: str, layouts,
                       res: FitReport) -> FitContext:
-        """The fit's cache regime and buffers (``engine.FitContext``)."""
+        """The fit's cache regime and buffers (``engine.FitContext``), and
+        its tiles: resolved here, once a fit (``tuning``), for every
+        launch of the fit."""
         n = data.shape[0]
-        be = get_stats_backend(be_name)
         B = self.batch_size
         dev = data.device
+        tiles = tuning.resolve_tile_config(
+            n, data.shape[1], self.k, tuning.current_device_kind(dev),
+            be_name)
+        be = bind_stats_backend(be_name, tiles)
         if self.reuse == "pic":
             perm = _rng.as_device_index(layouts.fixed_perm(n), dev)
             W = resolve_cache_rounds(-(-n // B), B, self.cache_width)
@@ -257,7 +263,8 @@ class BanditPAM:
                 cache.hw, cache.fresh_pos = warm, warm * B
                 res.evals_by_phase["cache_warm"] = n * warm * B
             return FitContext(mode="pic", backend=be_name, perm=perm,
-                              perm_idx=perm_idx, perm_w=perm_w, cache=cache)
+                              perm_idx=perm_idx, perm_w=perm_w, cache=cache,
+                              tiles=tiles)
         c = (min(self.cache_cols, n) // B) * B
         if c > 0 and self.sampling == "permutation":
             # Paper App 2.2: the first C columns of one fixed permutation.
@@ -266,8 +273,8 @@ class BanditPAM:
                                    metric=self.metric)
             res.evals_by_phase["cache_warm"] = n * c
             return FitContext(mode="warm", backend=be_name, perm=perm,
-                              dwarm=dwarm, free_rounds=c // B)
-        return FitContext(mode="none", backend=be_name)
+                              dwarm=dwarm, free_rounds=c // B, tiles=tiles)
+        return FitContext(mode="none", backend=be_name, tiles=tiles)
 
     def _cached_block(self, be, data, ref_idx, rnd: int, ctx: FitContext,
                       run=None):
@@ -315,7 +322,7 @@ class BanditPAM:
         phase reads its picks, rounds and ledger back once, at its end
         (plus the searches' own reads)."""
         n = data.shape[0]
-        be = get_stats_backend(ctx.backend)
+        be = ctx.stats
         dev = data.device
         pic = ctx.mode == "pic"
         delta = self.delta if self.delta is not None else 1.0 / (1000.0 * n)
@@ -391,14 +398,14 @@ class BanditPAM:
         n = data.shape[0]
         k = self.k
         B = self.batch_size
-        be = get_stats_backend(ctx.backend)
+        be = ctx.stats
         dev = data.device
         pic = ctx.mode == "pic"
         delta = (self.delta if self.delta is not None
                  else 1.0 / (1000.0 * k * n))
         log_term = log_term_f32(delta, dev)
         prev_loss = total_loss(data, med_t, metric=self.metric,
-                               backend=ctx.backend)
+                               backend=be)
         (loss,) = host_read([prev_loss], res, "swap")
         converged = False
         swap_evals = swap_cached = 0
@@ -411,7 +418,7 @@ class BanditPAM:
 
         for t in range(self.max_swaps):
             d1, d2, assign = medoid_cache(data, med_t, metric=self.metric,
-                                          backend=ctx.backend)
+                                          backend=be)
             seed = {}
             n_changed = torch.zeros((), dtype=torch.int64, device=dev)
             if carry is not None and carry_valid(ctx.cache, B):
@@ -454,7 +461,7 @@ class BanditPAM:
             cand = med_t.index_copy(0, (sr.best // n).reshape(1),
                                     (sr.best % n).reshape(1))
             new_loss = total_loss(data, cand, metric=self.metric,
-                                  backend=ctx.backend)
+                                  backend=be)
             # The JAX package's accept rule, float32 on the device.
             accept = new_loss < prev_loss - 1e-7 * torch.clamp_min(
                 torch.abs(prev_loss), 1.0)
@@ -573,6 +580,12 @@ class BanditPAM:
                                  if not ph.endswith("_cached"))
         res.cached_evals = sum(v for ph, v in res.evals_by_phase.items()
                                if ph.endswith("_cached"))
+        # Feed the measured phase walls back to the tile tuner: the next
+        # resolve of this (n, d, k, device, backend) bucket prefers the
+        # fastest observed config over the wave model.
+        tuning.observe(n, data.shape[1], self.k, ctx.tiles,
+                       res.wall_by_phase, tuning.current_device_kind(dev),
+                       be_name)
         return res, ctx
 
     def fit_batch(self, datasets, seeds=None):

@@ -72,12 +72,12 @@ import numpy as np
 import torch
 
 from . import rng as _rng
-from . import threefry
+from . import threefry, tuning
 from .adaptive import lane_search, log_term_f32, tile_perm
 from .banditpam import _carry_delta_lanes
 from .device import resolve_device
 from .distances import check_data
-from .engine import (LaneBlocks, LaneData, get_stats_backend, host_read,
+from .engine import (LaneBlocks, LaneData, bind_stats_backend, host_read,
                      resolve_stats_backend)
 from .pic_cache import (lane_advance, lane_plan, make_lane_ring,
                         resolve_batch_cache_rounds, to_device)
@@ -432,9 +432,14 @@ def _swap_batch(bp, lanes: LaneData, be, layouts, med_t, picks,
 
 
 def _lockstep(bp, arrs, seeds, dev, be_name):
-    """The whole batch in lockstep lanes, either ``reuse`` mode."""
-    be = get_stats_backend(be_name)
+    """The whole batch in lockstep lanes, either ``reuse`` mode, every
+    launch in the tiles resolved once for the batch (``tuning``, keyed on
+    the rows one launch covers, every lane's; no ``observe``, as in the
+    JAX package)."""
     lanes = LaneData.pad([a.to(dev) for a in arrs], dev)
+    be = bind_stats_backend(be_name, tuning.resolve_tile_config(
+        len(arrs) * lanes.n_pad, lanes.data.shape[2], bp.k,
+        tuning.current_device_kind(dev), be_name))
     layouts = [_rng.from_seed(s, dev, bp.k) for s in seeds]
     pic = _PicLanes(bp, lanes, layouts) if bp.reuse == "pic" else None
     # host_read counts into a report's host_reads_by_phase.

@@ -89,14 +89,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import threefry
+from . import threefry, tuning
 from .adaptive import device_search, explicit_layout, log_term_f32
 from .banditpam import BanditPAM, _repair_weights
 from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
-from .engine import (exact_build_means, exact_swap_means, get_stats_backend,
-                     host_read, medoid_cache, resolve_stats_backend,
-                     syncs_allowed, total_loss)
+from .engine import (bind_stats_backend, exact_build_means,
+                     exact_swap_means, host_read, medoid_cache,
+                     resolve_stats_backend, syncs_allowed, total_loss)
 from .pic_cache import (cache_advance, carry_valid, make_cache,
                         resolve_cache_rounds, search_advance,
                         search_read_or_write, shard_slot_read_write,
@@ -323,10 +323,15 @@ class _Fit:
                  be_name: str, res: FitReport):
         self.est, self.data, self.res = est, data, res
         self.be_name = be_name
-        self.be = get_stats_backend(be_name)
         self.metric = est.metric
         self.k = est.k
         self.n = n = data.shape[0]
+        # The fit's tiles, resolved once through the tuner (keyed on the
+        # full n: every rank computes every arm's statistics); the
+        # sharded fit does not observe, as in the JAX package.
+        self.be = bind_stats_backend(be_name, tuning.resolve_tile_config(
+            n, data.shape[1], est.k, tuning.current_device_kind(data.device),
+            be_name))
         dev = self.dev = data.device
         S, ax = est.n_shards, est.ax
         self.B = est.batch_size
@@ -500,7 +505,7 @@ class _Fit:
         log_term = log_term_f32(delta, dev)
         medoids = list(self.medoids)
         (loss,) = host_read([total_loss(self.data, med_t, metric=metric,
-                                        backend=self.be_name)], res, "swap")
+                                        backend=self.be)], res, "swap")
         swap_evals = swap_cached = 0
         converged = False
         carry = None  # (sums, sqsums, rounds, d1, d2, assign) of last search
@@ -512,7 +517,7 @@ class _Fit:
 
         for t in range(est.max_swaps):
             d1, d2, assign = medoid_cache(self.data, med_t, metric=metric,
-                                          backend=self.be_name)
+                                          backend=self.be)
             seed = {}
             n_changed = torch.zeros((), dtype=torch.int64, device=dev)
             if carry is not None and carry_valid(self.ring, self.b_loc):
@@ -544,7 +549,7 @@ class _Fit:
             cand = med_t.index_copy(0, (sr.best // n).reshape(1),
                                     (sr.best % n).reshape(1))
             new_loss = total_loss(self.data, cand, metric=metric,
-                                  backend=self.be_name)
+                                  backend=self.be)
             # The iteration's one read, with the fallback flag where the
             # resident loop decided it on the device.
             used = sr.used_exact

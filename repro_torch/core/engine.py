@@ -104,9 +104,15 @@ import torch
 from ..kernels.pairwise import pairwise_lanes_plain, pairwise_plain
 from .distances import pairwise
 from .pic_cache import PicCache
+from .tuning import REF_TILE, TileConfig
 
 _EXACT_CHUNK = 512  # row tile of the top-2 / loss walks, reference tile
 #                    of the exact streaming passes (the JAX REF_TILE)
+
+# The streaming kernels' reference tile must share the exact passes'
+# chunk boundaries: that is what makes their walk add each arm's sums in
+# the plain walk's order (tuning.REF_TILE, pinned).
+assert REF_TILE == _EXACT_CHUNK, (REF_TILE, _EXACT_CHUNK)
 # Rows per strip of the plain streaming walks.  It only bounds the live
 # [rows, _EXACT_CHUNK] block: each row's sums are independent of it.
 _STREAM_ROWS = 16 * _EXACT_CHUNK
@@ -301,15 +307,16 @@ def _stream_top2(x, med_pts, metric: str, tile: int = _EXACT_CHUNK):
 
 
 def medoid_cache(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
-                 backend: str = "torch"):
+                 backend="torch"):
     """d1 (nearest-medoid dist), d2 (second nearest), assignment; [n]
-    each — one top-2 pass through the backend."""
+    each — one top-2 pass through the backend (a name, or a fit's bound
+    backend, ``FitContext.stats``)."""
     return get_stats_backend(backend).top2(data, data[medoids],
                                            metric=metric)
 
 
 def total_loss(data: torch.Tensor, medoids: torch.Tensor, *, metric: str,
-               backend: str = "torch") -> torch.Tensor:
+               backend="torch") -> torch.Tensor:
     """Sum of nearest-medoid dissimilarities, a 0-d float32 tensor on the
     data's device.  The final sum runs over the intact ``[n]`` vector, as
     in the JAX package."""
@@ -540,6 +547,10 @@ class TorchStatsBackend(_LaneLoop):
 
     name = "torch"
 
+    def bind(self, tiles: Optional[TileConfig]) -> "TorchStatsBackend":
+        """The plain versions take no tile."""
+        return self
+
     def pairwise(self, x, y, *, metric, out=None, run=None):
         return pairwise_plain(x, y, metric, out, run)
 
@@ -607,9 +618,25 @@ class CudaStatsBackend:
     The kernels take the leader's g-row as an input, so under
     ``baseline="leader"`` it comes from one extra pairwise row of the
     leader against the batch (the Pallas backend's way): an O(B·d) add
-    that the ledger does not count, as in the JAX package."""
+    that the ledger does not count, as in the JAX package.
+
+    ``tiles`` (a :class:`~repro_torch.core.tuning.TileConfig`) is the
+    shape of every launch: a fit resolves it once and runs on
+    :meth:`bind`'s copy (``FitContext.stats``); the registry's instance
+    has None, and each launch resolves through the tuner."""
 
     name = "cuda"
+
+    def __init__(self, tiles: Optional[TileConfig] = None):
+        self.tiles = tiles
+        t = tiles
+        self._pw = ({} if t is None else {"tm": t.tm, "tr": t.tr})
+        self._rows = ({} if t is None else {"tm": t.tm})
+        self._top2 = ({} if t is None else {"tr": t.tk})
+
+    def bind(self, tiles: Optional[TileConfig]) -> "CudaStatsBackend":
+        """This backend with every launch in ``tiles``."""
+        return type(self)(tiles)
 
     @staticmethod
     def _ops(t: torch.Tensor):
@@ -620,7 +647,8 @@ class CudaStatsBackend:
         return ops
 
     def pairwise(self, x, y, *, metric, out=None, run=None):
-        return self._ops(x).pairwise_distance(x, y, metric, out=out, run=run)
+        return self._ops(x).pairwise_distance(x, y, metric, out=out, run=run,
+                                              **self._pw)
 
     def build_stats(self, data, ref_idx, dnear_b, w, lead, *, metric,
                     run=None):
@@ -629,10 +657,10 @@ class CudaStatsBackend:
         lead_g = None
         if lead is not None:
             dl = ops.pairwise_distance(data.index_select(0, lead.view(1)), y,
-                                       metric)[0]
+                                       metric, **self._pw)[0]
             lead_g = _build_g(dl[None, :], dnear_b)[0] * w
         return ops.build_g_stats(data, y, dnear_b, w, lead_g, metric=metric,
-                                 run=run)
+                                 run=run, **self._rows)
 
     def swap_stats(self, data, ref_idx, d1_b, d2_b, assign_b, w, k, lead,
                    *, metric, run=None):
@@ -642,10 +670,12 @@ class CudaStatsBackend:
         if lead is not None:
             n = data.shape[0]
             dl = ops.pairwise_distance(
-                data.index_select(0, (lead % n).view(1)), y, metric)[0]
+                data.index_select(0, (lead % n).view(1)), y, metric,
+                **self._pw)[0]
             lead_g = _swap_lead_g(dl, d1_b, d2_b, assign_b, lead // n)
         s, q, c = ops.swap_g_stats(data, y, d1_b, d2_b, assign_b, w, k,
-                                   lead_g, metric=metric, run=run)
+                                   lead_g, metric=metric, run=run,
+                                   **self._rows)
         return s.reshape(-1), q.reshape(-1), c.reshape(-1)
 
     def build_stats_from_d(self, dxy, dnear_b, w, lead):
@@ -668,18 +698,19 @@ class CudaStatsBackend:
 
     def stream_build_sums(self, data, dnear, *, metric, run=None):
         return self._ops(data).stream_build_g_stats(data, data, dnear,
-                                                    metric=metric,
-                                                    run=run)[0]
+                                                    metric=metric, run=run,
+                                                    **self._rows)[0]
 
     def stream_swap_sums(self, data, d1, d2, assign, k, *, metric,
                          rows=None, run=None):
         x = data if rows is None else data.index_select(0, rows)
         return self._ops(data).stream_swap_g_stats(
-            x, data, d1, d2, assign, k=k, metric=metric,
-            run=run)[0].reshape(-1)
+            x, data, d1, d2, assign, k=k, metric=metric, run=run,
+            **self._rows)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
-        return self._ops(x).stream_top2(x, med_pts, metric=metric)
+        return self._ops(x).stream_top2(x, med_pts, metric=metric,
+                                        **self._top2)
 
     # -- the lane forms: one launch a round for every lane ---------------
     # A lane round's leader row: each lane's leader against its own batch,
@@ -694,7 +725,8 @@ class CudaStatsBackend:
         for lo in range(0, L, self.LEAD_GROUP):
             hi = min(lo + self.LEAD_GROUP, L)
             blk = ops.pairwise_distance(
-                pts[lo:hi], y[lo:hi].reshape((hi - lo) * b, -1), metric)
+                pts[lo:hi], y[lo:hi].reshape((hi - lo) * b, -1), metric,
+                **self._pw)
             diag = torch.arange(hi - lo, device=y.device)
             out.append(blk.view(hi - lo, hi - lo, b)[diag, diag])
         return out[0] if len(out) == 1 else torch.cat(out)
@@ -710,7 +742,7 @@ class CudaStatsBackend:
                                  torch.clamp_max(dl - dnear_b, 0.0)) * w
         return ops.build_g_lanes_stats(lanes.data, y, dnear_b, w, lead_g,
                                        rows=lanes.rows, metric=metric,
-                                       run=run)
+                                       run=run, **self._rows)
 
     def swap_stats_lanes(self, lanes, ref_idx, d1_b, d2_b, assign_b, w, k,
                          lead, *, metric, run=None):
@@ -726,14 +758,16 @@ class CudaStatsBackend:
                 dl.dtype) * corr
         s, q, c = ops.swap_g_lanes_stats(lanes.data, y, d1_b, d2_b, assign_b,
                                          w, k, lead_g, rows=lanes.rows,
-                                         metric=metric, run=run)
+                                         metric=metric, run=run,
+                                         **self._rows)
         L = y.shape[0]
         return s.view(L, -1), q.view(L, -1), c.view(L, -1)
 
     def pairwise_lanes(self, x, y, *, metric, out=None, col=None,
                        xrows=None, yrows=None, run=None):
         return self._ops(x).pairwise_lanes(x, y, metric, out=out, col=col,
-                                           xrows=xrows, yrows=yrows, run=run)
+                                           xrows=xrows, yrows=yrows, run=run,
+                                           **self._pw)
 
     def build_stats_from_d_lanes(self, lanes, blocks, dnear_b, w, lead):
         # The single form's plain math with a lane axis: elementwise ops and
@@ -783,7 +817,7 @@ class CudaStatsBackend:
         rows = (lanes.rows if live is None
                 else torch.where(live, lanes.rows, 0).to(torch.int32))
         return ops.stream_top2_lanes(lanes.data, lanes.gather(med_idx),
-                                     rows=rows, metric=metric)
+                                     rows=rows, metric=metric, **self._top2)
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +832,11 @@ def register_stats_backend(name: str, backend) -> None:
     _BACKENDS[name] = backend
 
 
-def get_stats_backend(name: str):
+def get_stats_backend(name):
+    """The backend registered as ``name``; a backend instance (a fit's
+    bound one) is returned as it is."""
+    if not isinstance(name, str):
+        return name
     if name not in _BACKENDS:
         raise KeyError(f"unknown stats backend {name!r}; "
                        f"have {sorted(_BACKENDS)}")
@@ -861,6 +899,10 @@ class FitContext:
       rounds that compute a block fresh; ``perm_idx`` / ``perm_w`` are the
       permutation's cyclic tiling at the ring's width, read by the
       carried-moment repair.
+
+    ``tiles`` is the fit's :class:`~repro_torch.core.tuning.TileConfig`,
+    resolved once (``tuning.resolve_tile_config``), and ``stats`` the
+    backend bound to it, which every phase of the fit launches through.
     """
 
     mode: str                                 # "none" | "warm" | "pic"
@@ -871,3 +913,16 @@ class FitContext:
     cache: Optional[PicCache] = None          # the ring ("pic")
     dwarm: Optional[torch.Tensor] = None      # [n, C] warm block ("warm")
     free_rounds: int = 0                      # rounds in dwarm ("warm")
+    tiles: Optional[TileConfig] = None        # the fit's resolved tiles
+    stats: Any = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.stats = bind_stats_backend(self.backend, self.tiles)
+
+
+def bind_stats_backend(name, tiles: Optional[TileConfig]):
+    """The backend ``name`` with every launch in ``tiles`` (a backend
+    without ``bind``, registered by a user, as it is)."""
+    be = get_stats_backend(name)
+    bind = getattr(be, "bind", None)
+    return be if bind is None or tiles is None else bind(tiles)

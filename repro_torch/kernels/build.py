@@ -70,6 +70,21 @@ SIGNATURES = {
                                    _P],
 }
 
+# Every launching entry has a ``_tiled`` twin that takes the tile shape's
+# index (``int``, ``repro_torch.core.tuning``'s tables) before the
+# stream; an index the library was not built with returns
+# cudaErrorInvalidValue.  The entries above keep the shapes they have
+# always chosen.  The port calls the twins only.
+SIGNATURES.update({f"{name}_tiled": args[:-1] + [_I, _P]
+                   for name, args in list(SIGNATURES.items())})
+# Shape queries, one a kernel: (shape, k, int info[4]) fills the shape's
+# rows, columns, threads and blocks an SM (the occupancy calculator's, at
+# the launch's shared memory for k clusters; l2).
+SHAPE_KERNELS = ("pairwise", "build_g", "swap_g", "stream_build_g",
+                 "stream_swap_g", "top2", "swap_g_from_cache")
+SIGNATURES.update({f"rt_{name}_shape": [_I, _I, _P]
+                   for name in SHAPE_KERNELS})
+
 _lib: Optional[ctypes.CDLL] = None
 # What the last build did: seconds per step and nvcc's -Xptxas -v report.
 build_info: Dict[str, object] = {}

@@ -5,8 +5,9 @@ Replaces the TPU kernel ``src/repro/kernels/build_g.py:42``
 H100 a round at n=60000, B=100, d=784 is 9.4 GFLOP of float32 distance
 work against 188 MB of reads, so it is compute-bound (about 140 us at
 67 TFLOP/s).  The design runs the pipelined mainloop of
-``csrc/dist_mainloop.cuh`` over a 128 x 104 tile (a whole B = 100 batch),
-puts the distance tile in shared memory and folds it into four residue
+``csrc/dist_mainloop.cuh`` over a tile of 128 rows (or 64 or 32, the row
+tile ``repro_torch.core.tuning`` resolved) by 104 columns (a whole
+B = 100 batch), puts the distance tile in shared memory and folds it into four residue
 partials per row added in a fixed order: no atomics, the same bits on
 every run, and at B <= 512 the bits of ``stream_build_g``.
 
@@ -42,7 +43,8 @@ def build_g_torch(x, y, dnear_b, w, lead_g, metric: str, run=None):
     return torch.sum(g, dim=1), torch.sum(g * g, dim=1), g @ lead_g
 
 
-def launch(x, y, dnear_b, w, lead_g, metric: str, run=None):
+def launch(x, y, dnear_b, w, lead_g, metric: str, run=None, *,
+           shape: int):
     """Run the CUDA kernel on validated CUDA tensors (see ``ops``).  A
     run flag ``run`` ([1] int32) that reads 0 makes every block return at
     once and leaves the outputs unwritten; the launch counts all the
@@ -52,11 +54,11 @@ def launch(x, y, dnear_b, w, lead_g, metric: str, run=None):
     b = y.shape[0]
     sums, sq, cross = (torch.empty((m,), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_build_g(
+    code = _build.lib().rt_build_g_tiled(
         x.data_ptr(), y.data_ptr(), dnear_b.data_ptr(), w.data_ptr(),
         lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
         m, b, d, METRIC_IDS[metric], None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "build_g kernel")
     return sums, sq, cross
@@ -78,7 +80,8 @@ def build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows, metric: str,
     return tuple(outs)
 
 
-def launch_lanes(x, y, dnear_b, w, lead_g, rows, metric: str, run=None):
+def launch_lanes(x, y, dnear_b, w, lead_g, rows, metric: str, run=None, *,
+                 shape: int):
     """Run the lane kernel on validated CUDA tensors (see ``ops``):
     outputs ``[L, n_pad]``, unwritten past each lane's rows and in every
     lane whose run flag reads 0."""
@@ -87,13 +90,13 @@ def launch_lanes(x, y, dnear_b, w, lead_g, rows, metric: str, run=None):
     b = y.shape[1]
     sums, sq, cross = (torch.empty((lanes, n_pad), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_build_g_lanes(
+    code = _build.lib().rt_build_g_lanes_tiled(
         x.data_ptr(), y.data_ptr(), dnear_b.data_ptr(), w.data_ptr(),
         lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
         lanes, n_pad, b, d, METRIC_IDS[metric],
         None if rows is None else rows.data_ptr(),
         None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     lane_launches += 1
     _build.check(code, "build_g lane kernel")
     return sums, sq, cross

@@ -238,17 +238,78 @@ __device__ __forceinline__ void dist_finish(const float* smem,
   }
 }
 
-// The shapes the kernels share (top2 adds 40- and 72-column ones of its
-// own).  Wide (pairwise, build_g, swap_g, stream_build_g, stream_swap_g,
-// top2 at some k past 80): 104 columns hold a whole B = 100 batch
-// (4 % padding) and, being 0 mod 4, keep a column's residue mod 4 across
-// column tiles, which the folds rely on; 8 x 13 pairs a
-// thread need 21 float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to
-// 255 registers, hence 128 threads and two blocks an SM; 16 features a
-// stage, four stages.  Narrow (pairwise, top2): 16 columns or fewer
-// (predict's and the default fit's k medoids, or the few x rows of a
-// d_near or leader row with the operands swapped).
-using WideTile = Mainloop<16, 8, 8, 13, 16, 4, 2>;
+// The shapes the kernels share, the candidates the tile tuner
+// (repro_torch/core/tuning.py) picks among; every kernel file launches a
+// shape by the index its _tiled entry is given.  Top2 adds 40- and
+// 72-column ones of its own.
+//
+// Wide (pairwise, build_g, swap_g, stream_build_g, stream_swap_g, top2
+// at some k past 80): 104 columns hold a whole B = 100 batch (4 %
+// padding) and, being 0 mod 4, keep a column's residue mod 4 across
+// column tiles, which the folds rely on; 8 x 13 pairs a thread need 21
+// float4 loads per 416 FMAs (8 x 7: 15 per 224) and up to 255 registers,
+// hence 128 threads and two blocks an SM; 16 features a stage, four
+// stages.  Its row tiles: the statistics kernels and their folds vary
+// only the row side (RM, so BM = 16 RM), never TX, RN or BN, which fix
+// each row's column order; a tile of fewer rows gives a grid that leaves
+// SMs idle (an 8,000-row round: 63 tiles of 128 rows on 132 SMs) more
+// blocks.  They keep two blocks an SM: at three (168 registers) the
+// folds spilled.
+using WideTile = Mainloop<16, 8, 8, 13, 16, 4, 2>;  // 128 x 104
+using Wide64 = Mainloop<16, 8, 4, 13, 16, 4, 2>;    // 64 x 104
+using Wide32 = Mainloop<16, 8, 2, 13, 16, 4, 2>;    // 32 x 104
+// pairwise's 128-column tiles (it writes each pair on its own, so its
+// column tile may vary), so a [n x 128] block (a sharded round's) is one
+// column tile, not two of 104.  At 128 rows, 16 x 16 threads of 8 x 8
+// pairs (16 float4 loads per 256 FMAs, 254 registers, one block an SM):
+// the wide tile's threads with 8 x 16 pairs ran 3 % faster but spilled
+// 108 bytes at 255 registers.  At 64 and 32 rows the wide tile's threads
+// with 16 pairs across, three blocks an SM, no spill.
+using Col128 = Mainloop<16, 16, 8, 8, 16, 4, 1>;     // 128 x 128
+using Col128x64 = Mainloop<16, 8, 4, 16, 16, 4, 3>;  // 64 x 128
+using Col128x32 = Mainloop<16, 8, 2, 16, 16, 4, 3>;  // 32 x 128
+// Narrow (pairwise, top2): 16 columns or fewer (predict's and the
+// default fit's k medoids, or the few x rows of a d_near or leader row
+// with the operands swapped).
 using NarrowTile = Mainloop<32, 4, 2, 4, 32, 4, 4>;
+
+// Call f with the row tile of shape index `shape` of the statistics
+// kernels (build_g, swap_g, stream_build_g, stream_swap_g: 0 the wide
+// tile, 1 Wide64, 2 Wide32), as f(Tile{}); an index the library was not
+// built with returns cudaErrorInvalidValue, and no other shape is taken.
+template <class F>
+inline int with_row_tile(int shape, F&& f) {
+  switch (shape) {
+    case 0:
+      return f(WideTile{});
+    case 1:
+      return f(Wide64{});
+    case 2:
+      return f(Wide32{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of `kernel` an SM holds at `threads` threads and `smem` bytes
+// of dynamic shared memory (the attribute set first, as a launch does).
+template <class K>
+inline cudaError_t blocks_per_sm(K kernel, int threads, size_t smem,
+                                 int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
+                                                       smem);
+}
+
+// A shape query's answer: rows, columns, threads and blocks an SM.
+template <class C>
+inline cudaError_t shape_info(int* info, int per_sm) {
+  info[0] = C::BM;
+  info[1] = C::BN;
+  info[2] = C::NT;
+  info[3] = per_sm;
+  return cudaSuccess;
+}
 
 }  // namespace rt

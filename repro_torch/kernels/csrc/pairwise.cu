@@ -9,14 +9,17 @@
 // latency-bound.
 //
 // Design: the pipelined, register-blocked mainloop of dist_mainloop.cuh,
-// whose bits are dist_math.cuh's, in one of three shapes chosen by
-// rt_pairwise:
-// * r > 16 and m > 16: the wide tile, 128 rows x 104 columns a block (a
-//   whole B = 100 batch, so x is staged once per round);
+// whose bits are dist_math.cuh's, in the shape whose index the caller
+// passes to rt_pairwise_tiled (repro_torch/core/tuning.py resolves it):
+// * r > 16 and m > 16: a wide tile, 128, 64 or 32 rows by 104 columns (a
+//   whole B = 100 batch, so x is staged once per round) or by 128 (a
+//   sharded round's B = 128 in one column tile);
 // * r <= 16 (predict): the narrow tile, 64 rows x 16 columns;
 // * m <= 16 (d_near and leader rows): the narrow tile with the operands
 //   swapped, y's rows down the tile and x's across, so a block is not
 //   nearly all padding; each thread stores its column of out.
+// rt_pairwise keeps the choice it has always made (the 128 x 104 wide
+// tile, else a narrow one by r and m).
 // The finished tile goes to device memory through shared memory, so
 // consecutive threads store consecutive floats of a row of out; ragged
 // rows and columns are masked.  There is no feature-axis split: the
@@ -123,49 +126,124 @@ cudaError_t launch(const float* x, const float* y, float* out, int64_t m,
   return cudaGetLastError();
 }
 
+// The shapes of the _tiled entries, by index (tuning.PAIRWISE_SHAPES):
+// 0 the narrow tile, 1 the narrow tile with the operands swapped, 2-4
+// the wide tile's rows (128, 64, 32) at 104 columns, 5-7 the same rows
+// at 128 columns.  A pair's bits do not depend on the shape.
+template <class C_, bool SWAP_>
+struct Shape {
+  using C = C_;
+  static constexpr bool SWAP = SWAP_;
+};
+
+template <class F>
+int with_shape(int shape, F&& f) {
+  switch (shape) {
+    case 0:
+      return f(Shape<rt::NarrowTile, false>{});
+    case 1:
+      return f(Shape<rt::NarrowTile, true>{});
+    case 2:
+      return f(Shape<rt::WideTile, false>{});
+    case 3:
+      return f(Shape<rt::Wide64, false>{});
+    case 4:
+      return f(Shape<rt::Wide32, false>{});
+    case 5:
+      return f(Shape<rt::Col128, false>{});
+    case 6:
+      return f(Shape<rt::Col128x64, false>{});
+    case 7:
+      return f(Shape<rt::Col128x32, false>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The shape rt_pairwise has always taken: narrow for r <= 16, narrow with
+// the operands swapped for m <= 16, else the wide tile.
+int legacy_shape(int64_t m, int64_t r) {
+  if (r <= rt::NarrowTile::BN) return 0;
+  if (m <= rt::NarrowTile::BN) return 1;
+  return 2;
+}
+
 int dispatch(const float* x, const float* y, float* out, int64_t m,
              int64_t r, int64_t ldo, int d, int metric, const int* run,
-             const Lanes& ln, void* stream) {
+             const Lanes& ln, int shape, void* stream) {
   if (ldo < r || ln.lanes > 65535) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || r <= 0 || ln.lanes <= 0) return cudaSuccess;
   // Lane bases are whole rows apart, so every lane shares lane 0's
   // alignment when d % 4 == 0.
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)y % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  using Narrow = rt::NarrowTile;
-  RT_METRIC_SWITCH(metric, M, {
-    if (r <= Narrow::BN)
-      return (int)launch<M, Narrow, false>(x, y, out, m, r, ldo, d, vec, run,
-                                              ln, st);
-    if (m <= Narrow::BN)
-      return (int)launch<M, Narrow, true>(x, y, out, m, r, ldo, d, vec, run,
-                                             ln, st);
-    return (int)launch<M, rt::WideTile, false>(x, y, out, m, r, ldo, d, vec,
-                                                   run, ln, st);
+  return with_shape(shape, [&](auto s) -> int {
+    using S = decltype(s);
+    if (m <= 0 || r <= 0 || ln.lanes <= 0) return cudaSuccess;
+    RT_METRIC_SWITCH(metric, M, {
+      return (int)launch<M, typename S::C, S::SWAP>(x, y, out, m, r, ldo, d,
+                                                    vec, run, ln, st);
+    });
+    return cudaSuccess;
   });
-  return cudaSuccess;
 }
 
 }  // namespace
 
+// The entries below take the shape the caller resolved (the tile tuner,
+// through ops.py); rt_pairwise and rt_pairwise_lanes keep the shape they
+// have always chosen by m and r.
+extern "C" int rt_pairwise_tiled(const float* x, const float* y, float* out,
+                                 int64_t m, int64_t r, int64_t ldo, int d,
+                                 int metric, const int* run, int shape,
+                                 void* stream) {
+  return dispatch(x, y, out, m, r, ldo, d, metric, run,
+                  Lanes{1, 0, nullptr, nullptr, nullptr}, shape, stream);
+}
+
 extern "C" int rt_pairwise(const float* x, const float* y, float* out,
                            int64_t m, int64_t r, int64_t ldo, int d,
                            int metric, const int* run, void* stream) {
-  return dispatch(x, y, out, m, r, ldo, d, metric, run,
-                  Lanes{1, 0, nullptr, nullptr, nullptr}, stream);
+  return rt_pairwise_tiled(x, y, out, m, r, ldo, d, metric, run,
+                           legacy_shape(m, r), stream);
 }
 
 // The lane axis: x [lanes, m, d], y [lanes, r, d]; lane l's output at
 // out + l * lane_out + ocol[l], rows ldo apart; mrows, rrows and run
 // [lanes] (NULL: m rows, r rows, every lane runs), ocol [lanes] int64
 // (NULL: 0).  ocol[l] + rrows[l] must not pass the row's ldo floats.
+extern "C" int rt_pairwise_lanes_tiled(const float* x, const float* y,
+                                       float* out, int64_t lanes, int64_t m,
+                                       int64_t r, int64_t lane_out,
+                                       int64_t ldo, int d, int metric,
+                                       const int* mrows, const int* rrows,
+                                       const int64_t* ocol, const int* run,
+                                       int shape, void* stream) {
+  return dispatch(x, y, out, m, r, ldo, d, metric, run,
+                  Lanes{lanes, lane_out, mrows, rrows, ocol}, shape, stream);
+}
+
 extern "C" int rt_pairwise_lanes(const float* x, const float* y, float* out,
                                  int64_t lanes, int64_t m, int64_t r,
                                  int64_t lane_out, int64_t ldo, int d,
                                  int metric, const int* mrows,
                                  const int* rrows, const int64_t* ocol,
                                  const int* run, void* stream) {
-  return dispatch(x, y, out, m, r, ldo, d, metric, run,
-                  Lanes{lanes, lane_out, mrows, rrows, ocol}, stream);
+  return rt_pairwise_lanes_tiled(x, y, out, lanes, m, r, lane_out, ldo, d,
+                                 metric, mrows, rrows, ocol, run,
+                                 legacy_shape(m, r), stream);
+}
+
+// Shape `shape`'s rows, columns, threads and blocks an SM (l2) into
+// info[0..3], for the tuner's wave model.
+extern "C" int rt_pairwise_shape(int shape, int k, int* info) {
+  (void)k;
+  return with_shape(shape, [&](auto s) -> int {
+    using S = decltype(s);
+    using C = typename S::C;
+    int per_sm = 0;
+    const cudaError_t e = rt::blocks_per_sm(
+        pairwise_kernel<rt::L2, C, S::SWAP>, C::NT, C::SMEM, &per_sm);
+    if (e != cudaSuccess) return e;
+    return rt::shape_info<C>(info, per_sm);
+  });
 }

@@ -19,9 +19,10 @@
 //   k = 200: 18.8 GFLOP, 0.281 ms: compute-bound.
 // A block holds BM rows of x and walks the medoids in BN-column tiles,
 // in index order, with its rows fixed: x is staged once a column tile,
-// not once per 16 medoids.  Four shapes; rt_top2 takes the one whose
-// walk, ceil(k / BN) column tiles at the tile's measured time, is
-// shortest (SHAPE_US):
+// not once per 16 medoids.  Four shapes; the tile tuner
+// (repro_torch/core/tuning.py, through rt_top2_tiled) and rt_top2 take
+// the one whose walk, ceil(k / BN) column tiles at the tile's measured
+// time, is shortest (SHAPE_US here, tuning.TOP2_TILE_US there):
 // * the narrow tile, 64 x 16, 2 x 4 pairs a thread, four blocks an SM:
 //   k <= 16 (the default fit, predict).  x streams once through the
 //   cp.async ring; the medoid rows come from L2.  The limit besides HBM
@@ -213,50 +214,91 @@ cudaError_t launch(const float* x, const float* med, float* d1, float* d2,
   return cudaGetLastError();
 }
 
+// The shapes of the _tiled entries, by index (tuning.TOP2_SHAPES): 0
+// the narrow tile (64 x 16), 1 Mid40, 2 Mid72, 3 the wide tile.
+template <class F>
+int with_shape(int shape, F&& f) {
+  switch (shape) {
+    case 0:
+      return f(Narrow{});
+    case 1:
+      return f(Mid40{});
+    case 2:
+      return f(Mid72{});
+    case 3:
+      return f(Wide{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // One launch over `lanes` lanes of n rows (rows: each lane's count, NULL:
-// n for every lane).
+// n for every lane) in shape `shape`.
 int top2(const float* x, const float* med, float* d1, float* d2, int* assign,
          int64_t n, int k, int d, int metric, const int* rows, int lanes,
-         void* stream) {
-  if (k < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
-  if (n <= 0 || lanes <= 0) return cudaSuccess;
-  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)med % 16 == 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int shape = pick_shape(k);
-  RT_METRIC_SWITCH(metric, M, {
-    switch (shape) {
-      case 0:
-        return (int)launch<M, Narrow>(x, med, d1, d2, assign, n, k, d, vec,
-                                      rows, lanes, st);
-      case 1:
-        return (int)launch<M, Mid40>(x, med, d1, d2, assign, n, k, d, vec,
-                                     rows, lanes, st);
-      case 2:
-        return (int)launch<M, Mid72>(x, med, d1, d2, assign, n, k, d, vec,
-                                     rows, lanes, st);
-      default:
-        return (int)launch<M, Wide>(x, med, d1, d2, assign, n, k, d, vec,
-                                    rows, lanes, st);
-    }
+         int shape, void* stream) {
+  return with_shape(shape, [&](auto tile) -> int {
+    using C = decltype(tile);
+    if (k < 1 || lanes > 65535) return cudaErrorInvalidValue;
+    if (n <= 0 || lanes <= 0) return cudaSuccess;
+    const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                     (uintptr_t)med % 16 == 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    RT_METRIC_SWITCH(metric, M, {
+      return launch<M, C>(x, med, d1, d2, assign, n, k, d, vec, rows, lanes,
+                          st);
+    });
+    return cudaSuccess;
   });
-  return cudaSuccess;
 }
 
 }  // namespace
 
+// The _tiled entries take the shape the caller resolved (the tile tuner's
+// pick by k, through ops.py); rt_top2 and rt_top2_lanes keep choosing it
+// by k here (pick_shape).
+extern "C" int rt_top2_tiled(const float* x, const float* med, float* d1,
+                             float* d2, int* assign, int64_t n, int k, int d,
+                             int metric, int shape, void* stream) {
+  return top2(x, med, d1, d2, assign, n, k, d, metric, nullptr, 1, shape,
+              stream);
+}
+
 extern "C" int rt_top2(const float* x, const float* med, float* d1, float* d2,
                        int* assign, int64_t n, int k, int d, int metric,
                        void* stream) {
-  return top2(x, med, d1, d2, assign, n, k, d, metric, nullptr, 1, stream);
+  return rt_top2_tiled(x, med, d1, d2, assign, n, k, d, metric,
+                       pick_shape(k), stream);
 }
 
 // The lane axis: x [lanes, n_pad, d], med [lanes, k, d], outputs
 // [lanes, n_pad]; rows [lanes] (NULL: n_pad rows in every lane).
+extern "C" int rt_top2_lanes_tiled(const float* x, const float* med,
+                                   float* d1, float* d2, int* assign,
+                                   int64_t lanes, int64_t n_pad, int k, int d,
+                                   int metric, const int* rows, int shape,
+                                   void* stream) {
+  return top2(x, med, d1, d2, assign, n_pad, k, d, metric, rows, (int)lanes,
+              shape, stream);
+}
+
 extern "C" int rt_top2_lanes(const float* x, const float* med, float* d1,
                              float* d2, int* assign, int64_t lanes,
                              int64_t n_pad, int k, int d, int metric,
                              const int* rows, void* stream) {
-  return top2(x, med, d1, d2, assign, n_pad, k, d, metric, rows, (int)lanes,
-              stream);
+  return rt_top2_lanes_tiled(x, med, d1, d2, assign, lanes, n_pad, k, d,
+                             metric, rows, pick_shape(k), stream);
+}
+
+// Shape `shape`'s rows, columns, threads and blocks an SM (l2) into
+// info[0..3], for the tuner.
+extern "C" int rt_top2_shape(int shape, int k, int* info) {
+  (void)k;
+  return with_shape(shape, [&](auto tile) -> int {
+    using C = decltype(tile);
+    int per_sm = 0;
+    const cudaError_t e =
+        rt::blocks_per_sm(top2_kernel<rt::L2, C>, C::NT, C::SMEM, &per_sm);
+    if (e != cudaSuccess) return e;
+    return rt::shape_info<C>(info, per_sm);
+  });
 }

@@ -28,15 +28,16 @@
 // 0.14 ms; stream_swap_g at m = r = 60,000: 84 ms), while x and y are
 // read once: compute-bound.
 //
-// Design.  One block per 128-row tile of x runs the pipelined,
-// register-blocked mainloop of dist_mainloop.cuh (WideTile: 128 rows x
-// 104 columns, 128 threads, dist_math.cuh's bits for every pair) over each
-// reference tile in 104-column tiles, the last clipped to the reference
-// tile (rows of y past it are zero-filled, not read; 104 = 0 mod 4, so a
-// column's residue in its tile is its global one).  The finished
-// [128, 105] tile goes to shared memory over the stages, the tile's w,
-// d1, d2, lg and a beside it, and the block folds it in four groups of
-// R = 32 rows: thread t is the owner (row t % 32, residue t / 32), a warp
+// Design.  One block per row tile of x runs the pipelined,
+// register-blocked mainloop of dist_mainloop.cuh (128 threads, 104
+// columns, dist_math.cuh's bits for every pair; 128 rows, or 64 or 32 at
+// the tile tuner's pick) over each reference tile in 104-column tiles,
+// the last clipped to the reference tile (rows of y past it are
+// zero-filled, not read; 104 = 0 mod 4, so a column's residue in its
+// tile is its global one).  The finished [BM, 105] tile goes to shared
+// memory over the stages, the tile's w, d1, d2, lg and a beside it, and
+// the block folds it in BM / 32 groups of R = 32 rows: thread t is the
+// owner (row t % 32, residue t / 32), a warp
 // per residue, and adds the residue's columns in increasing order with
 // swap_tile.cuh's column routine: base terms to three partials, cluster
 // terms to its bins [3][k] chosen by a_j.  At a reference tile's end the
@@ -57,8 +58,9 @@
 // block per slot (two an SM), each walking row tiles in turn, so the
 // scratch is slots x 6,144 k bytes (16 MB at k = 10, inside the 50 MB
 // L2), allocated stream-ordered around the launch (cudaMallocAsync).
-// Dynamic shared memory: 81,312 B at k <= 10, at most 111,136 B (k >=
-// 32): two blocks an SM at every k.
+// Dynamic shared memory at 128 rows: 81,312 B at k <= 10, at most
+// 111,136 B (k >= 32): two blocks an SM at every k.  A row's columns
+// take the same order at every row tile, so the row tiles' bits agree.
 //
 // The run flag.  rt_swap_g takes `run` (NULL: run), the device-resident
 // search's "still running" flag: where it reads 0 every block returns
@@ -85,21 +87,29 @@
 
 namespace {
 
-using W = rt::WideTile;
 constexpr int SUBS = 4;               // owners per row: residues mod 4
 constexpr int R = 32;                 // rows of a fold group
-constexpr int GROUPS = W::BM / R;
 constexpr int KC_MAX = 32;            // clusters a group's bins hold at once
-constexpr int DT_LD = W::BN + 1;      // the distance tile's row stride
-constexpr int DT = W::BM * DT_LD;     // its floats, over the stages
-constexpr int VEC = 5 * W::BN;        // the tile's w, d1, d2, lg, a
-constexpr int GRED = 3 * SUBS * R;    // one group's base partials
 constexpr int64_t REF_TILE = 512;     // stream_swap_g's period
-static_assert(SUBS * R == W::NT, "the block's threads are a group's owners");
-static_assert(W::BN % SUBS == 0 && REF_TILE % SUBS == 0,
-              "a column's residue in its tile is its global one");
-static_assert(DT + VEC <= W::NORMS, "tile and vectors fit in the stages");
-static_assert((DT + VEC) % 4 == 0, "the bins are float4-aligned");
+
+// The fold's layout over a row tile W (dist_mainloop.cuh's
+// with_row_tile: 128, 64 or 32 rows of 104 columns, 128 threads; a row's
+// columns are in the same order in each, so every row tile gives the
+// same bits).
+template <class W>
+struct Fold {
+  static constexpr int GROUPS = W::BM / R;
+  static constexpr int DT_LD = W::BN + 1;    // the distance tile's row stride
+  static constexpr int DT = W::BM * DT_LD;   // its floats, over the stages
+  static constexpr int VEC = 5 * W::BN;      // the tile's w, d1, d2, lg, a
+  static constexpr int GRED = 3 * SUBS * R;  // one group's base partials
+  static_assert(W::BM % R == 0, "whole fold groups");
+  static_assert(SUBS * R == W::NT, "the block's threads are a group's owners");
+  static_assert(W::BN % SUBS == 0 && REF_TILE % SUBS == 0,
+                "a column's residue in its tile is its global one");
+  static_assert(DT + VEC <= W::NORMS, "tile and vectors fit in the stages");
+  static_assert((DT + VEC) % 4 == 0, "the bins are float4-aligned");
+};
 
 __host__ __device__ constexpr int bin_floats(int kc) {
   return SUBS * 3 * kc * R;
@@ -107,13 +117,22 @@ __host__ __device__ constexpr int bin_floats(int kc) {
 
 // Where the groups' base partials start: past the mainloop's stages and
 // norms and past the tile, vectors and bins of a fold.
+template <class W>
 __host__ __device__ constexpr int red_offset(int kc) {
-  return W::NORMS + W::ROWS > DT + VEC + bin_floats(kc)
+  return W::NORMS + W::ROWS > Fold<W>::DT + Fold<W>::VEC + bin_floats(kc)
              ? W::NORMS + W::ROWS
-             : DT + VEC + bin_floats(kc);
+             : Fold<W>::DT + Fold<W>::VEC + bin_floats(kc);
 }
 
-template <int M>
+// The launch's dynamic shared memory at k clusters.
+template <class W>
+size_t swap_smem(int k) {
+  const int kc = k < KC_MAX ? k : KC_MAX;
+  return (size_t)(red_offset<W>(kc) + Fold<W>::GROUPS * Fold<W>::GRED) *
+         sizeof(float);
+}
+
+template <int M, class W>
 __global__ void __launch_bounds__(W::NT, W::MINB)
 swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
               const float* __restrict__ d1, const float* __restrict__ d2,
@@ -123,6 +142,9 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
               int64_t r, int d, int k, int64_t period, bool vec,
               float* __restrict__ scratch, const int* __restrict__ run,
               const int* __restrict__ rows, int64_t n_pad) {
+  using F = Fold<W>;
+  constexpr int GROUPS = F::GROUPS, DT_LD = F::DT_LD, DT = F::DT;
+  constexpr int VEC = F::VEC, GRED = F::GRED;
   const int lane = blockIdx.y;
   if (run != nullptr && run[lane] == 0) return;  // a masked round or lane
   if (rows != nullptr) m = rows[lane];
@@ -147,7 +169,7 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   int* const ca = reinterpret_cast<int*>(clg + W::BN);
   float* const bins = smem + DT + VEC;  // a group's [SUBS][3][kcc][R]
   float4* const bins4 = reinterpret_cast<float4*>(bins);
-  float* const red = smem + red_offset(kc);  // [GROUPS][3][SUBS][R]
+  float* const red = smem + red_offset<W>(kc);  // [GROUPS][3][SUBS][R]
   float* const outs[3] = {sums, sq, cross};
   // This block's bins between column tiles: [GROUPS][SUBS][3][k][R].
   float4* const keep4 =
@@ -244,8 +266,9 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // Launch over a reference set of r rows walked in tiles of `period`, for
-// `lanes` lanes of m rows each (rows: each lane's count, NULL: m).
-template <int M>
+// `lanes` lanes of m rows each (rows: each lane's count, NULL: m), in row
+// tile W.
+template <int M, class W>
 cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
                           const float* d2, const int* assign, const float* w,
                           const float* lg, float* sums, float* sq,
@@ -253,12 +276,11 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
                           int64_t period, const int* run, const int* rows,
                           int lanes, cudaStream_t st) {
   if (lanes > 65535) return cudaErrorInvalidValue;
-  const int kc = k < KC_MAX ? k : KC_MAX;
-  const size_t smem = (size_t)(red_offset(kc) + GROUPS * GRED) * sizeof(float);
+  const size_t smem = swap_smem<W>(k);
   const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
                    (uintptr_t)y % 16 == 0;
   cudaError_t e = cudaFuncSetAttribute(
-      swap_g_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swap_g_kernel<M, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int64_t ntiles = (m + W::BM - 1) / W::BM;
@@ -271,7 +293,7 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, swap_g_kernel<M>, W::NT, smem);
+        &per_sm, swap_g_kernel<M, W>, W::NT, smem);
     if (e != cudaSuccess) return e;
     const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
     const int64_t per_lane = slots / lanes > 1 ? slots / lanes : 1;
@@ -282,9 +304,9 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
                         st);
     if (e != cudaSuccess) return e;
   }
-  swap_g_kernel<M><<<dim3((unsigned)grid, (unsigned)lanes), W::NT, smem,
-                     st>>>(x, y, d1, d2, assign, w, lg, sums, sq, cross, m,
-                           r, d, k, period, vec, scratch, run, rows, m);
+  swap_g_kernel<M, W><<<dim3((unsigned)grid, (unsigned)lanes), W::NT, smem,
+                        st>>>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
+                              m, r, d, k, period, vec, scratch, run, rows, m);
   e = cudaGetLastError();
   if (scratch != nullptr) {
     const cudaError_t f = cudaFreeAsync(scratch, st);
@@ -293,36 +315,93 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
   return e;
 }
 
+// Every entry's body: zeros for no column, else one launch in row tile
+// `shape`.
+int swap_entry(const float* x, const float* y, const float* d1,
+               const float* d2, const int* assign, const float* w,
+               const float* lg, float* sums, float* sq, float* cross,
+               int64_t m, int64_t r, int d, int k, int64_t period,
+               int metric, const int* run, const int* rows, int64_t lanes,
+               int shape, void* stream) {
+  return rt::with_row_tile(shape, [&](auto tile) -> int {
+    using W = decltype(tile);
+    if (k < 1) return cudaErrorInvalidValue;
+    if (m <= 0 || lanes <= 0) return cudaSuccess;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (r < 1) {  // no column: every statistic is 0
+      float* const outs[3] = {sums, sq, cross};
+      for (float* o : outs) {
+        const cudaError_t e = cudaMemsetAsync(
+            o, 0, (size_t)lanes * k * m * sizeof(float), st);
+        if (e != cudaSuccess) return e;
+      }
+      return cudaSuccess;
+    }
+    RT_METRIC_SWITCH(metric, M, {
+      return launch_swap_g<M, W>(x, y, d1, d2, assign, w, lg, sums, sq,
+                                 cross, m, r, d, k, period, run, rows,
+                                 (int)lanes, st);
+    });
+    return cudaSuccess;
+  });
+}
+
+// Row tile `shape`'s rows, columns, threads and blocks an SM (l2, at k
+// clusters) into info[0..3], for the tuner's wave model.
+int swap_shape(int shape, int k, int* info) {
+  return rt::with_row_tile(shape, [&](auto tile) -> int {
+    using W = decltype(tile);
+    if (k < 1) return cudaErrorInvalidValue;
+    int per_sm = 0;
+    const cudaError_t e = rt::blocks_per_sm(swap_g_kernel<rt::L2, W>, W::NT,
+                                            swap_smem<W>(k), &per_sm);
+    if (e != cudaSuccess) return e;
+    return rt::shape_info<W>(info, per_sm);
+  });
+}
+
 }  // namespace
 
+// The _tiled entries take the row tile the caller resolved (the tile
+// tuner, through ops.py; dist_mainloop.cuh's with_row_tile); rt_swap_g,
+// rt_swap_g_lanes and rt_stream_swap_g keep the wide tile.
+
 // swap_g: a batch of b reference columns, one reference tile.
+extern "C" int rt_swap_g_tiled(const float* x, const float* y,
+                               const float* d1, const float* d2,
+                               const int* assign, const float* w,
+                               const float* lg, float* sums, float* sq,
+                               float* cross, int64_t m, int64_t b, int d,
+                               int k, int metric, const int* run, int shape,
+                               void* stream) {
+  return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, b, d, k,
+                    b, metric, run, nullptr, 1, shape, stream);
+}
+
 extern "C" int rt_swap_g(const float* x, const float* y, const float* d1,
                          const float* d2, const int* assign, const float* w,
                          const float* lg, float* sums, float* sq, float* cross,
                          int64_t m, int64_t b, int d, int k, int metric,
                          const int* run, void* stream) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (b < 1) {  // no column: every statistic is 0
-    float* const outs[3] = {sums, sq, cross};
-    for (float* o : outs) {
-      const cudaError_t e =
-          cudaMemsetAsync(o, 0, (size_t)k * m * sizeof(float), st);
-      if (e != cudaSuccess) return (int)e;
-    }
-    return cudaSuccess;
-  }
-  RT_METRIC_SWITCH(metric, M, {
-    return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, b, d, k, b, run, nullptr, 1, st);
-  });
-  return cudaSuccess;
+  return rt_swap_g_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, b,
+                         d, k, metric, run, 0, stream);
 }
 
 // The lane axis: x [lanes, n_pad, d], y [lanes, b, d], d1 / d2 / assign /
 // w / lg [lanes, b], outputs [lanes, k, n_pad]; run and rows [lanes]
 // (NULL: every lane runs, over all n_pad rows).
+extern "C" int rt_swap_g_lanes_tiled(const float* x, const float* y,
+                                     const float* d1, const float* d2,
+                                     const int* assign, const float* w,
+                                     const float* lg, float* sums, float* sq,
+                                     float* cross, int64_t lanes,
+                                     int64_t n_pad, int64_t b, int d, int k,
+                                     int metric, const int* rows,
+                                     const int* run, int shape, void* stream) {
+  return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, n_pad, b,
+                    d, k, b, metric, run, rows, lanes, shape, stream);
+}
+
 extern "C" int rt_swap_g_lanes(const float* x, const float* y,
                                const float* d1, const float* d2,
                                const int* assign, const float* w,
@@ -330,27 +409,25 @@ extern "C" int rt_swap_g_lanes(const float* x, const float* y,
                                float* cross, int64_t lanes, int64_t n_pad,
                                int64_t b, int d, int k, int metric,
                                const int* rows, const int* run, void* stream) {
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  if (n_pad <= 0 || lanes <= 0) return cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (b < 1) {  // no column: every statistic is 0
-    float* const outs[3] = {sums, sq, cross};
-    for (float* o : outs) {
-      const cudaError_t e = cudaMemsetAsync(
-          o, 0, (size_t)lanes * k * n_pad * sizeof(float), st);
-      if (e != cudaSuccess) return (int)e;
-    }
-    return cudaSuccess;
-  }
-  RT_METRIC_SWITCH(metric, M, {
-    return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 n_pad, b, d, k, b, run, rows, (int)lanes,
-                                 st);
-  });
-  return cudaSuccess;
+  return rt_swap_g_lanes_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross,
+                               lanes, n_pad, b, d, k, metric, rows, run, 0,
+                               stream);
 }
 
 // stream_swap_g: all r reference rows, in 512-column reference tiles.
+extern "C" int rt_stream_swap_g_tiled(const float* x, const float* y,
+                                      const float* d1, const float* d2,
+                                      const int* assign, const float* w,
+                                      const float* lg, float* sums, float* sq,
+                                      float* cross, int64_t m, int64_t r,
+                                      int d, int k, int metric,
+                                      const int* run, int shape,
+                                      void* stream) {
+  if (r < 1) return (int)cudaErrorInvalidValue;
+  return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k,
+                    REF_TILE, metric, run, nullptr, 1, shape, stream);
+}
+
 extern "C" int rt_stream_swap_g(const float* x, const float* y,
                                 const float* d1, const float* d2,
                                 const int* assign, const float* w,
@@ -358,12 +435,16 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
                                 float* cross, int64_t m, int64_t r, int d,
                                 int k, int metric, const int* run,
                                 void* stream) {
-  if (k < 1 || r < 1) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  RT_METRIC_SWITCH(metric, M, {
-    return (int)launch_swap_g<M>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                 m, r, d, k, REF_TILE, run, nullptr, 1, st);
-  });
-  return cudaSuccess;
+  return rt_stream_swap_g_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross,
+                                m, r, d, k, metric, run, 0, stream);
+}
+
+// The shape queries of swap_g and stream_swap_g (one kernel: the same
+// occupancy; stream_swap_g's grid is then one block a slot).
+extern "C" int rt_swap_g_shape(int shape, int k, int* info) {
+  return swap_shape(shape, k, info);
+}
+
+extern "C" int rt_stream_swap_g_shape(int shape, int k, int* info) {
+  return swap_shape(shape, k, info);
 }

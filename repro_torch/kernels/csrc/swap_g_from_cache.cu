@@ -225,18 +225,24 @@ swap_g_from_cache_kernel(const float* __restrict__ dxy, int64_t ld,
   }
 }
 
-// One launch over `lanes` lanes of m (padded) rows.
+size_t cached_smem(int k) {
+  const int kc = k < KC_MAX ? k : KC_MAX;
+  return (size_t)(SUBS * 3 * kc * R + 3 * SUBS * R + SUBS * WARP) *
+         sizeof(float);
+}
+
+// One launch over `lanes` lanes of m (padded) rows.  The kernel has one
+// shape, index 0 (32 rows a block); any other index is refused.
 int launch(const float* dxy, int64_t lane_stride, int64_t ld,
            const int64_t* col, const float* d1, const float* d2,
            const int* assign, const float* w, const float* lg, float* sums,
            float* sq, float* cross, int64_t lanes, int64_t m, int64_t b, int k,
-           const int* rows, const int* run, void* stream) {
-  if (k < 1 || b < 1 || ld < b || b > INT_MAX || lanes > 65535)
+           const int* rows, const int* run, int shape, void* stream) {
+  if (shape != 0 || k < 1 || b < 1 || ld < b || b > INT_MAX ||
+      lanes > 65535)
     return (int)cudaErrorInvalidValue;
   if (m <= 0 || lanes <= 0) return cudaSuccess;
-  const int kc = k < KC_MAX ? k : KC_MAX;
-  const size_t smem =
-      (size_t)(SUBS * 3 * kc * R + 3 * SUBS * R + SUBS * WARP) * sizeof(float);
+  const size_t smem = cached_smem(k);
   cudaError_t e = cudaFuncSetAttribute(
       swap_g_from_cache_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -250,26 +256,67 @@ int launch(const float* dxy, int64_t lane_stride, int64_t ld,
 
 }  // namespace
 
+// The _tiled entries take the shape the tile tuner resolved (always 0,
+// this kernel's one shape); rt_swap_g_from_cache and its lane form are
+// the same launches.
+extern "C" int rt_swap_g_from_cache_tiled(const float* dxy, int64_t ld,
+                                          const float* d1, const float* d2,
+                                          const int* assign, const float* w,
+                                          const float* lg, float* sums,
+                                          float* sq, float* cross, int64_t m,
+                                          int64_t b, int k, const int* run,
+                                          int shape, void* stream) {
+  return launch(dxy, 0, ld, nullptr, d1, d2, assign, w, lg, sums, sq, cross,
+                1, m, b, k, nullptr, run, shape, stream);
+}
+
 extern "C" int rt_swap_g_from_cache(const float* dxy, int64_t ld,
                                     const float* d1, const float* d2,
                                     const int* assign, const float* w,
                                     const float* lg, float* sums, float* sq,
                                     float* cross, int64_t m, int64_t b, int k,
                                     const int* run, void* stream) {
-  return launch(dxy, 0, ld, nullptr, d1, d2, assign, w, lg, sums, sq, cross,
-                1, m, b, k, nullptr, run, stream);
+  return rt_swap_g_from_cache_tiled(dxy, ld, d1, d2, assign, w, lg, sums, sq,
+                                    cross, m, b, k, run, 0, stream);
 }
 
 // The lane axis: lane l's block at dxy + l * lane_stride + col[l] (col
 // NULL: 0), rows ld apart; d1 / d2 / assign / w / lg [lanes, b]; outputs
 // [lanes, k, m]; rows and run [lanes] (NULL: m rows, every lane runs).
 // col[l] + b must not pass the row's ld floats.
+extern "C" int rt_swap_g_from_cache_lanes_tiled(
+    const float* dxy, int64_t lane_stride, int64_t ld, const int64_t* col,
+    const float* d1, const float* d2, const int* assign, const float* w,
+    const float* lg, float* sums, float* sq, float* cross, int64_t lanes,
+    int64_t m, int64_t b, int k, const int* rows, const int* run, int shape,
+    void* stream) {
+  return launch(dxy, lane_stride, ld, col, d1, d2, assign, w, lg, sums, sq,
+                cross, lanes, m, b, k, rows, run, shape, stream);
+}
+
 extern "C" int rt_swap_g_from_cache_lanes(
     const float* dxy, int64_t lane_stride, int64_t ld, const int64_t* col,
     const float* d1, const float* d2, const int* assign, const float* w,
     const float* lg, float* sums, float* sq, float* cross, int64_t lanes,
     int64_t m, int64_t b, int k, const int* rows, const int* run,
     void* stream) {
-  return launch(dxy, lane_stride, ld, col, d1, d2, assign, w, lg, sums, sq,
-                cross, lanes, m, b, k, rows, run, stream);
+  return rt_swap_g_from_cache_lanes_tiled(dxy, lane_stride, ld, col, d1, d2,
+                                          assign, w, lg, sums, sq, cross,
+                                          lanes, m, b, k, rows, run, 0,
+                                          stream);
+}
+
+// The one shape's rows (32), columns (0: it walks any B), threads and
+// blocks an SM at k clusters into info[0..3].
+extern "C" int rt_swap_g_from_cache_shape(int shape, int k, int* info) {
+  if (shape != 0 || k < 1) return (int)cudaErrorInvalidValue;
+  int per_sm = 0;
+  const cudaError_t e = rt::blocks_per_sm(swap_g_from_cache_kernel, NT,
+                                          cached_smem(k), &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = R;
+  info[1] = 0;
+  info[2] = NT;
+  info[3] = per_sm;
+  return cudaSuccess;
 }

@@ -14,6 +14,17 @@ of the tensors alone:
 per-kernel launch counters, which show that a run went through the
 kernels.
 
+Tile knobs, as the JAX wrappers': ``tm`` (the row tile) on the
+statistics wrappers and ``pairwise_distance``, ``tr`` (the column tile)
+on ``pairwise_distance`` and ``stream_top2``, and their lane forms.  A
+knob left at None resolves through ``repro_torch.core.tuning`` for the
+call's (n, d, k) on the card, as the JAX package's ``_stream_tiles``
+does; a fit resolves once and passes every knob (the ``"cuda"`` stats
+backend bound to the fit's ``TileConfig``).  Every launch goes to its
+kernel's ``_tiled`` C entry with the shape index the knobs name; a shape
+the library was not built with raises, on the CPU too.  The plain
+versions take no tile.
+
 The lane entry points (``build_g_lanes_stats``, ``swap_g_lanes_stats``,
 ``stream_top2_lanes``) carry ``fit_batch``: L independent fits padded to
 ``[L, n_pad, d]`` in one launch, each lane with its own inputs, its row
@@ -31,6 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core import tuning
 from . import build_g as _build_g
 from . import pairwise as _pairwise
 from . import stream_g as _stream_g
@@ -136,6 +148,58 @@ def _lane_cols(what: str, col: Optional[torch.Tensor], lanes: int,
                f"{like.device}")
 
 
+def _resolved(x: torch.Tensor, n: int, d: int, k: int
+              ) -> tuning.TileConfig:
+    """The tuner's config for a launch on ``x``'s card whose knob was
+    left unset."""
+    return tuning.resolve_tile_config(n, d, k,
+                                      tuning.current_device_kind(x.device),
+                                      "cuda")
+
+
+def _row_shape(cuda: bool, x: torch.Tensor, n: int, d: int, k: int,
+               tm: Optional[int]) -> Optional[int]:
+    """The statistics kernels' shape index (None: a CPU call with no
+    knob, which takes no tile)."""
+    if tm is None:
+        if not cuda:
+            return None
+        tm = _resolved(x, n, d, k).tm
+    return tuning.row_index(tm)
+
+
+def _pairwise_shape(cuda: bool, x: torch.Tensor, m: int, r: int, d: int,
+                    tm: Optional[int], tr: Optional[int]) -> Optional[int]:
+    """``pairwise``'s shape index for an [m x r] block."""
+    if tm is None or tr is None:
+        if not cuda and tm is None and tr is None:
+            return None
+        cfg = (_resolved(x, m, d, 1) if cuda
+               else tuning.TileConfig(tm=tuning.ROW_TILES[0]))
+        tm = cfg.tm if tm is None else tm
+        tr = cfg.tr if tr is None else tr
+    return tuning.pairwise_index(tm, tr, m, r)
+
+
+def _top2_shape(cuda: bool, x: torch.Tensor, n: int, d: int, k: int,
+                tr: Optional[int]) -> Optional[int]:
+    """``top2``'s shape index: its column tile ``tr`` (the config's
+    ``tk``)."""
+    if tr is None:
+        if not cuda:
+            return None
+        tr = _resolved(x, n, d, k).tk
+    return tuning.top2_index(tr)
+
+
+def _cached_shape(what: str, tm: Optional[int]) -> int:
+    """``swap_g_from_cache`` has one shape, 32 rows a block."""
+    _check(tm is None or int(tm) == tuning.CACHED_SHAPES[0][0], what,
+           f"tm={tm}: the kernel has one row tile, "
+           f"{tuning.CACHED_SHAPES[0][0]}")
+    return 0
+
+
 def _f32(what: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         _check(t.dtype == torch.float32, what, f"expects float32, got {t.dtype}")
@@ -144,11 +208,15 @@ def _f32(what: str, *tensors: torch.Tensor) -> None:
 def pairwise_distance(x: torch.Tensor, y: torch.Tensor,
                       metric: str = "l2", *,
                       out: Optional[torch.Tensor] = None,
-                      run: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      run: Optional[torch.Tensor] = None,
+                      tm: Optional[int] = None,
+                      tr: Optional[int] = None) -> torch.Tensor:
     """``[m, d] x [r, d] -> [m, r]`` dissimilarities, into ``out`` where
     given (``[m, r]`` float32, adjacent columns, any row stride: a slot of
     the PIC column ring).  ``run`` ([1] int32, optional): where it reads 0
-    the kernel returns at once and the output is left as it was."""
+    the kernel returns at once and the output is left as it was.  ``tm``
+    / ``tr``: the row tile and the widest column tile
+    (``tuning.pairwise_index``)."""
     what = "pairwise_distance"
     cuda = _on_cuda(what, metric, x, y)
     _f32(what, x, y)
@@ -162,18 +230,22 @@ def pairwise_distance(x: torch.Tensor, y: torch.Tensor,
                f"out must be a [{x.shape[0]}, {y.shape[0]}] float32 tensor "
                f"on {x.device} with adjacent columns")
     _run_flag(what, run, x)
+    shape = _pairwise_shape(cuda, x, x.shape[0], y.shape[0], x.shape[1], tm,
+                            tr)
     if cuda:
-        return _pairwise.launch(x, y, metric, out, run)
+        return _pairwise.launch(x, y, metric, out, run, shape=shape)
     return _pairwise.pairwise_plain(x, y, metric, out, run)
 
 
 def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
                   w: torch.Tensor, lead_g: Optional[torch.Tensor] = None,
                   *, metric: str = "l2",
-                  run: Optional[torch.Tensor] = None) -> Stats:
+                  run: Optional[torch.Tensor] = None,
+                  tm: Optional[int] = None) -> Stats:
     """Fused BUILD statistics: (Σg, Σg², Σg·g_lead) per arm, [m] each.
     ``run`` ([1] int32, optional): where it reads 0 the kernel returns at
-    once and the outputs are unwritten, for the caller to discard."""
+    once and the outputs are unwritten, for the caller to discard.
+    ``tm``: the row tile."""
     what = "build_g_stats"
     if lead_g is None:
         lead_g = torch.zeros_like(dnear_b)
@@ -185,8 +257,10 @@ def build_g_stats(x: torch.Tensor, y: torch.Tensor, dnear_b: torch.Tensor,
     _check(dnear_b.shape == (b,) and w.shape == (b,) and lead_g.shape == (b,),
            what, "dnear_b, w and lead_g must be [B]")
     _run_flag(what, run, x)
+    shape = _row_shape(cuda, x, x.shape[0], x.shape[1], 1, tm)
     if cuda:
-        return _build_g.launch(x, y, dnear_b, w, lead_g, metric, run)
+        return _build_g.launch(x, y, dnear_b, w, lead_g, metric, run,
+                               shape=shape)
     return _build_g.build_g_torch(x, y, dnear_b, w, lead_g, metric, run)
 
 
@@ -194,10 +268,11 @@ def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
                  d2_b: torch.Tensor, assign_b: torch.Tensor, w: torch.Tensor,
                  k: int, lead_g: Optional[torch.Tensor] = None,
                  *, metric: str = "l2",
-                 run: Optional[torch.Tensor] = None) -> Stats:
+                 run: Optional[torch.Tensor] = None,
+                 tm: Optional[int] = None) -> Stats:
     """Fused SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
     ``[k, m]``: arm (medoid c, candidate x) lives at ``[c, x]``.  ``run``
-    as in :func:`build_g_stats`."""
+    and ``tm`` as in :func:`build_g_stats`."""
     what = "swap_g_stats"
     if lead_g is None:
         lead_g = torch.zeros_like(d1_b)
@@ -212,9 +287,10 @@ def swap_g_stats(x: torch.Tensor, y: torch.Tensor, d1_b: torch.Tensor,
            what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
     _run_flag(what, run, x)
+    shape = _row_shape(cuda, x, x.shape[0], x.shape[1], int(k), tm)
     if cuda:
         return _swap_g.launch(x, y, d1_b, d2_b, assign_b, w, int(k), lead_g,
-                              metric, run)
+                              metric, run, shape=shape)
     return _swap_g.swap_g_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
                                 lead_g, metric, run)
 
@@ -223,13 +299,15 @@ def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,
                         d2_b: torch.Tensor, assign_b: torch.Tensor,
                         w: torch.Tensor, k: int,
                         lead_g: Optional[torch.Tensor] = None, *,
-                        run: Optional[torch.Tensor] = None) -> Stats:
+                        run: Optional[torch.Tensor] = None,
+                        tm: Optional[int] = None) -> Stats:
     """``swap_g_stats`` served from a resident distance block: ``dxy``
     [m, B] is a slice of the PIC column ring (one round, or the whole
     ring in the carried-moment repair), read in place: its columns must
     be adjacent (``stride(1) == 1``), its row stride is free.  Returns
     (Σg, Σg², Σg·g_lead), each ``[k, m]``; no distance work.  ``run`` as
-    in :func:`build_g_stats`."""
+    in :func:`build_g_stats`; ``tm`` None or the kernel's one row tile,
+    32."""
     what = "swap_g_stats_cached"
     if lead_g is None:
         lead_g = torch.zeros_like(d1_b)
@@ -248,25 +326,30 @@ def swap_g_stats_cached(dxy: torch.Tensor, d1_b: torch.Tensor,
            what, "d1_b, d2_b, assign_b, w and lead_g must be [B]")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
     _run_flag(what, run, dxy)
+    shape = _cached_shape(what, tm)
     if cuda:
         return _swap_g.launch_cached(dxy, d1_b, d2_b, assign_b, w, int(k),
-                                     lead_g, run)
+                                     lead_g, run, shape=shape)
     return _swap_g.swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w,
                                            int(k), lead_g, run)
 
 
 def stream_top2(x: torch.Tensor, med_pts: torch.Tensor, *,
-                metric: str = "l2") -> Stats:
+                metric: str = "l2", tr: Optional[int] = None) -> Stats:
     """Nearest / second-nearest medoid: ``[n, d]`` × ``[k, d]`` →
-    (d1 [n], d2 [n], assign [n] int32); ties go to the lowest index."""
+    (d1 [n], d2 [n], assign [n] int32); ties go to the lowest index.
+    ``tr``: the column tile over the medoids (16, 40, 72 or 104; the
+    config's ``tk``)."""
     what = "stream_top2"
     cuda = _on_cuda(what, metric, x, med_pts)
     _f32(what, x, med_pts)
     _check(x.ndim == 2 and med_pts.ndim == 2
            and x.shape[1] == med_pts.shape[1] and med_pts.shape[0] >= 1,
            what, f"shapes {tuple(x.shape)} x {tuple(med_pts.shape)}")
+    shape = _top2_shape(cuda, x, x.shape[0], x.shape[1], med_pts.shape[0],
+                        tr)
     if cuda:
-        return _stream_g.launch_top2(x, med_pts, metric)
+        return _stream_g.launch_top2(x, med_pts, metric, shape=shape)
     return _stream_g.top2_torch(x, med_pts, metric)
 
 
@@ -274,12 +357,13 @@ def stream_build_g_stats(x: torch.Tensor, yref: torch.Tensor,
                          dnear: torch.Tensor, w: Optional[torch.Tensor] = None,
                          lead_g: Optional[torch.Tensor] = None,
                          *, metric: str = "l2",
-                         run: Optional[torch.Tensor] = None) -> Stats:
+                         run: Optional[torch.Tensor] = None,
+                         tm: Optional[int] = None) -> Stats:
     """Streaming BUILD statistics (Σg, Σg², Σg·g_lead) per arm, [m] each,
     over the WHOLE reference set ``yref`` [r, d] (r unbounded): one
     launch walks it in 512-column tiles.  ``w`` defaults to ones and
     ``lead_g`` to zeros; ``run`` as in :func:`build_g_stats` (the exact
-    fallback's flag)."""
+    fallback's flag); ``tm`` the row tile."""
     what = "stream_build_g_stats"
     if w is None:
         w = torch.ones_like(dnear)
@@ -294,9 +378,10 @@ def stream_build_g_stats(x: torch.Tensor, yref: torch.Tensor,
            what, "dnear, w and lead_g must be [r]")
     _check(r >= 1, what, "the reference set is empty")
     _run_flag(what, run, x)
+    shape = _row_shape(cuda, x, x.shape[0], x.shape[1], 1, tm)
     if cuda:
         return _stream_g.launch_stream_build(x, yref, dnear, w, lead_g, metric,
-                                             run)
+                                             run, shape=shape)
     return _stream_g.stream_build_g_torch(x, yref, dnear, w, lead_g, metric,
                                           run)
 
@@ -306,11 +391,13 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
                         assign: torch.Tensor, w: Optional[torch.Tensor] = None,
                         k: int = 1, lead_g: Optional[torch.Tensor] = None,
                         *, metric: str = "l2",
-                        run: Optional[torch.Tensor] = None) -> Stats:
+                        run: Optional[torch.Tensor] = None,
+                        tm: Optional[int] = None) -> Stats:
     """Streaming SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
     ``[k, m]``, over the WHOLE reference set ``yref`` [r, d]: arm
     (medoid c, candidate x) at ``[c, x]``.  ``w`` defaults to ones and
-    ``lead_g`` to zeros; ``run`` as in :func:`stream_build_g_stats`."""
+    ``lead_g`` to zeros; ``run`` and ``tm`` as in
+    :func:`stream_build_g_stats`."""
     what = "stream_swap_g_stats"
     if w is None:
         w = torch.ones_like(d1)
@@ -328,9 +415,11 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
     _check(r >= 1, what, "the reference set is empty")
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
     _run_flag(what, run, x)
+    shape = _row_shape(cuda, x, x.shape[0], x.shape[1], int(k), tm)
     if cuda:
         return _stream_g.launch_stream_swap(x, yref, d1, d2, assign, w,
-                                            int(k), lead_g, metric, run)
+                                            int(k), lead_g, metric, run,
+                                            shape=shape)
     return _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
                                          lead_g, metric, run)
 
@@ -340,7 +429,8 @@ def build_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
                         lead_g: Optional[torch.Tensor] = None, *,
                         rows: Optional[torch.Tensor] = None,
                         metric: str = "l2",
-                        run: Optional[torch.Tensor] = None) -> Stats:
+                        run: Optional[torch.Tensor] = None,
+                        tm: Optional[int] = None) -> Stats:
     """``build_g_stats`` over L lanes in one launch: x ``[L, n_pad, d]``,
     y ``[L, B, d]``, dnear_b / w / lead_g ``[L, B]``, rows and run ``[L]``
     int32 (None: n_pad rows, every lane runs).  Returns (Σg, Σg², Σg·g_lead),
@@ -352,9 +442,10 @@ def build_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
     cuda = _on_cuda(what, metric, x, y, dnear_b, w, lead_g)
     _f32(what, x, y, dnear_b, w, lead_g)
     _lanes_in(what, x, y, rows, run, (dnear_b, w, lead_g))
+    shape = _row_shape(cuda, x, x.shape[0] * x.shape[1], x.shape[2], 1, tm)
     if cuda:
         return _build_g.launch_lanes(x, y, dnear_b, w, lead_g, rows, metric,
-                                     run)
+                                     run, shape=shape)
     return _build_g.build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows,
                                         metric, run)
 
@@ -365,7 +456,8 @@ def swap_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
                        lead_g: Optional[torch.Tensor] = None, *,
                        rows: Optional[torch.Tensor] = None,
                        metric: str = "l2",
-                       run: Optional[torch.Tensor] = None) -> Stats:
+                       run: Optional[torch.Tensor] = None,
+                       tm: Optional[int] = None) -> Stats:
     """``swap_g_stats`` over L lanes in one launch: x ``[L, n_pad, d]``,
     y ``[L, B, d]``, the batch vectors ``[L, B]``, rows and run as in
     :func:`build_g_lanes_stats`.  Returns (Σg, Σg², Σg·g_lead), each
@@ -379,16 +471,18 @@ def swap_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,
            f"assign_b must be int32, got {assign_b.dtype}")
     _lanes_in(what, x, y, rows, run, (d1_b, d2_b, assign_b, w, lead_g))
     _check(int(k) >= 1, what, f"k must be >= 1, got {k}")
+    shape = _row_shape(cuda, x, x.shape[0] * x.shape[1], x.shape[2], int(k),
+                       tm)
     if cuda:
         return _swap_g.launch_lanes(x, y, d1_b, d2_b, assign_b, w, int(k),
-                                    lead_g, rows, metric, run)
+                                    lead_g, rows, metric, run, shape=shape)
     return _swap_g.swap_g_lanes_torch(x, y, d1_b, d2_b, assign_b, w, int(k),
                                       lead_g, rows, metric, run)
 
 
 def stream_top2_lanes(x: torch.Tensor, med_pts: torch.Tensor, *,
                       rows: Optional[torch.Tensor] = None,
-                      metric: str = "l2") -> Stats:
+                      metric: str = "l2", tr: Optional[int] = None) -> Stats:
     """``stream_top2`` over L lanes in one launch: x ``[L, n_pad, d]``
     against each lane's medoids ``[L, k, d]``, rows ``[L]`` int32 (None:
     n_pad).  Returns (d1, d2, assign int32), ``[L, n_pad]`` each,
@@ -401,8 +495,11 @@ def stream_top2_lanes(x: torch.Tensor, med_pts: torch.Tensor, *,
            and x.shape[2] == med_pts.shape[2] and med_pts.shape[1] >= 1,
            what, f"shapes {tuple(x.shape)} x {tuple(med_pts.shape)}")
     _lane_vec(what, rows, x.shape[0], x, "rows")
+    shape = _top2_shape(cuda, x, x.shape[0] * x.shape[1], x.shape[2],
+                        med_pts.shape[1], tr)
     if cuda:
-        return _stream_g.launch_top2_lanes(x, med_pts, rows, metric)
+        return _stream_g.launch_top2_lanes(x, med_pts, rows, metric,
+                                           shape=shape)
     return _stream_g.top2_lanes_torch(x, med_pts, rows, metric)
 
 
@@ -411,7 +508,9 @@ def pairwise_lanes(x: torch.Tensor, y: torch.Tensor, metric: str = "l2", *,
                    col: Optional[torch.Tensor] = None,
                    xrows: Optional[torch.Tensor] = None,
                    yrows: Optional[torch.Tensor] = None,
-                   run: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   run: Optional[torch.Tensor] = None,
+                   tm: Optional[int] = None,
+                   tr: Optional[int] = None) -> torch.Tensor:
     """``pairwise_distance`` over L lanes in one launch: x ``[L, m, d]``
     against y ``[L, r, d]``, lane l over its first ``xrows[l]`` and
     ``yrows[l]`` rows (``[L]`` int32; None: m and r).  Into ``out``
@@ -441,9 +540,10 @@ def pairwise_lanes(x: torch.Tensor, y: torch.Tensor, metric: str = "l2", *,
     _lane_vec(what, xrows, lanes, x, "xrows")
     _lane_vec(what, yrows, lanes, x, "yrows")
     _lane_vec(what, run, lanes, x, "run")
+    shape = _pairwise_shape(cuda, x, m, r, x.shape[2], tm, tr)
     if cuda:
         return _pairwise.launch_lanes(x, y, metric, out, col, xrows, yrows,
-                                      run)
+                                      run, shape=shape)
     return _pairwise.pairwise_lanes_plain(x, y, metric, out, col, xrows,
                                           yrows, run)
 
@@ -454,8 +554,8 @@ def swap_g_from_cache_lanes_stats(dxy: torch.Tensor, d1_b: torch.Tensor,
                                   lead_g: Optional[torch.Tensor] = None, *,
                                   col: Optional[torch.Tensor] = None,
                                   rows: Optional[torch.Tensor] = None,
-                                  run: Optional[torch.Tensor] = None
-                                  ) -> Stats:
+                                  run: Optional[torch.Tensor] = None,
+                                  tm: Optional[int] = None) -> Stats:
     """``swap_g_stats_cached`` over L lanes in one launch: lane l's block
     is ``dxy[l, :rows[l], col[l]:col[l] + B]`` of a lane ring ``dxy``
     ``[L, n_pad, C]`` (adjacent columns, any row and lane stride; ``col``
@@ -487,9 +587,11 @@ def swap_g_from_cache_lanes_stats(dxy: torch.Tensor, d1_b: torch.Tensor,
     _lane_cols(what, col, lanes, dxy)
     _lane_vec(what, rows, lanes, dxy, "rows")
     _lane_vec(what, run, lanes, dxy, "run")
+    shape = _cached_shape(what, tm)
     if cuda:
         return _swap_g.launch_cached_lanes(dxy, d1_b, d2_b, assign_b, w,
-                                           int(k), lead_g, col, rows, run)
+                                           int(k), lead_g, col, rows, run,
+                                           shape=shape)
     return _swap_g.swap_g_from_cache_lanes_torch(dxy, d1_b, d2_b, assign_b, w,
                                                  int(k), lead_g, col, rows,
                                                  run)

@@ -7,10 +7,12 @@ Replaces the TPU kernel ``src/repro/kernels/pairwise.py:74``
 ``csrc/dist_math.cuh`` that every distance kernel shares.  On the
 H100 it is memory-bound at the predict shapes (queries against k medoid
 columns: x is read once, the [m, k] block written once) and
-compute-bound once r is large; the design (a 128 x 104 tile of 8 x 13
-pairs a thread for the wide shapes, a 64 x 16 tile for r <= 16 and, with
-the operands swapped, for m <= 16; a cp.async feature ring; coalesced
-stores from a shared-memory tile) is described in the sources.  There is
+compute-bound once r is large; the design (wide tiles of 128, 64 or 32
+rows by 104 or 128 columns, a 64 x 16 tile for r <= 16 and, with the
+operands swapped, for m <= 16; a cp.async feature ring; coalesced
+stores from a shared-memory tile) is described in the sources.  Every
+launch takes the shape index ``repro_torch.core.tuning`` resolved
+(``rt_pairwise_tiled``; a pair's bits do not depend on it).  There is
 no feature-axis split (the TPU kernel's ``DK_MAX``): the mainloop loops
 over any d.
 
@@ -69,7 +71,7 @@ def pairwise_plain(x, y, metric: str, out=None, run=None):
 
 
 def launch(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
-           run=None) -> torch.Tensor:
+           run=None, *, shape: int) -> torch.Tensor:
     """Run the CUDA kernel on validated CUDA tensors (see ``ops``): into
     ``out`` (unit column stride, any row stride) or a new ``[m, r]``
     tensor; a run flag ``run`` ([1] int32) that reads 0 leaves the output
@@ -80,10 +82,10 @@ def launch(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
     if out is None:
         out = torch.empty((m, r), dtype=torch.float32, device=x.device)
     ldo = out.stride(0) if m > 1 else r
-    code = _build.lib().rt_pairwise(
+    code = _build.lib().rt_pairwise_tiled(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), m, r, ldo, d,
         METRIC_IDS[metric], None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "pairwise kernel")
     return out
@@ -112,7 +114,8 @@ def pairwise_lanes_plain(x, y, metric: str, out=None, col=None, xrows=None,
 
 
 def launch_lanes(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
-                 col=None, xrows=None, yrows=None, run=None) -> torch.Tensor:
+                 col=None, xrows=None, yrows=None, run=None, *,
+                 shape: int) -> torch.Tensor:
     """Run the lane kernel on validated CUDA tensors (see ``ops``): into
     ``out`` ``[L, m, C]`` at each lane's column offset ``col[l]`` (unit
     column stride, any row and lane stride), or a new ``[L, m, r]``
@@ -126,14 +129,14 @@ def launch_lanes(x: torch.Tensor, y: torch.Tensor, metric: str, out=None,
                           device=x.device)
     ldo = out.stride(1) if m > 1 else out.shape[2]
     lane_out = out.stride(0) if lanes > 1 else 0
-    code = _build.lib().rt_pairwise_lanes(
+    code = _build.lib().rt_pairwise_lanes_tiled(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), lanes, m, r, lane_out,
         ldo, d, METRIC_IDS[metric],
         None if xrows is None else xrows.data_ptr(),
         None if yrows is None else yrows.data_ptr(),
         None if col is None else col.data_ptr(),
         None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     lane_launches += 1
     _build.check(code, "pairwise lane kernel")
     return out

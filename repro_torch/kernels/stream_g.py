@@ -7,9 +7,10 @@
   it is memory-bound at the default k (n=60000, k=10, d=784: 0.94 GFLOP
   against 188 MB of x, about 56 us) and compute-bound from k of about
   40 (k=200: 0.28 ms).  The design runs the distance mainloop
-  (``csrc/dist_mainloop.cuh``) in a tile chosen by k (64 x 16 up to 16
-  medoids; beyond, 128 rows by 40, 72 or 104 columns, whichever walk of
-  column tiles is shortest, in index order with x's rows fixed); each
+  (``csrc/dist_mainloop.cuh``) in a tile chosen by k in
+  ``repro_torch.core.tuning`` (``top2_tile``: 64 x 16 up to 16 medoids;
+  beyond, 128 rows by 40, 72 or 104 columns, whichever walk of column
+  tiles is shortest, in index order with x's rows fixed); each
   thread scans its columns in
   index order and the threads of a row merge their (best, index,
   second) triples lexicographically, which is the sequential scan's
@@ -26,8 +27,12 @@
   of float32 distance work against 376 MB of reads: compute-bound,
   84 ms at 67 TFLOP/s.
   Both run build_g's pipelined mainloop (``csrc/dist_mainloop.cuh``)
-  over each 512-column tile in 104-column steps; ``stream_swap_g`` is
-  ``csrc/swap_g.cu``'s kernel with that walk and takes any k >= 1.
+  over each 512-column tile in 104-column steps, in the row tile the
+  tuner resolved; ``stream_swap_g`` is ``csrc/swap_g.cu``'s kernel with
+  that walk and takes any k >= 1.
+
+Every launch goes to the kernel's ``_tiled`` C entry with the shape
+index ``repro_torch.core.tuning`` resolved (``ops`` picks it).
 
 The lane axis (``fit_batch``): ``launch_top2_lanes`` runs the top-2
 kernel over L padded fits ``[L, n_pad, d]`` against their own medoids
@@ -83,7 +88,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def launch_top2(x, med, metric: str):
+def launch_top2(x, med, metric: str, *, shape: int):
     """Run the top-2 kernel on validated CUDA tensors (see ``ops``)."""
     global top2_launches
     n, d = x.shape
@@ -91,15 +96,16 @@ def launch_top2(x, med, metric: str):
     d1 = torch.empty((n,), dtype=torch.float32, device=x.device)
     d2 = torch.empty_like(d1)
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
-    code = _build.lib().rt_top2(
+    code = _build.lib().rt_top2_tiled(
         x.data_ptr(), med.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-        assign.data_ptr(), n, k, d, METRIC_IDS[metric], _stream(x))
+        assign.data_ptr(), n, k, d, METRIC_IDS[metric], shape, _stream(x))
     top2_launches += 1
     _build.check(code, "top2 kernel")
     return d1, d2, assign
 
 
-def launch_stream_build(x, yref, dnear, w, lead_g, metric: str, run=None):
+def launch_stream_build(x, yref, dnear, w, lead_g, metric: str, run=None,
+                        *, shape: int):
     """Run the streaming BUILD kernel on validated CUDA tensors; a run
     flag that reads 0 leaves the outputs unwritten."""
     global stream_build_launches
@@ -107,18 +113,18 @@ def launch_stream_build(x, yref, dnear, w, lead_g, metric: str, run=None):
     r = yref.shape[0]
     sums, sq, cross = (torch.empty((m,), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_stream_build_g(
+    code = _build.lib().rt_stream_build_g_tiled(
         x.data_ptr(), yref.data_ptr(), dnear.data_ptr(), w.data_ptr(),
         lead_g.data_ptr(), sums.data_ptr(), sq.data_ptr(), cross.data_ptr(),
         m, r, d, METRIC_IDS[metric], None if run is None else run.data_ptr(),
-        _stream(x))
+        shape, _stream(x))
     stream_build_launches += 1
     _build.check(code, "stream_build_g kernel")
     return sums, sq, cross
 
 
 def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
-                       metric: str, run=None):
+                       metric: str, run=None, *, shape: int):
     """Run the streaming SWAP kernel on validated CUDA tensors; a run flag
     that reads 0 leaves the outputs unwritten."""
     global stream_swap_launches
@@ -126,11 +132,11 @@ def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
     r = yref.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_stream_swap_g(
+    code = _build.lib().rt_stream_swap_g_tiled(
         x.data_ptr(), yref.data_ptr(), d1.data_ptr(), d2.data_ptr(),
         assign.data_ptr(), w.data_ptr(), lead_g.data_ptr(), sums.data_ptr(),
         sq.data_ptr(), cross.data_ptr(), m, r, d, k, METRIC_IDS[metric],
-        None if run is None else run.data_ptr(), _stream(x))
+        None if run is None else run.data_ptr(), shape, _stream(x))
     stream_swap_launches += 1
     _build.check(code, "stream_swap_g kernel")
     return sums, sq, cross
@@ -151,7 +157,7 @@ def top2_lanes_torch(x, med, rows, metric: str):
     return d1, d2, assign
 
 
-def launch_top2_lanes(x, med, rows, metric: str):
+def launch_top2_lanes(x, med, rows, metric: str, *, shape: int):
     """Run the lane top-2 kernel on validated CUDA tensors (see ``ops``):
     outputs ``[L, n_pad]``, unwritten past each lane's rows."""
     global top2_lane_launches
@@ -160,10 +166,10 @@ def launch_top2_lanes(x, med, rows, metric: str):
     d1 = torch.empty((lanes, n_pad), dtype=torch.float32, device=x.device)
     d2 = torch.empty_like(d1)
     assign = torch.empty((lanes, n_pad), dtype=torch.int32, device=x.device)
-    code = _build.lib().rt_top2_lanes(
+    code = _build.lib().rt_top2_lanes_tiled(
         x.data_ptr(), med.data_ptr(), d1.data_ptr(), d2.data_ptr(),
         assign.data_ptr(), lanes, n_pad, k, d, METRIC_IDS[metric],
-        None if rows is None else rows.data_ptr(), _stream(x))
+        None if rows is None else rows.data_ptr(), shape, _stream(x))
     top2_lane_launches += 1
     _build.check(code, "top2 lane kernel")
     return d1, d2, assign

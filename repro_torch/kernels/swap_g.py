@@ -76,7 +76,7 @@ def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g,
 
 
 def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
-           run=None):
+           run=None, *, shape: int):
     """Run the CUDA kernel on validated CUDA tensors (see ``ops``); a run
     flag ``run`` ([1] int32) that reads 0 leaves the outputs unwritten
     (counted as a launch all the same)."""
@@ -85,18 +85,19 @@ def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
     b = y.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_swap_g(
+    code = _build.lib().rt_swap_g_tiled(
         x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, d, k,
         METRIC_IDS[metric], None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "swap_g kernel")
     return sums, sq, cross
 
 
-def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, run=None):
+def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, run=None,
+                  *, shape: int):
     """Run the cached kernel on validated CUDA tensors (see ``ops``):
     ``dxy`` [m, B] with unit column stride and any row stride; a run flag
     that reads 0 leaves the outputs unwritten."""
@@ -105,12 +106,12 @@ def launch_cached(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, run=None):
     ld = dxy.stride(0) if m > 1 else b
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
                                    device=dxy.device) for _ in range(3))
-    code = _build.lib().rt_swap_g_from_cache(
+    code = _build.lib().rt_swap_g_from_cache_tiled(
         dxy.data_ptr(), ld, d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, k,
         None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(dxy.device).cuda_stream)
+        shape, torch.cuda.current_stream(dxy.device).cuda_stream)
     cached_launches += 1
     _build.check(code, "swap_g_from_cache kernel")
     return sums, sq, cross
@@ -133,7 +134,7 @@ def swap_g_lanes_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
 
 
 def launch_lanes(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
-                 metric: str, run=None):
+                 metric: str, run=None, *, shape: int):
     """Run the lane kernel on validated CUDA tensors (see ``ops``):
     outputs ``[L, k, n_pad]``, unwritten past each lane's rows and in
     every lane whose run flag reads 0."""
@@ -142,13 +143,13 @@ def launch_lanes(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
     b = y.shape[1]
     sums, sq, cross = (torch.empty((lanes, k, n_pad), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
-    code = _build.lib().rt_swap_g_lanes(
+    code = _build.lib().rt_swap_g_lanes_tiled(
         x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), lanes, n_pad, b, d,
         k, METRIC_IDS[metric], None if rows is None else rows.data_ptr(),
         None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        shape, torch.cuda.current_stream(x.device).cuda_stream)
     lane_launches += 1
     _build.check(code, "swap_g lane kernel")
     return sums, sq, cross
@@ -174,7 +175,7 @@ def swap_g_from_cache_lanes_torch(dxy, d1_b, d2_b, assign_b, w, k: int,
 
 
 def launch_cached_lanes(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, col,
-                        rows, run=None):
+                        rows, run=None, *, shape: int):
     """Run the cached lane kernel on validated CUDA tensors (see ``ops``):
     ``dxy`` ``[L, n_pad, C]`` with unit column stride, lane l's block at
     columns ``[col[l], col[l] + B)``; outputs ``[L, k, n_pad]``, unwritten
@@ -185,14 +186,14 @@ def launch_cached_lanes(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g, col,
     ld = dxy.stride(1) if n_pad > 1 else dxy.shape[2]
     sums, sq, cross = (torch.empty((lanes, k, n_pad), dtype=torch.float32,
                                    device=dxy.device) for _ in range(3))
-    code = _build.lib().rt_swap_g_from_cache_lanes(
+    code = _build.lib().rt_swap_g_from_cache_lanes_tiled(
         dxy.data_ptr(), dxy.stride(0), ld,
         None if col is None else col.data_ptr(), d1_b.data_ptr(),
         d2_b.data_ptr(), assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), lanes, n_pad, b, k,
         None if rows is None else rows.data_ptr(),
         None if run is None else run.data_ptr(),
-        torch.cuda.current_stream(dxy.device).cuda_stream)
+        shape, torch.cuda.current_stream(dxy.device).cuda_stream)
     cached_lane_launches += 1
     _build.check(code, "swap_g_from_cache lane kernel")
     return sums, sq, cross

@@ -256,6 +256,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert len(files) > 15
     assert ROOT / "repro_torch" / "core" / "batch.py" in files
     assert ROOT / "repro_torch" / "core" / "distributed.py" in files
+    assert ROOT / "repro_torch" / "core" / "tuning.py" in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
