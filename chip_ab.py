@@ -27,7 +27,8 @@ at n = 60,000 and k = 1, 10, 17, 40, 65 and 200, at predict's
 [10,000 x 10] and at d = 783, which takes the 4-byte copies).  A
 checkout whose entries take the run flag gets it at 1 (a device int),
 as the device-resident fit passes it, and ``rt_pairwise`` its output's
-row stride at r.  Each
+row stride at r; one whose ``rt_swap_g`` and ``rt_stream_swap_g`` take
+their bin scratch gets it from PyTorch's allocator (``scratched``).  Each
 case is timed base, change, change, base (CUDA events, ``--reps``
 launches after 3 warm-up launches each; fewer after one for the
 streaming cases at r = 6,000 and, 2, at r = 60,000, the full exact
@@ -98,6 +99,23 @@ def cases(torch, X, reps, only=(), metric_id=0):
             args = args[:-1] + (p(flag), args[-1])
         return fn(*args)
 
+    def scratched(lib, fn, args, m, r, k, period):
+        """A swap_g kernel entry with the run flag at 1 and, where the
+        checkout's entry takes its bin scratch, the scratch, allocated
+        here at the size the checkout's ``rt_swap_g_scratch`` gives (the
+        wide tile, one lane); a base from before allocates its own."""
+        if not hasattr(lib, "rt_swap_g_scratch"):
+            return flagged(fn, *args)
+        floats = ctypes.c_int64(0)
+        code = lib.rt_swap_g_scratch(m, r, k, period, metric_id, 1, 0,
+                                     ctypes.byref(floats))
+        if code != 0:
+            return code
+        sc = (torch.empty(floats.value, device=X.device) if floats.value
+              else None)
+        return fn(*args[:-1], p(flag), None if sc is None else p(sc),
+                  floats.value, args[-1])
+
     n_fit = 60000
     x = X[:n_fit]
     q = X[n_fit:n_fit + 10000]
@@ -160,9 +178,10 @@ def cases(torch, X, reps, only=(), metric_id=0):
                     for _ in range(3)]
 
         def call(lib, o, st):
-            return flagged(lib.rt_swap_g, p(x), p(y), p(d1), p(d2), p(a), p(w),
-                           p(lg), p(o[0]), p(o[1]), p(o[2]), n_fit, b, d, k,
-                           metric_id, st)
+            return scratched(lib, lib.rt_swap_g, (
+                p(x), p(y), p(d1), p(d2), p(a), p(w), p(lg), p(o[0]),
+                p(o[1]), p(o[2]), n_fit, b, d, k, metric_id, st), n_fit, b,
+                k, b)
         return make, call
 
     def stream_build_g(r):
@@ -201,9 +220,10 @@ def cases(torch, X, reps, only=(), metric_id=0):
                     for _ in range(3)]
 
         def call(lib, o, st):
-            return flagged(lib.rt_stream_swap_g, p(x), p(y), p(d1), p(d2),
-                           p(a), p(w), p(lg), p(o[0]), p(o[1]), p(o[2]),
-                           n_fit, r, d, k, metric_id, st)
+            return scratched(lib, lib.rt_stream_swap_g, (
+                p(x), p(y), p(d1), p(d2), p(a), p(w), p(lg), p(o[0]),
+                p(o[1]), p(o[2]), n_fit, r, d, k, metric_id, st), n_fit, r,
+                k, 512)
         return make, call
 
     def top2_case(xx, k, dd=d):

@@ -15,7 +15,7 @@ import re
 import sys
 
 RESULT = re.compile(r"^\[(parity|parity6|driver|main|exact|pic|solvers|serve|"
-                    r"batch|claim|launches|metrics|threefry|check|dist)\]")
+                    r"batch|claim|launches|metrics|threefry|check|dist|guard)\]")
 TIMED = re.compile(r"kernel .* plain|bound|busy|idle|launch.*ms|took|wall")
 TIME = re.compile(r"wall_by_phase \{[^}]*\}|peak device memory \d+ bytes|"
                   r"\(?[0-9.]+ m?s\)?|[0-9.e+-]+ ms|\d+\.\d+ (ms|s)\b|"

@@ -199,6 +199,26 @@ Phases, each of which raises (exit code != 0) on any failure:
    nccl (B = 128) under the floor and the heuristic's: every report
    identical to the floor's, the launch counts too.  All raising; the
    phase prints its wall.
+11. the runtime guard and the peak-memory budgets (``guard_paths``,
+   ``repro_torch/analysis/``; ``[guard]`` and ``[budget]`` lines): (a)
+   every device-resident driver under ``FitGuard``, which runs a warm-up
+   fit and then the same fit under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (any sync but ``engine.host_read``'s reads, the input
+   uploads of ``engine.host_stage`` and the phase walls raises), the data
+   given as numpy: the default fit, a warm start from its medoids, the
+   default-ring PIC fit and the sharded fit at world size 1 on nccl in
+   both reuse modes at the main path's 60,000 x 784, the replacement +
+   leader fit on 20,000 rows, and phase 8 (a)'s batch in both reuse
+   modes; each guarded fit equal to its warm-up (report, reads, launches,
+   the kernel library and the tuner's ledger; the sharded fits' warm-up
+   is phase 9 (a)'s resident fit, whose launches include the facade's
+   labels, so theirs are printed only), its reads printed beside
+   ``expected_reads`` and within it, the batches reading fewer times than
+   their stepped twins' loops; (b) every budget key of
+   ``analysis/budgets.py`` measured at its canonical shapes: the entry
+   point's peak temporaries under its bound, its materialised form over
+   it, beside the JAX bound where the key carries one over.  All
+   raising; the phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -2417,7 +2437,7 @@ def dist_fits(torch, X, dev, Xnp, pam_fit):
     from repro_torch.core import adaptive, distributed, total_loss
     from repro_torch.kernels import ops
     per = adaptive.ROUNDS_PER_READ
-    counts = {}
+    counts, reports = {}, {}
     for name, kw in (("none", {}), ("pic", {"reuse": "pic"})):
         fits = {}
         for loop, fused in (("resident", True), ("stepped", False)):
@@ -2463,6 +2483,7 @@ def dist_fits(torch, X, dev, Xnp, pam_fit):
                 raise AssertionError(f"all-reduces {ar} != one a BUILD "
                                      f"round")
         (r, ar), (rs, ars) = fits["resident"], fits["stepped"]
+        reports[name] = r
         same_report(r, rs, f"(a) sharded {name}: resident vs stepped")
         log(f"[dist] (a) {name}: resident / stepped: wall build "
             f"{r.wall_by_phase['build']:.3f} / {rs.wall_by_phase['build']:.3f}"
@@ -2484,7 +2505,7 @@ def dist_fits(torch, X, dev, Xnp, pam_fit):
         log(f"[claim] sharded BanditPAM ({name}) medoids == PAM's: "
             f"{sorted(r.medoids.tolist()) == sorted(pam_fit.medoids.tolist())}"
             f"; loss / PAM loss {r.loss / pam_fit.loss!r}")
-    return counts
+    return counts, reports
 
 
 def dist_kernel_times(torch, X, dev):
@@ -2613,11 +2634,11 @@ def dist_paths(torch, X, dev, Xnp, pam_fit):
     time by operator), the kernels at (a)'s shapes and
     (b) on one nccl rank (the group destroyed at the phase's end, raising
     or not), then (c) on two spawned gloo ranks.  Returns (a)'s launch
-    counts."""
+    counts and its resident reports by reuse mode."""
     import torch.distributed as dist
     _dist_world1()
     try:
-        counts = dist_fits(torch, X, dev, Xnp, pam_fit)
+        counts, reports = dist_fits(torch, X, dev, Xnp, pam_fit)
         profile_fit(torch, X[:DIST_PROFILE_ROWS].contiguous(), True,
                     "sharded resident", None, solver="banditpam_dist")
         dist_kernel_times(torch, X, dev)
@@ -2625,7 +2646,7 @@ def dist_paths(torch, X, dev, Xnp, pam_fit):
     finally:
         dist.destroy_process_group()
     dist_ranks(torch, Xnp)
-    return counts
+    return counts, reports
 
 
 # Phase 10: the tile tuner (repro_torch/core/tuning.py, ROADMAP A14): every
@@ -2796,9 +2817,11 @@ def tile_bits(torch, X, dev):
                                          run, shape=s))
         for s in shapes("swap_g"):
             outs = _nan_outs(torch, dev, *[(k, n)] * 3)
+            sc, fl = swap_g.bin_scratch(dev, n, b, k, b, "l2", 1, s)
             kbuild.check(lib.rt_swap_g_tiled(
                 p(x), p(y), p(d1), p(d2), p(a), p(wb), p(lgb),
-                *map(p, outs), n, b, d, k, 0, p(flag[0]), s, st), "swap_g")
+                *map(p, outs), n, b, d, k, 0, p(flag[0]),
+                None if sc is None else p(sc), fl, s, st), "swap_g")
             torch.cuda.synchronize()
             untouched(f"swap_g shape {s} k={k} B={b} flag 0", outs)
     d1, d2, a = stream_g.launch_top2(yl.reshape(L * B, d), med10, "l2",
@@ -2817,9 +2840,11 @@ def tile_bits(torch, X, dev):
                                                    shape=s))
     for s in shapes("stream_swap_g"):
         outs = _nan_outs(torch, dev, *[(10, n)] * 3)
+        sc, fl = swap_g.bin_scratch(dev, n, n, 10, tuning.REF_TILE, "l2", 1,
+                                    s)
         kbuild.check(lib.rt_stream_swap_g_tiled(
             p(x), p(x), p(d1), p(d2), p(a), p(ones), p(zeros),
-            *map(p, outs), n, n, d, 10, 0, p(flag[0]), s, st),
+            *map(p, outs), n, n, d, 10, 0, p(flag[0]), p(sc), fl, s, st),
             "stream_swap_g")
         torch.cuda.synchronize()
         untouched(f"stream_swap_g shape {s} flag 0", outs)
@@ -3050,6 +3075,127 @@ def tile_paths(torch, X, dev, Xnp, card):
     log(f"[tiles] phase 10 wall {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 11: the runtime guard and the peak-memory budgets (ROADMAP A15).
+GUARD_ROWS = 20000          # the replacement + leader fit's rows in (a)
+
+
+def _guard_fit(torch, guard, what, est, data, earlier=None, **kw):
+    """One fit under ``FitGuard`` (raising), its reads printed beside
+    ``expected_reads``; returns the report.  The guard's warm-up fit is
+    ``earlier`` where given: the same fit's report from an earlier phase,
+    which the guarded report must equal (medoids, loss, ledger, swaps,
+    build rounds, reads), the kernel library and the tuner's ledger left
+    as they were."""
+    from repro_torch.analysis.guard import expected_reads, kernel_state
+    state = kernel_state()
+    t0 = time.perf_counter()
+    r = guard.fit(est, data, warmup=earlier is None, **kw)
+    wall = time.perf_counter() - t0
+    if earlier is not None:
+        same_report(r, earlier, f"(a) {what}: guarded vs phase 9's")
+        if (r.host_reads_by_phase != earlier.host_reads_by_phase
+                or kernel_state() != state):
+            raise AssertionError(f"(a) {what}: the guarded fit read "
+                                 f"{r.host_reads_by_phase} or moved the "
+                                 f"kernel state")
+    log(f"[guard] (a) {what}: guarded == "
+        f"{'warm-up' if earlier is None else 'phase 9'} (medoids, loss, "
+        f"ledger, swaps, build rounds, reads, "
+        f"{'launches, ' if earlier is None else ''}kernel state): True; "
+        f"host_reads_by_phase {r.host_reads_by_phase} expected_reads "
+        f"{expected_reads(r, est, len(data))}; launches "
+        f"{guard.last_launches}; medoids {r.medoids.tolist()} loss "
+        f"{r.loss!r}; {wall:.1f} s")
+    return r
+
+
+def guard_fits(torch, Xnp, dist_reports):
+    """Phase 11 (a): every device-resident driver under ``FitGuard``
+    (``set_sync_debug_mode("error")``; the data given as numpy, so its
+    upload goes through ``host_stage``): at the main path's 60,000 x 784,
+    k = 10, l2, ``backend="cuda"`` the default fit, the default-ring PIC
+    fit, a warm start from the default fit's medoids and the sharded fit
+    at world size 1 on nccl in both reuse modes (its warm-up phase 9
+    (a)'s resident fit, ``dist_reports``); the replacement + leader fit
+    on the first ``GUARD_ROWS`` rows; phase 8 (a)'s batch (64 x
+    ``mnist_like(256)``, k = 5, the leader) in both reuse modes, each
+    reading fewer times than its stepped twin's loop.  All raising."""
+    import torch.distributed as dist
+    from repro_torch.analysis import FitGuard
+    from repro_torch.api.registry import default_params
+    from repro_torch.core import BanditPAM
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.datasets import mnist_like
+    guard = FitGuard()
+    X = Xnp[:N_FIT]
+    kw = dict(metric="l2", seed=0, backend="cuda")
+    r = _guard_fit(torch, guard, "default fit", BanditPAM(10, **kw), X)
+    _guard_fit(torch, guard, "warm start from the default fit's medoids",
+               BanditPAM(10, **kw), X, warm_start=r.medoids)
+    _guard_fit(torch, guard, "PIC fit, the default ring",
+               BanditPAM(10, reuse="pic", **kw), X)
+    _guard_fit(torch, guard, f"replacement + leader fit, {GUARD_ROWS} rows",
+               BanditPAM(10, sampling="replacement", baseline="leader", **kw),
+               X[:GUARD_ROWS])
+    try:
+        _dist_world1()
+        for reuse in ("none", "pic"):
+            _guard_fit(torch, guard, f"sharded fit, world size 1 on nccl, "
+                       f"reuse={reuse}",
+                       tdist.DistributedBanditPAM(10, reuse=reuse, **kw), X,
+                       earlier=dist_reports[reuse])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    small = [mnist_like(BATCH_N, seed=i) for i in range(BATCH_FITS)]
+    for solver, reuse in (("banditpam", "none"), ("banditpam_pp", "pic")):
+        t0 = time.perf_counter()
+        b = guard.fit_batch(BanditPAM(BATCH_K, reuse=reuse, **kw,
+                                      **default_params(solver)),
+                            small, seeds=list(range(BATCH_FITS)))
+        log(f"[guard] (a) batch {solver}, {BATCH_FITS} x mnist_like("
+            f"{BATCH_N}), k={BATCH_K}: guarded == warm-up (every fit, reads, "
+            f"round launches, launches, kernel state): True; "
+            f"host_reads_by_phase {b.host_reads_by_phase}, fewer than the "
+            f"stepped twin's loop in each phase: True; dispatches_by_phase "
+            f"{b.dispatches_by_phase}; launches {guard.last_launches}; "
+            f"{time.perf_counter() - t0:.1f} s with the twin")
+
+
+def guard_budgets(torch, dev, card):
+    """Phase 11 (b): every budget key measured on the card at its
+    canonical shapes (``analysis.budgets.measure``): the entry point's
+    peak temporaries under its bound, the materialised form's over it,
+    each beside the JAX bound where the key carries one over (the port's
+    bound less the buffer it names).  Raising."""
+    from repro_torch.analysis import budgets
+    log(f"[budget] card: {card}; temporaries = peak of "
+        f"max_memory_allocated over the call - allocated before - returned")
+    for name in budgets.budget_names():
+        t0 = time.perf_counter()
+        m = budgets.measure(name, device=dev)
+        jkey = budgets.counterpart(name)
+        jax_bound = (budgets.budget_bytes(name)
+                     - budgets.card_buffer_bytes(name) if jkey else None)
+        under, over = 0 <= m.temp <= m.bound, m.materialised > m.bound
+        log(f"[budget] {name}: temp {m.temp} B, bound {m.bound} B "
+            f"({budgets.budget_doc(name)}; at {m.shape}); JAX bound "
+            f"{jax_bound} ({jkey}); materialised "
+            f"({budgets.materialised_doc(name)}) {m.materialised} B; "
+            f"under the bound: {under}; materialised over it: {over} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not (under and over):
+            raise AssertionError(f"budget {name}: {m}")
+
+
+def guard_paths(torch, dev, Xnp, card, dist_reports):
+    """Phase 11: (a), (b)."""
+    t0 = time.perf_counter()
+    guard_fits(torch, Xnp, dist_reports)
+    guard_budgets(torch, dev, card)
+    log(f"[guard] phase 11 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3101,9 +3247,10 @@ def main() -> int:
     lane_rows = batch_paths(torch, dev)
     log(f"[batch] phase 8 wall {time.perf_counter() - t8:.1f} s")
     t9 = time.perf_counter()
-    counts_dist = dist_paths(torch, X, dev, Xnp, pam_fit)
+    counts_dist, dist_reports = dist_paths(torch, X, dev, Xnp, pam_fit)
     log(f"[dist] phase 9 wall {time.perf_counter() - t9:.1f} s")
     tile_paths(torch, X, dev, Xnp, card)
+    guard_paths(torch, dev, Xnp, card, dist_reports)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the

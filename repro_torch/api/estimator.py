@@ -40,8 +40,8 @@ import torch
 from ..core.device import DeviceLike, resolve_device
 from ..core.distances import attach_index, resolve_metric
 from ..core.batch import lane_arrays
-from ..core.engine import (LaneData, get_stats_backend, medoid_cache,
-                           resolve_stats_backend)
+from ..core.engine import (LaneData, get_stats_backend, host_stage,
+                           medoid_cache, resolve_stats_backend)
 from .predict import DEFAULT_CHUNK, medoid_distances_t
 from .registry import get_batch_solver, get_solver, solver_accepts_backend
 
@@ -49,7 +49,8 @@ from .registry import get_batch_solver, get_solver, solver_accepts_backend
 def _pad_batch(X_batch, dev: torch.device) -> LaneData:
     """A ``[B, n, d]`` array or a (ragged) list of ``[n_i, d]`` arrays as
     one padded lane tensor on ``dev`` (zero pad rows)."""
-    return LaneData.pad([a.to(dev) for a in lane_arrays(X_batch)], dev)
+    with host_stage("the batch's data"):
+        return LaneData.pad([a.to(dev) for a in lane_arrays(X_batch)], dev)
 
 
 def _batch_labels(lanes: LaneData, medoids: np.ndarray, metric: str,
@@ -58,7 +59,8 @@ def _batch_labels(lanes: LaneData, medoids: np.ndarray, metric: str,
     ``top2`` pass (the lane kernel on the card), each lane's the single
     facade's; 0 past a fit's n."""
     dev = lanes.data.device
-    med = torch.as_tensor(np.asarray(medoids, np.int64)).to(dev)
+    with host_stage("the batch's medoids"):
+        med = torch.as_tensor(np.asarray(medoids, np.int64)).to(dev)
     _, _, assign = get_stats_backend(backend).top2_lanes(lanes, med,
                                                          metric=metric)
     labels = assign.cpu().numpy()[:, :max(lanes.ns)]
@@ -113,7 +115,9 @@ class KMedoids:
                 f"metric={self.metric!r}, seed={self.seed}{extra})")
 
     def _data(self, X, dev: torch.device) -> torch.Tensor:
-        data = torch.as_tensor(X, dtype=torch.float32).to(dev).contiguous()
+        with host_stage("the data"):
+            data = torch.as_tensor(X, dtype=torch.float32).to(
+                dev).contiguous()
         if data.ndim != 2:
             raise ValueError(f"expected [n, d] data, got shape "
                              f"{tuple(data.shape)}")
@@ -129,7 +133,8 @@ class KMedoids:
     def _set_fitted(self, data: torch.Tensor, medoids: np.ndarray,
                     metric_name: str) -> None:
         dev = data.device
-        med_t = torch.as_tensor(medoids, dtype=torch.int64, device=dev)
+        with host_stage("the fitted medoids"):
+            med_t = torch.as_tensor(medoids, dtype=torch.int64, device=dev)
         # In-sample labels (and the loss) under the fit's metric (for
         # "precomputed", the lookup over the indexed matrix): one top-2
         # pass.

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.engine import get_stats_backend, resolve_stats_backend
+from ..core.engine import (get_stats_backend, host_stage,
+                           resolve_stats_backend)
 
 DEFAULT_CHUNK = 8192
 
@@ -39,10 +40,17 @@ def resolve_backend(backend: Optional[str], metric: str,
 
 
 def _queries(x, device: torch.device) -> torch.Tensor:
-    q = torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+    with host_stage("the queries"):
+        q = torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
     if q.ndim != 2:
         raise ValueError(f"expected 2-D queries, got shape {tuple(q.shape)}")
     return q
+
+
+def _medoid_points(points, device: torch.device) -> torch.Tensor:
+    with host_stage("the medoid points"):
+        return torch.as_tensor(points, dtype=torch.float32).to(
+            device).contiguous()
 
 
 def medoid_distances_t(x, medoid_points: torch.Tensor, metric: str, *,
@@ -68,8 +76,7 @@ def medoid_distances(x, medoid_points, metric: str, *,
                      device: DeviceLike = None) -> np.ndarray:
     """``[m, d]`` queries × ``[k, d]`` fitted medoids → ``[m, k]`` numpy
     float32.  ``device=None`` means the card."""
-    med = torch.as_tensor(medoid_points, dtype=torch.float32).to(
-        resolve_device(device)).contiguous()
+    med = _medoid_points(medoid_points, resolve_device(device))
     return medoid_distances_t(x, med, metric, backend=backend,
                               chunk=chunk).cpu().numpy()
 
@@ -81,8 +88,7 @@ def assign_medoids(x, medoid_points, metric: str, *,
     """``[m, d]`` queries → ``(labels [m] int32, dmin [m] float32)`` in
     one top-2 pass and one read; ties go to the lowest medoid index."""
     dev = resolve_device(device)
-    med = torch.as_tensor(medoid_points, dtype=torch.float32).to(
-        dev).contiguous()
+    med = _medoid_points(medoid_points, dev)
     be = get_stats_backend(resolve_backend(backend, metric, dev))
     q = _queries(x, dev)
     if q.shape[0] == 0:

@@ -101,8 +101,9 @@ from .adaptive import cyclic_layout, device_search, log_term_f32
 from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
 from .engine import (FitContext, bind_stats_backend, exact_build_means,
-                     exact_swap_means, host_read, medoid_cache,
-                     resolve_stats_backend, stream_columns, total_loss)
+                     exact_swap_means, host_read, host_stage, medoid_cache,
+                     phase_sync, resolve_stats_backend, stream_columns,
+                     total_loss)
 from .pic_cache import (carry_valid, make_cache, resolve_cache_rounds,
                         search_advance, search_read_or_write)
 from .report import FitReport
@@ -491,8 +492,10 @@ class BanditPAM:
             m_idx, x_idx = divmod(best_h, n)
             old = medoids[m_idx]
             medoids[m_idx] = x_idx
-            med_mask[old] = False
-            med_mask[x_idx] = True
+            # The mask moves by the device indices: a host index would be
+            # copied to the device and wait for it.
+            med_mask.index_fill_(0, med_t[m_idx:m_idx + 1], False)
+            med_mask.index_fill_(0, cand[m_idx:m_idx + 1], True)
             med_t = cand
             res.swap_history.append((old, x_idx, new_loss_h))
             loss = new_loss_h
@@ -522,7 +525,9 @@ class BanditPAM:
     def _fit(self, data, warm_start=None, layouts=None):
         """:meth:`fit`, returning the report and the fit's context."""
         dev = resolve_device(self.device)
-        data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
+        with host_stage("the fit's data"):
+            data = torch.as_tensor(data, dtype=torch.float32).to(
+                dev).contiguous()
         if data.ndim != 2:
             raise ValueError(f"expected [n, d] data, got {tuple(data.shape)}")
         n = data.shape[0]
@@ -546,8 +551,7 @@ class BanditPAM:
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         n_swaps=0, converged=False, distance_evals=0)
         ctx = self._make_context(data, be_name, layouts, res)
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-        sync()
+        phase_sync(dev)
         t0 = time.perf_counter()
         # The device-resident searches run every mode but one: replacement
         # draws taken from one generator in consumption order, where a
@@ -561,16 +565,17 @@ class BanditPAM:
                                                    resident)
         else:
             medoids = ws.tolist()
-            med_t = torch.as_tensor(ws).to(dev)
+            with host_stage("the warm-start medoids"):
+                med_t = torch.as_tensor(ws).to(dev)
             med_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
             med_mask.index_fill_(0, med_t, True)
             res.evals_by_phase["build"] = 0
-        sync()
+        phase_sync(dev)
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         medoids, loss, converged = self._swap(data, medoids, med_t, med_mask,
                                               ctx, layouts, res, resident)
-        sync()
+        phase_sync(dev)
         res.wall_by_phase["swap"] = time.perf_counter() - t0
         res.medoids = np.asarray(medoids, np.int64)
         res.loss = loss
@@ -608,9 +613,11 @@ class BanditPAM:
         through the fit's stats backend."""
         res = self.fit(data)
         dev = resolve_device(self.device)
-        data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
+        with host_stage("the labels' data and medoids"):
+            data = torch.as_tensor(data, dtype=torch.float32).to(
+                dev).contiguous()
+            med = torch.as_tensor(res.medoids).to(dev)
         be_name = resolve_stats_backend(self.backend, self.metric, dev)
-        _, _, assign = medoid_cache(
-            data, torch.as_tensor(res.medoids).to(dev), metric=self.metric,
-            backend=be_name)
+        _, _, assign = medoid_cache(data, med, metric=self.metric,
+                                    backend=be_name)
         return assign.cpu().numpy()

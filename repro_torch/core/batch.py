@@ -78,7 +78,7 @@ from .banditpam import _carry_delta_lanes
 from .device import resolve_device
 from .distances import check_data
 from .engine import (LaneBlocks, LaneData, bind_stats_backend, host_read,
-                     resolve_stats_backend)
+                     host_stage, phase_sync, resolve_stats_backend)
 from .pic_cache import (lane_advance, lane_plan, make_lane_ring,
                         resolve_batch_cache_rounds, to_device)
 from .report import BatchFitReport, FitReport
@@ -160,7 +160,7 @@ def _lane_perms(layouts, phase: str, s: int, lanes: LaneData, B: int,
             [layouts[i].perm_key(phase, s) for i in group], n, dev)
         pi, pw = tile_perm(perms, n, B)
         total = pi.shape[1]
-        rows = torch.tensor(group, dtype=torch.int64).to(dev)
+        rows = to_device(group, torch.int64, dev)
         idx[:, :total].index_copy_(0, rows, pi)
         w[:, :total].index_copy_(0, rows, pw.expand(len(group), total))
     return idx, w
@@ -169,7 +169,8 @@ def _lane_perms(layouts, phase: str, s: int, lanes: LaneData, B: int,
 def _log_terms(deltas, dev) -> torch.Tensor:
     """Each lane's ``log(1/δ)`` exactly as a single fit folds it
     (``adaptive.log_term_f32``), ``[L]`` float32 on ``dev``."""
-    return torch.stack([log_term_f32(d, "cpu") for d in deltas]).to(dev)
+    return to_device(torch.stack([log_term_f32(d, "cpu") for d in deltas]),
+                     torch.float32, dev)
 
 
 class _PicLanes:
@@ -436,7 +437,8 @@ def _lockstep(bp, arrs, seeds, dev, be_name):
     launch in the tiles resolved once for the batch (``tuning``, keyed on
     the rows one launch covers, every lane's; no ``observe``, as in the
     JAX package)."""
-    lanes = LaneData.pad([a.to(dev) for a in arrs], dev)
+    with host_stage("the batch's data"):
+        lanes = LaneData.pad([a.to(dev) for a in arrs], dev)
     be = bind_stats_backend(be_name, tuning.resolve_tile_config(
         len(arrs) * lanes.n_pad, lanes.data.shape[2], bp.k,
         tuning.current_device_kind(dev), be_name))
@@ -445,17 +447,16 @@ def _lockstep(bp, arrs, seeds, dev, be_name):
     # host_read counts into a report's host_reads_by_phase.
     stats = {"reads": types.SimpleNamespace(host_reads_by_phase={}),
              "rounds": {}}
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
+    phase_sync(dev)
     t0 = time.perf_counter()
     med_t, picks, rounds, build_evals = _build_batch(bp, lanes, be, layouts,
                                                      stats, pic)
-    sync()
+    phase_sync(dev)
     wall = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     medoids, loss, history, swap_evals, converged = _swap_batch(
         bp, lanes, be, layouts, med_t, picks, stats, pic)
-    sync()
+    phase_sync(dev)
     wall["swap"] = time.perf_counter() - t0
     reports = []
     for j in range(len(arrs)):

@@ -95,8 +95,8 @@ from .banditpam import BanditPAM, _repair_weights
 from .device import DeviceLike, resolve_device
 from .distances import check_data, resolve_metric
 from .engine import (bind_stats_backend, exact_build_means,
-                     exact_swap_means, host_read, medoid_cache,
-                     resolve_stats_backend, syncs_allowed, total_loss)
+                     exact_swap_means, host_read, host_stage, medoid_cache,
+                     phase_sync, resolve_stats_backend, total_loss)
 from .pic_cache import (cache_advance, carry_valid, make_cache,
                         resolve_cache_rounds, search_advance,
                         search_read_or_write, shard_slot_read_write,
@@ -282,7 +282,9 @@ class DistributedBanditPAM:
         """:meth:`fit`, returning the report and this rank's fit state
         (its ring under ``reuse="pic"``)."""
         dev = resolve_device(self.device)
-        data = torch.as_tensor(data, dtype=torch.float32).to(dev).contiguous()
+        with host_stage("the fit's data"):
+            data = torch.as_tensor(data, dtype=torch.float32).to(
+                dev).contiguous()
         if data.ndim != 2:
             raise ValueError(f"expected [n, d] data, got {tuple(data.shape)}")
         n = data.shape[0]
@@ -293,19 +295,14 @@ class DistributedBanditPAM:
         res = FitReport(medoids=np.zeros(self.k, np.int64), loss=np.inf,
                         solver="banditpam_dist", metric=str(self.metric))
         f = _Fit(self, data, be_name, res)
-
-        def sync():
-            if dev.type == "cuda":
-                with syncs_allowed(dev):
-                    torch.cuda.synchronize(dev)
-        sync()
+        phase_sync(dev)
         t0 = time.perf_counter()
         med_t, med_mask = f.build()
-        sync()
+        phase_sync(dev)
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         f.swap(med_t, med_mask)
-        sync()
+        phase_sync(dev)
         res.wall_by_phase["swap"] = time.perf_counter() - t0
         res.n_swaps = len(res.swap_history)
         res.distance_evals = sum(v for ph, v in res.evals_by_phase.items()
@@ -607,8 +604,9 @@ class MedoidCurator:
 
     def curate(self, embeddings) -> Tuple[np.ndarray, np.ndarray]:
         dev = resolve_device(self.device)
-        emb = torch.as_tensor(embeddings, dtype=torch.float32).to(
-            dev).contiguous()
+        with host_stage("the embeddings"):
+            emb = torch.as_tensor(embeddings, dtype=torch.float32).to(
+                dev).contiguous()
         if self.group is not None and dist.get_world_size(self.group) > 1:
             fit = DistributedBanditPAM(self.k, self.group, metric=self.metric,
                                        seed=self.seed, backend=self.backend,
@@ -618,8 +616,10 @@ class MedoidCurator:
                             baseline="leader", backend=self.backend,
                             device=dev).fit(emb)
         metric = resolve_metric(self.metric)
+        with host_stage("the medoids"):
+            med = torch.as_tensor(fit.medoids).to(dev)
         _, _, assign = medoid_cache(
-            emb, torch.as_tensor(fit.medoids).to(dev), metric=metric,
+            emb, med, metric=metric,
             backend=resolve_stats_backend(self.backend, metric, dev))
         return fit.medoids, assign.cpu().numpy()
 

@@ -103,7 +103,7 @@ import torch
 
 from ..kernels.pairwise import pairwise_lanes_plain, pairwise_plain
 from .distances import pairwise
-from .pic_cache import PicCache
+from .pic_cache import PicCache, to_device
 from .tuning import REF_TILE, TileConfig
 
 _EXACT_CHUNK = 512  # row tile of the top-2 / loss walks, reference tile
@@ -340,6 +340,33 @@ def syncs_allowed(device):
             torch.cuda.set_sync_debug_mode(mode)
 
 
+def phase_sync(device) -> None:
+    """The end of a timed phase on a CUDA ``device``: a synchronisation
+    made on purpose, so it lifts the sync debug mode
+    (:func:`syncs_allowed`); nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        with syncs_allowed(device):
+            torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def host_stage(reason: str):
+    """The sanctioned host-to-device staging span (counterpart of
+    ``repro.core.engine.host_stage``): an input upload before a fit's
+    first round, e.g. the data, the warm-start medoids, a predict's
+    queries.  The ``reason`` is mandatory: every span names why it
+    exists.  Inside it ``torch.cuda``'s sync debug mode is lifted
+    (:func:`syncs_allowed`), so the upload's copy from pageable memory,
+    which waits for the device, passes a fit run under
+    ``set_sync_debug_mode("error")``; everything outside stays at the
+    caller's level.  A table uploaded inside the rounds takes
+    ``pic_cache.to_device`` (pinned memory, no wait) and no span."""
+    if not reason:
+        raise ValueError("host_stage requires a non-empty reason")
+    with syncs_allowed("cuda" if torch.cuda.is_available() else "cpu"):
+        yield
+
+
 def host_read(values, report=None, phase: str = "") -> list:
     """The one device-to-host read point of the fit drivers (counterpart
     of ``repro.core.engine.host_read``).
@@ -411,7 +438,7 @@ class LaneData:
             data[i, :ns[i]] = a
         lanes = torch.arange(len(ns), device=device)
         return cls(data=data, ns=ns,
-                   rows=torch.as_tensor(ns, dtype=torch.int32).to(device),
+                   rows=to_device(ns, torch.int32, device),
                    base=lanes * n_pad)
 
     @property
@@ -706,7 +733,7 @@ class CudaStatsBackend:
         x = data if rows is None else data.index_select(0, rows)
         return self._ops(data).stream_swap_g_stats(
             x, data, d1, d2, assign, k=k, metric=metric, run=run,
-            **self._rows)[0].reshape(-1)
+            moments=False, **self._rows)[0].reshape(-1)
 
     def top2(self, x, med_pts, *, metric):
         return self._ops(x).stream_top2(x, med_pts, metric=metric,

@@ -19,8 +19,10 @@ past 2**32 evaluations in one search at large n; the port's does not.
 ``wall_by_phase`` holds seconds per phase, measured on the host around
 work that ends in a device synchronisation.  ``host_reads_by_phase``
 counts the driver's device-to-host reads per phase (``build``, ``swap``),
-each one ``engine.host_read`` that waits for the device: the port's
-counterpart of the reads the JAX package's ``FitGuard`` polices.
+each one ``engine.host_read`` that waits for the device, which the
+port's ``analysis.FitGuard`` holds to the resident loop's read contract
+(``analysis.guard.expected_reads``), as the JAX package's holds its
+dispatches.
 ``dispatches_by_phase`` has no torch meaning and stays empty.
 
 :class:`BatchFitReport` is ``fit_batch``'s result: one ``FitReport`` a

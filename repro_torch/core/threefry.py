@@ -128,6 +128,15 @@ def _reduce(hi: torch.Tensor, lo: torch.Tensor, minval: int,
     return minval + ((_mul32(hi % span, mult) + lo % span) & MASK) % span
 
 
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """Host key words on ``device``: on a card through pinned memory and
+    an asynchronous copy (a copy from pageable memory would wait for the
+    device)."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def randint_rows(keys: Sequence[Key], size: int, minval: int, maxval: int,
                  device="cpu") -> torch.Tensor:
     """``randint(key, (size,), minval, maxval)`` for each key, one row
@@ -135,10 +144,8 @@ def randint_rows(keys: Sequence[Key], size: int, minval: int, maxval: int,
     minval, maxval = int(minval), int(maxval)
     span = _span(minval, maxval)
     words = [w for key in keys for sub in split(key) for w in sub]
-    kt = torch.tensor(words, dtype=torch.int64).view(len(keys), 4)
-    if torch.device(device).type == "cuda":
-        # A copy from pageable memory would wait for the device.
-        kt = kt.pin_memory().to(device, non_blocking=True)
+    kt = _upload(torch.tensor(words, dtype=torch.int64).view(len(keys), 4),
+                 device)
     return _reduce(_bits(kt[:, 0:1], kt[:, 1:2], size, device),
                    _bits(kt[:, 2:3], kt[:, 3:4], size, device), minval, span)
 
@@ -191,8 +198,9 @@ def permutations(keys: Sequence[Key], n: int,
         for i, key in enumerate(keys):
             keys[i], sub = split(key)
             subs.append(sub)
-        k1, k2 = (torch.tensor([sub[j] for sub in subs], dtype=torch.int64)
-                  .to(device)[:, None] for j in (0, 1))
+        k1, k2 = (_upload(torch.tensor([sub[j] for sub in subs],
+                                       dtype=torch.int64), device)[:, None]
+                  for j in (0, 1))
         order = torch.sort(_bits(k1, k2, n, device), dim=1,
                            stable=True).indices
         x = torch.gather(x, 1, order)

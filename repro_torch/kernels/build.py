@@ -39,27 +39,30 @@ _I = ctypes.c_int
 # C signatures: pointers and the stream are c_void_p, sizes c_int64/c_int.
 # Every entry but rt_top2 takes a run flag (``const int*``, NULL: run)
 # before the stream; rt_pairwise also takes its output's row stride after
-# the column count.
+# the column count.  The swap_g kernel's entries (rt_swap_g, its lane form
+# and rt_stream_swap_g) take their bin scratch (``float*``, NULL where
+# rt_swap_g_scratch gives 0) and its size in floats after the run flag:
+# no entry allocates device memory.
 SIGNATURES = {
     "rt_pairwise": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _P],
     "rt_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P,
                    _P],
     "rt_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
-                  _I, _P, _P],
+                  _I, _P, _P, _I64, _P],
     "rt_swap_g_from_cache": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                              _I64, _I, _P, _P],
     "rt_top2": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "rt_stream_build_g": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                           _P, _P],
     "rt_stream_swap_g": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                         _I, _I, _I, _P, _P],
+                         _I, _I, _I, _P, _P, _I64, _P],
     # The lane axis (fit_batch): (lanes, n_pad) after the outputs, the
     # per-lane row counts (``const int*``) and, for the round kernels, the
     # per-lane run flags before the stream.
     "rt_build_g_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I,
                          _I, _P, _P, _P],
     "rt_swap_g_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                        _I64, _I, _I, _I, _P, _P, _P],
+                        _I64, _I, _I, _I, _P, _P, _P, _I64, _P],
     "rt_top2_lanes": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _P, _P],
     # The PIC batch's two: per-lane extents, output or input column
     # offsets (``const int64_t*``) and run flags before the stream.
@@ -84,6 +87,9 @@ SHAPE_KERNELS = ("pairwise", "build_g", "swap_g", "stream_build_g",
                  "stream_swap_g", "top2", "swap_g_from_cache")
 SIGNATURES.update({f"rt_{name}_shape": [_I, _I, _P]
                    for name in SHAPE_KERNELS})
+# The swap_g kernel's bin scratch in floats: (m, r, k, period, metric,
+# lanes, shape, int64_t* floats).
+SIGNATURES["rt_swap_g_scratch"] = [_I64, _I64, _I, _I64, _I, _I64, _I, _P]
 
 _lib: Optional[ctypes.CDLL] = None
 # What the last build did: seconds per step and nvcc's -Xptxas -v report.

@@ -57,7 +57,15 @@
 // float4s, 128 contiguous bytes a warp; the grid is then one resident
 // block per slot (two an SM), each walking row tiles in turn, so the
 // scratch is slots x 6,144 k bytes (16 MB at k = 10, inside the 50 MB
-// L2), allocated stream-ordered around the launch (cudaMallocAsync).
+// L2).  The caller owns it: rt_swap_g_scratch gives its size in floats
+// (0 where the launch needs none), the launcher allocates it on the
+// launch's stream (PyTorch's allocator, so a peak-memory count sees
+// it) and every launching entry takes it with its size; a launch that
+// needs more than it was given returns cudaErrorInvalidValue.  No entry
+// allocates device memory.
+//
+// sq and cross may be NULL (the exact pass reads only the sums): their
+// stores are skipped, and the sums keep their bits.
 // Dynamic shared memory at 128 rows: 81,312 B at k <= 10, at most
 // 111,136 B (k >= 32): two blocks an SM at every k.  A row's columns
 // take the same order at every row tile, so the row tiles' bits agree.
@@ -156,8 +164,8 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   w += lane * r;
   lg += lane * r;
   sums += lane * k * n_pad;
-  sq += lane * k * n_pad;
-  cross += lane * k * n_pad;
+  if (sq != nullptr) sq += lane * k * n_pad;
+  if (cross != nullptr) cross += lane * k * n_pad;
   extern __shared__ float4 smem4[];
   const int kc = k < KC_MAX ? k : KC_MAX;
   float* smem = reinterpret_cast<float*>(smem4);
@@ -245,7 +253,7 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
               for (int e = threadIdx.x; e < 3 * kcc * R; e += W::NT) {
                 const int i = e % R, c = (e / R) % kcc, q = e / (R * kcc);
                 const int64_t row = row0 + g * R + i;
-                if (row >= m) continue;
+                if (row >= m || outs[q] == nullptr) continue;
                 float* o = outs[q] + (int64_t)(c0 + c) * n_pad + row;
                 *o = (t0 == 0 ? 0.f : *o) +
                      rt::swap_fold_ld<SUBS>(gred, bins, kcc, R, q, c, i);
@@ -265,27 +273,21 @@ swap_g_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// Launch over a reference set of r rows walked in tiles of `period`, for
-// `lanes` lanes of m rows each (rows: each lane's count, NULL: m), in row
-// tile W.
+// A launch's grid over a reference set of r rows walked in tiles of
+// `period`, for `lanes` lanes of m rows each, in row tile W, and the bin
+// scratch it needs in floats (0: none).  Sets the kernel's shared-memory
+// attribute, as the launch needs it.
 template <int M, class W>
-cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
-                          const float* d2, const int* assign, const float* w,
-                          const float* lg, float* sums, float* sq,
-                          float* cross, int64_t m, int64_t r, int d, int k,
-                          int64_t period, const int* run, const int* rows,
-                          int lanes, cudaStream_t st) {
-  if (lanes > 65535) return cudaErrorInvalidValue;
+cudaError_t swap_g_plan(int64_t m, int64_t r, int k, int64_t period,
+                        int lanes, int64_t* grid, int64_t* floats) {
   const size_t smem = swap_smem<W>(k);
-  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)y % 16 == 0;
   cudaError_t e = cudaFuncSetAttribute(
       swap_g_kernel<M, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int64_t ntiles = (m + W::BM - 1) / W::BM;
-  int64_t grid = ntiles;
-  float* scratch = nullptr;
+  *grid = ntiles;
+  *floats = 0;
   if ((period < r ? period : r) > W::BN) {
     // Bins cross column tiles: one block a resident slot, a scratch each.
     int dev = 0, sms = 0, per_sm = 0;
@@ -297,22 +299,36 @@ cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
     if (e != cudaSuccess) return e;
     const int64_t slots = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
     const int64_t per_lane = slots / lanes > 1 ? slots / lanes : 1;
-    grid = ntiles < per_lane ? ntiles : per_lane;
-    e = cudaMallocAsync(reinterpret_cast<void**>(&scratch),
-                        (size_t)lanes * grid * W::BM * SUBS * 3 * k *
-                            sizeof(float),
-                        st);
-    if (e != cudaSuccess) return e;
+    *grid = ntiles < per_lane ? ntiles : per_lane;
+    *floats = (int64_t)lanes * *grid * W::BM * SUBS * 3 * k;
   }
-  swap_g_kernel<M, W><<<dim3((unsigned)grid, (unsigned)lanes), W::NT, smem,
-                        st>>>(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                              m, r, d, k, period, vec, scratch, run, rows, m);
-  e = cudaGetLastError();
-  if (scratch != nullptr) {
-    const cudaError_t f = cudaFreeAsync(scratch, st);
-    if (e == cudaSuccess) e = f;
-  }
-  return e;
+  return cudaSuccess;
+}
+
+// Launch over a reference set of r rows walked in tiles of `period`, for
+// `lanes` lanes of m rows each (rows: each lane's count, NULL: m), in row
+// tile W, with the caller's bin scratch of `scratch_floats` floats.
+template <int M, class W>
+cudaError_t launch_swap_g(const float* x, const float* y, const float* d1,
+                          const float* d2, const int* assign, const float* w,
+                          const float* lg, float* sums, float* sq,
+                          float* cross, int64_t m, int64_t r, int d, int k,
+                          int64_t period, const int* run, const int* rows,
+                          int lanes, float* scratch, int64_t scratch_floats,
+                          cudaStream_t st) {
+  if (lanes > 65535) return cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)y % 16 == 0;
+  int64_t grid = 0, need = 0;
+  cudaError_t e = swap_g_plan<M, W>(m, r, k, period, lanes, &grid, &need);
+  if (e != cudaSuccess) return e;
+  if (need > 0 && (scratch == nullptr || scratch_floats < need))
+    return cudaErrorInvalidValue;
+  swap_g_kernel<M, W><<<dim3((unsigned)grid, (unsigned)lanes), W::NT,
+                        swap_smem<W>(k), st>>>(
+      x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k, period, vec,
+      need > 0 ? scratch : nullptr, run, rows, m);
+  return cudaGetLastError();
 }
 
 // Every entry's body: zeros for no column, else one launch in row tile
@@ -322,7 +338,8 @@ int swap_entry(const float* x, const float* y, const float* d1,
                const float* lg, float* sums, float* sq, float* cross,
                int64_t m, int64_t r, int d, int k, int64_t period,
                int metric, const int* run, const int* rows, int64_t lanes,
-               int shape, void* stream) {
+               float* scratch, int64_t scratch_floats, int shape,
+               void* stream) {
   return rt::with_row_tile(shape, [&](auto tile) -> int {
     using W = decltype(tile);
     if (k < 1) return cudaErrorInvalidValue;
@@ -331,6 +348,7 @@ int swap_entry(const float* x, const float* y, const float* d1,
     if (r < 1) {  // no column: every statistic is 0
       float* const outs[3] = {sums, sq, cross};
       for (float* o : outs) {
+        if (o == nullptr) continue;
         const cudaError_t e = cudaMemsetAsync(
             o, 0, (size_t)lanes * k * m * sizeof(float), st);
         if (e != cudaSuccess) return e;
@@ -340,9 +358,26 @@ int swap_entry(const float* x, const float* y, const float* d1,
     RT_METRIC_SWITCH(metric, M, {
       return launch_swap_g<M, W>(x, y, d1, d2, assign, w, lg, sums, sq,
                                  cross, m, r, d, k, period, run, rows,
-                                 (int)lanes, st);
+                                 (int)lanes, scratch, scratch_floats, st);
     });
     return cudaSuccess;
+  });
+}
+
+// The bin scratch, in floats, of a launch of row tile `shape` with these
+// extents (0 where it needs none).
+int swap_scratch(int64_t m, int64_t r, int k, int64_t period, int metric,
+                 int64_t lanes, int shape, int64_t* floats) {
+  *floats = 0;
+  return rt::with_row_tile(shape, [&](auto tile) -> int {
+    using W = decltype(tile);
+    if (k < 1 || lanes > 65535) return cudaErrorInvalidValue;
+    if (m <= 0 || lanes <= 0 || r < 1) return cudaSuccess;
+    int64_t grid = 0;
+    RT_METRIC_SWITCH(metric, M, {
+      return swap_g_plan<M, W>(m, r, k, period, (int)lanes, &grid, floats);
+    });
+    return cudaErrorInvalidValue;
   });
 }
 
@@ -364,7 +399,9 @@ int swap_shape(int shape, int k, int* info) {
 
 // The _tiled entries take the row tile the caller resolved (the tile
 // tuner, through ops.py; dist_mainloop.cuh's with_row_tile); rt_swap_g,
-// rt_swap_g_lanes and rt_stream_swap_g keep the wide tile.
+// rt_swap_g_lanes and rt_stream_swap_g keep the wide tile.  Every entry
+// takes the bin scratch (NULL where rt_swap_g_scratch says 0 floats) and
+// its size in floats after the run flag.
 
 // swap_g: a batch of b reference columns, one reference tile.
 extern "C" int rt_swap_g_tiled(const float* x, const float* y,
@@ -372,19 +409,23 @@ extern "C" int rt_swap_g_tiled(const float* x, const float* y,
                                const int* assign, const float* w,
                                const float* lg, float* sums, float* sq,
                                float* cross, int64_t m, int64_t b, int d,
-                               int k, int metric, const int* run, int shape,
-                               void* stream) {
+                               int k, int metric, const int* run,
+                               float* scratch, int64_t scratch_floats,
+                               int shape, void* stream) {
   return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, b, d, k,
-                    b, metric, run, nullptr, 1, shape, stream);
+                    b, metric, run, nullptr, 1, scratch, scratch_floats,
+                    shape, stream);
 }
 
 extern "C" int rt_swap_g(const float* x, const float* y, const float* d1,
                          const float* d2, const int* assign, const float* w,
                          const float* lg, float* sums, float* sq, float* cross,
                          int64_t m, int64_t b, int d, int k, int metric,
-                         const int* run, void* stream) {
+                         const int* run, float* scratch,
+                         int64_t scratch_floats, void* stream) {
   return rt_swap_g_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, b,
-                         d, k, metric, run, 0, stream);
+                         d, k, metric, run, scratch, scratch_floats, 0,
+                         stream);
 }
 
 // The lane axis: x [lanes, n_pad, d], y [lanes, b, d], d1 / d2 / assign /
@@ -397,9 +438,12 @@ extern "C" int rt_swap_g_lanes_tiled(const float* x, const float* y,
                                      float* cross, int64_t lanes,
                                      int64_t n_pad, int64_t b, int d, int k,
                                      int metric, const int* rows,
-                                     const int* run, int shape, void* stream) {
+                                     const int* run, float* scratch,
+                                     int64_t scratch_floats, int shape,
+                                     void* stream) {
   return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, n_pad, b,
-                    d, k, b, metric, run, rows, lanes, shape, stream);
+                    d, k, b, metric, run, rows, lanes, scratch,
+                    scratch_floats, shape, stream);
 }
 
 extern "C" int rt_swap_g_lanes(const float* x, const float* y,
@@ -408,10 +452,12 @@ extern "C" int rt_swap_g_lanes(const float* x, const float* y,
                                const float* lg, float* sums, float* sq,
                                float* cross, int64_t lanes, int64_t n_pad,
                                int64_t b, int d, int k, int metric,
-                               const int* rows, const int* run, void* stream) {
+                               const int* rows, const int* run,
+                               float* scratch, int64_t scratch_floats,
+                               void* stream) {
   return rt_swap_g_lanes_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                               lanes, n_pad, b, d, k, metric, rows, run, 0,
-                               stream);
+                               lanes, n_pad, b, d, k, metric, rows, run,
+                               scratch, scratch_floats, 0, stream);
 }
 
 // stream_swap_g: all r reference rows, in 512-column reference tiles.
@@ -421,11 +467,13 @@ extern "C" int rt_stream_swap_g_tiled(const float* x, const float* y,
                                       const float* lg, float* sums, float* sq,
                                       float* cross, int64_t m, int64_t r,
                                       int d, int k, int metric,
-                                      const int* run, int shape,
+                                      const int* run, float* scratch,
+                                      int64_t scratch_floats, int shape,
                                       void* stream) {
   if (r < 1) return (int)cudaErrorInvalidValue;
   return swap_entry(x, y, d1, d2, assign, w, lg, sums, sq, cross, m, r, d, k,
-                    REF_TILE, metric, run, nullptr, 1, shape, stream);
+                    REF_TILE, metric, run, nullptr, 1, scratch,
+                    scratch_floats, shape, stream);
 }
 
 extern "C" int rt_stream_swap_g(const float* x, const float* y,
@@ -434,9 +482,21 @@ extern "C" int rt_stream_swap_g(const float* x, const float* y,
                                 const float* lg, float* sums, float* sq,
                                 float* cross, int64_t m, int64_t r, int d,
                                 int k, int metric, const int* run,
+                                float* scratch, int64_t scratch_floats,
                                 void* stream) {
   return rt_stream_swap_g_tiled(x, y, d1, d2, assign, w, lg, sums, sq, cross,
-                                m, r, d, k, metric, run, 0, stream);
+                                m, r, d, k, metric, run, scratch,
+                                scratch_floats, 0, stream);
+}
+
+// The bin scratch of a launch, in floats, into *floats (0: the launch
+// needs none): m rows a lane, r reference rows walked in tiles of
+// `period` (b for swap_g and its lane form, 512 for stream_swap_g),
+// `lanes` lanes (1 for the single entries), row tile `shape`.
+extern "C" int rt_swap_g_scratch(int64_t m, int64_t r, int k, int64_t period,
+                                 int metric, int64_t lanes, int shape,
+                                 int64_t* floats) {
+  return swap_scratch(m, r, k, period, metric, lanes, shape, floats);
 }
 
 // The shape queries of swap_g and stream_swap_g (one kernel: the same

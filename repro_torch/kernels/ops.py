@@ -392,12 +392,15 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
                         k: int = 1, lead_g: Optional[torch.Tensor] = None,
                         *, metric: str = "l2",
                         run: Optional[torch.Tensor] = None,
-                        tm: Optional[int] = None) -> Stats:
+                        tm: Optional[int] = None,
+                        moments: bool = True) -> Stats:
     """Streaming SWAP (FastPAM1) statistics (Σg, Σg², Σg·g_lead), each
     ``[k, m]``, over the WHOLE reference set ``yref`` [r, d]: arm
     (medoid c, candidate x) at ``[c, x]``.  ``w`` defaults to ones and
     ``lead_g`` to zeros; ``run`` and ``tm`` as in
-    :func:`stream_build_g_stats`."""
+    :func:`stream_build_g_stats`.  ``moments=False`` gives Σg alone (the
+    exact pass's means), None in place of the other two: the kernel then
+    writes no ``[k, m]`` table it would discard."""
     what = "stream_swap_g_stats"
     if w is None:
         w = torch.ones_like(d1)
@@ -419,9 +422,10 @@ def stream_swap_g_stats(x: torch.Tensor, yref: torch.Tensor,
     if cuda:
         return _stream_g.launch_stream_swap(x, yref, d1, d2, assign, w,
                                             int(k), lead_g, metric, run,
-                                            shape=shape)
-    return _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
-                                         lead_g, metric, run)
+                                            shape=shape, moments=moments)
+    out = _stream_g.stream_swap_g_torch(x, yref, d1, d2, assign, w, int(k),
+                                        lead_g, metric, run)
+    return out if moments else (out[0], None, None)
 
 
 def build_g_lanes_stats(x: torch.Tensor, y: torch.Tensor,

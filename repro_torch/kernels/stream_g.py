@@ -53,8 +53,10 @@ import torch
 
 from ..core.engine import (_stream_build_stats, _stream_swap_stats,
                            _stream_top2)
+from ..core.tuning import REF_TILE
 from . import build as _build
 from .pairwise import METRIC_IDS, lane_rows
+from .swap_g import bin_scratch
 
 top2_launches = 0
 top2_lane_launches = 0
@@ -124,19 +126,26 @@ def launch_stream_build(x, yref, dnear, w, lead_g, metric: str, run=None,
 
 
 def launch_stream_swap(x, yref, d1, d2, assign, w, k: int, lead_g,
-                       metric: str, run=None, *, shape: int):
+                       metric: str, run=None, *, shape: int,
+                       moments: bool = True):
     """Run the streaming SWAP kernel on validated CUDA tensors; a run flag
-    that reads 0 leaves the outputs unwritten."""
+    that reads 0 leaves the outputs unwritten.  ``moments=False`` writes
+    the sums alone (the exact pass's mean) and returns None for Σg² and
+    Σg·g_lead."""
     global stream_swap_launches
     m, d = x.shape
     r = yref.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
-                                   device=x.device) for _ in range(3))
+                                   device=x.device)
+                       if moments or i == 0 else None for i in range(3))
+    scratch, floats = bin_scratch(x.device, m, r, k, REF_TILE, metric, 1,
+                                  shape)
+    ptr = (lambda t: None if t is None else t.data_ptr())
     code = _build.lib().rt_stream_swap_g_tiled(
         x.data_ptr(), yref.data_ptr(), d1.data_ptr(), d2.data_ptr(),
         assign.data_ptr(), w.data_ptr(), lead_g.data_ptr(), sums.data_ptr(),
-        sq.data_ptr(), cross.data_ptr(), m, r, d, k, METRIC_IDS[metric],
-        None if run is None else run.data_ptr(), shape, _stream(x))
+        ptr(sq), ptr(cross), m, r, d, k, METRIC_IDS[metric], ptr(run),
+        ptr(scratch), floats, shape, _stream(x))
     stream_swap_launches += 1
     _build.check(code, "stream_swap_g kernel")
     return sums, sq, cross

@@ -42,9 +42,22 @@ resident block at its own column offset of a lane ring ``[L, n_pad, C]``
 (a round's slot, a recycled round's scratch columns, or the whole ring
 in the carried-moment repair); ``swap_g_from_cache_lanes_torch`` loops
 ``swap_g_from_cache_torch`` and ``cached_lane_launches`` counts it.
+
+The bin scratch.  Where a launch's reference tile spans more than one
+104-column tile (``stream_swap_g``; ``swap_g`` at B > 104) the kernel
+carries its bins between column tiles in a global scratch of
+lanes x grid x BM x 4 x 3 x k floats (grid: at most one block a
+resident slot).  :func:`bin_scratch` allocates it with PyTorch's
+allocator on the launch's stream, at the size the library's
+``rt_swap_g_scratch`` gives, so ``torch.cuda.max_memory_allocated``
+counts it and the library itself allocates no device memory.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,6 +88,36 @@ def swap_g_from_cache_torch(dxy, d1_b, d2_b, assign_b, w, k: int, lead_g,
     return _swap_batch_stats(dxy, d1_b, d2_b, assign_b, w, k, lead_g)
 
 
+@functools.lru_cache(maxsize=256)
+def _scratch_floats(card: int, m: int, r: int, k: int, period: int,
+                    metric_id: int, lanes: int, shape: int) -> int:
+    # ``card`` (the current device) keys the occupancy the size rests on.
+    out = ctypes.c_int64(0)
+    _build.check(_build.lib().rt_swap_g_scratch(
+        m, r, k, period, metric_id, lanes, shape, ctypes.byref(out)),
+        "swap_g scratch query")
+    return out.value
+
+
+def bin_scratch(device: torch.device, m: int, r: int, k: int, period: int,
+                metric: str, lanes: int, shape: int
+                ) -> Tuple[Optional[torch.Tensor], int]:
+    """The swap_g kernel's bin scratch for one launch (m rows a lane, r
+    reference rows in tiles of ``period``) and its size in floats, on
+    ``device`` from PyTorch's allocator; ``(None, 0)`` where the launch
+    needs none."""
+    floats = _scratch_floats(torch.cuda.current_device(), int(m), int(r),
+                             int(k), int(period), METRIC_IDS[metric],
+                             int(lanes), int(shape))
+    if floats == 0:
+        return None, 0
+    return torch.empty((floats,), dtype=torch.float32, device=device), floats
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
            run=None, *, shape: int):
     """Run the CUDA kernel on validated CUDA tensors (see ``ops``); a run
@@ -85,11 +128,12 @@ def launch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, metric: str,
     b = y.shape[0]
     sums, sq, cross = (torch.empty((k, m), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
+    scratch, floats = bin_scratch(x.device, m, b, k, b, metric, 1, shape)
     code = _build.lib().rt_swap_g_tiled(
         x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), m, b, d, k,
-        METRIC_IDS[metric], None if run is None else run.data_ptr(),
+        METRIC_IDS[metric], _ptr(run), _ptr(scratch), floats,
         shape, torch.cuda.current_stream(x.device).cuda_stream)
     launches += 1
     _build.check(code, "swap_g kernel")
@@ -143,12 +187,13 @@ def launch_lanes(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
     b = y.shape[1]
     sums, sq, cross = (torch.empty((lanes, k, n_pad), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
+    scratch, floats = bin_scratch(x.device, n_pad, b, k, b, metric, lanes,
+                                  shape)
     code = _build.lib().rt_swap_g_lanes_tiled(
         x.data_ptr(), y.data_ptr(), d1_b.data_ptr(), d2_b.data_ptr(),
         assign_b.data_ptr(), w.data_ptr(), lead_g.data_ptr(),
         sums.data_ptr(), sq.data_ptr(), cross.data_ptr(), lanes, n_pad, b, d,
-        k, METRIC_IDS[metric], None if rows is None else rows.data_ptr(),
-        None if run is None else run.data_ptr(),
+        k, METRIC_IDS[metric], _ptr(rows), _ptr(run), _ptr(scratch), floats,
         shape, torch.cuda.current_stream(x.device).cuda_stream)
     lane_launches += 1
     _build.check(code, "swap_g lane kernel")

@@ -52,6 +52,7 @@ from ..api.registry import default_params, get_solver, solver_accepts_backend
 from ..core.banditpam import BanditPAM
 from ..core.device import DeviceLike, resolve_device
 from ..core.distances import resolve_metric
+from ..core.engine import host_stage
 from ..core.onebatch import onebatchpam
 from ..core.report import FitReport
 from ..runtime import checkpoint as ckpt
@@ -187,14 +188,16 @@ class MedoidService:
         params = dict(self.solver_params)
         if solver_accepts_backend(self.solver):
             params.setdefault("backend", self.backend)
-        data = torch.from_numpy(X).to(dev)
+        with host_stage("the service's data"):
+            data = torch.from_numpy(X).to(dev)
         t0 = time.perf_counter()
         report = get_solver(self.solver)(data, self.k, metric=self.metric,
                                          seed=self.seed, device=dev,
                                          **params)
         wall = time.perf_counter() - t0
-        self.medoid_points = data.index_select(
-            0, torch.as_tensor(report.medoids).to(dev)).contiguous()
+        with host_stage("the fitted medoids"):
+            med = torch.as_tensor(report.medoids).to(dev)
+        self.medoid_points = data.index_select(0, med).contiguous()
         self.last_report = report
         self.ledger.add(report, "fit", wall)
         self.reservoir = Reservoir(self.reservoir_size, self.d,
@@ -307,8 +310,10 @@ class MedoidService:
         report = self._run_refit(data, warm_idx, seed)
         wall = time.perf_counter() - t0
         self.n_refits += 1
-        self.medoid_points = torch.from_numpy(
-            data[np.asarray(report.medoids)]).to(self.medoid_points.device)
+        with host_stage("the refit's medoid points"):
+            self.medoid_points = torch.from_numpy(
+                data[np.asarray(report.medoids)]).to(
+                    self.medoid_points.device)
         self.last_report = report
         self.ledger.add(report, f"refit:{self.refit_mode}", wall)
         self.drift.reset(report.loss / data.shape[0])

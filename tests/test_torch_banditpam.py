@@ -252,11 +252,14 @@ def test_port_imports_neither_jax_nor_reference_package():
     """Nor ``msgpack``, which the card's machine does not have (the
     port's checkpoint manifest is JSON)."""
     files = sorted((ROOT / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+        ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+        ROOT / "chip_sync_probe.py"]
     assert len(files) > 15
     assert ROOT / "repro_torch" / "core" / "batch.py" in files
     assert ROOT / "repro_torch" / "core" / "distributed.py" in files
     assert ROOT / "repro_torch" / "core" / "tuning.py" in files
+    assert ROOT / "repro_torch" / "analysis" / "guard.py" in files
+    assert ROOT / "repro_torch" / "analysis" / "budgets.py" in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -264,8 +267,8 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.api, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.serve; "
+    code = ("import sys, repro_torch.analysis, repro_torch.api, "
+            "repro_torch.convert, repro_torch.kernels.ops, repro_torch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')]; print(bad); "
             "sys.exit(bool(bad))")

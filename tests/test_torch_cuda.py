@@ -780,9 +780,11 @@ def test_flagged_kernels_run_flag(cuda, metric, kernel):
                 code = lib.rt_stream_build_g(P(x), P(yr), P(dn), P(w), P(lg),
                                              *o, n, r, d, mid, rp, st)
             else:
+                sc, fl = swap_g.bin_scratch(cuda, n, r, k, 512, metric, 1, 0)
                 code = lib.rt_stream_swap_g(P(x), P(yr), P(d1), P(d2), P(a),
                                             P(w), P(lg), *o, n, r, d, k, mid,
-                                            rp, st)
+                                            rp, None if sc is None else P(sc),
+                                            fl, st)
             kbuild.check(code, kernel)
             return tuple(t.clone() for t in bufs)
         outs = lambda: bufs

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.core import datasets as jdatasets
+from repro_torch.analysis.guard import expected_reads
 from repro_torch.core import (BanditPAM, adaptive, banditpam, datasets,
                               engine, rng)
 
@@ -141,18 +142,25 @@ def _check_read_bounds(kw, monkeypatch):
     X = jdatasets.mnist_like(n, seed=1, d=32)
     rounds = _search_rounds(monkeypatch)
     per = adaptive.ROUNDS_PER_READ
-    fused = BanditPAM(k, device="cpu", batch_size=b, **kw).fit(X)
+    est = BanditPAM(k, device="cpu", batch_size=b, **kw)
+    fused = est.fit(X)
     swaps = [r for ph, r, _ in rounds if ph == "swap"]
     stepped = BanditPAM(k, device="cpu", batch_size=b, fused=False,
                         **kw).fit(X)
     assert _fields(fused) == _fields(stepped)
     reads = fused.host_reads_by_phase
     assert max(fused.build_rounds) > per
-    assert reads["build"] <= sum(-(-r // per)
-                                 for r in fused.build_rounds) + k + 1
+    # The guard's read contract (analysis.guard.expected_reads), with the
+    # SWAP searches' rounds: its formula, and the fit within it.
+    bound = expected_reads(fused, est, n, swap_rounds=swaps)
+    assert bound == {
+        "build": sum(-(-r // per) for r in fused.build_rounds) + k + 1,
+        "swap": sum(-(-r // per) for r in swaps) + 2 * len(swaps)}
+    assert reads["build"] <= bound["build"]
     assert reads["build"] < stepped.host_reads_by_phase["build"]
     assert len(swaps) == fused.n_swaps + int(fused.converged)
-    assert reads["swap"] <= sum(-(-r // per) for r in swaps) + 2 * len(swaps)
+    assert reads["swap"] <= bound["swap"]
+    assert reads["swap"] <= expected_reads(fused, est, n)["swap"]
     assert reads["swap"] < stepped.host_reads_by_phase["swap"]
 
 
