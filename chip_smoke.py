@@ -219,6 +219,32 @@ Phases, each of which raises (exit code != 0) on any failure:
    point's peak temporaries under its bound, its materialised form over
    it, beside the JAX bound where the key carries one over.  All
    raising; the phase prints its wall.
+12. the LM curation path (``lm_paths``, ``repro_torch/configs``,
+   ``models``, ``train``, ``runtime/fault.py``; ``[lm]`` lines): (a)
+   ``get_config("qwen3_1_7b")`` at its full width, float32, initialised
+   on the card from a seeded ``torch.Generator``, its parameter count
+   beside ``param_count()``; (b) ``train.curated.curate_weights`` at
+   step 0 (the 64 x 32 pool embedded by the model, 151,936 features a
+   point, clustered by ``MedoidCurator``, cosine, the leader baseline)
+   with its launch counts (at least one launch, each of the path's
+   kernels at least once), then the same fit on ``backend="torch"`` on
+   the card over the same embeddings (medoids, swap history, build
+   rounds and assignment identical, the loss within rtol 1e-5, each
+   phase's ledger within 10·B: phase 4's standard for leader fits), and
+   ``build_g``, ``swap_g``, ``top2`` and ``pairwise`` (a leader's row)
+   against their plain versions at [64 x 151,936], cosine, within
+   ``4·sqrt(d)·2^-24·dmax``, below ``dtol = d·2^-24·dmax`` (phase 3's
+   derivation at this d), each timed beside its plain version and its
+   bound; (c) three ``make_train_step`` steps at batch 8, seq 64
+   (``OptConfig(lr=3e-3, warmup_steps=20)``): finite losses and grad
+   norms, the parameters moved, the first loss beside ln(vocab), step
+   wall, tokens/s and ``max_memory_allocated``; (d)
+   ``FaultTolerantLoop`` at the ``cpu-small`` preset on the card: 6 steps,
+   a checkpoint every 2, one injected transient failure, equal bits to an
+   uninterrupted run, ``restore_or`` fast-forwarding to step 6; (e) the
+   card against the CPU at ``get_reduced("qwen3_1_7b")`` on the same
+   weights: logits within 1e-5·max|logits|, three steps' losses within
+   rtol 1e-5.  All raising; the phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -227,7 +253,10 @@ and pairwise/build_g/swap_g/top2's from
 the default fit + predict (pairwise's row is timed at predict's
 [10,000 x 10] and says so under ``shape``), the streaming kernels' from the replacement
 + leader fit and ``swap_g_from_cache``'s from the full-ring PIC fit;
-PAM's and the default-ring PIC fit's are printed above it.
+PAM's and the default-ring PIC fit's are printed above it.  Phase 12
+adds one row per kernel its curation launches, at the curation's
+[64 x 151,936] cosine shape (``"path": "lm"``), its launches those of
+the ``curate_weights`` call.
 
 The last two lines are one JSON object per kernel and the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -259,6 +288,7 @@ arm, ``t_j`` the plain version's terms (``swap_abs_sums``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3196,6 +3226,339 @@ def guard_paths(torch, dev, Xnp, card, dist_reports):
     log(f"[guard] phase 11 wall {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 12: the LM curation path (ROADMAP A17a) at qwen3-1.7B's width.
+LM_ARCH = "qwen3_1_7b"
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 64, 3       # the example's batch and seq
+LM_POOL, LM_POOL_SEQ, LM_K = 64, 32, 8      # curate_weights' defaults
+# The kernels a 64-row cosine leader fit and its top-2 pass launch
+# (pairwise: the leader's row, [1 x the batch]).
+LM_KERNELS = ("pairwise", "build_g", "swap_g", "top2")
+
+
+def lm_full_width(torch, dev, card, cfg):
+    """Phase 12 (a), (b), (c) at ``cfg``'s width (qwen3-1.7B's in the
+    run); returns the kernel rows of (b)."""
+    import numpy as np
+    from repro_torch.core import BanditPAM
+    from repro_torch.core.engine import medoid_cache
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import curated, init_opt_state, make_train_step
+    from repro_torch.train.data import synthetic_batch
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_norm = cfg.d_model * (2 * cfg.n_layers + 1) + 2 * cfg.hd * cfg.n_layers
+    log(f"[lm] (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n_par} parameters = param_count() "
+        f"{int(cfg.param_count()['total'])} + {n_norm} norm weights; "
+        f"float32, initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_par != int(cfg.param_count()["total"]) + n_norm:
+        raise AssertionError("(a) parameter count")
+
+    # (b) the curation, counted from 0.
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, w = curated.curate_weights(cfg, model, 0, pool=LM_POOL, k=LM_K,
+                                  seq=LM_POOL_SEQ, device=dev)
+    torch.cuda.synchronize()
+    cur_s = time.perf_counter() - t0
+    counts = {nm: c for nm, c in ops.launch_counts().items() if c}
+    log(f"[lm] (b) curate_weights(step 0, pool {LM_POOL} x {LM_POOL_SEQ}, "
+        f"k {LM_K}): {cur_s:.3f} s (embedding forward, fit and top-2 pass); "
+        f"launches {counts}; max_w/min_w {w.max() / w.min():.1f}")
+    missing = [nm for nm in LM_KERNELS if not counts.get(nm)]
+    if not counts or missing:
+        raise AssertionError(f"(b) the curation launched {counts}; "
+                             f"never: {missing}")
+    t0 = time.perf_counter()
+    _, emb = curated.embed_pool(cfg, model, 0, LM_POOL, LM_POOL_SEQ, dev)
+    torch.cuda.synchronize()
+    emb_s = time.perf_counter() - t0
+    fits, assign = {}, {}
+    for be in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        fits[be] = BanditPAM(LM_K, metric="cosine", seed=0, baseline="leader",
+                             backend=be, device=dev).fit(emb)
+        med = torch.as_tensor(fits[be].medoids, device=dev)
+        assign[be] = medoid_cache(emb, med, metric="cosine",
+                                  backend=be)[2].cpu()
+        log(f"[lm] (b) fit {be}: medoids {fits[be].medoids.tolist()} loss "
+            f"{fits[be].loss!r} swaps {fits[be].n_swaps} build_rounds "
+            f"{fits[be].build_rounds} evals {fits[be].evals_by_phase} "
+            f"({time.perf_counter() - t0:.2f} s)")
+    same_fit(fits["cuda"], fits["torch"], "(b) lm curation fit, cosine, "
+             f"[{LM_POOL} x {cfg.vocab}]", 10 * B)
+    if not torch.equal(assign["cuda"], assign["torch"]):
+        raise AssertionError("(b) the assignments differ")
+    _, _, w_re = curated.cluster_weights(emb, LM_K, 0)
+    if not np.array_equal(w_re, w):
+        raise AssertionError("(b) the curation's weights are not those of "
+                             "its embeddings' clustering")
+    log(f"[lm] (b) embedding forward alone {emb_s:.3f} s; cuda == torch "
+        f"assignments: True; curate_weights == cluster_weights of the "
+        f"re-embedded pool: True")
+    rows = lm_kernel_checks(torch, emb, fits["cuda"].medoids, counts, dev)
+
+    # (c) three train steps.
+    opt_cfg = curated.OPT
+    params = M.params_of(model)
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg)
+    probe = {nm: params[nm].detach()[:2].clone() for nm in (
+        "embed.weight", "layers.0.attn.wq.weight",
+        f"layers.{cfg.n_layers - 1}.mlp.wo.weight")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for i in range(LM_STEPS):
+        batch = synthetic_batch(cfg, LM_BATCH, LM_SEQ, i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        losses.append(loss)
+        log(f"[lm] (c) step {i}: loss {loss!r} grad_norm {gn!r} lr "
+            f"{float(m['lr'])!r} wall {walls[-1] * 1e3:.1f} ms")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"(c) step {i}: loss {loss}, grad norm {gn}")
+    moved = {nm: bool((p0 != params[nm].detach()[:2]).any())
+             for nm, p0 in probe.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tok = LM_BATCH * LM_SEQ
+    log(f"[lm] (c) {card}: first loss {losses[0]!r} beside ln(vocab) "
+        f"{math.log(cfg.vocab):.4f}; step walls {[round(x * 1e3, 1) for x in walls]} "
+        f"ms; steps 1-{LM_STEPS - 1}: {1e3 * sum(walls[1:]) / (LM_STEPS - 1):.1f} "
+        f"ms a step, {tok * (LM_STEPS - 1) / sum(walls[1:]):.0f} tokens/s; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
+        f"parameters moved {moved}")
+    if not all(moved.values()):
+        raise AssertionError(f"(c) parameters did not move: {moved}")
+    del model, params, state, step, probe, emb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_kernel_checks(torch, emb, medoids, counts, dev):
+    """Phase 12 (b): build_g, swap_g, top2 and pairwise (a leader's row)
+    against their plain versions on the curation's embeddings ([64 x
+    151,936], cosine), the batch all 64 rows, the fit's medoids; timed
+    beside the plain version and the bound (no library call computes
+    these statistics; ``torch.cdist`` has no cosine).  A dot product over
+    d terms errs by at most ``d·2^-24`` of its magnitude, so ``dtol =
+    d·2^-24·dmax`` bounds a distance's error (phase 3's derivation, there
+    1e-4·dmax at d = 784).  At d = 151,936 that bound is 1 % of a
+    distance, loose enough to pass a kernel that skipped a chunk of the
+    walk, so each distance is held to how rounding errors actually grow,
+    ``tol = 4·sqrt(d)·2^-24·dmax`` (below dtol), and the sums to phase
+    3's limits with ``L = r·tol``.  Top-2 labels must agree off the
+    ``2·tol`` near-tie band, and on every row the kernel's label must name
+    a medoid whose plain distance is within ``tol`` of the nearest."""
+    from repro_torch.kernels import build_g, ops, pairwise, stream_g, swap_g
+    x = emb.contiguous()
+    n, d = x.shape
+    y = x                                    # the batch: every row, r = n
+    r = y.shape[0]
+    med = x[torch.as_tensor(medoids, device=dev)].contiguous()
+    k = med.shape[0]
+    dmax = float(pairwise.pairwise_torch(x, y, metric="cosine").max())
+    dtol = d * 2.0 ** -24 * dmax
+    tol = 4.0 * math.sqrt(d) * 2.0 ** -24 * dmax
+    lim = r * tol
+    w = torch.ones(r, device=dev)
+    w[-5:] = 0.0                             # padded slots
+    dxy = pairwise.pairwise_torch(y, med, metric="cosine")
+    dn = dxy.min(dim=1).values.contiguous()
+    lg = torch.clamp_max(dxy[:, 0] - dn, 0.0).contiguous() * w
+    got = ops.build_g_stats(x, y, dn, w, lg, metric="cosine")
+    want = build_g.build_g_torch(x, y, dn, w, lg, "cosine")
+    eb = max(check_close(f"lm build_g {nm}", g, wv, a)
+             for nm, g, wv, a in zip(("sums", "sq", "cross"), got, want,
+                                     (lim, 2 * dmax * lim, 2 * dmax * lim)))
+    d1, d2, a = stream_g.top2_torch(y, med, "cosine")
+    lg2 = dxy[:, 0].contiguous()
+    got = ops.swap_g_stats(x, y, d1, d2, a, w, k, lg2, metric="cosine")
+    want = swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg2, "cosine")
+    es = max(check_close(f"lm swap_g {nm}", g, wv, at)
+             for nm, g, wv, at in zip(("sums", "sq", "cross"), got, want,
+                                      (2 * lim, 4 * dmax * lim,
+                                       4 * dmax * lim)))
+    got = ops.stream_top2(x, med, metric="cosine")
+    want = stream_g.top2_torch(x, med, "cosine")
+    et = max(check_close("lm top2 d1", got[0], want[0], tol),
+             check_close("lm top2 d2", got[1], want[1], tol))
+    clear = (want[1] - want[0]) > 2 * tol
+    if not bool((got[2] == want[2])[clear].all()):
+        raise AssertionError("lm top2: labels differ off near-ties")
+    named = pairwise.pairwise_torch(x, med, metric="cosine").gather(
+        1, got[2].long()[:, None])[:, 0]
+    et = max(et, check_close("lm top2 label's distance", named, want[0],
+                             tol))
+    lead = x[:1].contiguous()                # a leader's row
+    ep = check_close("lm pairwise leader row", ops.pairwise_distance(
+        lead, y, "cosine"), pairwise.pairwise_torch(lead, y, metric="cosine"),
+        tol)
+    log(f"[lm] (b) kernels at [{n} x {d}] (pairwise [1 x {r}]), cosine: "
+        f"within tol {tol:.3e} (4·sqrt(d)·2^-24·dmax, dmax {dmax:.4f}), "
+        f"below dtol {dtol:.3e} (d·2^-24·dmax); top-2 labels equal on "
+        f"{int(clear.sum())} of {n} rows clear of near-ties, and every "
+        f"row's label within tol of the nearest plain distance")
+    cases = (
+        ("build_g", "repro_torch/kernels/csrc/build_g.cu",
+         "src/repro/kernels/build_g.py:42", eb,
+         lambda: ops.build_g_stats(x, y, dn, w, lg, metric="cosine"),
+         lambda: build_g.build_g_torch(x, y, dn, w, lg, "cosine"),
+         2.0 * n * r * d, 4.0 * (n * d + r * d + 3 * r + 3 * n)),
+        ("swap_g", "repro_torch/kernels/csrc/swap_g.cu",
+         "src/repro/kernels/swap_g.py:85", es,
+         lambda: ops.swap_g_stats(x, y, d1, d2, a, w, k, lg2,
+                                  metric="cosine"),
+         lambda: swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg2, "cosine"),
+         2.0 * n * r * d, 4.0 * (n * d + r * d + 5 * r + 3 * k * n)),
+        ("top2", "repro_torch/kernels/csrc/stream_g.cu",
+         "src/repro/kernels/stream_g.py:165", et,
+         lambda: ops.stream_top2(x, med, metric="cosine"),
+         lambda: stream_g.top2_torch(x, med, "cosine"),
+         2.0 * n * k * d, 4.0 * (n * d + k * d + 3 * n)),
+        ("pairwise", "repro_torch/kernels/csrc/pairwise.cu",
+         "src/repro/kernels/pairwise.py:74", ep,
+         lambda: ops.pairwise_distance(lead, y, "cosine"),
+         lambda: pairwise.pairwise_torch(lead, y, metric="cosine"),
+         2.0 * r * d, 4.0 * (d + r * d + r)))
+    rows = []
+    for name, src, rep, err, kern, plain, fl, by in cases:
+        ms, pms = time_ms(kern), time_ms(plain)
+        bms, bby = bound_ms(fl, by)
+        shape = {"top2": f"{n}x{k}x{d}",
+                 "pairwise": f"1x{r}x{d}"}.get(name, f"{n}x{r}x{d}")
+        log(f"[lm] (b) [time] {name} [{shape}] kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms bound {bms * 1e3:.1f} us ({bby}) share of bound "
+            f"{bms / ms:.3f}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": counts.get(name, 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None,
+                     "shape": shape, "path": "lm"})
+    return rows
+
+
+def _lm_train(torch, cfg, dev, ckpt_dir, fail_at=None, n_steps=6):
+    """``n_steps`` train steps of a seeded model under
+    ``FaultTolerantLoop(save_every=2)``, one transient failure injected
+    at ``fail_at``; returns the final state and the loop."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.fault import FaultTolerantLoop
+    from repro_torch.train import curated, init_opt_state, make_train_step
+    from repro_torch.train.data import synthetic_batch
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    step_fn = make_train_step(cfg, curated.OPT)
+    failed = []
+
+    def one_step(st, i):
+        M.load_params(model, st["params"])
+        if i == fail_at and not failed:
+            failed.append(i)
+            raise RuntimeError("injected transient failure")
+        batch = synthetic_batch(cfg, LM_BATCH, LM_SEQ, i, device=dev)
+        _, opt, m = step_fn(model, st["opt"], batch)
+        return {"params": M.params_of(model), "opt": opt}, m
+
+    loop = FaultTolerantLoop(ckpt_dir, save_every=2, install_sigterm=False)
+    state = {"params": M.params_of(model),
+             "opt": init_opt_state(M.params_of(model), curated.OPT)}
+    return loop.run(state, one_step, n_steps=n_steps), loop
+
+
+def lm_fault_loop(torch, dev):
+    """Phase 12 (d): the loop at the cpu-small preset on the card."""
+    import tempfile
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.train import curated
+    cfg = curated.preset_config("cpu-small")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        want, _ = _lm_train(torch, cfg, dev, os.path.join(tmp, "a"))
+        got, loop = _lm_train(torch, cfg, dev, os.path.join(tmp, "b"),
+                              fail_at=3)
+        flat_w, flat_g = ckpt._flatten(want), ckpt._flatten(got)
+        same = ([k for k, _ in flat_w] == [k for k, _ in flat_g] and all(
+            torch.equal(g, w) for (_, g), (_, w) in zip(flat_g, flat_w)))
+        restored, start = loop.restore_or(want)
+        ff = start == 6 and all(torch.equal(r_, w) for (_, r_), (_, w) in
+                                zip(ckpt._flatten(restored), flat_w))
+        log(f"[lm] (d) FaultTolerantLoop, cpu-small "
+            f"({int(cfg.param_count()['total'])} parameters), 6 steps, a "
+            f"checkpoint every 2, a failure injected at step 3: equal bits "
+            f"to the uninterrupted run ({len(flat_w)} tensors): {same}; "
+            f"restore_or fast-forwards to step {start} with those bits: {ff}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (same and ff):
+            raise AssertionError("(d) the replay is not exact")
+
+
+def lm_card_vs_cpu(torch, dev):
+    """Phase 12 (e): the reduced config on the card and on the CPU from the
+    same weights (made on the CPU): logits within 1e-5·max|logits|, three
+    steps' losses within rtol 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.train import curated, init_opt_state, make_train_step
+    from repro_torch.train.data import synthetic_batch
+    cfg = get_reduced(LM_ARCH)
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        card = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        card.load_state_dict(cpu.state_dict())
+        toks = synthetic_batch(cfg, 2, 32, 0, device="cpu")["tokens"]
+        with torch.no_grad():
+            want = cpu({"tokens": toks})[0]
+            got = card({"tokens": toks.to(dev)})[0].cpu()
+        lim = 1e-5 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        losses = {}
+        for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            st = init_opt_state(M.params_of(model), curated.OPT)
+            step = make_train_step(cfg, curated.OPT)
+            losses[name] = []
+            for i in range(3):
+                _, st, m = step(model, st, synthetic_batch(cfg, 2, 32, i,
+                                                           device=d))
+                losses[name].append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                      losses["cpu"]))
+        log(f"[lm] (e) {cfg.name} reduced, card vs CPU: logits max abs err "
+            f"{err:.3e} (limit {lim:.3e}); losses card {losses['card']} cpu "
+            f"{losses['cpu']} (max rel diff {rel:.2e}, limit 1e-5)")
+        if err > lim or rel > 1e-5:
+            raise AssertionError("(e) the card and the CPU differ")
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def lm_paths(torch, dev, card):
+    """Phase 12: (a)–(e); returns (b)'s kernel rows."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    rows = lm_full_width(torch, dev, card, get_config(LM_ARCH))
+    lm_fault_loop(torch, dev)
+    lm_card_vs_cpu(torch, dev)
+    log(f"[lm] phase 12 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3251,6 +3614,7 @@ def main() -> int:
     log(f"[dist] phase 9 wall {time.perf_counter() - t9:.1f} s")
     tile_paths(torch, X, dev, Xnp, card)
     guard_paths(torch, dev, Xnp, card, dist_reports)
+    lm_rows = lm_paths(torch, dev, card)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -3284,8 +3648,10 @@ def main() -> int:
         + "; ".join(f"{name} " + ", ".join(f"{nm} {c[nm]}" for nm in sorted(c)
                                           if c[nm])
                     for name, c in counts_dist.items()))
+    log("[launches] phase 12, curate_weights at qwen3-1.7B's width: "
+        + ", ".join(f"{r['name']} {r['launches']}" for r in lm_rows))
     log(card)
-    log(json.dumps({"kernels": rows + lane_rows}))
+    log(json.dumps({"kernels": rows + lane_rows + lm_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,22 @@
 """repro_torch — the PyTorch/CUDA port of the BanditPAM system.
 
 The JAX package ``repro`` (under ``src/``) is the reference; this
-package mirrors its layout (``core/``, ``kernels/``, ``api/``,
-``serve/``, ``runtime/``) and runs
-on an NVIDIA H100 through hand-written CUDA kernels for ``sm_90a``.
+package mirrors its layout and runs on an NVIDIA H100 through
+hand-written CUDA kernels for ``sm_90a``:
+
+* ``core/`` — distances, the stats-backend engine, the bandit search, the
+  BanditPAM fit, its batch and its sharded fit, PAM, the baselines;
+* ``kernels/`` — the CUDA kernels, their plain versions and wrappers;
+* ``api/`` — the ``KMedoids`` facade and predict;
+* ``serve/`` — ``MedoidService``, the reservoir, the drift monitor;
+* ``runtime/`` — checkpoints and the fault-tolerant training loop;
+* ``analysis/`` — the runtime guard and the peak-memory budgets;
+* ``configs/``, ``models/``, ``train/`` — the LM data-curation path: the
+  architectures, the dense decoder, the data, AdamW, the train step and
+  the curation driver (``python -m repro_torch.train.curated``);
+* ``convert.py`` — draws, fitted state and LM weights from the JAX
+  package, given as numpy.
+
 Entry points take ``device=None`` (the card) and raise without one;
 ``device="cpu"`` runs the plain PyTorch versions.
 

@@ -26,15 +26,26 @@ module replays draws given as arrays:
 * a fitted JAX estimator crosses as its medoid indices, through
   ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``;
 * a JAX ``MedoidService`` crosses as its state tree, config and refit
-  records (:func:`service_from_reference`).
+  records (:func:`service_from_reference`);
+* the dense LM's parameters and AdamW state cross as their pytrees
+  (``repro.models.model.init_params``, ``repro.train.init_opt_state``)
+  given as numpy arrays (:func:`lm_params_from_reference`,
+  :func:`opt_state_from_reference`).  ``params["groups"]`` holds one
+  entry per pattern position, each leaf stacked ``[n_groups, ...]``, so
+  layer ``i`` of a pattern of length P is ``groups[i % P][leaf][i // P]``;
+  a JAX ``x @ w`` weight ``[in, out]`` becomes the ``nn.Linear``
+  weight ``[out, in]``, its transpose.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, Mapping
+
 import numpy as np
+import torch
 
 from .core import rng
-from .core.device import DeviceLike
+from .core.device import DeviceLike, resolve_device
 from .serve import MedoidService
 
 # The JAX package's stats backends and the port's counterparts.
@@ -77,3 +88,79 @@ def service_from_reference(state_tree, config, refits=(),
     cfg = dict(config)
     cfg["backend"] = _BACKENDS.get(cfg["backend"], cfg["backend"])
     return MedoidService.from_state(cfg, state_tree, refits, device)
+
+
+# A dense layer's JAX leaves and their names in ``models.model.Decoder``;
+# True where the leaf is an ``x @ w`` matrix (transposed).
+_LAYER_LEAVES = (
+    (("ln1",), "ln1.weight", False),
+    (("ln2",), "ln2.weight", False),
+    (("attn", "wq"), "attn.wq.weight", True),
+    (("attn", "wk"), "attn.wk.weight", True),
+    (("attn", "wv"), "attn.wv.weight", True),
+    (("attn", "wo"), "attn.wo.weight", True),
+    (("attn", "q_norm"), "attn.q_norm.weight", False),
+    (("attn", "k_norm"), "attn.k_norm.weight", False),
+    (("mlp", "wi"), "mlp.wi.weight", True),
+    (("mlp", "wg"), "mlp.wg.weight", True),
+    (("mlp", "wo"), "mlp.wo.weight", True),
+)
+_TOP_LEAVES = {"embed", "lm_head", "final_norm", "groups"}
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: through float32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _lm_leaves(tree: Mapping[str, Any], device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    extra = set(tree) - _TOP_LEAVES
+    if extra:
+        raise NotImplementedError(
+            f"LM parameters {sorted(extra)} are not ported yet (the "
+            f"frontends and the shared block: ROADMAP A17d, A17e)")
+    out = {"embed.weight": _tensor(tree["embed"], device)}
+    if "lm_head" in tree:
+        out["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T, device)
+    groups = tree["groups"]
+    per = len(groups)
+    n_groups = len(np.asarray(groups[0]["ln1"]))
+    for i in range(per * n_groups):
+        lp = groups[i % per]
+        if "moe" in lp:
+            raise NotImplementedError("MoE layers are not ported yet "
+                                      "(ROADMAP A17c)")
+        for path, name, matrix in _LAYER_LEAVES:
+            node = lp
+            for key in path:
+                node = node.get(key) if isinstance(node, Mapping) else None
+            if node is None:
+                continue                    # no qk-norm
+            a = np.asarray(node)[i // per]
+            out[f"layers.{i}.{name}"] = _tensor(a.T if matrix else a, device)
+    out["final_norm.weight"] = _tensor(tree["final_norm"], device)
+    return out
+
+
+def lm_params_from_reference(params: Mapping[str, Any],
+                             device: DeviceLike = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX dense LM's ``params`` (numpy leaves) as the port's
+    parameters by name (``models.model.params_of``), on ``device`` (the
+    card by default): ``model.load_state_dict(...)`` or
+    ``models.model.load_params`` takes them."""
+    return _lm_leaves(params, resolve_device(device))
+
+
+def opt_state_from_reference(state: Mapping[str, Any],
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX AdamW state (``{"m", "v", "step"}``, numpy leaves) as the
+    port's ``train.optimizer`` state, keyed as the parameters."""
+    dev = resolve_device(device)
+    return {"m": _lm_leaves(state["m"], dev), "v": _lm_leaves(state["v"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}

@@ -260,6 +260,10 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert ROOT / "repro_torch" / "core" / "tuning.py" in files
     assert ROOT / "repro_torch" / "analysis" / "guard.py" in files
     assert ROOT / "repro_torch" / "analysis" / "budgets.py" in files
+    for lm in ("configs/base.py", "configs/qwen3_1_7b.py", "models/layers.py",
+               "models/model.py", "train/data.py", "train/optimizer.py",
+               "train/train_step.py", "train/curated.py", "runtime/fault.py"):
+        assert ROOT / "repro_torch" / lm in files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -268,7 +272,9 @@ def test_port_imports_neither_jax_nor_reference_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.analysis, repro_torch.api, "
-            "repro_torch.convert, repro_torch.kernels.ops, repro_torch.serve; "
+            "repro_torch.convert, repro_torch.kernels.ops, repro_torch.serve, "
+            "repro_torch.configs, repro_torch.models, repro_torch.train, "
+            "repro_torch.train.curated, repro_torch.runtime.fault; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')]; print(bad); "
             "sys.exit(bool(bad))")
@@ -289,9 +295,10 @@ JIT_ONLY = {
 }
 
 
-@pytest.mark.parametrize("module", ["api", "core"])
+@pytest.mark.parametrize("module", ["api", "core", "configs", "train"])
 def test_public_names_match_the_jax_package(module):
-    """Every public name of ``repro.api`` / ``repro.core`` is public in the
+    """Every public name of ``repro.api`` / ``repro.core`` (and of the LM
+    substrate's ``repro.configs`` / ``repro.train``) is public in the
     port too, but the jit-only ones (``JIT_ONLY``)."""
     import importlib
     want = set(importlib.import_module(f"repro.{module}").__all__)
