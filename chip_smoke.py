@@ -124,7 +124,14 @@ Phases, each of which raises (exit code != 0) on any failure:
    of 256 rows (p50 / p99 ms, upload and read included); 20,000 drifted
    rows ingested in chunks of 1,000 (rows a second, each refit's
    position, wall, ledger and host reads), counted from 0 before the fit
-   (top2, pairwise and swap_g_from_cache must run); the warm / cold
+   (top2, pairwise and swap_g_from_cache must run); each request both
+   through the service's assignment, its row bucket's CUDA graph
+   (``api.predict.get_assign_fn``), and through an eager ``top2`` launch,
+   in turns: labels and dmin bits equal, ``top2`` counted once a request
+   on each path, p50 / p99 of each side by side, and ragged requests
+   (``RAGGED_ROWS``, ten passes) whose later passes capture no graph;
+   the 256-row graph's replay timed beside the eager launch, the plain
+   version and the bound (``graph_top2_row``); the warm / cold
    refit pair against the reference's gates; snapshots after the first
    chunk and after half of the stream, each restored on the card, which
    must end where the service that never stopped ended (the early one
@@ -245,6 +252,29 @@ Phases, each of which raises (exit code != 0) on any failure:
    card against the CPU at ``get_reduced("qwen3_1_7b")`` on the same
    weights: logits within 1e-5·max|logits|, three steps' losses within
    rtol 1e-5.  All raising; the phase prints its wall.
+13. LM serving (``lm_serve_full_width``, ``lm_serve_card_vs_cpu``,
+   ``repro_torch/serve/lm.py``; ``[lm-serve]`` lines) on phase 12's
+   model: (a) the prefill of 8 x 64 synthetic prompts into caches of 80
+   positions and 16 greedy decode steps at qwen3-1.7B's width in
+   float32, the prefill's last logits and every step's logits against
+   the model's own full forward over the prompt and the fed tokens,
+   within 1e-5·max|logits| (the CPU tests' standard); (b) prefill ms,
+   decode p50 / p99 ms a step, tokens/s, ``max_memory_allocated`` and
+   the card's name and power limit; (c) the card against the CPU at
+   reduced width for qwen3 (global), gemma3 (local, window 16, a prompt
+   of 24: the cache rolls) and a ``("chunked",)`` config: greedy tokens
+   equal, logits within that tolerance.  All raising; the phase prints
+   its wall.
+14. the paper's other datasets (``data_paths``, ``core/datasets.py``;
+   ``[data]`` lines): the default l1 fit ``KMedoids(k, solver=
+   "banditpam", metric="l1")`` on ``scrna_like(10_000, seed=0)`` (d =
+   1,000, k = 5: ``benchmarks/scaling_n.py``'s ``fig3b_scrna_l1_k5``) and
+   on ``hoc4_like(20_000, seed=0)`` (d = 32, k = 2: ``fig1b_hoc4_tree_k2``)
+   on ``backend="cuda"`` and ``"torch"``: the same medoids, swap history,
+   build rounds and fallbacks, the loss within rtol 1e-5 and the ledger
+   within phase 4's 10·B; ``build_g`` and ``swap_g`` at the scRNA round's
+   [10,000 x 100], d = 1,000, l1, held to their plain versions and timed
+   beside them and the bound.  All raising; the phase prints its wall.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -256,7 +286,12 @@ the default fit + predict (pairwise's row is timed at predict's
 PAM's and the default-ring PIC fit's are printed above it.  Phase 12
 adds one row per kernel its curation launches, at the curation's
 [64 x 151,936] cosine shape (``"path": "lm"``), its launches those of
-the ``curate_weights`` call.
+the ``curate_weights`` call.  Phase 7 adds ``top2`` replayed from the
+256-row bucket's graph (``"path": "serve-graph"``, its launches the
+graph's replays in the phase), and phase 14 ``build_g`` and ``swap_g``
+at the scRNA round's l1 shape (``"path": "data"``, its launches the
+cuda fit's).  A graph's replay counts as one launch of each kernel it
+holds, in every count above.
 
 The last two lines are one JSON object per kernel and the device line.
 Without a CUDA device, or without the package beside this script, it
@@ -1157,6 +1192,7 @@ def same_fit(a, b, what, ledger_slack, loss_atol=0.0, ledger_rtol=0.0,
 
 def main_path(torch, X, dev, Xnp):
     """Phase 5: the user's call at full size; returns launch counts."""
+    import numpy as np
     from repro_torch.api import KMedoids
     from repro_torch.core import total_loss
     from repro_torch.kernels import ops
@@ -1173,6 +1209,13 @@ def main_path(torch, X, dev, Xnp):
     predict_ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    # Again, not counted: the two buckets' graphs (8,192 and 2,048 rows)
+    # are replayed, not captured.
+    t0 = time.perf_counter()
+    again = est.predict(Xnp[N_FIT:N_FIT + N_QUERY])
+    again_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(again, labels):
+        raise AssertionError("a replayed predict changed the labels")
     r = est.report_
     log(f"[main] medoids {r.medoids.tolist()}")
     log(f"[main] loss {r.loss!r} n_swaps {r.n_swaps} converged {r.converged}")
@@ -1180,8 +1223,9 @@ def main_path(torch, X, dev, Xnp):
     log(f"[main] wall_by_phase {r.wall_by_phase} fit {fit_s:.3f} s "
         f"(data upload included); host_reads_by_phase "
         f"{r.host_reads_by_phase}")
-    log(f"[main] predict {N_QUERY} rows {predict_ms:.3f} ms; peak device memory "
-        f"{peak} bytes")
+    log(f"[main] predict {N_QUERY} rows {predict_ms:.3f} ms (the chunks' "
+        f"graphs captured), again {again_ms:.3f} ms (replayed); peak device "
+        f"memory {peak} bytes")
     log(f"[main] kernel launches {counts}")
     if min(counts[k] for k in MAIN_KERNELS) < 1:
         raise AssertionError(f"a kernel of the main path never ran: {counts}")
@@ -1240,25 +1284,11 @@ def driver_paths(torch, X, Xnp, fused_fit, fused_counts):
                     rep)
 
 
-def profile_fit(torch, data, fused, name, unprofiled, solver="banditpam"):
-    """One fit of the default configuration of ``solver`` under
-    ``torch.profiler``: the union of the device's activity intervals
-    (kernels, copies, memsets) over the fit's host wall is its busy share,
-    the rest its idle share; the device time by kernel name follows,
-    longest first, then the host's self time by operator.  The tables are
-    read from the profiler's raw events (its ``key_averages`` takes
-    minutes over the million events of a fit)."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.api import KMedoids
-    est = KMedoids(k=10, solver=solver, metric="l2", seed=0, fused=fused)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        est.fit(data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    t1 = time.perf_counter()
+def _trace_events(torch, prof):
+    """A profiler's raw events: the device's activity intervals, device
+    time by kernel name ``{name: (count, ns)}``, the host's events
+    ``(thread, start, -end, name)``, and the union of the device
+    intervals in ns (its busy time)."""
     ivs, by_name, host = [], {}, []
     for e in prof.profiler.kineto_results.events():
         start, end = e.start_ns(), e.end_ns()
@@ -1280,6 +1310,29 @@ def profile_fit(torch, data, fused, name, unprofiled, solver="banditpam"):
         elif b > last:
             busy += b - last
             last = b
+    return ivs, by_name, host, busy
+
+
+def profile_fit(torch, data, fused, name, unprofiled, solver="banditpam"):
+    """One fit of the default configuration of ``solver`` under
+    ``torch.profiler``: the union of the device's activity intervals
+    (kernels, copies, memsets) over the fit's host wall is its busy share,
+    the rest its idle share; the device time by kernel name follows,
+    longest first, then the host's self time by operator.  The tables are
+    read from the profiler's raw events (its ``key_averages`` takes
+    minutes over the million events of a fit)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import KMedoids
+    est = KMedoids(k=10, solver=solver, metric="l2", seed=0, fused=fused)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.fit(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ivs, by_name, host, busy = _trace_events(torch, prof)
     r = est.report_
     log(f"[profile] {name}: fit of {data.shape[0]} rows, wall {wall:.3f} s "
         f"under the profiler (wall_by_phase {r.wall_by_phase}; rounds "
@@ -1810,16 +1863,7 @@ def serve_path(torch, X, dev, Xnp):
         f"{rep.evals_by_phase} host reads {rep.host_reads_by_phase}; "
         f"stats {svc.stats()}")
     queries = Xnp[N_FIT:N_FIT + N_QUERY]
-    ms, got = [], []
-    for i in range(N_REQUESTS):
-        lo = (i * REQUEST_ROWS) % (N_QUERY - REQUEST_ROWS)
-        t1 = time.perf_counter()
-        got.append((lo, svc.predict(queries[lo:lo + REQUEST_ROWS])))
-        ms.append((time.perf_counter() - t1) * 1e3)
-    p50, p99 = np.percentile(ms, [50, 99])
-    log(f"[serve] predict: {N_REQUESTS} requests of {REQUEST_ROWS} rows, "
-        f"p50 {p50:.4f} ms p99 {p99:.4f} ms max {max(ms):.4f} ms per "
-        f"request (upload and read included)")
+    got = serve_graphs(torch, svc, queries)
     # The labels against the plain argmin off near-ties.
     dq = l2(torch.from_numpy(queries).to(dev), svc.medoid_points)
     want = torch.argmin(dq, dim=1).cpu().numpy()
@@ -1925,7 +1969,143 @@ def serve_path(torch, X, dev, Xnp):
     log(f"[serve] refit pair gates: {gates}")
     if not all(gates.values()):
         raise AssertionError(f"the warm refit failed a gate: {gates}")
-    return counts
+    return counts, graph_top2_row(torch, svc, queries)
+
+
+# Phase 7's ragged requests: each size's bucket is captured in the first
+# pass and replayed in the others.
+RAGGED_ROWS = (1, 3, 100, 256, 257, 1000, 4097)
+RAGGED_PASSES = 10
+
+
+def _eager_assign(torch, q, med):
+    """The eager request the graphs replace: the queries uploaded from
+    pageable memory, one ``top2`` launch, labels and dmin read in one copy
+    as int32 words."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    x = torch.as_tensor(q, dtype=torch.float32).to(med.device).contiguous()
+    d1, _, labels = ops.stream_top2(x, med, metric="l2")
+    host = torch.stack([labels.to(torch.int32),
+                        d1.view(torch.int32)]).cpu().numpy()
+    return host[0], host[1].view(np.float32)
+
+
+def serve_graphs(torch, svc, queries):
+    """Phase 7 (b): each request through the service's assignment (the
+    bucket's CUDA graph, ``api.predict.get_assign_fn``) and through the
+    eager ``top2`` launch, in turns in one process: labels and dmin bits
+    equal, ``top2`` counted once a request on each path (raising);
+    ``N_REQUESTS`` requests of ``REQUEST_ROWS`` rows, then
+    ``RAGGED_PASSES`` passes over ``RAGGED_ROWS``, whose first pass
+    captures each new bucket and whose later passes must capture none.
+    p50 / p99 ms a request, upload and read included, of each path side
+    by side (the first 256-row request, which captures its bucket,
+    apart).  Returns (offset, labels) of the 256-row requests."""
+    import numpy as np
+    from repro_torch.api import predict
+    from repro_torch.kernels import ops
+    med = svc.medoid_points
+
+    def one(q, path):
+        c0 = ops.launch_counts()["top2"]
+        t = time.perf_counter()
+        out = (svc._assign(q) if path == "graph"
+               else _eager_assign(torch, q, med))
+        ms = (time.perf_counter() - t) * 1e3
+        if ops.launch_counts()["top2"] != c0 + 1:
+            raise AssertionError(f"a {path} request of {q.shape[0]} rows "
+                                 f"counted {ops.launch_counts()['top2'] - c0}"
+                                 f" top2 launches")
+        return out, ms
+
+    def pair(q, what):
+        (gl, gd), gms = one(q, "graph")
+        (el, ed), ems = one(q, "eager")
+        if not (np.array_equal(gl, el) and gd.tobytes() == ed.tobytes()):
+            raise AssertionError(f"{what}: the graph's labels or dmin bits "
+                                 f"differ from the eager launch's")
+        return gl, gms, ems
+
+    def pct(ms):
+        p50, p99 = np.percentile(ms, [50, 99])
+        return f"p50 {p50:.4f} ms p99 {p99:.4f} ms"
+
+    got, ms = [], {"graph": [], "eager": []}
+    for i in range(N_REQUESTS):
+        lo = (i * REQUEST_ROWS) % (N_QUERY - REQUEST_ROWS)
+        labels, gms, ems = pair(queries[lo:lo + REQUEST_ROWS],
+                                f"request {i}")
+        got.append((lo, labels))
+        ms["graph"].append(gms)
+        ms["eager"].append(ems)
+    log(f"[serve] predict: {N_REQUESTS} requests of {REQUEST_ROWS} rows, "
+        f"upload and read included, requests 2-{N_REQUESTS}: graph "
+        f"{pct(ms['graph'][1:])} | eager top2 {pct(ms['eager'][1:])}; the "
+        f"first request: graph {ms['graph'][0]:.3f} ms (its bucket "
+        f"captured), eager {ms['eager'][0]:.3f} ms; labels and dmin bits "
+        f"equal on every request, top2 counted once a request on each path")
+    rag, first = {"graph": [], "eager": []}, {}
+    for p_i in range(RAGGED_PASSES):
+        for m in RAGGED_ROWS:
+            lo = (p_i * 1013) % (N_QUERY - m)
+            misses = predict.get_assign_fn.cache_info().misses
+            _, gms, ems = pair(queries[lo:lo + m], f"ragged request of {m}")
+            new = predict.get_assign_fn.cache_info().misses - misses
+            if p_i == 0:
+                first[m] = (new, round(gms, 3))
+            elif new:
+                raise AssertionError(f"a repeated bucket ({m} rows) was "
+                                     f"captured again")
+            else:
+                rag["graph"].append(gms)
+                rag["eager"].append(ems)
+    log(f"[serve] ragged requests {list(RAGGED_ROWS)}, {RAGGED_PASSES} "
+        f"passes: first pass (rows: (graphs captured, graph ms)) {first}; "
+        f"passes 2-{RAGGED_PASSES}, no capture: graph {pct(rag['graph'])} | "
+        f"eager top2 {pct(rag['eager'])}; labels and dmin bits equal, top2 "
+        f"counted once a request; assign graphs cached "
+        f"{predict.get_assign_fn.cache_info().currsize}")
+    return got
+
+
+def graph_top2_row(torch, svc, queries):
+    """Phase 7 (c), not counted: the 256-row bucket's graph replayed
+    alone (``top2`` and the words' stack) beside the eager ``top2``
+    launch and the plain version on the same request; its ``dmin`` held
+    to the plain d1 within phase 3's l2 tolerance.  Returns the kernels
+    line's row, its launches the graph's replays in this phase."""
+    from repro_torch.api import predict
+    from repro_torch.kernels import ops, stream_g
+    med = svc.medoid_points
+    k, d = med.shape
+    dev = predict._device_key(med.device)
+    fn = predict.get_assign_fn(k, d, svc.metric, predict.resolve_backend(
+        svc.backend, svc.metric, dev), REQUEST_ROWS, dev)
+    replays = fn.replays
+    q = queries[:REQUEST_ROWS]
+    x = torch.from_numpy(q).to(dev)
+    _, dmin = fn(q, med)
+    want = stream_g.top2_torch(x, med, "l2")[0]
+    dmax = float(torch.cdist(x, med).max())
+    err = check_close("top2 graph replay d1", torch.from_numpy(dmin).to(dev),
+                      want, dist_tol("l2", dmax))
+    ms = time_ms(fn.graph.replay)
+    ems = time_ms(lambda: ops.stream_top2(x, med, metric="l2"))
+    pms = time_ms(lambda: stream_g.top2_torch(x, med, "l2"))
+    bms, bby = bound_ms(2.0 * REQUEST_ROWS * k * d,
+                        4.0 * (REQUEST_ROWS * d + k * d + 3 * REQUEST_ROWS))
+    log(f"[serve] [time] top2 [{REQUEST_ROWS}x{k}x{d}] graph replay "
+        f"{ms:.4f} ms (top2 and the words' stack) eager launch {ems:.4f} ms "
+        f"plain {pms:.4f} ms bound {bms * 1e3:.2f} us ({bby}); the graph "
+        f"replayed {replays} times in the phase")
+    return {"name": "top2", "route": "cuda",
+            "source": "repro_torch/kernels/csrc/stream_g.cu",
+            "replaces": "src/repro/kernels/stream_g.py:165",
+            "launches": replays, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None, "shape": f"{REQUEST_ROWS}x{k}x{d}",
+            "path": "serve-graph"}
 
 
 def serve_parity(torch, dev):
@@ -3237,7 +3417,8 @@ LM_KERNELS = ("pairwise", "build_g", "swap_g", "top2")
 
 def lm_full_width(torch, dev, card, cfg):
     """Phase 12 (a), (b), (c) at ``cfg``'s width (qwen3-1.7B's in the
-    run); returns the kernel rows of (b)."""
+    run); returns the kernel rows of (b) and the model, which phase 13
+    serves."""
     import numpy as np
     from repro_torch.core import BanditPAM
     from repro_torch.core.engine import medoid_cache
@@ -3341,9 +3522,9 @@ def lm_full_width(torch, dev, card, cfg):
         f"parameters moved {moved}")
     if not all(moved.values()):
         raise AssertionError(f"(c) parameters did not move: {moved}")
-    del model, params, state, step, probe, emb
+    del params, state, step, probe, emb
     torch.cuda.empty_cache()
-    return rows
+    return rows, model
 
 
 def lm_kernel_checks(torch, emb, medoids, counts, dev):
@@ -3549,13 +3730,353 @@ def lm_card_vs_cpu(torch, dev):
 
 
 def lm_paths(torch, dev, card):
-    """Phase 12: (a)–(e); returns (b)'s kernel rows."""
+    """Phase 12: (a)–(e), then phase 13 on (c)'s model; returns (b)'s
+    kernel rows."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    rows = lm_full_width(torch, dev, card, get_config(LM_ARCH))
+    cfg = get_config(LM_ARCH)
+    rows, model = lm_full_width(torch, dev, card, cfg)
     lm_fault_loop(torch, dev)
     lm_card_vs_cpu(torch, dev)
     log(f"[lm] phase 12 wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_serve_full_width(torch, dev, card, cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    lm_serve_card_vs_cpu(torch, dev)
+    log(f"[lm-serve] phase 13 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# Phase 13: LM serving at qwen3-1.7B's width; prompts of LM_SEQ tokens,
+# LM_SERVE_NEW greedy steps into a cache of LM_SERVE_CACHE positions.
+LM_SERVE_NEW = 16
+LM_SERVE_CACHE = LM_SEQ + LM_SERVE_NEW
+LM_SERVE_PROFILED = 3       # (b): decode steps under the profiler
+# (c): the reduced configs (name, prompt length), each decoded
+# LM_SERVE_CPU_STEPS steps on the card and on the CPU.
+LM_SERVE_REDUCED = (("qwen3_1_7b", 32), ("gemma3_12b", 24), ("chunked", 28))
+LM_SERVE_CPU_STEPS = 12
+
+
+def _logit_err(got, want):
+    """Max abs error and the limit 1e-5·max|want| (the CPU tests'
+    standard for logits)."""
+    return (float((got.double() - want.double()).abs().max()),
+            1e-5 * float(want.abs().max()))
+
+
+def lm_serve_full_width(torch, dev, card, cfg, model):
+    """Phase 13 (a), (b): ``serve.lm``'s prefill of ``LM_BATCH`` x
+    ``LM_SEQ`` synthetic prompts into a cache of ``LM_SERVE_CACHE``
+    positions, then ``LM_SERVE_NEW`` greedy decode steps (a device
+    synchronisation after each, for its latency), at ``cfg``'s width in
+    float32 on phase 12's model.  (a) The prefill's last logits and every
+    step's logits against the model's own full forward over the prompt
+    and the fed tokens (teacher-forced), within 1e-5·max|logits|, the CPU
+    tests' standard; raising.  (b) Prefill ms (its first call and a
+    second), decode p50 / p99 ms a step over steps 2 on (the JAX
+    driver's window), tokens/s at p50, ``max_memory_allocated``, the
+    card's name and power limit, and ``LM_SERVE_PROFILED`` steps under
+    ``torch.profiler``: the device's busy and idle share and its time by
+    kernel."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.serve import lm
+    from repro_torch.train.data import synthetic_batch
+    prompts = synthetic_batch(cfg, LM_BATCH, LM_SEQ, 0, device=dev)["tokens"]
+    prefill = lm.make_prefill_step(cfg, LM_SERVE_CACHE)
+    decode = lm.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pre_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, state = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos = torch.full((), LM_SEQ, dtype=torch.int64, device=dev)
+    fed, step_logits, step_ms = [], [], []
+    for _ in range(LM_SERVE_NEW):
+        fed.append(tok)
+        t0 = time.perf_counter()
+        lg, state = decode(model, state, {"tokens": tok}, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_logits.append(lg[:, 0])
+        tok = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        pos = pos + 1
+    peak = torch.cuda.max_memory_allocated()
+    shapes = [tuple(kv[0].shape) for kv in state]
+    # (a) teacher-forced: the full forward over the prompt and the fed
+    # tokens gives, at position p, the logits of the step that read p.
+    seq = torch.cat([prompts, torch.cat(fed, dim=1).to(prompts.dtype)], 1)
+    with torch.no_grad():
+        full = model({"tokens": seq})[0]
+    e_pre, lim = _logit_err(logits[:, 0], full[:, LM_SEQ - 1])
+    e_dec = [_logit_err(g, full[:, LM_SEQ + i])
+             for i, g in enumerate(step_logits)]
+    worst = max([e_pre / lim] + [e / l for e, l in e_dec])
+    log(f"[lm-serve] (a) {cfg.name} at full width, float32: prefill "
+        f"{LM_BATCH} x {LM_SEQ} into caches {shapes} [G, B, S_c, KVH, hd], "
+        f"{LM_SERVE_NEW} greedy steps; "
+        f"against the full forward over the {seq.shape[1]} tokens "
+        f"(teacher-forced): prefill logits max abs err {e_pre:.3e} (limit "
+        f"{lim:.3e}), decode steps' max abs err "
+        f"{[float(f'{e:.3e}') for e, _ in e_dec]} (limits "
+        f"{min(l for _, l in e_dec):.3e}..{max(l for _, l in e_dec):.3e}); "
+        f"worst err/limit {worst:.3f}")
+    if worst > 1.0:
+        raise AssertionError("(a) prefill or decode logits differ from the "
+                             "full forward")
+    want = [(cfg.n_groups, LM_BATCH, M._cache_len(cfg, kind, LM_SERVE_CACHE),
+             cfg.n_kv_heads, cfg.hd) for kind in cfg.layer_pattern]
+    if seq.shape[1] != LM_SERVE_CACHE or shapes != want:
+        raise AssertionError(f"(a) cache shapes {shapes}, not {want}")
+    # Where a step's time goes: LM_SERVE_PROFILED more steps under the
+    # profiler, each decoding the last position again from the final
+    # state (a step's shapes and work).
+    from torch.profiler import ProfilerActivity, profile
+    last = (fed[-1], pos - 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_SERVE_PROFILED):
+            decode(model, state, {"tokens": last[0]}, last[1])
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    ivs, by_name, _, busy = _trace_events(torch, prof)
+    if not ivs:
+        raise AssertionError("(b) the profiler recorded no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"[lm-serve] (b) {LM_SERVE_PROFILED} decode steps under the "
+        f"profiler: wall {prof_s * 1e3 / LM_SERVE_PROFILED:.3f} ms a step, "
+        f"device busy {busy / 1e6 / LM_SERVE_PROFILED:.3f} ms a step, idle "
+        f"share {1 - busy / 1e9 / prof_s:.4f}, {len(ivs) // LM_SERVE_PROFILED}"
+        f" device activities a step; device time by kernel, a step: "
+        + "; ".join(f"{tot / 1e6 / LM_SERVE_PROFILED:.3f} ms "
+                    f"{cnt // LM_SERVE_PROFILED} x {nm[:70]}"
+                    for nm, (cnt, tot) in top))
+    p50, p99 = np.percentile(step_ms[1:], [50, 99])
+    log(f"[lm-serve] (b) {card}: prefill {pre_ms[0]:.2f} ms (first call), "
+        f"{pre_ms[1]:.2f} ms (second) for {LM_BATCH}x{LM_SEQ}; decode p50 "
+        f"{p50:.3f} ms p99 {p99:.3f} ms a step (steps 2-{LM_SERVE_NEW}), "
+        f"{LM_BATCH / (p50 / 1e3):.1f} tokens/s at p50; step walls "
+        f"{[round(x, 3) for x in step_ms]} ms; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB, the model's float32 weights included)")
+
+
+def _reduced_serving_config(name):
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    if name == "chunked":
+        return dataclasses.replace(get_reduced("qwen3_1_7b"),
+                                   name="chunked-reduced",
+                                   layer_pattern=("chunked",), window=16)
+    return get_reduced(name)
+
+
+def lm_serve_card_vs_cpu(torch, dev):
+    """Phase 13 (c): the reduced configs of ``LM_SERVE_REDUCED`` (qwen3's
+    global layers; gemma3's local layers at window 16 with a prompt of 24,
+    so the cache rolls; one ``chunked`` kind at window 16 with a prompt of
+    28, decoding across the chunk boundary at 32) on the card and on the
+    CPU from the same weights (made on the CPU): the greedy tokens equal,
+    and the prefill's and every teacher-forced step's logits within
+    1e-5·max|logits|; raising.  The smallest top-2 logit gap is printed
+    beside the limit."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import lm
+    from repro_torch.train.data import synthetic_batch
+    cpu_dev = torch.device("cpu")
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        for name, prompt in LM_SERVE_REDUCED:
+            cfg = _reduced_serving_config(name)
+            steps = LM_SERVE_CPU_STEPS
+            cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+            card = M.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)
+            card.load_state_dict(cpu.state_dict())
+            toks = synthetic_batch(cfg, 2, prompt, 0, device="cpu")["tokens"]
+            prefill = lm.make_prefill_step(cfg, prompt + steps + 1)
+            decode = lm.make_decode_step(cfg)
+            out = {}
+            for side, model, d in (("cpu", cpu, cpu_dev), ("card", card, dev)):
+                logits, state = prefill(model, {"tokens": toks.to(d)})
+                first = torch.argmax(logits, dim=-1).to(torch.int32)
+                gen, _ = lm.greedy_decode(cfg, model, state, first, prompt,
+                                          steps)
+                out[side] = (logits.cpu(), torch.cat([first, gen], 1).cpu(),
+                             state)
+            same_tokens = torch.equal(out["card"][1], out["cpu"][1])
+            errs = [_logit_err(out["card"][0], out["cpu"][0])]
+            gaps = []
+            states = {side: out[side][2] for side in out}
+            seq = out["cpu"][1]
+            for i in range(steps):
+                lg = {}
+                for side, model, d in (("cpu", cpu, cpu_dev),
+                                       ("card", card, dev)):
+                    lg[side], states[side] = decode(
+                        model, states[side], {"tokens": seq[:, i:i + 1].to(d)},
+                        torch.tensor(prompt + i, device=d))
+                errs.append(_logit_err(lg["card"].cpu(), lg["cpu"]))
+                top = torch.topk(lg["cpu"][:, 0], 2, dim=-1).values
+                gaps.append(float((top[:, 0] - top[:, 1]).min()))
+            worst = max(e / lim for e, lim in errs)
+            log(f"[lm-serve] (c) {cfg.name} reduced, layer kinds "
+                f"{sorted(set(cfg.layer_pattern))}, window {cfg.window}, "
+                f"prompt {prompt}, {steps} steps: card vs CPU greedy tokens "
+                f"equal: {same_tokens}; logits worst err/limit {worst:.3f} "
+                f"(max abs err {max(e for e, _ in errs):.3e}); smallest "
+                f"top-2 logit gap {min(gaps):.3e}")
+            if not same_tokens or worst > 1.0:
+                raise AssertionError(f"(c) {cfg.name}: the card and the CPU "
+                                     f"differ")
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+# Phase 14: the paper's other datasets (``core.datasets``), the benchmark
+# cases ``benchmarks/scaling_n.py`` fits for Fig. 3b and Fig. 1b, each a
+# default l1 fit: (name, generator, n, k).
+DATA_CASES = (("fig3b_scrna_l1_k5", "scrna_like", 10_000, 5),
+              ("fig1b_hoc4_tree_k2", "hoc4_like", 20_000, 2))
+DATA_KERNELS = ("build_g", "swap_g", "top2")
+
+
+def data_paths(torch, dev, card):
+    """Phase 14: ``KMedoids(k, solver="banditpam", metric="l1")`` on
+    ``scrna_like(10_000, seed=0)`` (d = 1,000) at k = 5 and on
+    ``hoc4_like(20_000, seed=0)`` (d = 32) at k = 2, each on
+    ``backend="cuda"`` and ``"torch"``, counted from 0: wall, ledger,
+    host reads, peak memory and launches (the cuda fit must launch
+    build_g, swap_g and top2, the torch fit none); the two fits the same
+    (medoids, swap history, build rounds, fallbacks, the loss within rtol
+    1e-5, each phase's ledger within phase 4's allowance of 10·B: a kill
+    on an exact float32 margin can move a round), raising.  Before each,
+    the plain l1 path's peak at the round's shape is reckoned from
+    ``distances._L1_CHUNK_ELEMS``.  Then the scRNA round's kernels
+    (``data_kernel_checks``).  Returns the kernel rows."""
+    from repro_torch.api import KMedoids
+    from repro_torch.core import datasets
+    from repro_torch.core.distances import _L1_CHUNK_ELEMS
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    rows = []
+    for name, gen, n, k in DATA_CASES:
+        t1 = time.perf_counter()
+        Xnp = datasets.make(gen, n, seed=0)
+        d = Xnp.shape[1]
+        chunk = max(1, min(B, _L1_CHUNK_ELEMS // (n * d)))
+        log(f"[data] {name}: {gen}({n}, seed=0) d={d} made in "
+            f"{time.perf_counter() - t1:.1f} s, zeros {float((Xnp == 0).mean()):.3f}; "
+            f"the plain l1 block of a round [{n} x {B}] walks {chunk}-column "
+            f"chunks, {n * chunk * d * 4 / 2**20:.1f} MiB a temporary (the "
+            f"whole [n, B, d] difference would be {n * B * d * 4 / 1e9:.2f} GB)")
+        X = torch.from_numpy(Xnp).to(dev)
+        fits, counts = {}, {}
+        for be in ("cuda", "torch"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            est = KMedoids(k, solver="banditpam", metric="l1", backend=be,
+                           device=dev).fit(X)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            r = est.report_
+            counts[be] = {nm: c for nm, c in ops.launch_counts().items() if c}
+            fits[be] = r
+            log(f"[data] {name} backend={be}: medoids {r.medoids.tolist()} "
+                f"loss {r.loss!r} swaps {r.n_swaps} build_rounds "
+                f"{r.build_rounds} evals {r.evals_by_phase} wall_by_phase "
+                f"{r.wall_by_phase} fit {wall:.3f} s host reads "
+                f"{r.host_reads_by_phase} peak memory "
+                f"{torch.cuda.max_memory_allocated()} B launches "
+                f"{counts[be]}")
+        same_fit(fits["cuda"], fits["torch"], f"[data] {name}", 10 * B)
+        missing = [nm for nm in DATA_KERNELS if not counts["cuda"].get(nm)]
+        if missing or counts["torch"]:
+            raise AssertionError(f"{name}: the cuda fit never launched "
+                                 f"{missing}, or the torch fit launched "
+                                 f"{counts['torch']}")
+        log(f"[data] {name}: cuda == torch (medoids, swap history, build "
+            f"rounds, fallbacks; the loss within rtol 1e-5; the ledger "
+            f"within 10·B, exactly equal: "
+            f"{fits['cuda'].evals_by_phase == fits['torch'].evals_by_phase})")
+        if gen == "scrna_like":
+            rows = data_kernel_checks(torch, X, fits["cuda"].medoids,
+                                      counts["cuda"], dev, card)
+        del X
+    log(f"[data] phase 14 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def data_kernel_checks(torch, X, medoids, counts, dev, card):
+    """Phase 14, the scRNA round's shape: ``build_g`` and ``swap_g`` at
+    [10,000 x 100], d = 1,000, l1, against their plain versions with
+    phase 3's tolerances (the distance tolerance ``1e-4·dmax`` holds since
+    d·2^-24 = 6e-5 < 1e-4 at d = 1,000), a batch of 100 rows with 7
+    padded slots, the fit's medoids; each timed beside its plain version
+    and its bound, max(2·n·B·d / 67 TFLOP/s, bytes / 3.35 TB/s).  Returns
+    the kernels line's rows, their launches the cuda fit's."""
+    from repro_torch.kernels import build_g, ops, pairwise, swap_g
+    x = X.contiguous()
+    n, d = x.shape
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    y = x[torch.randperm(n, generator=gen)[:B].to(dev)].contiguous()
+    w = torch.ones(B, device=dev)
+    w[-7:] = 0.0                                    # padded slots
+    med = x[torch.as_tensor(medoids, device=dev)].contiguous()
+    k = med.shape[0]
+    dxy = pairwise.pairwise_torch(y, med, metric="l1")
+    dmax = float(pairwise.pairwise_torch(x[:2048], y, metric="l1").max())
+    lim = sum_err_limit(x, y, "l1", dmax)
+    dn = dxy.min(dim=1).values.contiguous()
+    lg = (torch.clamp_max(dxy[:, 0] - dn, 0.0) * w).contiguous()
+    eb = max(check_close(f"data build_g[l1] {nm}", g, wv, a)
+             for nm, g, wv, a in zip(
+                 ("sums", "sq", "cross"),
+                 ops.build_g_stats(x, y, dn, w, lg, metric="l1"),
+                 build_g.build_g_torch(x, y, dn, w, lg, "l1"),
+                 (lim, 2 * dmax * lim, 2 * dmax * lim)))
+    d1, d2, a = ops.stream_top2(y, med, metric="l1")
+    lg2 = dxy[:, 0].contiguous()
+    es = max(check_close(f"data swap_g[l1] {nm}", g, wv, at)
+             for nm, g, wv, at in zip(
+                 ("sums", "sq", "cross"),
+                 ops.swap_g_stats(x, y, d1, d2, a, w, k, lg2, metric="l1"),
+                 swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg2, "l1"),
+                 (2 * lim, 4 * dmax * lim, 4 * dmax * lim)))
+    cases = (
+        ("build_g", "repro_torch/kernels/csrc/build_g.cu",
+         "src/repro/kernels/build_g.py:42", eb,
+         lambda: ops.build_g_stats(x, y, dn, w, lg, metric="l1"),
+         lambda: build_g.build_g_torch(x, y, dn, w, lg, "l1"),
+         4.0 * (n * d + B * d + 3 * B + 3 * n)),
+        ("swap_g", "repro_torch/kernels/csrc/swap_g.cu",
+         "src/repro/kernels/swap_g.py:85", es,
+         lambda: ops.swap_g_stats(x, y, d1, d2, a, w, k, lg2, metric="l1"),
+         lambda: swap_g.swap_g_torch(x, y, d1, d2, a, w, k, lg2, "l1"),
+         4.0 * (n * d + B * d + 5 * B + 3 * k * n)))
+    rows = []
+    for name, src, rep, err, kern, plain, nbytes in cases:
+        ms, pms = time_ms(kern), time_ms(plain, reps=5, warm=1)
+        bms, bby = bound_ms(2.0 * n * B * d, nbytes)
+        log(f"[data] [time] {card}: {name} [{n}x{B}x{d}] l1 kernel "
+            f"{ms:.4f} ms plain {pms:.4f} ms bound {bms * 1e3:.1f} us "
+            f"({bby}) share of bound {bms / ms:.3f}")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": counts.get(name, 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": bby, "library_ms": None,
+                     "shape": f"{n}x{B}x{d}", "metric": "l1",
+                     "path": "data"})
     return rows
 
 
@@ -3585,14 +4106,20 @@ def main() -> int:
     X = torch.from_numpy(Xnp).to(dev)
     log(f"[data] mnist_like({N_FIT + N_QUERY}, d=784) made in "
         f"{time.perf_counter() - t0:.1f} s")
+    t3 = time.perf_counter()
     rows = (kernel_checks(torch, X, dev) + stream_checks(torch, X, dev)
             + cached_checks(torch, X, dev))
+    log(f"[kernel] phase 3 wall {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
     fit_parity(torch, X, dev)
     driver_parity(torch, X, dev)
+    log(f"[parity] phase 4 wall {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
     counts, perm_fit = main_path(torch, X, dev, Xnp)
     driver_paths(torch, X, Xnp, perm_fit, counts)
     counts_exact, pam_fit = exact_paths(torch, X, dev, Xnp, perm_fit)
     counts_pic = pic_paths(torch, X, dev, Xnp, pam_fit)
+    log(f"[main] phase 5 wall {time.perf_counter() - t5:.1f} s")
     t6 = time.perf_counter()
     threefry_answers(torch, dev)
     counts_solvers = solver_paths(torch, X, dev, Xnp, pam_fit)
@@ -3600,7 +4127,7 @@ def main() -> int:
     solver_parity(torch, dev)
     log(f"[solvers] phase 6 wall {time.perf_counter() - t6:.1f} s")
     t7 = time.perf_counter()
-    counts_serve = serve_path(torch, X, dev, Xnp)
+    counts_serve, graph_row = serve_path(torch, X, dev, Xnp)
     serve_parity(torch, dev)
     # serve_path set the counts to 0 before the phase's first launch.
     from repro_torch.kernels import ops
@@ -3615,6 +4142,7 @@ def main() -> int:
     tile_paths(torch, X, dev, Xnp, card)
     guard_paths(torch, dev, Xnp, card, dist_reports)
     lm_rows = lm_paths(torch, dev, card)
+    data_rows = data_paths(torch, dev, card)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the
@@ -3650,8 +4178,12 @@ def main() -> int:
                     for name, c in counts_dist.items()))
     log("[launches] phase 12, curate_weights at qwen3-1.7B's width: "
         + ", ".join(f"{r['name']} {r['launches']}" for r in lm_rows))
+    log(f"[launches] phase 7, the 256-row bucket's graph: top2 "
+        f"{graph_row['launches']} replays; phase 14, the scRNA l1 fit: "
+        + ", ".join(f"{r['name']} {r['launches']}" for r in data_rows))
     log(card)
-    log(json.dumps({"kernels": rows + lane_rows + lm_rows}))
+    log(json.dumps({"kernels": rows + lane_rows + lm_rows + [graph_row]
+                    + data_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,8 +14,10 @@ hand-written CUDA kernels for ``sm_90a``:
 * ``configs/``, ``models/``, ``train/`` — the LM data-curation path: the
   architectures, the dense decoder, the data, AdamW, the train step and
   the curation driver (``python -m repro_torch.train.curated``);
-* ``convert.py`` — draws, fitted state and LM weights from the JAX
-  package, given as numpy.
+* ``serve/lm.py``, ``launch/`` — LM serving: prefill and KV-cache decode
+  (``python -m repro_torch.launch.serve``);
+* ``convert.py`` — draws, fitted state, LM weights and decode state from
+  the JAX package, given as numpy.
 
 Entry points take ``device=None`` (the card) and raise without one;
 ``device="cpu"`` runs the plain PyTorch versions.

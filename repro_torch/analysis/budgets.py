@@ -367,7 +367,8 @@ def measure(name: str, device=None, seed: int = 0) -> Measure:
     temporaries, the bound at this card's slots and that row tile, and
     the temporaries of its materialised form.  Each call runs once
     unmeasured first, so that the library's build, the tile tables and
-    the allocator's pools are in place."""
+    the allocator's pools are in place; predict's measured call then
+    captures its CUDA graphs anew, so their buffers count."""
     from ..api import predict
     from ..core import engine, tuning
     from ..kernels import ops
@@ -433,13 +434,22 @@ def measure(name: str, device=None, seed: int = 0) -> Measure:
                 torch.cdist(x, y), d1, d2, a, torch.ones_like(d1), s["k"]))
     elif name in ("api.medoid_distances", "api.assign_medoids"):
         q, pts = points(s["rows"], s["d"]), points(s["k"], s["d"])
+
+        def captured(fn):
+            """The call with predict's callables dropped first, so that
+            it captures its graphs: their static buffers and pool, which
+            stay on the card, are counted with its temporaries."""
+            def factory():
+                predict.clear_callables()
+                return fn
+            return factory
         if name == "api.medoid_distances":
-            make = same(lambda: predict.medoid_distances_t(q, pts, "l2",
-                                                           backend="cuda"))
+            make = captured(lambda: predict.medoid_distances_t(
+                q, pts, "l2", backend="cuda"))
             make_mat = same(lambda: torch.linalg.vector_norm(
                 q[:, None, :] - pts[None], dim=2))
         else:
-            make = same(lambda: predict.assign_medoids(
+            make = captured(lambda: predict.assign_medoids(
                 q, pts, "l2", backend="cuda", device=dev))
             make_mat = same(lambda: torch.min(torch.cdist(q, pts), dim=1))
     elif name in ("core.BanditPAM.build[pic]", "core.BanditPAM.swap[pic]"):

@@ -34,12 +34,17 @@ module replays draws given as arrays:
   entry per pattern position, each leaf stacked ``[n_groups, ...]``, so
   layer ``i`` of a pattern of length P is ``groups[i % P][leaf][i // P]``;
   a JAX ``x @ w`` weight ``[in, out]`` becomes the ``nn.Linear``
-  weight ``[out, in]``, its transpose.
+  weight ``[out, in]``, its transpose;
+* a JAX decode state (``repro.models.model.forward(...,
+  collect_state=True)`` or ``decode_step``'s, numpy leaves) crosses
+  unchanged in layout (:func:`lm_state_from_reference`): the port keeps
+  the tuple over pattern positions of ``(k, v)`` stacked
+  ``[G, B, S_c, KVH, hd]``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -154,6 +159,23 @@ def lm_params_from_reference(params: Mapping[str, Any],
     card by default): ``model.load_state_dict(...)`` or
     ``models.model.load_params`` takes them."""
     return _lm_leaves(params, resolve_device(device))
+
+
+def lm_state_from_reference(state: Sequence[Tuple[Any, Any]],
+                            device: DeviceLike = None
+                            ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """A JAX dense LM's decode state (numpy leaves: per pattern position
+    ``(k, v)`` ``[G, B, S_c, KVH, hd]``) as the port's, on ``device`` (the
+    card by default): ``models.model.decode_step`` continues from it."""
+    dev = resolve_device(device)
+    out = []
+    for entry in state:
+        if len(entry) != 2 or np.asarray(entry[0]).ndim != 5:
+            raise NotImplementedError(
+                "only attention caches are ported; the SSM states are "
+                "ROADMAP A17d")
+        out.append(tuple(_tensor(a, dev) for a in entry))
+    return tuple(out)
 
 
 def opt_state_from_reference(state: Mapping[str, Any],

@@ -354,8 +354,9 @@ def host_stage(reason: str):
     """The sanctioned host-to-device staging span (counterpart of
     ``repro.core.engine.host_stage``): an input upload before a fit's
     first round, e.g. the data, the warm-start medoids, a predict's
-    queries.  The ``reason`` is mandatory: every span names why it
-    exists.  Inside it ``torch.cuda``'s sync debug mode is lifted
+    medoid rows (its queries go through a pinned buffer without a wait:
+    ``repro_torch.api.predict``).  The ``reason`` is mandatory: every
+    span names why it exists.  Inside it ``torch.cuda``'s sync debug mode is lifted
     (:func:`syncs_allowed`), so the upload's copy from pageable memory,
     which waits for the device, passes a fit run under
     ``set_sync_debug_mode("error")``; everything outside stays at the

@@ -12,7 +12,8 @@ of the tensors alone:
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and clear the
 per-kernel launch counters, which show that a run went through the
-kernels.
+kernels; ``add_launches`` counts a CUDA graph's replay as a launch of
+each kernel the graph holds.
 
 Tile knobs, as the JAX wrappers': ``tm`` (the row tile) on the
 statistics wrappers and ``pairwise_distance``, ``tr`` (the column tile)
@@ -76,6 +77,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _KERNELS.values():
         setattr(mod, attr, 0)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the counters: a CUDA
+    graph's replay launches its kernels without passing their wrappers
+    (``repro_torch.api.predict``)."""
+    for name, n in counts.items():
+        mod, attr = _KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + int(n))
 
 
 def _on_cuda(what: str, metric: Optional[str],

@@ -1,0 +1,99 @@
+"""Serving driver (counterpart of ``repro.launch.serve``): batched
+prefill, then greedy decode, with per-step latency::
+
+    python -m repro_torch.launch.serve --arch qwen3_1_7b --reduced \\
+        --requests 8 --prompt-len 32 --max-new 16 [--device cpu]
+
+The prompts are the JAX driver's (``train.synthetic_batch`` at step 0),
+the model float32 on one device as the JAX driver runs at one device,
+its weights drawn from a ``torch.Generator`` seeded 0, the caches
+``prompt-len + max-new`` long.  Prints the prefill's wall, then decode
+p50 / p99 ms a step and tokens a second at p50.  Times are host clocks
+around work that ends in a device synchronisation; on the card the
+first prefill includes cuBLAS's set-up.  With more than one visible
+card the JAX driver builds a mesh (``runtime/elastic.py``), which the
+port does not have yet: it raises rather than run on one of them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs import get_config, get_reduced
+from ..core.device import resolve_device
+from ..models import model as M
+from ..serve.lm import make_decode_step, make_prefill_step
+from ..train import synthetic_batch
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"{torch.cuda.device_count()} cards are visible: the JAX driver "
+            f"shards over a mesh of them (runtime/elastic.py), which is not "
+            f"ported yet (ROADMAP A17f); make one card visible "
+            f"(CUDA_VISIBLE_DEVICES)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = M.init_params(cfg, gen, device=dev)
+    cache_len = args.prompt_len + args.max_new
+    prompts = {"tokens": synthetic_batch(cfg, args.requests,
+                                         args.prompt_len, 0,
+                                         device=dev)["tokens"]}
+    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    decode = make_decode_step(cfg)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = prefill(model, prompts)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)       # [B, 1]
+    pos = torch.full((), args.prompt_len, dtype=torch.int64, device=dev)
+
+    lat = []
+    out = [tok]
+    for _ in range(args.max_new - 1):
+        t1 = time.perf_counter()
+        logits, state = decode(model, state, {"tokens": tok}, pos)
+        _sync(dev)
+        lat.append(time.perf_counter() - t1)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out.append(tok)
+        pos = pos + 1
+
+    lat_sorted = sorted(lat[1:]) or [0.0]
+    p50 = lat_sorted[len(lat_sorted) // 2]
+    p99 = lat_sorted[min(len(lat_sorted) - 1, int(len(lat_sorted) * 0.99))]
+    print(f"prefill: {t_prefill * 1e3:.0f} ms for "
+          f"{args.requests}x{args.prompt_len} on {dev}")
+    print(f"decode:  p50 {p50 * 1e3:.1f} ms/step, p99 {p99 * 1e3:.1f} "
+          f"ms/step, throughput {args.requests / max(p50, 1e-9):.0f} tok/s "
+          f"steady-state")
+    return {"prefill_s": t_prefill, "decode_s": lat, "p50_s": p50,
+            "p99_s": p99, "tokens": np.asarray(torch.cat(out, dim=1).cpu())}
+
+
+if __name__ == "__main__":
+    main()

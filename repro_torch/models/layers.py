@@ -14,8 +14,8 @@ backend and precision on the card).  The weights live in modules
 weight ``[in, out]`` is an ``nn.Linear`` weight ``[out, in]``, its
 transpose.
 
-Decode attention against a KV cache (``decode_attention``) is ROADMAP
-A17b.
+``decode_attention`` is the single-token path against a (possibly
+rolling) KV cache, masked by the cache entries' absolute positions.
 """
 
 from __future__ import annotations
@@ -142,6 +142,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
     out = torch.cat(outs, dim=2)                          # [B, H, L, Dh]
     return out.movedim(1, 2).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, entry_pos: torch.Tensor,
+                     pos: torch.Tensor, *, kind: str, window: int
+                     ) -> torch.Tensor:
+    """Single-token attention against a cache.
+
+    q: [B, 1, H, Dh]; caches: [B, S_cache, KVH, Dh]; entry_pos: [B or 1,
+    S_cache] absolute positions of the cache entries (negative: empty);
+    pos: 0-d tensor, the query token's absolute position.  Scores in
+    float32; ``local`` admits the last ``window`` positions, ``chunked``
+    the positions of the query's ``pos // window`` chunk.
+    """
+    b, _, h, dh = q.shape
+    kvh = k_cache.shape[2]
+    g = h // kvh
+    qg = q[:, 0].reshape(b, kvh, g, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32),
+                     k_cache.to(F32)) * dh ** -0.5
+    valid = (entry_pos >= 0) & (entry_pos <= pos)
+    if kind == "local":
+        valid &= entry_pos > pos - window
+    elif kind == "chunked":
+        valid &= torch.div(entry_pos, window, rounding_mode="floor") == (
+            torch.div(pos, window, rounding_mode="floor"))
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
+    return o.reshape(b, 1, h, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,23 @@ consecutive layers) under ``torch.utils.checkpoint(use_reentrant=False)``:
 the group's activations are recomputed in the backward pass.  The model
 has no dropout and no random op, so the recomputation is exact.
 
+Decode state (the JAX layout, so that the two compare leaf for leaf): a
+tuple over the pattern positions, each ``(k, v)`` stacked over the groups
+``[G, B, S_c, KVH, hd]``; a ``global`` layer's cache holds ``cache_len``
+positions, a ``local`` / ``chunked`` layer's at most ``window`` and
+rolls (position p in slot ``p % S_c``).  ``Decoder.forward(batch,
+collect_state=True, cache_len=...)`` is the prefill: it runs the groups
+without recomputation and returns the caches with the logits;
+:func:`decode_step` takes one token a sequence at the absolute position
+``pos``, a 0-d tensor on the model's device, so that a decode loop reads
+nothing back from the card.  A cache entry's absolute position is
+recovered from ``pos`` (:func:`_entry_positions`), so no validity
+bookkeeping is stored.
+
 Not ported, each raising ``NotImplementedError`` at construction with
 its ROADMAP item: MoE layers (A17c), the ``mamba1`` / ``mamba2`` /
 ``shared_attn`` kinds (A17d), the ``vision_stub`` / ``audio_stub``
-frontends (A17e); the decode state (``collect_state``,
-``init_decode_state``, ``decode_step``) is A17b.
+frontends (A17e).
 
 Entry points take ``device=None`` (the card, raising without one) as the
 rest of the port does; the weights are drawn from an explicit
@@ -25,7 +37,7 @@ rest of the port does; the weights are drawn from an explicit
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -34,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import DeviceLike, resolve_device
-from .layers import F32, MLP, Attention, RMSNorm, attention, attn_qkv, mlp
+from .layers import (F32, MLP, Attention, RMSNorm, attention, attn_qkv,
+                     decode_attention, mlp)
 
 ATTN_KINDS = ("global", "local", "chunked")
 
@@ -73,7 +86,9 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     """The dense decoder; ``forward(batch) -> (logits, aux)`` with
     ``batch["tokens"]`` [B, L] integer ids and ``aux`` the auxiliary
-    loss, 0 for the dense kinds (MoE's load balance is A17c)."""
+    loss, 0 for the dense kinds (MoE's load balance is A17c);
+    ``forward(batch, collect_state=True, cache_len=S) -> (logits, aux,
+    state)`` is the prefill (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator]
                  = None, device: DeviceLike = None, dtype=F32):
@@ -100,27 +115,40 @@ class Decoder(nn.Module):
             for kind in cfg.pattern_for_all_layers())
         self.final_norm = RMSNorm(d, device, dtype)
 
-    def forward(self, batch: Mapping[str, torch.Tensor]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: Mapping[str, torch.Tensor],
+                collect_state: bool = False, cache_len: Optional[int] = None):
         cfg = self.cfg
         h = embed_inputs(cfg, self, batch)
-        pos = torch.arange(h.shape[1], device=h.device)
+        l = h.shape[1]
+        pos = torch.arange(l, device=h.device)
         per = len(cfg.layer_pattern)
+        s_cache = cache_len if cache_len is not None else l
+        caches = [[] for _ in range(per)]      # a pattern position's groups
         for g in range(cfg.n_groups):
             group = self.layers[g * per:(g + 1) * per]
-            if torch.is_grad_enabled():
+            if collect_state:
+                for j, lp in enumerate(group):
+                    h, kv = _apply_attn_layer(cfg, lp, h, pos, lp.kind)
+                    caches[j].append(_fill_kv_cache(
+                        kv, _cache_len(cfg, lp.kind, s_cache), l))
+            elif torch.is_grad_enabled():
                 h = checkpoint(_group_body, cfg, group, h, pos,
                                use_reentrant=False)
             else:
                 h = _group_body(cfg, group, h, pos)
         h = self.final_norm(h)
         aux = torch.zeros((), dtype=F32, device=h.device)
-        return unembed(cfg, self, h), aux
+        logits = unembed(cfg, self, h)
+        if collect_state:
+            state = tuple((torch.stack([kv[0] for kv in c]),
+                           torch.stack([kv[1] for kv in c])) for c in caches)
+            return logits, aux, state
+        return logits, aux
 
 
 def _group_body(cfg: ArchConfig, group, h, pos):
     for lp in group:
-        h = _apply_attn_layer(cfg, lp, h, pos, lp.kind)
+        h, _ = _apply_attn_layer(cfg, lp, h, pos, lp.kind)
     return h
 
 
@@ -180,6 +208,8 @@ def _apply_ffn(cfg: ArchConfig, lp: DecoderLayer, h):
 
 
 def _apply_attn_layer(cfg: ArchConfig, lp: DecoderLayer, h, pos, kind: str):
+    """One layer over the whole sequence; returns (h, (k, v)), the layer's
+    keys and values [B, L, KVH, hd] for the prefill's cache."""
     a_in = lp.ln1(h)
     q, k, v = attn_qkv(lp.attn, a_in, pos, n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
@@ -187,4 +217,95 @@ def _apply_attn_layer(cfg: ArchConfig, lp: DecoderLayer, h, pos, kind: str):
     o = attention(q, k, v, kind=kind, window=cfg.window)
     b, l = h.shape[:2]
     h = h + lp.attn.wo(o.reshape(b, l, -1))
-    return _apply_ffn(cfg, lp, h)
+    return _apply_ffn(cfg, lp, h), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ArchConfig, kind: str, s: int) -> int:
+    if kind == "global":
+        return s
+    return min(s, cfg.window)
+
+
+def _fill_kv_cache(kv, s_c: int, l: int):
+    """Pack prefill k/v [B, L, KVH, hd] into a rolling cache of length
+    s_c: zero slots after the prompt, or the prompt's last s_c positions
+    rolled by ``l % s_c``, so that position p sits in slot ``p % s_c``."""
+    def pack(a):
+        if s_c >= l:
+            return F.pad(a, (0, 0, 0, 0, 0, s_c - l))
+        return torch.roll(a[:, l - s_c:], l % s_c, dims=1)
+
+    return tuple(pack(a) for a in kv)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, s: int, dtype=F32,
+                      device: DeviceLike = None):
+    """Empty caches (decode from scratch) in the layout ``forward(...,
+    collect_state=True)`` gives: per pattern position, ``(k, v)`` zeros
+    ``[G, batch, S_c, KVH, hd]``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    states = []
+    for kind in cfg.layer_pattern:
+        shp = (cfg.n_groups, batch, _cache_len(cfg, kind, s), cfg.n_kv_heads,
+               cfg.hd)
+        states.append((torch.zeros(shp, dtype=dtype, device=dev),
+                       torch.zeros(shp, dtype=dtype, device=dev)))
+    return tuple(states)
+
+
+def _entry_positions(s_c: int, pos: torch.Tensor) -> torch.Tensor:
+    """Absolute position of each rolling-cache slot after writing at
+    ``pos``; negative values mark not-yet-written slots."""
+    slot = pos % s_c
+    i = torch.arange(s_c, device=pos.device)
+    return pos - ((slot - i) % s_c)
+
+
+def _decode_attn(cfg: ArchConfig, ap: Attention, h_in, kv_cache, pos, kind,
+                 wo: nn.Linear, out=None):
+    """Decode attention: h_in [B, 1, d_in]; returns (attn_out, cache).
+    The new key and value go into slot ``pos % S_c`` as a masked select
+    on the device (into ``out``'s two tensors where given)."""
+    k_c, v_c = kv_cache
+    s_c = k_c.shape[1]
+    q, k, v = attn_qkv(ap, h_in, pos[None], n_heads=cfg.n_heads,
+                       n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
+                       qk_norm=cfg.qk_norm)
+    slot_mask = (torch.arange(s_c, device=pos.device)
+                 == pos % s_c)[None, :, None, None]
+    if out is None:
+        k_c = torch.where(slot_mask, k.to(k_c.dtype), k_c)
+        v_c = torch.where(slot_mask, v.to(v_c.dtype), v_c)
+    else:
+        k_c = torch.where(slot_mask, k.to(k_c.dtype), k_c, out=out[0])
+        v_c = torch.where(slot_mask, v.to(v_c.dtype), v_c, out=out[1])
+    epos = _entry_positions(s_c, pos)[None, :]
+    o = decode_attention(q, k_c, v_c, epos, pos, kind=kind, window=cfg.window)
+    b = h_in.shape[0]
+    return wo(o.reshape(b, 1, -1)), (k_c, v_c)
+
+
+def decode_step(cfg: ArchConfig, model: Decoder, state, batch, pos):
+    """One decode step.  ``batch["tokens"]``: [B, 1]; ``pos``: the
+    absolute position, a 0-d integer tensor on the model's device (an int
+    is copied there).  Returns (logits [B, 1, V], new_state); ``state``
+    is left as it was."""
+    h = embed_inputs(cfg, model, batch)
+    pos = torch.as_tensor(pos, device=h.device)
+    per = len(cfg.layer_pattern)
+    new = tuple((torch.empty_like(k), torch.empty_like(v)) for k, v in state)
+    for g in range(cfg.n_groups):
+        for j in range(per):
+            lp = model.layers[g * per + j]
+            o, _ = _decode_attn(cfg, lp.attn, lp.ln1(h),
+                                (state[j][0][g], state[j][1][g]), pos,
+                                lp.kind, lp.attn.wo,
+                                out=(new[j][0][g], new[j][1][g]))
+            h = _apply_ffn(cfg, lp, h + o)
+    h = model.final_norm(h)
+    return unembed(cfg, model, h), new

@@ -262,7 +262,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert ROOT / "repro_torch" / "analysis" / "budgets.py" in files
     for lm in ("configs/base.py", "configs/qwen3_1_7b.py", "models/layers.py",
                "models/model.py", "train/data.py", "train/optimizer.py",
-               "train/train_step.py", "train/curated.py", "runtime/fault.py"):
+               "train/train_step.py", "train/curated.py", "runtime/fault.py",
+               "serve/lm.py", "launch/serve.py", "core/datasets.py"):
         assert ROOT / "repro_torch" / lm in files
     for f in files:
         for mod in _imports(f):
@@ -274,7 +275,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.analysis, repro_torch.api, "
             "repro_torch.convert, repro_torch.kernels.ops, repro_torch.serve, "
             "repro_torch.configs, repro_torch.models, repro_torch.train, "
-            "repro_torch.train.curated, repro_torch.runtime.fault; "
+            "repro_torch.train.curated, repro_torch.runtime.fault, "
+            "repro_torch.serve.lm, repro_torch.launch.serve, "
+            "repro_torch.core.datasets; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')]; print(bad); "
             "sys.exit(bool(bad))")
@@ -286,9 +289,6 @@ def test_importing_the_port_loads_no_jax():
 # Names of the JAX package's ``__all__`` lists that have no counterpart in
 # the port, each with its reason.
 JIT_ONLY = {
-    # A memoised jitted predict closure keyed on its trace shape; the
-    # port's predict is eager (a CUDA graph of a request is ROADMAP A20).
-    "get_predict_fn",
     # The metrics with a Pallas kernel; the port's are
     # ``repro_torch.kernels.ops.KERNEL_METRICS``.
     "PALLAS_METRICS",

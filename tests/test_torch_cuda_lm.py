@@ -10,6 +10,11 @@ CUDA device (decided inside the fixture, never at import).  Run on the
 card with ``python -m pytest --noconftest -m gpu
 tests/test_torch_cuda_lm.py``.
 
+Serving (``repro_torch.serve.lm``): prefill and greedy decode on the card
+against the CPU at reduced width, for the ``global``, ``local`` (a
+prompt of 24 over a window of 16: the cache rolls) and ``chunked`` kinds,
+decode logits within 1e-5·max|logits| and the greedy tokens equal.
+
 Tolerances: the logits within 1e-5·max|logits| and the losses within
 rtol 1e-5 (``chip_smoke.py`` phase 12 (e)).  A float32 dot product over
 d terms errs by at most d·2^-24 of its magnitude (``chip_smoke.py``
@@ -21,6 +26,7 @@ those in SWAP; every top-2 label names a medoid within ``tol`` of the
 nearest plain distance.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -33,6 +39,7 @@ from repro_torch.kernels import build_g, ops, pairwise, stream_g, swap_g
 from repro_torch.models import model as M
 from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.runtime.fault import FaultTolerantLoop
+from repro_torch.serve import lm
 from repro_torch.train import curated, init_opt_state, make_train_step
 from repro_torch.train.data import synthetic_batch
 
@@ -187,3 +194,50 @@ def test_curation_cuda_matches_torch_at_a_wide_pool(cuda):
     sizes = np.bincount(assign_c, minlength=K).astype(np.float32)
     np.testing.assert_allclose(w, (1.0 / sizes[assign_c]) / np.sum(
         1.0 / sizes[assign_c]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch,prompt", [("qwen3_1_7b", 32),
+                                         ("gemma3_12b", 24),
+                                         ("chunked", 28)])
+def test_decode_card_matches_cpu(cuda, arch, prompt):
+    if arch == "chunked":
+        cfg = dataclasses.replace(get_reduced("qwen3_1_7b"),
+                                  name="chunked-reduced",
+                                  layer_pattern=("chunked",), window=16)
+    else:
+        cfg = get_reduced(arch)
+    steps = 12
+    cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = synthetic_batch(cfg, 2, prompt, 0, device="cpu")["tokens"]
+    out = {}
+    for name, model, dev in (("cpu", cpu, torch.device("cpu")),
+                             ("card", card, cuda)):
+        logits, state = lm.make_prefill_step(cfg, prompt + steps + 1)(
+            model, {"tokens": toks.to(dev)})
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        tokens, _ = lm.greedy_decode(cfg, model, state, first, prompt, steps)
+        out[name] = (logits.cpu(), first.cpu(), tokens.cpu())
+    lim = 1e-5 * float(out["cpu"][0].abs().max())
+    assert float((out["card"][0] - out["cpu"][0]).abs().max()) <= lim
+    assert torch.equal(out["card"][1], out["cpu"][1])
+    assert torch.equal(out["card"][2], out["cpu"][2])
+    # Teacher-forced decode logits, card against CPU, every step.
+    seq = torch.cat([out["cpu"][1], out["cpu"][2]], dim=1)
+    states, step = {}, lm.make_decode_step(cfg)
+    for name, model, dev in (("cpu", cpu, torch.device("cpu")),
+                             ("card", card, cuda)):
+        states[name] = lm.make_prefill_step(cfg, prompt + steps + 1)(
+            model, {"tokens": toks.to(dev)})[1]
+    for i in range(steps):
+        got = {}
+        for name, model, dev in (("cpu", cpu, torch.device("cpu")),
+                                 ("card", card, cuda)):
+            lg, states[name] = step(model, states[name],
+                                    {"tokens": seq[:, i:i + 1].to(dev)},
+                                    torch.tensor(prompt + i, device=dev))
+            got[name] = lg.cpu()
+        lim = 1e-5 * float(got["cpu"].abs().max())
+        assert float((got["card"] - got["cpu"]).abs().max()) <= lim, i
