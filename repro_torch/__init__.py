@@ -12,7 +12,8 @@ hand-written CUDA kernels for ``sm_90a``:
 * ``runtime/`` — checkpoints and the fault-tolerant training loop;
 * ``analysis/`` — the runtime guard and the peak-memory budgets;
 * ``configs/``, ``models/``, ``train/`` — the LM data-curation path: the
-  architectures, the dense decoder, the data, AdamW, the train step and
+  architectures, the decoder (dense, MoE, Mamba-1, Mamba-2 and zamba2's
+  shared block), the data, AdamW, the train step and
   the curation driver (``python -m repro_torch.train.curated``);
 * ``serve/lm.py``, ``launch/`` — LM serving: prefill and KV-cache decode
   (``python -m repro_torch.launch.serve``);

@@ -27,19 +27,25 @@ module replays draws given as arrays:
   ``repro_torch.api.KMedoids.from_fitted(X, medoids, metric)``;
 * a JAX ``MedoidService`` crosses as its state tree, config and refit
   records (:func:`service_from_reference`);
-* the dense LM's parameters and AdamW state cross as their pytrees
+* the LM's parameters and AdamW state cross as their pytrees
   (``repro.models.model.init_params``, ``repro.train.init_opt_state``)
   given as numpy arrays (:func:`lm_params_from_reference`,
   :func:`opt_state_from_reference`).  ``params["groups"]`` holds one
   entry per pattern position, each leaf stacked ``[n_groups, ...]``, so
   layer ``i`` of a pattern of length P is ``groups[i % P][leaf][i // P]``;
-  a JAX ``x @ w`` weight ``[in, out]`` becomes the ``nn.Linear``
-  weight ``[out, in]``, its transpose;
+  zamba2's ``params["shared_attn"]`` is one unstacked block.  A JAX
+  ``x @ w`` weight ``[in, out]`` becomes the ``nn.Linear`` weight
+  ``[out, in]``, its transpose: the attention, MLP and dense-MLP
+  matrices and the SSM projections (``in_x``, ``in_z``, ``x_proj``,
+  ``dt_proj``, ``in_xbc``, ``in_dt``, ``out_proj``).  The MoE leaves
+  (``router``, ``wi``, ``wg``, ``wo``, batched-product operands), the
+  SSM ``conv_w`` [K, C] and every vector cross as they are;
 * a JAX decode state (``repro.models.model.forward(...,
   collect_state=True)`` or ``decode_step``'s, numpy leaves) crosses
-  unchanged in layout (:func:`lm_state_from_reference`): the port keeps
-  the tuple over pattern positions of ``(k, v)`` stacked
-  ``[G, B, S_c, KVH, hd]``.
+  unchanged in layout (:func:`lm_state_from_reference`): the tuple of
+  pairs stacked over the groups, ``(k, v)`` ``[G, B, S_c, KVH, hd]`` for
+  an attention cache and ``(conv, h)`` for an SSM state
+  (``models.model``'s docstring).
 """
 
 from __future__ import annotations
@@ -95,8 +101,9 @@ def service_from_reference(state_tree, config, refits=(),
     return MedoidService.from_state(cfg, state_tree, refits, device)
 
 
-# A dense layer's JAX leaves and their names in ``models.model.Decoder``;
-# True where the leaf is an ``x @ w`` matrix (transposed).
+# A layer's JAX leaves (and the shared block's) and their names in
+# ``models.model``; True where the leaf is an ``x @ w`` matrix
+# (transposed).  A layer has the leaves of its kind.
 _LAYER_LEAVES = (
     (("ln1",), "ln1.weight", False),
     (("ln2",), "ln2.weight", False),
@@ -109,8 +116,29 @@ _LAYER_LEAVES = (
     (("mlp", "wi"), "mlp.wi.weight", True),
     (("mlp", "wg"), "mlp.wg.weight", True),
     (("mlp", "wo"), "mlp.wo.weight", True),
+    (("dense", "wi"), "dense.wi.weight", True),
+    (("dense", "wg"), "dense.wg.weight", True),
+    (("dense", "wo"), "dense.wo.weight", True),
+    (("moe", "router"), "moe.router", False),
+    (("moe", "wi"), "moe.wi", False),
+    (("moe", "wg"), "moe.wg", False),
+    (("moe", "wo"), "moe.wo", False),
+    (("ln",), "ln.weight", False),
+    (("m", "in_x"), "m.in_x.weight", True),
+    (("m", "in_z"), "m.in_z.weight", True),
+    (("m", "in_xbc"), "m.in_xbc.weight", True),
+    (("m", "in_dt"), "m.in_dt.weight", True),
+    (("m", "conv_w"), "m.conv_w", False),
+    (("m", "conv_b"), "m.conv_b", False),
+    (("m", "x_proj"), "m.x_proj.weight", True),
+    (("m", "dt_proj"), "m.dt_proj.weight", True),
+    (("m", "dt_bias"), "m.dt_bias", False),
+    (("m", "A_log"), "m.A_log", False),
+    (("m", "D"), "m.D", False),
+    (("m", "norm_w"), "m.norm_w", False),
+    (("m", "out_proj"), "m.out_proj.weight", True),
 )
-_TOP_LEAVES = {"embed", "lm_head", "final_norm", "groups"}
+_TOP_LEAVES = {"embed", "lm_head", "final_norm", "groups", "shared_attn"}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -121,32 +149,60 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _paths(node, prefix=()):
+    """The leaf paths of a nested mapping."""
+    if isinstance(node, Mapping):
+        for key, child in node.items():
+            yield from _paths(child, prefix + (key,))
+    else:
+        yield prefix
+
+
+def _block_leaves(block: Mapping[str, Any], index, prefix: str,
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    """``block``'s leaves (their entry ``index`` where stacked, all of
+    them where ``index`` is None) under the port's names after
+    ``prefix``; raising on a leaf the table lacks."""
+    known = {path for path, _, _ in _LAYER_LEAVES}
+    extra = set(_paths(block)) - known
+    if extra:
+        raise ValueError(f"unknown LM layer leaves {sorted(extra)}")
+    out = {}
+    for path, name, matrix in _LAYER_LEAVES:
+        node = block
+        for key in path:
+            node = node.get(key) if isinstance(node, Mapping) else None
+        if node is None:
+            continue                    # another kind's leaf, or no qk-norm
+        a = np.asarray(node)
+        if index is not None:
+            a = a[index]
+        out[prefix + name] = _tensor(a.T if matrix else a, device)
+    return out
+
+
 def _lm_leaves(tree: Mapping[str, Any], device: torch.device
                ) -> Dict[str, torch.Tensor]:
     extra = set(tree) - _TOP_LEAVES
     if extra:
         raise NotImplementedError(
             f"LM parameters {sorted(extra)} are not ported yet (the "
-            f"frontends and the shared block: ROADMAP A17d, A17e)")
+            f"frontends: ROADMAP A17e)")
     out = {"embed.weight": _tensor(tree["embed"], device)}
     if "lm_head" in tree:
         out["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T, device)
     groups = tree["groups"]
     per = len(groups)
-    n_groups = len(np.asarray(groups[0]["ln1"]))
+    first = groups[0]
+    for key in next(_paths(groups[0])):
+        first = first[key]
+    n_groups = len(np.asarray(first))
     for i in range(per * n_groups):
-        lp = groups[i % per]
-        if "moe" in lp:
-            raise NotImplementedError("MoE layers are not ported yet "
-                                      "(ROADMAP A17c)")
-        for path, name, matrix in _LAYER_LEAVES:
-            node = lp
-            for key in path:
-                node = node.get(key) if isinstance(node, Mapping) else None
-            if node is None:
-                continue                    # no qk-norm
-            a = np.asarray(node)[i // per]
-            out[f"layers.{i}.{name}"] = _tensor(a.T if matrix else a, device)
+        out.update(_block_leaves(groups[i % per], i // per, f"layers.{i}.",
+                                 device))
+    if "shared_attn" in tree:
+        out.update(_block_leaves(tree["shared_attn"], None, "shared_attn.",
+                                 device))
     out["final_norm.weight"] = _tensor(tree["final_norm"], device)
     return out
 
@@ -154,7 +210,7 @@ def _lm_leaves(tree: Mapping[str, Any], device: torch.device
 def lm_params_from_reference(params: Mapping[str, Any],
                              device: DeviceLike = None
                              ) -> Dict[str, torch.Tensor]:
-    """The JAX dense LM's ``params`` (numpy leaves) as the port's
+    """The JAX LM's ``params`` (numpy leaves) as the port's
     parameters by name (``models.model.params_of``), on ``device`` (the
     card by default): ``model.load_state_dict(...)`` or
     ``models.model.load_params`` takes them."""
@@ -164,16 +220,16 @@ def lm_params_from_reference(params: Mapping[str, Any],
 def lm_state_from_reference(state: Sequence[Tuple[Any, Any]],
                             device: DeviceLike = None
                             ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
-    """A JAX dense LM's decode state (numpy leaves: per pattern position
-    ``(k, v)`` ``[G, B, S_c, KVH, hd]``) as the port's, on ``device`` (the
-    card by default): ``models.model.decode_step`` continues from it."""
+    """A JAX LM's decode state (numpy leaves: a tuple of pairs, each
+    stacked over the groups, ``models.model``'s layout) as the port's, on
+    ``device`` (the card by default): ``models.model.decode_step``
+    continues from it."""
     dev = resolve_device(device)
     out = []
     for entry in state:
-        if len(entry) != 2 or np.asarray(entry[0]).ndim != 5:
-            raise NotImplementedError(
-                "only attention caches are ported; the SSM states are "
-                "ROADMAP A17d")
+        if len(entry) != 2:
+            raise ValueError(f"a decode-state entry is a pair, not "
+                             f"{len(entry)} leaves")
         out.append(tuple(_tensor(a, dev) for a in entry))
     return tuple(out)
 

@@ -1,7 +1,7 @@
-"""The LM substrate's model (``repro.models``' counterpart): the dense
-decoder (``model``) on its building blocks (``layers``).  MoE (``moe``)
-and the SSM layers (``ssm``) are ROADMAP A17c and A17d."""
+"""The LM substrate's model (``repro.models``' counterpart): the decoder
+(``model``) on its building blocks: attention and the MLP (``layers``),
+the MoE layer (``moe``) and the Mamba-1 / Mamba-2 blocks (``ssm``)."""
 
-from . import layers, model
+from . import layers, model, moe, ssm
 
-__all__ = ["layers", "model"]
+__all__ = ["layers", "model", "moe", "ssm"]

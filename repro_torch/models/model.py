@@ -1,8 +1,18 @@
-"""The decoder stack (``repro.models.model``' counterpart) for the dense
-kinds: token embedding, one layer per entry of
-``ArchConfig.pattern_for_all_layers()`` (RMSNorm → GQA attention →
-RMSNorm → SwiGLU MLP, each with its residual), the final norm and the
-output head.
+"""The decoder stack (``repro.models.model``' counterpart): token
+embedding, one layer per entry of ``ArchConfig.pattern_for_all_layers()``,
+the final norm and the output head.  Layer kinds:
+
+* ``global`` / ``local`` / ``chunked``: RMSNorm → GQA attention →
+  RMSNorm → SwiGLU MLP, or with ``n_experts`` the MoE layer
+  (``models.moe``), plus a dense MLP beside it for arctic's
+  ``moe_dense_residual`` and llama4's ``shared_expert``;
+* ``mamba1`` / ``mamba2``: RMSNorm → the SSM block (``models.ssm``);
+* ``mamba2+shared_attn`` (zamba2): the Mamba-2 layer, then the one
+  weight-shared attention block (:class:`SharedAttn`, held once by the
+  decoder outside ``layers``) on ``concat[h, x_embed]``.
+
+``forward`` returns the logits and ``aux``, the sum of the MoE layers'
+load-balancing losses (0 without experts).
 
 The JAX package stacks the layers of each pattern position and scans
 over groups, with ``jax.checkpoint(..., nothing_saveable)`` on each
@@ -10,25 +20,28 @@ group; here :class:`Decoder` holds the layers in order and, while
 autograd records, runs each group (``len(cfg.layer_pattern)``
 consecutive layers) under ``torch.utils.checkpoint(use_reentrant=False)``:
 the group's activations are recomputed in the backward pass.  The model
-has no dropout and no random op, so the recomputation is exact.
+has no dropout and no random op, and the MoE dispatch is a function of
+its inputs, so the recomputation is exact.
 
 Decode state (the JAX layout, so that the two compare leaf for leaf): a
-tuple over the pattern positions, each ``(k, v)`` stacked over the groups
-``[G, B, S_c, KVH, hd]``; a ``global`` layer's cache holds ``cache_len``
-positions, a ``local`` / ``chunked`` layer's at most ``window`` and
-rolls (position p in slot ``p % S_c``).  ``Decoder.forward(batch,
-collect_state=True, cache_len=...)`` is the prefill: it runs the groups
-without recomputation and returns the caches with the logits;
-:func:`decode_step` takes one token a sequence at the absolute position
-``pos``, a 0-d tensor on the model's device, so that a decode loop reads
-nothing back from the card.  A cache entry's absolute position is
-recovered from ``pos`` (:func:`_entry_positions`), so no validity
-bookkeeping is stored.
+tuple with one entry per pattern position, and a second one after a
+``mamba2+shared_attn`` position's for the shared block's cache, each a
+pair stacked over the groups: an attention cache ``(k, v)`` ``[G, B,
+S_c, KVH, hd]``, ``global`` holding ``cache_len`` positions, ``local`` /
+``chunked`` at most ``window`` and rolling (position p in slot ``p %
+S_c``); a ``mamba1`` state ``(conv [G, B, K-1, di], h [G, B, di, st])``;
+a ``mamba2`` state ``(conv [G, B, K-1, di + 2·st], h [G, B, nh, hd,
+st])``, ``h`` in float32.  ``Decoder.forward(batch, collect_state=True,
+cache_len=...)`` is the prefill: it runs the groups without
+recomputation and returns the states with the logits; :func:`decode_step`
+takes one token a sequence at the absolute position ``pos``, a 0-d
+tensor on the model's device, writes the new state into tensors it
+allocates and reads nothing back from the card.  A cache entry's
+absolute position is recovered from ``pos`` (:func:`_entry_positions`),
+so no validity bookkeeping is stored.
 
-Not ported, each raising ``NotImplementedError`` at construction with
-its ROADMAP item: MoE layers (A17c), the ``mamba1`` / ``mamba2`` /
-``shared_attn`` kinds (A17d), the ``vision_stub`` / ``audio_stub``
-frontends (A17e).
+Not ported: the ``vision_stub`` / ``audio_stub`` frontends, raising
+``NotImplementedError`` at construction with their ROADMAP item (A17e).
 
 Entry points take ``device=None`` (the card, raising without one) as the
 rest of the port does; the weights are drawn from an explicit
@@ -37,7 +50,7 @@ rest of the port does; the weights are drawn from an explicit
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,22 +59,24 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import DeviceLike, resolve_device
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (F32, MLP, Attention, RMSNorm, attention, attn_qkv,
                      decode_attention, mlp)
 
 ATTN_KINDS = ("global", "local", "chunked")
 
 
+def is_attn_kind(kind: str) -> bool:
+    return kind in ATTN_KINDS
+
+
+def base_kind(kind: str) -> str:
+    return kind.split("+")[0]
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a part of ``cfg`` the port lacks."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP A17c)")
-    for kind in cfg.layer_pattern:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet "
-                f"(ROADMAP A17d)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
@@ -69,26 +84,57 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 
 class DecoderLayer(nn.Module):
-    """One dense layer: the JAX ``_init_layer`` tree ``ln1``, ``attn``,
-    ``ln2``, ``mlp``."""
+    """One layer: the JAX ``_init_layer`` tree.  An attention layer holds
+    ``ln1``, ``attn``, ``ln2`` and ``mlp``, or ``moe`` (with ``dense``
+    for ``moe_dense_residual`` / ``shared_expert``); a ``mamba1`` /
+    ``mamba2`` layer holds ``ln`` and ``m``."""
 
     def __init__(self, cfg: ArchConfig, kind: str, generator, device, dtype):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
-        self.ln1 = RMSNorm(d, device, dtype)
-        self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, d,
+        bk = base_kind(kind)
+        if is_attn_kind(bk):
+            self.ln1 = RMSNorm(d, device, dtype)
+            self.attn = Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, d,
+                                  cfg.qk_norm, generator, device, dtype)
+            self.ln2 = RMSNorm(d, device, dtype)
+            if cfg.n_experts > 0:
+                self.moe = moe_mod.MoE(d, cfg.d_ff, cfg.n_experts, generator,
+                                       device, dtype)
+                if cfg.moe_dense_residual or cfg.shared_expert:
+                    self.dense = MLP(d, cfg.d_ff, generator, device, dtype)
+            else:
+                self.mlp = MLP(d, cfg.d_ff, generator, device, dtype)
+        elif bk in ("mamba1", "mamba2"):
+            self.ln = RMSNorm(d, device, dtype)
+            block = ssm_mod.Mamba1 if bk == "mamba1" else ssm_mod.Mamba2
+            self.m = block(cfg, generator, device, dtype)
+        else:
+            raise ValueError(kind)
+
+
+class SharedAttn(nn.Module):
+    """zamba2's one weight-shared block (the JAX ``_init_shared_attn``):
+    ``ln1`` [2d] and attention from the ``2d`` inputs ``concat[h,
+    x_embed]`` back to d, ``ln2`` [d] and a SwiGLU MLP."""
+
+    def __init__(self, cfg: ArchConfig, generator, device, dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = RMSNorm(2 * d, device, dtype)
+        self.attn = Attention(2 * d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, d,
                               cfg.qk_norm, generator, device, dtype)
         self.ln2 = RMSNorm(d, device, dtype)
         self.mlp = MLP(d, cfg.d_ff, generator, device, dtype)
 
 
 class Decoder(nn.Module):
-    """The dense decoder; ``forward(batch) -> (logits, aux)`` with
-    ``batch["tokens"]`` [B, L] integer ids and ``aux`` the auxiliary
-    loss, 0 for the dense kinds (MoE's load balance is A17c);
-    ``forward(batch, collect_state=True, cache_len=S) -> (logits, aux,
-    state)`` is the prefill (module docstring)."""
+    """The decoder; ``forward(batch) -> (logits, aux)`` with
+    ``batch["tokens"]`` [B, L] integer ids and ``aux`` the MoE layers'
+    summed load-balancing loss (0 without experts); ``forward(batch,
+    collect_state=True, cache_len=S) -> (logits, aux, state)`` is the
+    prefill (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator]
                  = None, device: DeviceLike = None, dtype=F32):
@@ -113,57 +159,104 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, kind, generator, device, dtype)
             for kind in cfg.pattern_for_all_layers())
+        self.shared_attn: Optional[SharedAttn] = None
+        if any("shared_attn" in k for k in cfg.layer_pattern):
+            self.shared_attn = SharedAttn(cfg, generator, device, dtype)
         self.final_norm = RMSNorm(d, device, dtype)
 
     def forward(self, batch: Mapping[str, torch.Tensor],
                 collect_state: bool = False, cache_len: Optional[int] = None):
         cfg = self.cfg
         h = embed_inputs(cfg, self, batch)
+        x0 = h
         l = h.shape[1]
         pos = torch.arange(l, device=h.device)
         per = len(cfg.layer_pattern)
         s_cache = cache_len if cache_len is not None else l
-        caches = [[] for _ in range(per)]      # a pattern position's groups
+        aux = torch.zeros((), dtype=F32, device=h.device)
+        entries: List[List[Tuple[torch.Tensor, torch.Tensor]]] = [
+            [] for _ in state_kinds(cfg)]     # an entry's groups
         for g in range(cfg.n_groups):
             group = self.layers[g * per:(g + 1) * per]
             if collect_state:
-                for j, lp in enumerate(group):
-                    h, kv = _apply_attn_layer(cfg, lp, h, pos, lp.kind)
-                    caches[j].append(_fill_kv_cache(
-                        kv, _cache_len(cfg, lp.kind, s_cache), l))
+                h, aux, states = _group_body(cfg, group, self.shared_attn, h,
+                                             x0, pos, aux, s_cache)
+                for e, st in zip(entries, states):
+                    e.append(st)
             elif torch.is_grad_enabled():
-                h = checkpoint(_group_body, cfg, group, h, pos,
-                               use_reentrant=False)
+                h, aux = checkpoint(_group_body, cfg, group, self.shared_attn,
+                                    h, x0, pos, aux, use_reentrant=False)
             else:
-                h = _group_body(cfg, group, h, pos)
+                h, aux = _group_body(cfg, group, self.shared_attn, h, x0, pos,
+                                     aux)
         h = self.final_norm(h)
-        aux = torch.zeros((), dtype=F32, device=h.device)
         logits = unembed(cfg, self, h)
         if collect_state:
-            state = tuple((torch.stack([kv[0] for kv in c]),
-                           torch.stack([kv[1] for kv in c])) for c in caches)
+            state = tuple((torch.stack([st[0] for st in e]),
+                           torch.stack([st[1] for st in e])) for e in entries)
             return logits, aux, state
         return logits, aux
 
 
-def _group_body(cfg: ArchConfig, group, h, pos):
+def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The kind of each decode-state entry, in order: a pattern
+    position's base kind, and ``"shared"`` after a ``+shared_attn``
+    position's (the shared block's global cache)."""
+    out = []
+    for kind in cfg.layer_pattern:
+        out.append(base_kind(kind))
+        if "shared_attn" in kind:
+            out.append("shared")
+    return tuple(out)
+
+
+def _group_body(cfg: ArchConfig, group, shared, h, x0, pos, aux,
+                s_cache: Optional[int] = None):
+    """One group of layers over the whole sequence; returns (h, aux), and
+    with ``s_cache`` (the prefill) also the group's decode-state entries
+    for caches of ``s_cache`` positions."""
+    l = h.shape[1]
+    states = []
     for lp in group:
-        h, _ = _apply_attn_layer(cfg, lp, h, pos, lp.kind)
-    return h
+        bk = base_kind(lp.kind)
+        if is_attn_kind(bk):
+            h, kv, a = _apply_attn_layer(cfg, lp, h, pos, bk)
+            if a is not None:
+                aux = aux + a
+            if s_cache is not None:
+                states.append(_fill_kv_cache(kv, _cache_len(cfg, bk, s_cache),
+                                             l))
+        else:
+            m_in = lp.ln(h)
+            fwd = (ssm_mod.mamba1_prefill if bk == "mamba1"
+                   else ssm_mod.mamba2_prefill)
+            y, st = fwd(lp.m, m_in)
+            h = h + y
+            if s_cache is not None:
+                states.append(st)
+        if "shared_attn" in lp.kind:
+            h, kv = _apply_shared_attn(cfg, shared, h, x0, pos)
+            if s_cache is not None:
+                states.append(_fill_kv_cache(
+                    kv, _cache_len(cfg, "global", s_cache), l))
+    if s_cache is not None:
+        return h, aux, states
+    return h, aux
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, dtype=F32) -> Decoder:
-    """The model for ``cfg`` with N(0, 1/fan_in) weights from
-    ``generator`` (on ``device``, the card by default) and unit norms,
-    the JAX ``init_params``' distributions."""
+    """The model for ``cfg`` with the JAX ``init_params``' distributions,
+    drawn from ``generator`` (on ``device``, the card by default): N(0,
+    1/fan_in) matrices, unit norms and the SSM blocks' fixed leaves."""
     return Decoder(cfg, generator, device, dtype)
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The ndim of parameter ``name``'s leaf in the JAX tree, which
     stacks every leaf of the decoder layers (``Decoder.layers``) over the
-    groups, ``[n_groups, ...]``: one axis more than ``p`` there."""
+    groups, ``[n_groups, ...]``: one axis more than ``p`` there.  The
+    shared block (``shared_attn.``) is not stacked."""
     return p.ndim + 1 if name.startswith("layers.") else p.ndim
 
 
@@ -204,12 +297,23 @@ def unembed(cfg: ArchConfig, model: Decoder, h: torch.Tensor
 
 
 def _apply_ffn(cfg: ArchConfig, lp: DecoderLayer, h):
-    return h + mlp(lp.mlp, lp.ln2(h))
+    """The layer's second half: (h + FFN(ln2(h)), aux), the FFN the MLP
+    or the MoE layer (plus the dense MLP beside it where the layer has
+    one), aux the MoE layer's load-balancing loss (None for an MLP)."""
+    f_in = lp.ln2(h)
+    if cfg.n_experts > 0:
+        y, aux = moe_mod.moe_layer(lp.moe, f_in, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+        if hasattr(lp, "dense"):
+            y = y + mlp(lp.dense, f_in)
+        return h + y, aux
+    return h + mlp(lp.mlp, f_in), None
 
 
 def _apply_attn_layer(cfg: ArchConfig, lp: DecoderLayer, h, pos, kind: str):
-    """One layer over the whole sequence; returns (h, (k, v)), the layer's
-    keys and values [B, L, KVH, hd] for the prefill's cache."""
+    """One layer over the whole sequence; returns (h, (k, v), aux): the
+    layer's keys and values [B, L, KVH, hd] for the prefill's cache and
+    ``_apply_ffn``'s aux."""
     a_in = lp.ln1(h)
     q, k, v = attn_qkv(lp.attn, a_in, pos, n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
@@ -217,7 +321,22 @@ def _apply_attn_layer(cfg: ArchConfig, lp: DecoderLayer, h, pos, kind: str):
     o = attention(q, k, v, kind=kind, window=cfg.window)
     b, l = h.shape[:2]
     h = h + lp.attn.wo(o.reshape(b, l, -1))
-    return _apply_ffn(cfg, lp, h), (k, v)
+    h, aux = _apply_ffn(cfg, lp, h)
+    return h, (k, v), aux
+
+
+def _apply_shared_attn(cfg: ArchConfig, sp: SharedAttn, h, x0, pos):
+    """The shared block over the whole sequence on ``concat[h, x0]``;
+    returns (h, (k, v))."""
+    a_in = sp.ln1(torch.cat([h, x0], dim=-1))
+    q, k, v = attn_qkv(sp.attn, a_in, pos, n_heads=cfg.n_heads,
+                       n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
+                       qk_norm=cfg.qk_norm)
+    o = attention(q, k, v, kind="global", window=cfg.window)
+    b, l = h.shape[:2]
+    h = h + sp.attn.wo(o.reshape(b, l, -1))
+    h = h + mlp(sp.mlp, sp.ln2(h))
+    return h, (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -244,17 +363,28 @@ def _fill_kv_cache(kv, s_c: int, l: int):
 
 def init_decode_state(cfg: ArchConfig, batch: int, s: int, dtype=F32,
                       device: DeviceLike = None):
-    """Empty caches (decode from scratch) in the layout ``forward(...,
-    collect_state=True)`` gives: per pattern position, ``(k, v)`` zeros
-    ``[G, batch, S_c, KVH, hd]``."""
+    """Empty states (decode from scratch) in the layout ``forward(...,
+    collect_state=True)`` gives (module docstring): zeros, the SSM ``h``
+    in float32 and the rest in ``dtype``."""
     _check_ported(cfg)
     dev = resolve_device(device)
+    g, kvh, hd = cfg.n_groups, cfg.n_kv_heads, cfg.hd
+    di, st, k = cfg.di, cfg.ssm_state, cfg.ssm_conv
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((g, batch) + shape, dtype=dt, device=dev)
+
     states = []
-    for kind in cfg.layer_pattern:
-        shp = (cfg.n_groups, batch, _cache_len(cfg, kind, s), cfg.n_kv_heads,
-               cfg.hd)
-        states.append((torch.zeros(shp, dtype=dtype, device=dev),
-                       torch.zeros(shp, dtype=dtype, device=dev)))
+    for kind in state_kinds(cfg):
+        if kind == "mamba1":
+            states.append((zeros(k - 1, di), zeros(di, st, dt=F32)))
+        elif kind == "mamba2":
+            nh = di // cfg.ssm_head_dim
+            states.append((zeros(k - 1, di + 2 * st),
+                           zeros(nh, cfg.ssm_head_dim, st, dt=F32)))
+        else:
+            s_c = _cache_len(cfg, "global" if kind == "shared" else kind, s)
+            states.append((zeros(s_c, kvh, hd), zeros(s_c, kvh, hd)))
     return tuple(states)
 
 
@@ -294,18 +424,39 @@ def decode_step(cfg: ArchConfig, model: Decoder, state, batch, pos):
     """One decode step.  ``batch["tokens"]``: [B, 1]; ``pos``: the
     absolute position, a 0-d integer tensor on the model's device (an int
     is copied there).  Returns (logits [B, 1, V], new_state); ``state``
-    is left as it was."""
+    is left as it was.  An MoE layer routes the step's B tokens at the
+    capacity of B tokens (the JAX semantics)."""
     h = embed_inputs(cfg, model, batch)
+    x0 = h
     pos = torch.as_tensor(pos, device=h.device)
     per = len(cfg.layer_pattern)
-    new = tuple((torch.empty_like(k), torch.empty_like(v)) for k, v in state)
+    shared = model.shared_attn
+    new = tuple((torch.empty_like(a), torch.empty_like(b)) for a, b in state)
     for g in range(cfg.n_groups):
+        ci = 0
         for j in range(per):
             lp = model.layers[g * per + j]
-            o, _ = _decode_attn(cfg, lp.attn, lp.ln1(h),
-                                (state[j][0][g], state[j][1][g]), pos,
-                                lp.kind, lp.attn.wo,
-                                out=(new[j][0][g], new[j][1][g]))
-            h = _apply_ffn(cfg, lp, h + o)
+            bk = base_kind(lp.kind)
+            cur = (state[ci][0][g], state[ci][1][g])
+            out = (new[ci][0][g], new[ci][1][g])
+            if is_attn_kind(bk):
+                o, _ = _decode_attn(cfg, lp.attn, lp.ln1(h), cur, pos, bk,
+                                    lp.attn.wo, out=out)
+                h, _ = _apply_ffn(cfg, lp, h + o)
+            else:
+                dec = (ssm_mod.mamba1_decode if bk == "mamba1"
+                       else ssm_mod.mamba2_decode)
+                y, _ = dec(lp.m, lp.ln(h), cur, out=out)
+                h = h + y
+            ci += 1
+            if "shared_attn" in lp.kind:
+                a_in = shared.ln1(torch.cat([h, x0], dim=-1))
+                o, _ = _decode_attn(cfg, shared.attn, a_in,
+                                    (state[ci][0][g], state[ci][1][g]), pos,
+                                    "global", shared.attn.wo,
+                                    out=(new[ci][0][g], new[ci][1][g]))
+                h = h + o
+                h = h + mlp(shared.mlp, shared.ln2(h))
+                ci += 1
     h = model.final_norm(h)
     return unembed(cfg, model, h), new

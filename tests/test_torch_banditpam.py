@@ -253,7 +253,7 @@ def test_port_imports_neither_jax_nor_reference_package():
     port's checkpoint manifest is JSON)."""
     files = sorted((ROOT / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-        ROOT / "chip_sync_probe.py"]
+        ROOT / "chip_sync_probe.py", ROOT / "chip_lm_spread.py"]
     assert len(files) > 15
     assert ROOT / "repro_torch" / "core" / "batch.py" in files
     assert ROOT / "repro_torch" / "core" / "distributed.py" in files
@@ -261,7 +261,8 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert ROOT / "repro_torch" / "analysis" / "guard.py" in files
     assert ROOT / "repro_torch" / "analysis" / "budgets.py" in files
     for lm in ("configs/base.py", "configs/qwen3_1_7b.py", "models/layers.py",
-               "models/model.py", "train/data.py", "train/optimizer.py",
+               "models/model.py", "models/moe.py", "models/ssm.py",
+               "train/data.py", "train/optimizer.py",
                "train/train_step.py", "train/curated.py", "runtime/fault.py",
                "serve/lm.py", "launch/serve.py", "core/datasets.py"):
         assert ROOT / "repro_torch" / lm in files

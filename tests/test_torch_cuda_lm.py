@@ -12,8 +12,13 @@ tests/test_torch_cuda_lm.py``.
 
 Serving (``repro_torch.serve.lm``): prefill and greedy decode on the card
 against the CPU at reduced width, for the ``global``, ``local`` (a
-prompt of 24 over a window of 16: the cache rolls) and ``chunked`` kinds,
-decode logits within 1e-5·max|logits| and the greedy tokens equal.
+prompt of 24 over a window of 16: the cache rolls) and ``chunked`` kinds
+and the MoE (arctic top-2 with the dense residual, llama4 top-1 with the
+shared expert), Mamba-1 (falcon-mamba) and hybrid (zamba2: Mamba-2 and
+the shared attention block) families, decode logits within
+1e-5·max|logits| and the greedy tokens equal; and one decode step of
+each family under ``torch.cuda.set_sync_debug_mode("error")``, which
+raises on any synchronisation.
 
 Tolerances: the logits within 1e-5·max|logits| and the losses within
 rtol 1e-5 (``chip_smoke.py`` phase 12 (e)).  A float32 dot product over
@@ -196,9 +201,13 @@ def test_curation_cuda_matches_torch_at_a_wide_pool(cuda):
         1.0 / sizes[assign_c]), rtol=1e-6)
 
 
+FAMILIES = (("arctic_480b", 12), ("llama4_scout_17b", 28),
+            ("falcon_mamba_7b", 12), ("zamba2_2_7b", 12))
+
+
 @pytest.mark.parametrize("arch,prompt", [("qwen3_1_7b", 32),
                                          ("gemma3_12b", 24),
-                                         ("chunked", 28)])
+                                         ("chunked", 28), *FAMILIES])
 def test_decode_card_matches_cpu(cuda, arch, prompt):
     if arch == "chunked":
         cfg = dataclasses.replace(get_reduced("qwen3_1_7b"),
@@ -241,3 +250,27 @@ def test_decode_card_matches_cpu(cuda, arch, prompt):
             got[name] = lg.cpu()
         lim = 1e-5 * float(got["cpu"].abs().max())
         assert float((got["card"] - got["cpu"]).abs().max()) <= lim, i
+
+
+@pytest.mark.parametrize("arch,prompt", FAMILIES)
+def test_decode_step_does_not_sync(cuda, arch, prompt):
+    """After a prefill, a decode step of each family (MoE dispatch, the
+    SSM recurrences, the shared block) reads nothing back from the card:
+    under sync debug mode "error" any synchronisation raises."""
+    cfg = get_reduced(arch)
+    model = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                          device=cuda)
+    toks = synthetic_batch(cfg, 2, prompt, 0, device=cuda)["tokens"]
+    logits, state = lm.make_prefill_step(cfg, prompt + 4)(model,
+                                                          {"tokens": toks})
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    pos = torch.full((), prompt, dtype=torch.int64, device=cuda)
+    step = lm.make_decode_step(cfg)
+    step(model, state, {"tokens": tok}, pos)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, _ = step(model, state, {"tokens": tok}, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(lg).all())

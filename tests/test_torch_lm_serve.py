@@ -11,7 +11,17 @@ by ``convert.lm_params_from_reference``) and the same prompts
   ``global``, with a prompt of 8 (the local cache not yet full) and of
   24 (the local cache rolled by ``24 % 16``);
 * a reduced config whose ``layer_pattern`` is ``("chunked",)``, window
-  16, with a prompt of 28: decoding crosses the chunk boundary at 32.
+  16, with a prompt of 28: decoding crosses the chunk boundary at 32;
+* ``arctic_480b`` reduced: MoE top-2 with the dense residual MLP, a
+  prompt of 12;
+* ``llama4_scout_17b`` reduced: MoE top-1 with the shared expert, three
+  ``chunked`` layers (window 32) and a ``global`` one, a prompt of 28
+  (decoding crosses the chunk boundary at 32).  The prefill routes
+  B·L = 56 tokens at 24 slots an expert, so assignments may be dropped
+  there as in the JAX layer; a decode step routes B = 2 tokens at 8;
+* ``falcon_mamba_7b`` reduced: two Mamba-1 layers, a prompt of 12;
+* ``zamba2_2_7b`` reduced: five Mamba-2 layers and a sixth followed by
+  the shared attention block, a prompt of 12.
 
 Each decode runs until at least 6 steps past the window.  Tolerances:
 logits within 1e-5·max|logits| (the forward's standard,
@@ -52,7 +62,12 @@ WINDOW_PAST = 6
 # name -> (arch, prompt length); "chunked" is qwen3's reduced config with
 # one chunked layer kind.
 CASES = {"global": ("qwen3_1_7b", 12), "local_short": ("gemma3_12b", 8),
-         "local_rolled": ("gemma3_12b", 24), "chunked": ("chunked", 28)}
+         "local_rolled": ("gemma3_12b", 24), "chunked": ("chunked", 28),
+         "moe_arctic": ("arctic_480b", 12),
+         "moe_llama4": ("llama4_scout_17b", 28),
+         "mamba1": ("falcon_mamba_7b", 12), "hybrid": ("zamba2_2_7b", 12)}
+FAMILIES = ("arctic_480b", "llama4_scout_17b", "falcon_mamba_7b",
+            "zamba2_2_7b")
 
 
 @pytest.fixture(autouse=True)
@@ -198,6 +213,24 @@ def test_init_decode_state_layout():
         assert gk.dtype == torch.float32 and not gk.any() and not gv.any()
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_init_decode_state_layout_by_family(arch):
+    """One entry per pattern position and one more after a
+    ``+shared_attn`` position's, leaf shapes and dtypes equal to the JAX
+    layout's at the model dtype bfloat16 (the SSM ``h`` stays float32),
+    every leaf zero."""
+    cfg, jcfg = _configs(arch)
+    want = JM.init_decode_state(jcfg, BATCH, 40, dtype=jnp.bfloat16)
+    got = M.init_decode_state(cfg, BATCH, 40, dtype=torch.bfloat16,
+                              device="cpu")
+    assert len(got) == len(want) == len(M.state_kinds(cfg))
+    for g_e, w_e in zip(got, want):
+        for g, w in zip(g_e, w_e):
+            assert tuple(g.shape) == w.shape
+            assert str(g.dtype).split(".")[1] == str(w.dtype)
+            assert not g.any()
+
+
 # ---------------------------------------------------------------------------
 # prefill, decode, greedy
 # ---------------------------------------------------------------------------
@@ -305,7 +338,7 @@ def test_entry_points_default_to_the_card():
             M.init_decode_state(cfg, BATCH, 16, device="cpu"))
 
 
-@pytest.mark.parametrize("arch", ["arctic_480b", "falcon_mamba_7b"])
+@pytest.mark.parametrize("arch", ["phi3_vision_4_2b", "musicgen_large"])
 def test_unported_decode_states_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A17"):
         M.init_decode_state(configs.get_reduced(arch), BATCH, 16,

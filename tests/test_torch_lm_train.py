@@ -1,7 +1,9 @@
 """The port's LM training (``repro_torch.train.optimizer``,
 ``train_step``, ``runtime.fault``) held against the live JAX package on
 the CPU at ``get_reduced("qwen3_1_7b")``, B = 2, L = 32, on the same
-numpy parameters, gradients and optimizer state.
+numpy parameters, gradients and optimizer state; the loss and gradients
+also at the reduced MoE (arctic, llama4), Mamba-1 (falcon-mamba) and
+hybrid (zamba2) configs, the MoE loss with its load-balancing term.
 
 AdamW's first step moves a weight by about ``lr·sign(g)``, so a
 gradient that is +1e-9 in one package and -1e-9 in the other moves it by
@@ -59,8 +61,8 @@ def _port(tree):
     return convert.lm_params_from_reference(_np(tree), device="cpu")
 
 
-def _model_from(params):
-    model = M.init_params(_cfgs()[0], device="cpu")
+def _model_from(params, cfg=None):
+    model = M.init_params(cfg or _cfgs()[0], device="cpu")
     model.load_state_dict(_port(params))
     return model
 
@@ -154,19 +156,34 @@ def _jax_grads(jcfg, params, batch, microbatches):
                                               g_sum)
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_loss_and_gradients_match(microbatches):
-    cfg, jcfg = _cfgs()
+FAMILIES = ("arctic_480b", "llama4_scout_17b", "falcon_mamba_7b",
+            "zamba2_2_7b")
+
+
+@pytest.mark.parametrize("microbatches,arch", [
+    pytest.param(1, ARCH, id="1"), pytest.param(2, ARCH, id="2"),
+    *(pytest.param(mb, a, id=f"{a}-{mb}") for a in FAMILIES
+      for mb in (1, 2))])
+def test_loss_and_gradients_match(microbatches, arch):
+    cfg, jcfg = configs.get_reduced(arch), jconfigs.get_reduced(arch)
     params = JM.init_params(jcfg, jax.random.PRNGKey(1), dtype=jnp.float32)
     batch = synthetic_batch(cfg, BATCH, SEQ, 5, device="cpu")
     jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
     jloss, jgrads = jax.jit(lambda p, b: _jax_grads(jcfg, p, b, microbatches))(
         params, jbatch)
-    model = _model_from(params)
+    model = _model_from(params, cfg)
     loss, aux, grads = train_step.accumulate_grads(cfg, model, batch,
                                                    microbatches)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4)
-    assert float(aux["ce"]) == float(loss) and float(aux["aux"]) == 0.0
+    if cfg.n_experts and microbatches == 1:
+        # The JAX loss_fn's own split of the loss.
+        _, jaux = jtrain.loss_fn(jcfg, params, jbatch)
+        np.testing.assert_allclose(float(aux["aux"]), float(jaux["aux"]),
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(aux["ce"]), float(jaux["ce"]),
+                                   rtol=1e-4)
+    else:
+        assert float(aux["ce"]) == float(loss) and float(aux["aux"]) == 0.0
     want = _port(jgrads)
     assert grads.keys() == want.keys()
     for k in want:
