@@ -117,7 +117,8 @@ Phases, each of which raises (exit code != 0) on any failure:
    (``solver_kernel_times``) ``pairwise``, ``swap_g_from_cache`` and
    ``stream_swap_g`` at the shapes these solvers give them, each held
    to its plain version with phase 3's tolerances and timed beside it.
-   The phase prints its wall.
+   (c) and (d) run in a process of their own beside phase 11 (a)
+   (``PARTS``); the phase prints its wall without them.
 7. the serving layer (``serve_path``, ``serve_parity``):
    ``MedoidService(10, "l2")`` on the card with the JAX service's
    defaults, fitted on the main path's 60,000 rows; 200 predict requests
@@ -187,9 +188,10 @@ Phases, each of which raises (exit code != 0) on any failure:
    ``code_blobs``, ``reuse="none"`` and ``"pic"``, cuda and torch:
    every rank's report identical, cuda's medoids, swaps, build rounds,
    fallbacks and loss those of torch, the ledger within (b)'s allowance
-   on ``code_blobs`` (logged only on the 8,000 rows).  Every process
-   group has a timeout and is destroyed at the phase's end.  All
-   raising; the phase prints its wall.
+   on ``code_blobs`` (logged only on the 8,000 rows); (c) runs in a
+   process of its own beside phase 11 (a) (``PARTS``).  Every process
+   group has a timeout and is destroyed at its part's end.  All
+   raising; the phase prints its wall without (c).
 10. the tile tuner (``tile_paths``, ``repro_torch/core/tuning.py``;
    ``[tiles]`` lines): (a) every compiled shape of every kernel against
    the default shape's bits (the shape the unchanged ``rt_*`` entries
@@ -224,8 +226,13 @@ Phases, each of which raises (exit code != 0) on any failure:
    their stepped twins' loops; (b) every budget key of
    ``analysis/budgets.py`` measured at its canonical shapes: the entry
    point's peak temporaries under its bound, its materialised form over
-   it, beside the JAX bound where the key carries one over.  All
-   raising; the phase prints its wall.
+   it, beside the JAX bound where the key carries one over.  (b), phase
+   6 (c) and (d) and phase 9 (c) run beside (a), each a process of its
+   own (``python3 chip_smoke.py --part NAME``, ``PARTS``: checks whose
+   figures are not times, and a peak of temporaries is a process's own),
+   their output printed after (a)'s; a part that fails or runs past 600
+   s raises, and every part's process is ended before the phase ends.
+   All raising; the phase prints (a)'s wall and its own.
 12. the LM curation path (``lm_paths``, ``repro_torch/configs``,
    ``models``, ``train``, ``runtime/fault.py``; ``[lm]`` lines): (a)
    ``get_config("qwen3_1_7b")`` at its full width, float32, initialised
@@ -304,6 +311,35 @@ Phases, each of which raises (exit code != 0) on any failure:
    ends with its whole wall.  The phase launches none of the hand-written
    kernels: the JAX package runs MoE dispatch, the scans and SSD in plain
    ``jnp`` outside any Pallas kernel.
+16. the frontends and the compressed train step (``lm_frontends``,
+   ROADMAP A17e; ``[lm-frontend]`` lines), one model at a time, each
+   freed before the next, float32, initialised on the card from a seeded
+   ``torch.Generator``: (a) phi-3-vision-4.2B at its published widths
+   and depth (32 layers, d 3072, 32 heads, d_ff 8192, vocab 32,064,
+   ``vision_proj`` [3072 x 3072]), 8 prompts of 576 patch embeddings
+   (``threefry.normal`` draws on the card) and 64 text tokens prefilled
+   into states of 656 positions, then 16 greedy text steps; (b)
+   musicgen-large (48 layers, d 2048, vocab 2,048 x 4 codebooks), 8 x 64
+   x 4 code prompts into states of 80, 16 greedy steps taken per
+   codebook; each held to the model's full forward with phase 15's rule,
+   with prefill ms, decode p50 / p99 ms, tokens/s and
+   ``max_memory_allocated`` beside the card's name and power limit, and
+   (e) one decode step under ``torch.cuda.set_sync_debug_mode("error")``;
+   (c) the reduced configs of both card against CPU on the same weights
+   (greedy tokens equal, logits within 1e-5·max|logits|; a train step's
+   loss within rtol 1e-4 and gradients within rtol 1e-4, atol 1e-6),
+   and ``patch_emb`` drawn on the card against the CPU draw at the
+   reduced shape and at (a)'s [8, 576, 3072], 0 ulps apart; (d) the int8
+   error-feedback compressed step (``train.compressed``) at qwen3-1.7B's
+   width, 8 x 64, world size 1 on nccl, 4 steps beside 4 uncompressed
+   ones from the same weights: every leaf of the JAX tree all-gathered
+   as one int8 tensor and its scale, the last losses within 5 %, step
+   walls and peaks; then, at that width cut to 4 layers, the compressed
+   step in lockstep with its replay (the plain step fed each stacked
+   leaf's quantized-then-dequantized gradient, the residual carried),
+   parameters, residuals and moments equal bit for bit after each of 4
+   steps.  All raising; the phase
+   launches none of the hand-written kernels.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -432,6 +468,92 @@ def smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# Parts that run in a process of their own on the card while phase 11 (a)
+# runs (``start_parts`` / ``finish_parts``): each is a check that needs no
+# state of this process and whose figures are not times, so a concurrent
+# fit does not change them (peak temporaries are per process).
+PARTS = ("solver_parity", "dist_ranks", "budgets")
+
+
+def run_part(name: str) -> int:
+    """``python3 chip_smoke.py --part NAME``: one part of ``PARTS`` alone
+    (the kernels as the parent built them), raising on a failure."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    from repro_torch.kernels import build
+    build.lib()
+    t0 = time.perf_counter()
+    if name == "solver_parity":
+        solver_parity(torch, dev)
+    elif name == "dist_ranks":
+        from repro_torch.core.datasets import mnist_like
+        dist_ranks(torch, mnist_like(N_FIT + N_QUERY, seed=0))
+    elif name == "budgets":
+        guard_budgets(torch, dev, smi())
+    else:
+        raise ValueError(f"no part {name!r}")
+    log(f"[part] {name}: {time.perf_counter() - t0:.1f} s in its own "
+        f"process")
+    return 0
+
+
+def start_parts():
+    """Start every part of ``PARTS``, each ``python3 chip_smoke.py --part
+    NAME`` in a process of its own, its output into a temporary file (a
+    pipe would stall a part whose output outgrew it while another is
+    awaited); returns the processes and their files."""
+    import tempfile
+    procs = {}
+    for name in PARTS:
+        out = tempfile.TemporaryFile(mode="w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--part",
+             name], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            text=True), out)
+    return procs, time.perf_counter()
+
+
+def stop_parts(started) -> None:
+    """End every part still running and close its output file."""
+    for p, out in started[0].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        out.close()
+
+
+def finish_parts(started, timeout: float = 600.0):
+    """Wait for the parts, print each one's output in ``PARTS``' order,
+    and raise if one failed or ran past ``timeout`` s; every process is
+    ended before returning."""
+    procs, t0 = started
+    failed = []
+    try:
+        for name in PARTS:
+            p, out = procs[name]
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                failed.append(f"{name} (past {timeout} s)")
+            out.seek(0)
+            for line in out.read().splitlines():
+                log(line)
+            if p.returncode:
+                failed.append(f"{name} (exit {p.returncode})")
+    finally:
+        stop_parts(started)
+    log(f"[part] {', '.join(PARTS)} done {time.perf_counter() - t0:.1f} s "
+        f"after their start")
+    if failed:
+        raise AssertionError(f"parts failed: {failed}")
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -2872,8 +2994,9 @@ def dist_paths(torch, X, dev, Xnp, pam_fit):
     (``profile_fit``: busy and idle share, device time by kernel, host
     time by operator), the kernels at (a)'s shapes and
     (b) on one nccl rank (the group destroyed at the phase's end, raising
-    or not), then (c) on two spawned gloo ranks.  Returns (a)'s launch
-    counts and its resident reports by reuse mode."""
+    or not); (c), on two spawned gloo ranks, runs beside phase 11
+    (``PARTS``).  Returns (a)'s launch counts and its resident reports by
+    reuse mode."""
     import torch.distributed as dist
     _dist_world1()
     try:
@@ -2884,7 +3007,6 @@ def dist_paths(torch, X, dev, Xnp, pam_fit):
         dist_parity(torch, dev)
     finally:
         dist.destroy_process_group()
-    dist_ranks(torch, Xnp)
     return counts, reports
 
 
@@ -3428,11 +3550,20 @@ def guard_budgets(torch, dev, card):
 
 
 def guard_paths(torch, dev, Xnp, card, dist_reports):
-    """Phase 11: (a), (b)."""
+    """Phase 11: (a) in this process while the parts of ``PARTS`` (phase
+    6 (c) and (d), phase 9 (c) and phase 11 (b)) run in processes of
+    their own beside it."""
     t0 = time.perf_counter()
-    guard_fits(torch, Xnp, dist_reports)
-    guard_budgets(torch, dev, card)
-    log(f"[guard] phase 11 wall {time.perf_counter() - t0:.1f} s")
+    started = start_parts()
+    try:
+        guard_fits(torch, Xnp, dist_reports)
+    except BaseException:
+        stop_parts(started)
+        raise
+    log(f"[guard] (a) wall {time.perf_counter() - t0:.1f} s")
+    finish_parts(started)
+    log(f"[guard] phase 11 wall {time.perf_counter() - t0:.1f} s (with the "
+        f"parts)")
 
 
 # Phase 12: the LM curation path (ROADMAP A17a) at qwen3-1.7B's width.
@@ -3795,9 +3926,11 @@ def _logit_err(got, want):
             1e-5 * float(want.abs().max()))
 
 
-def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False):
-    """``serve.lm``'s prefill of ``LM_BATCH`` x ``LM_SEQ`` synthetic
-    prompts into states of ``LM_SERVE_CACHE`` positions, then
+def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False,
+                     seq=LM_SEQ):
+    """``serve.lm``'s prefill of ``LM_BATCH`` x ``seq`` synthetic
+    prompts (a vision prompt its patches, then text) into states of
+    ``seq + LM_SERVE_NEW`` positions, then
     ``LM_SERVE_NEW`` greedy decode steps (a device synchronisation after
     each, for its latency), at ``cfg`` (the model's forward runs at
     ``model.cfg``); the prefill's last logits and every step's logits
@@ -3814,20 +3947,26 @@ def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False):
     (first call, second), step walls, the final state, the fed tokens,
     the next position and ``max_memory_allocated`` over the run."""
     from repro_torch.train.data import synthetic_batch
-    prompts = synthetic_batch(cfg, LM_BATCH, LM_SEQ, 0, device=dev)["tokens"]
-    run = _serve_run(torch, dev, cfg, model, prompts)
+    full_b = synthetic_batch(cfg, LM_BATCH, seq, 0, device=dev)
+    prompts = {k: full_b[k] for k in ("tokens", "patch_emb") if k in full_b}
+    del full_b
+    run = _serve_run(torch, dev, cfg, model, prompts, seq)
     logits, state, fed = run["logits"], run["state"], run["fed"]
     step_logits = run["step_logits"]
     shapes = [[tuple(a.shape) for a in entry] for entry in state]
     # Teacher-forced: the full forward over the prompt and the fed tokens
     # gives, at position p, the logits of the step that read p.
-    seq = torch.cat([prompts, torch.cat(fed, dim=1).to(prompts.dtype)], 1)
+    toks = prompts["tokens"]
+    forced = dict(prompts, tokens=torch.cat(
+        [toks, torch.cat(fed, dim=1).to(toks.dtype)], 1))
+    n_pos = seq + len(fed)
     with torch.no_grad():
-        full = model({"tokens": seq})[0]
+        full = model(forced)[0]
         spread, floor_txt = 0.0, ""
         if self_floor:
-            one = torch.cat([model({"tokens": seq[i:i + 1]})[0]
-                             for i in range(seq.shape[0])])
+            one = torch.cat([model({k: v[i:i + 1] for k, v in
+                                    forced.items()})[0]
+                             for i in range(LM_BATCH)])
             spread = float((full.double() - one.double()).abs().max())
             del one
             ratio = spread / (1e-5 * float(full.abs().max()))
@@ -3835,8 +3974,8 @@ def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False):
                          f"against one sequence a call) {spread:.3e}, "
                          f"{ratio:.3f} times 1e-5·max|logits|, the limit "
                          f"the larger of 1e-5·max|logits| and twice it")
-    e_pre, lim = _logit_err(logits[:, 0], full[:, LM_SEQ - 1])
-    e_dec = [_logit_err(g, full[:, LM_SEQ + i])
+    e_pre, lim = _logit_err(logits[:, 0], full[:, seq - 1])
+    e_dec = [_logit_err(g, full[:, seq + i])
              for i, g in enumerate(step_logits)]
     del full
     flat = max([e_pre / lim] + [e / l for e, l in e_dec])
@@ -3844,8 +3983,8 @@ def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False):
     e_dec = [(e, max(l, 2 * spread)) for e, l in e_dec]
     worst = max([e_pre / lim] + [e / l for e, l in e_dec])
     log(f"{tag} {cfg.name} at full width, float32: prefill "
-        f"{LM_BATCH} x {LM_SEQ} into states {shapes}, {LM_SERVE_NEW} greedy "
-        f"steps; against the full forward over the {seq.shape[1]} tokens "
+        f"{LM_BATCH} x {seq} into states {shapes}, {LM_SERVE_NEW} greedy "
+        f"steps; against the full forward over the {n_pos} positions "
         f"(teacher-forced): prefill logits max abs err {e_pre:.3e} (limit "
         f"{lim:.3e}), decode steps' max abs err "
         f"{[float(f'{e:.3e}') for e, _ in e_dec]} (limits "
@@ -3856,34 +3995,37 @@ def _serve_and_check(torch, dev, cfg, model, tag, self_floor=False):
     if worst > 1.0:
         raise AssertionError(f"{tag} prefill or decode logits differ from "
                              f"the full forward")
-    if seq.shape[1] != LM_SERVE_CACHE:
-        raise AssertionError(f"{tag} {seq.shape[1]} tokens, not "
-                             f"{LM_SERVE_CACHE}")
+    if n_pos != seq + LM_SERVE_NEW:
+        raise AssertionError(f"{tag} {n_pos} positions, not "
+                             f"{seq + LM_SERVE_NEW}")
     run["shapes"] = shapes
     return run
 
 
-def _serve_run(torch, dev, cfg, model, prompts):
-    """``serve.lm``'s prefill of ``prompts`` into states of
-    ``LM_SERVE_CACHE`` positions (twice, each call timed), then
+def _serve_run(torch, dev, cfg, model, prompts, seq=LM_SEQ):
+    """``serve.lm``'s prefill of ``prompts`` (token ids, or a batch of
+    ``tokens`` and a vision prompt's ``patch_emb``; ``seq`` positions in
+    all) into states of ``seq + LM_SERVE_NEW`` positions (twice, each
+    call timed), then
     ``LM_SERVE_NEW`` greedy decode steps from the second, a device
     synchronisation after each for its latency, at ``cfg``.  Returns the
     prefill's logits, walls and state, each step's logits and wall, the
     fed tokens, the next token and position and
     ``max_memory_allocated`` over the run."""
     from repro_torch.serve import lm
-    prefill = lm.make_prefill_step(cfg, LM_SERVE_CACHE)
+    prefill = lm.make_prefill_step(cfg, seq + LM_SERVE_NEW)
     decode = lm.make_decode_step(cfg)
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pre_ms = []
     for _ in range(2):
         t0 = time.perf_counter()
-        logits, state = prefill(model, {"tokens": prompts})
+        logits, state = prefill(model, batch)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    pos = torch.full((), LM_SEQ, dtype=torch.int64, device=dev)
+    pos = torch.full((), seq, dtype=torch.int64, device=dev)
     fed, step_logits, step_ms = [], [], []
     for _ in range(LM_SERVE_NEW):
         fed.append(tok)
@@ -3989,12 +4131,15 @@ def lm_serve_card_vs_cpu(torch, dev, cases=LM_SERVE_REDUCED,
             card = M.init_params(cfg, torch.Generator(device=dev)
                                  .manual_seed(0), device=dev)
             card.load_state_dict(cpu.state_dict())
-            toks = synthetic_batch(cfg, 2, prompt, 0, device="cpu")["tokens"]
+            full = synthetic_batch(cfg, 2, prompt, 0, device="cpu")
+            prompts = {k: full[k] for k in ("tokens", "patch_emb")
+                       if k in full}
             prefill = lm.make_prefill_step(cfg, prompt + steps + 1)
             decode = lm.make_decode_step(cfg)
             out = {}
             for side, model, d in (("cpu", cpu, cpu_dev), ("card", card, dev)):
-                logits, state = prefill(model, {"tokens": toks.to(d)})
+                logits, state = prefill(model, {k: v.to(d) for k, v in
+                                                prompts.items()})
                 first = torch.argmax(logits, dim=-1).to(torch.int32)
                 gen, _ = lm.greedy_decode(cfg, model, state, first, prompt,
                                           steps)
@@ -4014,7 +4159,7 @@ def lm_serve_card_vs_cpu(torch, dev, cases=LM_SERVE_REDUCED,
                         torch.tensor(prompt + i, device=d))
                 errs.append(_logit_err(lg["card"].cpu(), lg["cpu"]))
                 top = torch.topk(lg["cpu"][:, 0], 2, dim=-1).values
-                gaps.append(float((top[:, 0] - top[:, 1]).min()))
+                gaps.append(float((top[..., 0] - top[..., 1]).min()))
             worst = max(e / lim for e, lim in errs)
             log(f"{tag} {cfg.name} reduced, layer kinds "
                 f"{sorted(set(cfg.layer_pattern))}, window {cfg.window}, "
@@ -4196,10 +4341,14 @@ def _count_drops(torch, model, prefill, prompts):
     return [int(c) for c in torch.stack(counts).cpu()]
 
 
-def lm_family(torch, dev, card, part, arch, n_layers):
+def lm_family(torch, dev, card, part, arch, n_layers, seq=LM_SEQ,
+              tag="[lm-family]"):
     """Phase 15 (a), (b) or (c) (``part``) for one family at its published
-    widths, float32, initialised on the card from a seeded ``torch.Generator`` (``n_layers``
-    layers where given, else the full depth): ``_serve_and_check`` (for an
+    widths (phase 16 (a), (b) for a frontend, ``tag`` its lines' tag),
+    float32, initialised on the card from a seeded ``torch.Generator``
+    (``n_layers`` layers where given, else the full depth), over prompts
+    of ``seq`` positions (a vision prompt's patches, then text):
+    ``_serve_and_check`` (for an
     MoE model at ``capacity_factor = n_experts / top_k``, where no
     assignment can be dropped at any token count, so that decode and the
     full forward route alike); then prefill ms, decode p50 / p99 ms a
@@ -4226,18 +4375,21 @@ def lm_family(torch, dev, card, part, arch, n_layers):
                           .manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in model.parameters())
-    log(f"[lm-family] {part} {cfg.name}: {cfg.n_layers} layers "
+    fe = {"vision_stub": f", {cfg.n_patches} patches through vision_proj",
+          "audio_stub": f", {cfg.n_codebooks} codebooks, one head each"
+          }.get(cfg.frontend, "")
+    log(f"{tag} {part} {cfg.name}: {cfg.n_layers} layers "
         f"{sorted(set(cfg.layer_pattern))}, d_model {cfg.d_model}, "
         f"experts {cfg.n_experts} top-{cfg.top_k}, ssm_state "
-        f"{cfg.ssm_state}, vocab {cfg.vocab}: {n_par} parameters "
+        f"{cfg.ssm_state}, vocab {cfg.vocab}{fe}: {n_par} parameters "
         f"({n_par * 4 / 1e9:.2f} GB float32; param_count() "
         f"{int(cfg.param_count()['total'])}), initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     if cfg.n_experts and n_par != int(cfg.param_count()["total"]) + (
             cfg.d_model * (2 * cfg.n_layers + 1)):
         raise AssertionError(f"{part} parameter count")
-    run = _serve_and_check(torch, dev, check_cfg, model,
-                           f"[lm-family] {part}", self_floor=True)
+    run = _serve_and_check(torch, dev, check_cfg, model, f"{tag} {part}",
+                           self_floor=True, seq=seq)
     drops = None
     if cfg.n_experts:
         del run
@@ -4260,11 +4412,14 @@ def lm_family(torch, dev, card, part, arch, n_layers):
                     f"{sum(drops)} of "
                     f"{t * cfg.top_k * cfg.n_layers} assignments, by layer "
                     f"{drops}")
-    log(f"[lm-family] {part} {card}: {cfg.name}: prefill {pre_ms[0]:.2f} ms "
+    codes = (f" ({LM_BATCH * cfg.n_codebooks / (p50 / 1e3):.1f} codes/s, "
+             f"{cfg.n_codebooks} a token)" if cfg.frontend == "audio_stub"
+             else "")
+    log(f"{tag} {part} {card}: {cfg.name}: prefill {pre_ms[0]:.2f} ms "
         f"(first call), {pre_ms[1]:.2f} ms (second) for "
-        f"{LM_BATCH}x{LM_SEQ}; decode p50 {p50:.3f} ms p99 {p99:.3f} ms a "
+        f"{LM_BATCH}x{seq}; decode p50 {p50:.3f} ms p99 {p99:.3f} ms a "
         f"step (steps 2-{LM_SERVE_NEW}), {LM_BATCH / (p50 / 1e3):.1f} "
-        f"tokens/s at p50; step walls "
+        f"tokens/s at p50{codes}; step walls "
         f"{[round(x, 3) for x in run['step_ms']]} ms; max_memory_allocated "
         f"{peak} B ({peak / 2**30:.2f} GiB, the weights included)"
         + drop_txt)
@@ -4277,7 +4432,7 @@ def lm_family(torch, dev, card, part, arch, n_layers):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     ok = bool(torch.isfinite(lg).all())
-    log(f"[lm-family] (e) {cfg.name}: one decode step under "
+    log(f"{tag} (e) {cfg.name}: one decode step under "
         f"set_sync_debug_mode('error'): no synchronisation; logits "
         f"{tuple(lg.shape)} finite: {ok}")
     if not ok:
@@ -4299,6 +4454,281 @@ def lm_families(torch, dev, card):
     log(f"[lm-family] phase 15 wall {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 16: the frontends (ROADMAP A17e) at their published widths and
+# depths: (part, arch, prompt positions: phi-3-vision's 576 patches, then
+# LM_SEQ text tokens; musicgen's LM_SEQ steps of 4 codebooks).
+LM_FRONTENDS = (("(a)", "phi3_vision_4_2b", 576 + LM_SEQ),
+                ("(b)", "musicgen_large", LM_SEQ))
+# (c): the reduced configs and their prompts (positions), card against CPU.
+LM_FRONTEND_REDUCED = (("phi3_vision_4_2b", 20), ("musicgen_large", 12))
+# (d): the compressed train step's steps, beside as many uncompressed ones,
+# and the depth at which two models step in lockstep against the replay.
+LM_COMPRESSED_STEPS = 4
+LM_REPLAY_LAYERS = 4
+
+
+def _ulps(torch, a, b):
+    """The largest distance in float32 ulps between two float32 tensors
+    (their bits as ordered integers: a negative float's magnitude
+    negated)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def lm_frontend_card_vs_cpu(torch, dev):
+    """Phase 16 (c): the reduced frontends card against CPU on the same
+    weights: serving (``lm_serve_card_vs_cpu``: greedy tokens equal,
+    logits within 1e-5·max|logits|); a train step's loss (rtol 1e-4) and
+    gradients (rtol 1e-4, atol 1e-6, the CPU tests' tolerances); and the
+    vision batch's ``patch_emb`` drawn on the card against the CPU draw,
+    at the reduced shape and at phase 16 (a)'s [8, 576, 3072], within 0
+    ulps (``threefry.normal`` is IEEE operations only); raising."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core import threefry
+    from repro_torch.models import model as M
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.train_step import accumulate_grads
+    lm_serve_card_vs_cpu(torch, dev, LM_FRONTEND_REDUCED, "[lm-frontend] (c)")
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        for arch, _ in LM_FRONTEND_REDUCED:
+            cfg = get_reduced(arch)
+            cpu = M.init_params(cfg, torch.Generator().manual_seed(1),
+                                device="cpu")
+            card = M.init_params(cfg, torch.Generator(device=dev)
+                                 .manual_seed(1), device=dev)
+            card.load_state_dict(cpu.state_dict())
+            got = {}
+            for side, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+                batch = synthetic_batch(cfg, 2, 32, 5, device=d)
+                loss, _, grads = accumulate_grads(cfg, model, batch, 1)
+                got[side] = (float(loss), {k: g.cpu() for k, g in
+                                           grads.items()}, batch)
+            l_cpu, l_card = got["cpu"][0], got["card"][0]
+            worst = 0.0
+            for k, g in got["cpu"][1].items():
+                err = (got["card"][1][k].double() - g.double()).abs()
+                lim = 1e-6 + 1e-4 * g.double().abs()
+                worst = max(worst, float((err / lim).max()))
+            same_batch = all(torch.equal(got["card"][2][k].cpu(), v)
+                             for k, v in got["cpu"][2].items())
+            rel = abs(l_card - l_cpu) / abs(l_cpu)
+            log(f"[lm-frontend] (c) {cfg.name} reduced, a train step's "
+                f"loss and gradients, card vs CPU: batch bits equal "
+                f"{same_batch}; loss {l_card!r} vs {l_cpu!r} (rel err "
+                f"{rel:.2e}, limit 1e-4); gradients' worst err/limit "
+                f"{worst:.3f} (rtol 1e-4, atol 1e-6) over "
+                f"{len(got['cpu'][1])} tensors")
+            if not same_batch or rel > 1e-4 or worst > 1.0:
+                raise AssertionError(f"(c) {cfg.name}: the card's train step "
+                                     f"differs from the CPU's")
+    finally:
+        torch.set_float32_matmul_precision(old)
+    full = get_config("phi3_vision_4_2b")
+    for shape in ((2, 8, 64), (LM_BATCH, full.n_patches, full.d_model)):
+        key = threefry.split(threefry.fold_in(threefry.PRNGKey(0), 0), 4)[3]
+        t0 = time.perf_counter()
+        on_card = threefry.normal(key, shape, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        on_cpu = threefry.normal(key, shape, device="cpu")
+        ulps = _ulps(torch, on_card.cpu(), on_cpu)
+        log(f"[lm-frontend] (c) patch_emb {list(shape)} (synthetic_batch's "
+            f"step-0 key k4): card vs CPU normal draws, max {ulps} ulps "
+            f"(limit 0); {on_card.numel()} draws on the card in "
+            f"{card_s * 1e3:.1f} ms")
+        if ulps:
+            raise AssertionError("(c) the card's normal draws differ")
+        del on_card, on_cpu
+
+
+def _replay_compressed_step(torch, cfg, model, opt, residuals, batch):
+    """``train.compressed``'s step at world size 1, written out: the plain
+    gradient, each leaf of the JAX tree (``reference_leaves``) stacked,
+    quantized and dequantized (``quantize_int8`` on the stack), its
+    residual carried and rewritten as ``xr - q·s`` rounded once (in
+    float64, where it is exact), then ``apply_updates`` on the
+    gradients in the parameters' order.  Returns the new optimizer
+    state."""
+    from repro_torch.distributed import compression as comp
+    from repro_torch.models import model as M
+    from repro_torch.train import curated
+    from repro_torch.train.optimizer import apply_updates
+    from repro_torch.train.train_step import value_and_grad
+    _, grads = value_and_grad(cfg, model, batch)
+    order, deq = list(grads), {}
+    for leaf in M.reference_leaves(cfg, order):
+        xr = torch.stack([grads.pop(n) + residuals[n] for n in leaf])
+        q, s = comp.quantize_int8(xr)
+        new = (xr.double() - q.double() * s.double()).float()
+        for n, r, d in zip(leaf, new, comp.dequantize_int8(q, s)):
+            residuals[n].copy_(r)
+            deq[n] = d
+        del xr, q, new
+    _, opt, _ = apply_updates(M.params_of(model), {n: deq[n] for n in order},
+                              opt, curated.OPT)
+    return opt
+
+
+def lm_compressed_replay(torch, dev):
+    """Phase 16 (d), its replay: at qwen3-1.7B's width cut to
+    ``LM_REPLAY_LAYERS`` layers, two models from one seed step in
+    lockstep, one through ``train.compressed``'s step at world size 1,
+    the other through :func:`_replay_compressed_step`; after every step
+    their parameters, residuals and moments must be equal bit for bit
+    (as ``tests/test_torch_compression.py`` holds them on the CPU);
+    raising."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import curated, init_opt_state
+    from repro_torch.train.compressed import (init_pod_residuals,
+                                              make_compressed_train_step)
+    from repro_torch.train.data import synthetic_batch
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_REPLAY_LAYERS)
+    sides = []
+    for _ in range(2):
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        params = M.params_of(model)
+        sides.append([model, init_opt_state(params, curated.OPT),
+                      init_pod_residuals(params)])
+    step = make_compressed_train_step(cfg, curated.OPT)
+    equal, worst = [], []
+    t0 = time.perf_counter()
+    for i in range(LM_COMPRESSED_STEPS):
+        batch = synthetic_batch(cfg, LM_BATCH, LM_SEQ, i, device=dev)
+        a, b = sides
+        a[0], a[1], a[2], _ = step(a[0], a[1], a[2], batch)
+        b[1] = _replay_compressed_step(torch, cfg, b[0], b[1], b[2], batch)
+        pairs = [(M.params_of(a[0]), M.params_of(b[0])), (a[2], b[2]),
+                 (a[1]["m"], b[1]["m"]), (a[1]["v"], b[1]["v"])]
+        with torch.no_grad():
+            equal.append(all(torch.equal(x[k], y[k]) for x, y in pairs
+                             for k in x))
+            worst.append(max(float((x[k] - y[k]).abs().max())
+                             for x, y in pairs for k in x))
+    torch.cuda.synchronize()
+    n = len(M.params_of(sides[0][0]))
+    log(f"[lm-frontend] (d) the compressed step against its replay at world "
+        f"size 1 ({cfg.name}'s width, {LM_REPLAY_LAYERS} layers, "
+        f"{LM_BATCH}x{LM_SEQ}, {n} tensors in "
+        f"{len(M.reference_leaves(cfg, M.params_of(sides[0][0])))} leaves): "
+        f"parameters, residuals and moments equal bit for bit after each "
+        f"step {equal}; max abs diff {worst}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del sides, step, batch, a, b, pairs
+    torch.cuda.empty_cache()
+    if not all(equal):
+        raise AssertionError("(d) the compressed step differs from its "
+                             "replay")
+
+
+def lm_compressed(torch, dev, card):
+    """Phase 16 (d): ``train.compressed`` at qwen3-1.7B's width, world
+    size 1 on ``nccl``: ``LM_COMPRESSED_STEPS`` steps of the uncompressed
+    step, then as many compressed ones, each from the same weights
+    (drawn again from the seeded generator) at ``LM_BATCH`` x ``LM_SEQ``;
+    every leaf of the JAX tree all-gathered as int8 (with its float32
+    scale), the last losses within 5 % (``tests/test_compressed_train.py``'s
+    bound); step walls and ``max_memory_allocated``; then
+    :func:`lm_compressed_replay`.  The group is made here when none is,
+    and destroyed after; raising."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.models import model as M
+    from repro_torch.train import curated, init_opt_state, make_train_step
+    from repro_torch.train.compressed import (init_pod_residuals,
+                                              make_compressed_train_step)
+    from repro_torch.train.data import synthetic_batch
+    cfg = get_config(LM_ARCH)
+    own = not dist.is_initialized()
+    if own:
+        _dist_world1()
+    try:
+        losses, walls, peaks, gathers = {}, {}, {}, {}
+        for mode in ("plain", "compressed"):
+            model = M.init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(0), device=dev)
+            params = M.params_of(model)
+            opt = init_opt_state(params, curated.OPT)
+            res = None
+            if mode == "plain":
+                step = make_train_step(cfg, curated.OPT)
+            else:
+                res = init_pod_residuals(params)
+                step = make_compressed_train_step(cfg, curated.OPT)
+            del params
+            comp.reset_gather_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses[mode], walls[mode] = [], []
+            for i in range(LM_COMPRESSED_STEPS):
+                batch = synthetic_batch(cfg, LM_BATCH, LM_SEQ, i, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "plain":
+                    model, opt, m = step(model, opt, batch)
+                else:
+                    model, opt, res, m = step(model, opt, res, batch)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+                losses[mode].append(float(m["loss"]))
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            gathers[mode] = {str(k): v for k, v in
+                             comp.gather_counts().items()}
+            n_leaves = len(M.reference_leaves(cfg, M.params_of(model)))
+            del model, opt, res, step, batch, m
+            torch.cuda.empty_cache()
+        want = {"torch.int8": n_leaves * LM_COMPRESSED_STEPS,
+                "torch.float32": n_leaves * LM_COMPRESSED_STEPS}
+        base, got = losses["plain"], losses["compressed"]
+        rel = abs(got[-1] - base[-1]) / base[-1]
+        for mode in ("plain", "compressed"):
+            w = walls[mode]
+            log(f"[lm-frontend] (d) {card}: {cfg.name} {mode} step, "
+                f"{LM_BATCH}x{LM_SEQ}, world size {dist.get_world_size()} on "
+                f"{dist.get_backend()}: losses {losses[mode]}; step "
+                f"walls {[round(x * 1e3, 1) for x in w]} ms (steps 2-: "
+                f"{1e3 * sum(w[1:]) / (len(w) - 1):.1f} ms a step); "
+                f"max_memory_allocated {peaks[mode]} B "
+                f"({peaks[mode] / 2**30:.2f} GiB); all-gathers by dtype "
+                f"{gathers[mode]}")
+        log(f"[lm-frontend] (d) the last compressed loss against the "
+            f"uncompressed: rel diff {rel:.3e} (limit 0.05); {n_leaves} "
+            f"leaves of the JAX tree a step, each gathered as one int8 "
+            f"tensor and its scale: {gathers['compressed'] == want}")
+        if gathers["compressed"] != want or rel >= 0.05 or not all(
+                math.isfinite(x) for x in got):
+            raise AssertionError("(d) the compressed step")
+        lm_compressed_replay(torch, dev)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def lm_frontends(torch, dev, card):
+    """Phase 16: (a) and (b) in turn, each with its (e) (``lm_family``),
+    (c) the reduced configs card against CPU, (d) the compressed train
+    step."""
+    t0 = time.perf_counter()
+    for part, arch, seq in LM_FRONTENDS:
+        t1 = time.perf_counter()
+        lm_family(torch, dev, card, part, arch, None, seq, "[lm-frontend]")
+        log(f"[lm-frontend] {arch} wall {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    lm_frontend_card_vs_cpu(torch, dev)
+    log(f"[lm-frontend] (c) wall {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    lm_compressed(torch, dev, card)
+    log(f"[lm-frontend] (d) wall {time.perf_counter() - t1:.1f} s")
+    log(f"[lm-frontend] phase 16 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4309,6 +4739,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(repro_torch/ not found)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--part"]:
+        return run_part(sys.argv[2])
     sys.path.insert(0, ROOT)
     import numpy as np
     from repro_torch.core.datasets import mnist_like
@@ -4344,8 +4776,8 @@ def main() -> int:
     threefry_answers(torch, dev)
     counts_solvers = solver_paths(torch, X, dev, Xnp, pam_fit)
     solver_kernel_times(torch, X, dev)
-    solver_parity(torch, dev)
-    log(f"[solvers] phase 6 wall {time.perf_counter() - t6:.1f} s")
+    log(f"[solvers] phase 6 wall {time.perf_counter() - t6:.1f} s (its "
+        f"parity, (c) and (d), runs beside phase 11)")
     t7 = time.perf_counter()
     counts_serve, graph_row = serve_path(torch, X, dev, Xnp)
     serve_parity(torch, dev)
@@ -4364,6 +4796,7 @@ def main() -> int:
     lm_rows = lm_paths(torch, dev, card)
     data_rows = data_paths(torch, dev, card)
     lm_families(torch, dev, card)
+    lm_frontends(torch, dev, card)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the

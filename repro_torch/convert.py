@@ -37,9 +37,11 @@ module replays draws given as arrays:
   ``x @ w`` weight ``[in, out]`` becomes the ``nn.Linear`` weight
   ``[out, in]``, its transpose: the attention, MLP and dense-MLP
   matrices and the SSM projections (``in_x``, ``in_z``, ``x_proj``,
-  ``dt_proj``, ``in_xbc``, ``in_dt``, ``out_proj``).  The MoE leaves
-  (``router``, ``wi``, ``wg``, ``wo``, batched-product operands), the
-  SSM ``conv_w`` [K, C] and every vector cross as they are;
+  ``dt_proj``, ``in_xbc``, ``in_dt``, ``out_proj``), the head and
+  ``vision_proj``.  Audio's ``embed`` [nc, V, d] and ``lm_head`` [nc,
+  d, V] (the JAX einsum's operand), the MoE leaves (``router``, ``wi``,
+  ``wg``, ``wo``, batched-product operands), the SSM ``conv_w`` [K, C]
+  and every vector cross as they are;
 * a JAX decode state (``repro.models.model.forward(...,
   collect_state=True)`` or ``decode_step``'s, numpy leaves) crosses
   unchanged in layout (:func:`lm_state_from_reference`): the tuple of
@@ -138,7 +140,8 @@ _LAYER_LEAVES = (
     (("m", "norm_w"), "m.norm_w", False),
     (("m", "out_proj"), "m.out_proj.weight", True),
 )
-_TOP_LEAVES = {"embed", "lm_head", "final_norm", "groups", "shared_attn"}
+_TOP_LEAVES = {"embed", "lm_head", "vision_proj", "final_norm", "groups",
+               "shared_attn"}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -183,14 +186,21 @@ def _block_leaves(block: Mapping[str, Any], index, prefix: str,
 
 def _lm_leaves(tree: Mapping[str, Any], device: torch.device
                ) -> Dict[str, torch.Tensor]:
+    """The top leaves: ``embed`` as it is ([V, d], audio's [nc, V, d]);
+    a 2-D ``lm_head`` [d, V] and ``vision_proj`` [d, d] transposed into
+    ``nn.Linear`` weights (``x @ W`` is ``F.linear(x, W.T)``), audio's
+    ``lm_head`` [nc, d, V] as it is (the einsum's operand)."""
     extra = set(tree) - _TOP_LEAVES
     if extra:
-        raise NotImplementedError(
-            f"LM parameters {sorted(extra)} are not ported yet (the "
-            f"frontends: ROADMAP A17e)")
+        raise ValueError(f"unknown LM parameters {sorted(extra)}")
     out = {"embed.weight": _tensor(tree["embed"], device)}
     if "lm_head" in tree:
-        out["lm_head.weight"] = _tensor(np.asarray(tree["lm_head"]).T, device)
+        head = np.asarray(tree["lm_head"])
+        out["lm_head.weight"] = _tensor(head.T if head.ndim == 2 else head,
+                                        device)
+    if "vision_proj" in tree:
+        out["vision_proj.weight"] = _tensor(
+            np.asarray(tree["vision_proj"]).T, device)
     groups = tree["groups"]
     per = len(groups)
     first = groups[0]

@@ -98,15 +98,22 @@ def cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Manhattan distance, chunked over references to bound memory."""
+    """Manhattan distance, chunked over references to bound memory.  One
+    ``[m, chunk, d]`` buffer serves every chunk, the difference written
+    into it and its absolute value taken in place: the same sums, bit for
+    bit, as ``sum(abs(x - y))`` over fresh temporaries, without two new
+    blocks a chunk."""
     m, d = x.shape
     r = y.shape[0]
     chunk = max(1, min(r, _L1_CHUNK_ELEMS // max(1, m * d)))
     out = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    buf = torch.empty((m * chunk * d,), dtype=torch.result_type(x, y),
+                      device=x.device)
     for lo in range(0, r, chunk):
         yc = y[lo:lo + chunk]
-        out[:, lo:lo + chunk] = torch.sum(
-            torch.abs(x[:, None, :] - yc[None, :, :]), dim=-1)
+        diff = buf[:m * yc.shape[0] * d].view(m, yc.shape[0], d)
+        torch.sub(x[:, None, :], yc[None, :, :], out=diff)
+        out[:, lo:lo + chunk] = torch.sum(diff.abs_(), dim=-1)
     return out
 
 

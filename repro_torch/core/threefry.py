@@ -21,7 +21,12 @@ on, jax's default since 0.5), with 64-bit types off (jax's default):
 * :func:`choice` — without replacement ``permutation(key, n)[:size]``,
   with replacement ``randint(key, shape, 0, n)``;
 * :func:`uniform` — float32 in ``[minval, maxval)`` from the top 23 bits,
-  scaled by XLA's fused multiply-add; for one key or a batch of keys.
+  scaled by XLA's fused multiply-add; for one key or a batch of keys;
+* :func:`normal` — ``_normal_real``: ``sqrt(2)·erf_inv(u)``, ``u``
+  uniform on ``(nextafter(-1, 0), 1)``, with :func:`erf_inv` the float32
+  ``erf_inv`` that XLA's CPU backend compiles (Giles' polynomial over its
+  own ``log1p`` and ``log``, every multiply-add fused, as it emits them
+  on an x86-64 CPU with FMA3).
 
 A key is a pair of host ints, so deriving one never touches a device.
 Bits are computed on the given device, in int64 tensors that hold
@@ -247,3 +252,125 @@ def uniform(key, shape=(), minval: float = 0.0, maxval: float = 1.0,
     lo, hi = np.float32(minval), np.float32(maxval)
     out = (floats.double() * float(hi - lo) + float(lo)).float()
     return torch.clamp_min(out, float(lo)).reshape(batch + shape)
+
+
+# XLA's float32 ``ErfInv`` (Giles, "Approximating the erfinv function"):
+# the coefficients of its ``w < 5`` and ``sqrt(w) - 3`` branches, highest
+# degree first.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+# XLA:CPU's ``log1p``: a Cephes rational for |x| < sqrt(2) - 1 ...
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# ... and its float32 ``log`` elsewhere (Cephes' ``logf``): the mantissa
+# in [sqrt(1/2), sqrt(2)) - 1, a degree-8 polynomial in three chains.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a·b + c`` rounded once, as an FMA instruction gives it.
+    The product is exact in float64; the sum is rounded to odd there
+    (TwoSum's error moves an even result one ulp towards it), and a
+    value rounded to odd with 29 spare bits rounds to float32 as the
+    exact sum would.  Every step is an IEEE float64 operation, so the
+    CPU and the card give the same bits."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """``fma(... fma(x, c0, c1) ..., x, cn)``, each ``c`` a float32
+    value or a tensor of them shaped as ``x``."""
+    acc = _fma(x, coeffs[0], coeffs[1])
+    for c in coeffs[2:]:
+        acc = _fma(acc, x, c)
+    return acc
+
+
+def _log_xla(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log`` of ``x`` (its instruction order)."""
+    xc = torch.clamp_min(x, _f32(1.1754943508222875e-38))
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)   # [0.5, 1)
+    small = m < _f32(0.7071067690849304)
+    r = (m - 1.0) + torch.where(small, m, 0.0)
+    e = torch.where(small, e - 1.0, e)
+    r2 = r * r
+    r3 = r2 * r
+    p = _LOG_P
+    a = _fma(_fma(r, _f32(p[0]), _f32(p[1])), r, _f32(p[2]))
+    b = _fma(_fma(r, _f32(p[3]), _f32(p[4])), r, _f32(p[5]))
+    c = _fma(_fma(r, _f32(p[6]), _f32(p[7])), r, _f32(p[8]))
+    y = _fma(_fma(_fma(a, r3, b), r3, c), r3, e * _f32(_LOG_Q1))
+    y = _fma(e, _f32(_LOG_Q2), _fma(-r2, 0.5, r) + y)
+    y = torch.where(x <= 0, math.nan, y)                  # x < 0 or NaN
+    y = torch.where(x == 0, -math.inf, y)
+    return torch.where(x == math.inf, math.inf, y)
+
+
+def _log1p_xla(t: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log1p``."""
+    t2 = t * t
+    # float64 then float32: the float32 quotient, correctly rounded.
+    q = (_horner(t, [_f32(c) for c in _LOG1P_NUM]).double()
+         / _horner(t, [_f32(c) for c in _LOG1P_DEN]).double()).float()
+    small = _fma(t2, -0.5, (t * t2) * q)
+    return torch.where(t.abs() < _f32(0.4142135679721832), t + small,
+                       _log_xla(t + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of a float32 tensor as jax computes it on an
+    x86-64 CPU, bit for bit (module docstring): ``w = -log1p(-x²)``,
+    Giles' polynomial in ``w - 2.5`` below 5 and in ``sqrt(w) - 3``
+    above, times ``x``; ±inf at ±1.  The quotient and the square root
+    are correctly rounded in float32 on either device.  XLA:CPU flushes
+    subnormals to zero, so a subnormal input or result is a signed 0
+    here too."""
+    x = _flush(x.float())
+    lg = _log1p_xla(-x * x)
+    lt = lg > -5.0
+    w = torch.where(lt, -2.5 - lg,
+                    torch.sqrt(-lg.double()).float() - 3.0)
+    coef = [torch.where(lt, _f32(a), _f32(b))
+            for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = _horner(w, coef)
+    return _flush(x * torch.where(x.abs() == 1.0, math.inf, p))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to a zero of their sign."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0.0, x)
+
+
+def normal(key, shape=(), device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``_normal_real``'s
+    ``sqrt(2)·erf_inv(u)`` with ``u`` uniform on ``(nextafter(-1, 0),
+    1)``, bit for bit with jax on an x86-64 CPU (:func:`erf_inv`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return _f32(math.sqrt(2.0)) * erf_inv(u)

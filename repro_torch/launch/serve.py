@@ -4,7 +4,9 @@ prefill, then greedy decode, with per-step latency::
     python -m repro_torch.launch.serve --arch qwen3_1_7b --reduced \\
         --requests 8 --prompt-len 32 --max-new 16 [--device cpu]
 
-The prompts are the JAX driver's (``train.synthetic_batch`` at step 0),
+The prompts are the JAX driver's (``train.synthetic_batch`` at step 0:
+a vision prompt of ``prompt-len`` positions is its patches, then text;
+audio takes one token a codebook a step),
 the model float32 on one device as the JAX driver runs at one device,
 its weights drawn from a ``torch.Generator`` seeded 0, the caches
 ``prompt-len + max-new`` long.  Prints the prefill's wall, then decode
@@ -58,9 +60,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     gen = torch.Generator(device=dev).manual_seed(0)
     model = M.init_params(cfg, gen, device=dev)
     cache_len = args.prompt_len + args.max_new
-    prompts = {"tokens": synthetic_batch(cfg, args.requests,
-                                         args.prompt_len, 0,
-                                         device=dev)["tokens"]}
+    batch = synthetic_batch(cfg, args.requests, args.prompt_len, 0,
+                            device=dev)
+    prompts = {k: batch[k] for k in ("tokens", "patch_emb") if k in batch}
     prefill = make_prefill_step(cfg, cache_len=cache_len)
     decode = make_decode_step(cfg)
 
@@ -69,7 +71,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     logits, state = prefill(model, prompts)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)       # [B, 1]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)   # [B, 1(, nc)]
     pos = torch.full((), args.prompt_len, dtype=torch.int64, device=dev)
 
     lat = []

@@ -40,8 +40,13 @@ allocates and reads nothing back from the card.  A cache entry's
 absolute position is recovered from ``pos`` (:func:`_entry_positions`),
 so no validity bookkeeping is stored.
 
-Not ported: the ``vision_stub`` / ``audio_stub`` frontends, raising
-``NotImplementedError`` at construction with their ROADMAP item (A17e).
+The frontends (the JAX stubs, ``docs/design.md`` §4): ``vision_stub``
+projects a batch's precomputed ``patch_emb`` [B, P, d] through
+``vision_proj`` and puts it before the text tokens' embeddings (a decode
+step is text only, at absolute positions that count the patches);
+``audio_stub`` embeds ``tokens`` [B, L, nc] as the sum over codebooks of
+``embed.weight[c]`` [nc, V, d] rows, in codebook order, and its head
+``lm_head.weight`` [nc, d, V] gives logits [B, L, nc, V].
 
 Entry points take ``device=None`` (the card, raising without one) as the
 rest of the port does; the weights are drawn from an explicit
@@ -75,12 +80,18 @@ def base_kind(kind: str) -> str:
     return kind.split("+")[0]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a part of ``cfg`` the port lacks."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(ROADMAP A17e)")
+class Codebooks(nn.Module):
+    """``audio_stub``'s per-codebook tables: ``weight`` [nc, rows, cols]
+    drawn N(0, std²), the embeddings [nc, V, d] and the heads [nc, d, V]
+    (the JAX leaves' own layout)."""
+
+    def __init__(self, nc: int, rows: int, cols: int, std: float, generator,
+                 device, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((nc, rows, cols),
+                                               device=device, dtype=dtype))
+        with torch.no_grad():
+            self.weight.normal_(0.0, std, generator=generator)
 
 
 class DecoderLayer(nn.Module):
@@ -131,7 +142,8 @@ class SharedAttn(nn.Module):
 
 class Decoder(nn.Module):
     """The decoder; ``forward(batch) -> (logits, aux)`` with
-    ``batch["tokens"]`` [B, L] integer ids and ``aux`` the MoE layers'
+    ``batch["tokens"]`` [B, L] integer ids (audio [B, L, nc]; a vision
+    batch may add ``patch_emb``) and ``aux`` the MoE layers'
     summed load-balancing loss (0 without experts); ``forward(batch,
     collect_state=True, cache_len=S) -> (logits, aux, state)`` is the
     prefill (module docstring)."""
@@ -139,18 +151,32 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator]
                  = None, device: DeviceLike = None, dtype=F32):
         super().__init__()
-        _check_ported(cfg)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         d, v = cfg.d_model, cfg.vocab
         self.cfg = cfg
-        self.embed = nn.utils.skip_init(nn.Embedding, v, d, device=device,
-                                        dtype=dtype)
-        with torch.no_grad():
-            self.embed.weight.normal_(0.0, d ** -0.5, generator=generator)
-        self.lm_head: Optional[nn.Linear] = None
-        if not cfg.tie_embeddings:
+        self.lm_head: Optional[nn.Module] = None
+        self.vision_proj: Optional[nn.Linear] = None
+        if cfg.frontend == "audio_stub":
+            nc = cfg.n_codebooks
+            self.embed = Codebooks(nc, v, d, d ** -0.5, generator, device,
+                                   dtype)
+            self.lm_head = Codebooks(nc, d, v, d ** -0.5, generator, device,
+                                     dtype)
+        else:
+            self.embed = nn.utils.skip_init(nn.Embedding, v, d,
+                                            device=device, dtype=dtype)
+            with torch.no_grad():
+                self.embed.weight.normal_(0.0, d ** -0.5,
+                                          generator=generator)
+        if cfg.frontend == "vision_stub":
+            self.vision_proj = nn.utils.skip_init(
+                nn.Linear, d, d, bias=False, device=device, dtype=dtype)
+            with torch.no_grad():
+                self.vision_proj.weight.normal_(0.0, d ** -0.5,
+                                                generator=generator)
+        if not cfg.tie_embeddings and self.lm_head is None:
             self.lm_head = nn.utils.skip_init(nn.Linear, d, v, bias=False,
                                               device=device, dtype=dtype)
             with torch.no_grad():
@@ -260,6 +286,24 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
     return p.ndim + 1 if name.startswith("layers.") else p.ndim
 
 
+def reference_leaves(cfg: ArchConfig, names) -> List[Tuple[str, ...]]:
+    """The parameter ``names`` grouped by the leaf of the JAX tree that
+    holds them: a decoder layer's tensor is stacked there with the same
+    tensor of every layer at its pattern position (``layers.{i}.`` with
+    one ``i % len(cfg.layer_pattern)``), in the order of ``names``;
+    every other parameter is a leaf of its own."""
+    per = len(cfg.layer_pattern)
+    leaves: Dict[object, List[str]] = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        key = name
+        if head == "layers":
+            i, _, rest = rest.partition(".")
+            key = (int(i) % per, rest)
+        leaves.setdefault(key, []).append(name)
+    return [tuple(v) for v in leaves.values()]
+
+
 def params_of(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters by name: the tensors a train step updates
     and a checkpoint holds."""
@@ -286,11 +330,28 @@ def load_params(model: nn.Module, params: Mapping[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ArchConfig, model: Decoder, batch) -> torch.Tensor:
-    return F.embedding(batch["tokens"], model.embed.weight)
+    """The stack's input [B, L, d]: the tokens' embeddings; for audio
+    their sum over codebooks, for a vision batch that holds
+    ``patch_emb`` the projected patches before them."""
+    w = model.embed.weight
+    if cfg.frontend == "audio_stub":
+        codes = batch["tokens"]                              # [B, L, nc]
+        h = F.embedding(codes[:, :, 0], w[0])
+        for c in range(1, cfg.n_codebooks):
+            h = h + F.embedding(codes[:, :, c], w[c])
+        return h
+    tok = F.embedding(batch["tokens"], w)
+    if cfg.frontend == "vision_stub" and "patch_emb" in batch:
+        patch = model.vision_proj(batch["patch_emb"].to(tok.dtype))
+        return torch.cat([patch, tok], dim=1)
+    return tok
 
 
 def unembed(cfg: ArchConfig, model: Decoder, h: torch.Tensor
             ) -> torch.Tensor:
+    """The logits [B, L, V]; audio [B, L, nc, V], one head a codebook."""
+    if cfg.frontend == "audio_stub":
+        return torch.einsum("bld,cdv->blcv", h, model.lm_head.weight)
     if cfg.tie_embeddings:
         return h @ model.embed.weight.T
     return model.lm_head(h)
@@ -366,7 +427,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, s: int, dtype=F32,
     """Empty states (decode from scratch) in the layout ``forward(...,
     collect_state=True)`` gives (module docstring): zeros, the SSM ``h``
     in float32 and the rest in ``dtype``."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     g, kvh, hd = cfg.n_groups, cfg.n_kv_heads, cfg.hd
     di, st, k = cfg.di, cfg.ssm_state, cfg.ssm_conv
@@ -421,9 +481,10 @@ def _decode_attn(cfg: ArchConfig, ap: Attention, h_in, kv_cache, pos, kind,
 
 
 def decode_step(cfg: ArchConfig, model: Decoder, state, batch, pos):
-    """One decode step.  ``batch["tokens"]``: [B, 1]; ``pos``: the
-    absolute position, a 0-d integer tensor on the model's device (an int
-    is copied there).  Returns (logits [B, 1, V], new_state); ``state``
+    """One decode step.  ``batch["tokens"]``: [B, 1] (audio [B, 1, nc]);
+    ``pos``: the absolute position, a 0-d integer tensor on the model's
+    device (an int is copied there), counting a vision prompt's patches.
+    Returns (logits [B, 1, V] (audio [B, 1, nc, V]), new_state); ``state``
     is left as it was.  An MoE layer routes the step's B tokens at the
     capacity of B tokens (the JAX semantics)."""
     h = embed_inputs(cfg, model, batch)

@@ -21,8 +21,9 @@ from ..models import model as M
 
 def make_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None):
     """``prefill(model, batch) -> (logits [B, 1, V], state)``: the last
-    position's logits and the caches of ``cache_len`` positions (the
-    prompt's length when None)."""
+    position's logits (audio [B, 1, nc, V]) and the caches of
+    ``cache_len`` positions (the prompt's length, a vision batch's
+    ``patch_emb`` included, when None)."""
     @torch.no_grad()
     def prefill_step(model, batch):
         logits, _, state = model(batch, collect_state=True,
@@ -44,7 +45,8 @@ def greedy_decode(cfg: ArchConfig, model, state, first_token: torch.Tensor,
                   start_pos: int, n_tokens: int):
     """``n_tokens`` greedy steps from ``first_token`` [B, 1] at absolute
     position ``start_pos``; returns (tokens [B, n_tokens] int32, state)
-    on the model's device."""
+    on the model's device.  Audio takes the argmax of each codebook:
+    ``first_token`` [B, 1, nc], tokens [B, n_tokens, nc]."""
     step = make_decode_step(cfg)
     tok = first_token
     pos = torch.full((), start_pos, dtype=torch.int64,

@@ -1,8 +1,9 @@
 """The LM training substrate (``repro.train``' counterpart): the
 step-indexed synthetic data, AdamW, the loss and the train step, and
 the curation driver (``curated``).  ``__all__`` is the JAX package's
-``repro.train.__all__``; its cross-pod compressed step
-(``train/compressed.py``) is ROADMAP A17e."""
+``repro.train.__all__``; the cross-pod compressed step is
+``train.compressed``, imported explicitly as in the JAX package.  The
+multi-card train driver (the JAX ``launch/train.py``) is ROADMAP A17f."""
 
 from .data import DataConfig, DataPipeline, synthetic_batch
 from .optimizer import OptConfig, apply_updates, init_opt_state

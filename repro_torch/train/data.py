@@ -12,8 +12,11 @@ Token streams follow a noisy affine recurrence, giving a learnable
 structure (a model that captures the bigram dynamics drops well below
 the uniform-entropy loss floor).  Tokens and labels are int64 (the
 index type of ``F.embedding`` and ``gather``) holding the JAX int32
-values.  A ``vision_stub`` batch needs normal draws for its patch
-embeddings, which the port's threefry lacks: ROADMAP A17e.
+values.  An ``audio_stub`` batch keeps its ``[B, L, nc]`` codebook
+streams; a ``vision_stub`` batch of length ``seq`` holds ``seq − P``
+text tokens and ``patch_emb`` [B, P, d], float32 normal draws
+(``threefry.normal``, jax's bits), with labels and loss mask zero over
+the P patches.
 """
 
 from __future__ import annotations
@@ -40,13 +43,9 @@ def synthetic_batch(cfg: ArchConfig, batch: int, seq: int, step: int,
                     dcfg: DataConfig = DataConfig(),
                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Batch for `step`, identical no matter which process computes it."""
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError(
-            f"{cfg.name}: vision_stub batches are not ported yet "
-            f"(ROADMAP A17e)")
     dev = resolve_device(device)
     key = threefry.fold_in(threefry.PRNGKey(dcfg.seed), step)
-    k1, k2, k3, _ = threefry.split(key, 4)
+    k1, k2, k3, k4 = threefry.split(key, 4)
     v = cfg.vocab
     nc = cfg.n_codebooks if cfg.frontend == "audio_stub" else 1
     x = threefry.randint(k1, (batch, nc), 0, v, device=dev)
@@ -68,8 +67,21 @@ def synthetic_batch(cfg: ArchConfig, batch: int, seq: int, step: int,
 
     if cfg.frontend == "audio_stub":
         return {"tokens": toks, "labels": labels, "loss_mask": mask}
-    return {"tokens": toks[..., 0], "labels": labels[..., 0],
-            "loss_mask": mask}
+    toks, labels = toks[..., 0], labels[..., 0]
+    out = {"tokens": toks, "labels": labels, "loss_mask": mask}
+    if cfg.frontend == "vision_stub":
+        p = cfg.n_patches
+        out["tokens"] = toks[:, :seq - p]
+        out["patch_emb"] = threefry.normal(k4, (batch, p, cfg.d_model),
+                                           device=dev)
+        # labels cover the full (patch + text) sequence; no loss on patches
+        out["labels"] = torch.cat(
+            [torch.zeros((batch, p), dtype=labels.dtype, device=dev),
+             labels[:, :seq - p]], dim=1)
+        out["loss_mask"] = torch.cat(
+            [torch.zeros((batch, p), dtype=torch.float32, device=dev),
+             mask[:, :seq - p]], dim=1)
+    return out
 
 
 class DataPipeline:

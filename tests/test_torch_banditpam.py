@@ -8,6 +8,7 @@ final loss sum).  Inputs are ``mnist_like`` data made with numpy.
 """
 
 import ast
+import functools
 import pathlib
 import subprocess
 import sys
@@ -26,17 +27,47 @@ from repro.core.banditpam import _batch_perms, _batch_rng_chains
 from repro_torch import convert
 from repro_torch.api import KMedoids, assign_medoids, predict
 from repro_torch.core import BanditPAM, datasets, rng
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = [(300, 3, "l2"), (650, 5, "l2"), (650, 4, "l1")]
 
 
+@functools.lru_cache(maxsize=None)
+def _chain(seed: int, k: int, T: int):
+    """The JAX fit's key chain (``_batch_rng_chains`` for one seed), split
+    by split as the single-fit driver walks it: the search subkeys
+    ``subs`` [k + T, 2] and their perm-keys ``split(sub)[1]``.  The jitted
+    ``_batch_rng_chains`` unrolls the k + T splits, a compile of ~25 s at
+    k = 65; these are the same bits
+    (``test_chain_equals_the_batch_chain``), computed op by op and kept
+    for the process."""
+    key = jax.random.PRNGKey(seed)
+    key, _ = jax.random.split(key)
+    subs = []
+    for _ in range(k + T):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    subs = jnp.stack(subs)
+    pkeys = jax.vmap(lambda s: jax.random.split(s)[1])(subs)
+    return subs, pkeys
+
+
 def jax_layouts(seed: int, n: int, k: int):
     """The JAX fit's per-search permutations: k BUILD, 4k+10 SWAP."""
-    _, _, _, bpk, spk = _batch_rng_chains(jnp.asarray([seed]), k=k,
-                                          T=4 * k + 10)
-    return (np.asarray(_batch_perms(bpk[0], n=n)),
-            np.asarray(_batch_perms(spk[0], n=n)))
+    _, pkeys = _chain(seed, k, 4 * k + 10)
+    return (np.asarray(_batch_perms(pkeys[:k], n=n)),
+            np.asarray(_batch_perms(pkeys[k:], n=n)))
+
+
+@functools.partial(jax.jit, static_argnames=("n", "batch_size", "n_rounds"))
+def _draw_rounds(keys, *, n: int, batch_size: int, n_rounds: int):
+    def one(key):
+        def body(key, _):
+            key, sub = jax.random.split(key)
+            return key, jax.random.randint(sub, (batch_size,), 0, n)
+        return jax.lax.scan(body, key, None, length=n_rounds)[1]
+    return jax.vmap(one)(keys)
 
 
 def jax_draws(seed: int, n: int, k: int, batch_size: int = 100):
@@ -44,20 +75,24 @@ def jax_draws(seed: int, n: int, k: int, batch_size: int = 100):
     SWAP with R = ceil(n/B): search s (key ``subs[s]`` of the chain)
     draws round r as ``key, sub = split(key); randint(sub, (B,), 0, n)``.
     """
-    _, bsub, ssub, _, _ = _batch_rng_chains(jnp.asarray([seed]), k=k,
-                                            T=4 * k + 10)
-    n_rounds = -(-n // batch_size)
+    subs, _ = _chain(seed, k, 4 * k + 10)
+    kw = dict(n=n, batch_size=batch_size, n_rounds=-(-n // batch_size))
+    return (np.asarray(_draw_rounds(subs[:k], **kw)),
+            np.asarray(_draw_rounds(subs[k:], **kw)))
 
-    @jax.jit
-    def rounds(keys):
-        def one(key):
-            def body(key, _):
-                key, sub = jax.random.split(key)
-                return key, jax.random.randint(sub, (batch_size,), 0, n)
-            return jax.lax.scan(body, key, None, length=n_rounds)[1]
-        return jax.vmap(one)(keys)
 
-    return np.asarray(rounds(bsub[0])), np.asarray(rounds(ssub[0]))
+@pytest.mark.parametrize("seed,k", [(0, 3), (7, 5)])
+def test_chain_equals_the_batch_chain(seed, k):
+    """``_chain`` gives ``_batch_rng_chains``' subkeys and perm-keys bit
+    for bit (the layouts and draws the parity tests replay)."""
+    T = 4 * k + 10
+    _, bsub, ssub, bpk, spk = _batch_rng_chains(jnp.asarray([seed]), k=k,
+                                                T=T)
+    subs, pkeys = _chain(seed, k, T)
+    np.testing.assert_array_equal(np.asarray(subs),
+                                  np.concatenate([bsub[0], ssub[0]]))
+    np.testing.assert_array_equal(np.asarray(pkeys),
+                                  np.concatenate([bpk[0], spk[0]]))
 
 
 def _same_fit(got, want):
@@ -264,7 +299,8 @@ def test_port_imports_neither_jax_nor_reference_package():
                "models/model.py", "models/moe.py", "models/ssm.py",
                "train/data.py", "train/optimizer.py",
                "train/train_step.py", "train/curated.py", "runtime/fault.py",
-               "serve/lm.py", "launch/serve.py", "core/datasets.py"):
+               "serve/lm.py", "launch/serve.py", "core/datasets.py",
+               "distributed/compression.py", "train/compressed.py"):
         assert ROOT / "repro_torch" / lm in files
     for f in files:
         for mod in _imports(f):
@@ -278,7 +314,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.models, repro_torch.train, "
             "repro_torch.train.curated, repro_torch.runtime.fault, "
             "repro_torch.serve.lm, repro_torch.launch.serve, "
-            "repro_torch.core.datasets; "
+            "repro_torch.core.datasets, repro_torch.distributed.compression, "
+            "repro_torch.train.compressed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')]; print(bad); "
             "sys.exit(bool(bad))")

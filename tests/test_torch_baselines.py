@@ -21,19 +21,9 @@ from repro.core import baselines as jbaselines
 from repro.core import datasets as jdatasets
 from repro_torch.api import KMedoids, registry
 from repro_torch.core import baselines, engine
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FIXTURES = [(300, 3, "l2"), (260, 4, "l1"), (240, 5, "cosine")]
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: these tests run many small ops, and with
-    several pytest workers sharing the cores, OpenMP's idle threads
-    multiply their time tens of times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _same(got, want):

@@ -45,6 +45,7 @@ from repro_torch.api import KMedoids
 from repro_torch.core import adaptive, banditpam, datasets, threefry
 from repro_torch.core import distributed as tdist
 from repro_torch.core import BanditPAM, DistributedBanditPAM, MedoidCurator
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N, K, SEED, B = 257, 3, 0, 128
@@ -115,14 +116,6 @@ _JAX_REFS = textwrap.dedent("""
                                for p, v in r.evals_by_phase.items()}}
     print(json.dumps(out))
 """ % SEED)
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -26,6 +26,7 @@ import torch.distributed as dist
 from repro.core import datasets as jdatasets
 from repro_torch.core import adaptive
 from repro_torch.core import distributed as tdist
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N, K, B = 400, 3, 4
 TIMEOUT = 120
@@ -36,14 +37,6 @@ MODES = {
     "pic": {"reuse": "pic"},                        # 32 rounds: recycles
     "pic_full": {"reuse": "pic", "cache_width": N},   # carried repairs
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture()

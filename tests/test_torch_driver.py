@@ -15,6 +15,7 @@ from repro.core import datasets as jdatasets
 from repro_torch.analysis.guard import expected_reads
 from repro_torch.core import (BanditPAM, adaptive, banditpam, datasets,
                               engine, rng)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPORT = ("medoids", "swap_history", "build_rounds", "evals_by_phase",
           "swap_exact_fallbacks", "n_swaps", "converged", "loss")

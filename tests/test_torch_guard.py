@@ -34,6 +34,7 @@ from repro_torch.analysis.guard import (FitGuard, expected_reads,  # noqa: F401
 from repro_torch.core import BanditPAM, engine
 from repro_torch.core import distributed as tdist
 from repro_torch.core.report import FitReport
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N, K, B = 400, 3, 20
 MODES = {
@@ -41,14 +42,6 @@ MODES = {
     "replacement+leader": {"sampling": "replacement", "baseline": "leader"},
     "pic": {"reuse": "pic"},
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

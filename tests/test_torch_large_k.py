@@ -19,12 +19,14 @@ metric.
 """
 
 import pytest
+import torch
 
 from repro.core import BanditPAM as JBanditPAM
 from repro_torch import convert
 from repro_torch.core import BanditPAM
 from repro_torch.core.datasets import code_blobs
 from test_torch_banditpam import _same_fit, jax_layouts
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("metric", ["l2", "l2sq"])

@@ -31,6 +31,7 @@ from repro.core import engine as jengine
 from repro_torch import convert
 from repro_torch.core import BanditPAM, adaptive, engine
 from test_torch_banditpam import FIXTURES, jax_layouts
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _t(a):

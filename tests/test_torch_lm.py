@@ -5,7 +5,10 @@ against the live JAX package on the CPU, on the same numpy inputs, at
 heads, vocab 256), B = 2, L = 32; the forward, the parameter names and
 the decay rule also at the reduced MoE (arctic, llama4), Mamba-1
 (falcon-mamba) and hybrid (zamba2) configs, whose blocks
-``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py`` hold.
+``tests/test_torch_moe.py`` and ``tests/test_torch_ssm.py`` hold, and at
+the two frontends' (phi-3-vision: 8 projected patch embeddings before 24
+text tokens; musicgen: 2 codebooks summed in, one head each), whose
+batches, ``patch_emb`` included, equal the JAX batches bit for bit.
 
 Tolerances: the building blocks within rtol 1e-5, atol 1e-6 (float32
 ops that XLA and PyTorch may round or order differently in the last
@@ -37,11 +40,12 @@ from repro_torch.models import model as M
 from repro_torch.train import curated
 from repro_torch.train import data
 from repro_torch.train import optimizer
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "qwen3_1_7b"
 FAMILIES = ("arctic_480b", "llama4_scout_17b", "falcon_mamba_7b",
-            "zamba2_2_7b")
+            "zamba2_2_7b", "phi3_vision_4_2b", "musicgen_large")
 BATCH, SEQ = 2, 32
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -163,16 +167,19 @@ def test_forward_logits_match(arch):
     tokens at 48 slots an expert), llama4's top-1 with the shared expert
     over chunked and global layers (window 32); falcon-mamba's Mamba-1
     layers and tied embeddings; zamba2's Mamba-2 layers and the shared
-    block."""
+    block; phi-3-vision's patch prefix; musicgen's codebooks."""
     cfg, jcfg = configs.get_reduced(arch), jconfigs.get_reduced(arch)
     params = _jax_params(jcfg)
     model = _port_model(params, cfg)
-    toks = data.synthetic_batch(cfg, BATCH, SEQ, 0, device="cpu")["tokens"]
-    want, jaux = jax.jit(lambda p, t: JM.forward(
-        jcfg, p, {"tokens": t}))(params, jnp.asarray(toks.numpy()))
-    got, aux = model({"tokens": toks})
+    full = data.synthetic_batch(cfg, BATCH, SEQ, 0, device="cpu")
+    inp = {k: v for k, v in full.items() if k in ("tokens", "patch_emb")}
+    want, jaux = jax.jit(lambda p, b: JM.forward(jcfg, p, b))(
+        params, {k: jnp.asarray(v.numpy()) for k, v in inp.items()})
+    got, aux = model(inp)
     want = np.asarray(want)
-    assert got.shape == want.shape == (BATCH, SEQ, cfg.vocab)
+    shape = (BATCH, SEQ) + ((cfg.n_codebooks,) if cfg.frontend ==
+                            "audio_stub" else ()) + (cfg.vocab,)
+    assert got.shape == want.shape == shape
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(float(aux.detach()), float(jaux), rtol=1e-6)
@@ -180,7 +187,7 @@ def test_forward_logits_match(arch):
     # The checkpointed groups (autograd on) and the plain path (off) give
     # the same bits.
     with torch.no_grad():
-        assert torch.equal(model({"tokens": toks})[0], got)
+        assert torch.equal(model(inp)[0], got)
 
 
 def test_lm_params_cover_the_model():
@@ -229,6 +236,14 @@ def test_lm_params_cover_each_family(arch):
             conv["layers.1.m.out_proj.weight"].numpy(),
             np.asarray(params["groups"][1 % len(cfg.layer_pattern)]["m"][
                 "out_proj"][1 // len(cfg.layer_pattern)]).T)
+    if cfg.frontend == "vision_stub":
+        np.testing.assert_array_equal(conv["vision_proj.weight"].numpy(),
+                                      np.asarray(params["vision_proj"]).T)
+    if cfg.frontend == "audio_stub":
+        # [nc, V, d] and [nc, d, V]: the einsum's operands, untransposed.
+        for leaf in ("embed", "lm_head"):
+            np.testing.assert_array_equal(conv[f"{leaf}.weight"].numpy(),
+                                          np.asarray(params[leaf]))
 
 
 @pytest.mark.parametrize("arch", [ARCH, *FAMILIES])
@@ -253,12 +268,6 @@ def test_decay_rule_equals_jax_ndim(arch):
         assert not optimizer.decays("shared_attn.ln1.weight",
                                     own["shared_attn.ln1.weight"])
         assert optimizer.decays("layers.0.m.A_log", own["layers.0.m.A_log"])
-
-
-@pytest.mark.parametrize("arch", ["phi3_vision_4_2b", "musicgen_large"])
-def test_unported_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A17e"):
-        M.init_params(configs.get_reduced(arch), device="cpu")
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -298,13 +307,39 @@ def test_synthetic_batch_equals_jax(seed, step):
 
 
 def test_audio_batch_equals_jax():
-    """[B, L, codebooks] tokens (the model's audio frontend is A17e)."""
+    """[B, L, codebooks] tokens and labels."""
     want = jdata.synthetic_batch(jconfigs.get_reduced("musicgen_large"),
                                  BATCH, SEQ, 3)
     got = data.synthetic_batch(configs.get_reduced("musicgen_large"), BATCH,
                                SEQ, 3, device="cpu")
+    assert got.keys() == want.keys()
+    assert got["tokens"].shape == (BATCH, SEQ, 2)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("step", [0, 3, 10_000])
+def test_vision_batch_equals_jax(step):
+    """``seq − P`` text tokens, ``patch_emb`` [B, P, d] (threefry's
+    normal draws, bit for bit), labels and loss mask zero over the P
+    patches."""
+    jcfg = jconfigs.get_reduced("phi3_vision_4_2b")
+    cfg = configs.get_reduced("phi3_vision_4_2b")
+    want = jdata.synthetic_batch(jcfg, BATCH, SEQ, step)
+    got = data.synthetic_batch(cfg, BATCH, SEQ, step, device="cpu")
+    assert got.keys() == want.keys()
+    p = cfg.n_patches
+    assert got["tokens"].shape == (BATCH, SEQ - p)
+    assert got["patch_emb"].shape == (BATCH, p, cfg.d_model)
+    assert got["patch_emb"].dtype == torch.float32
+    for k in want:
+        g, w = got[k].numpy(), np.asarray(want[k])
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.view(np.int32) if g.dtype ==
+                                      np.float32 else g,
+                                      w.view(np.int32) if w.dtype ==
+                                      np.float32 else w)
+    assert not got["loss_mask"][:, :p].any() and not got["labels"][:, :p].any()
 
 
 def test_data_pipeline_state_and_resume():
@@ -322,6 +357,24 @@ def test_data_pipeline_state_and_resume():
     assert all(torch.equal(a[k], c[k]) for k in a)
     np.testing.assert_array_equal(c["labels"].numpy(),
                                   np.asarray(next(jpipe)["labels"]))
+
+
+@pytest.mark.parametrize("arch", ["phi3_vision_4_2b", "musicgen_large"])
+def test_frontend_pipelines_resume(arch):
+    """A frontend's pipeline resumed from its state gives the next
+    batches, the JAX pipeline's bits (``patch_emb`` included)."""
+    cfg, jcfg = configs.get_reduced(arch), jconfigs.get_reduced(arch)
+    pipe = data.DataPipeline(cfg, BATCH, SEQ, data.DataConfig(seed=2),
+                             device="cpu")
+    jpipe = jdata.DataPipeline(jcfg, BATCH, SEQ, jdata.DataConfig(seed=2))
+    next(pipe), next(jpipe)
+    resumed = data.DataPipeline.from_state(cfg, BATCH, SEQ, pipe.state(),
+                                           device="cpu")
+    a, c, jb = next(pipe), next(resumed), next(jpipe)
+    assert a.keys() == c.keys() == jb.keys()
+    for k in a:
+        assert torch.equal(a[k], c[k])
+        np.testing.assert_array_equal(c[k].numpy(), np.asarray(jb[k]))
 
 
 # ---------------------------------------------------------------------------

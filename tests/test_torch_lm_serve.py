@@ -21,7 +21,12 @@ by ``convert.lm_params_from_reference``) and the same prompts
   there as in the JAX layer; a decode step routes B = 2 tokens at 8;
 * ``falcon_mamba_7b`` reduced: two Mamba-1 layers, a prompt of 12;
 * ``zamba2_2_7b`` reduced: five Mamba-2 layers and a sixth followed by
-  the shared attention block, a prompt of 12.
+  the shared attention block, a prompt of 12;
+* ``phi3_vision_4_2b`` reduced: a prompt of 20 positions, 8 projected
+  patch embeddings then 12 text tokens; decode is text only from
+  position 20;
+* ``musicgen_large`` reduced: 2 codebooks, a prompt of 12 steps, greedy
+  decode per codebook ([B, 1, 2] tokens, [B, 1, 2, V] logits).
 
 Each decode runs until at least 6 steps past the window.  Tolerances:
 logits within 1e-5·max|logits| (the forward's standard,
@@ -54,6 +59,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.serve import lm
 from repro_torch.train import data
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 BATCH = 2
@@ -65,9 +71,10 @@ CASES = {"global": ("qwen3_1_7b", 12), "local_short": ("gemma3_12b", 8),
          "local_rolled": ("gemma3_12b", 24), "chunked": ("chunked", 28),
          "moe_arctic": ("arctic_480b", 12),
          "moe_llama4": ("llama4_scout_17b", 28),
-         "mamba1": ("falcon_mamba_7b", 12), "hybrid": ("zamba2_2_7b", 12)}
+         "mamba1": ("falcon_mamba_7b", 12), "hybrid": ("zamba2_2_7b", 12),
+         "vision": ("phi3_vision_4_2b", 20), "audio": ("musicgen_large", 12)}
 FAMILIES = ("arctic_480b", "llama4_scout_17b", "falcon_mamba_7b",
-            "zamba2_2_7b")
+            "zamba2_2_7b", "phi3_vision_4_2b", "musicgen_large")
 
 
 @pytest.fixture(autouse=True)
@@ -122,9 +129,10 @@ def _state_close(got, want):
 
 @functools.lru_cache(maxsize=None)
 def _setup(case):
-    """Both models on the same weights, the prompts, and the JAX run:
-    prefill (last logits, state), then the teacher-forced decode of the
-    JAX greedy tokens (each step's logits and state)."""
+    """Both models on the same weights, the prompts (``tokens``, and a
+    vision prompt's ``patch_emb``; ``prompt`` counts every position), and
+    the JAX run: prefill (last logits, state), then the teacher-forced
+    decode of the JAX greedy tokens (each step's logits and state)."""
     arch, prompt = CASES[case]
     cfg, jcfg = _configs(arch)
     params = JM.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
@@ -133,11 +141,12 @@ def _setup(case):
         jax.tree.map(np.asarray, params), device="cpu"))
     steps = _steps(cfg, prompt)
     cache_len = prompt + steps + 1
-    toks = data.synthetic_batch(cfg, BATCH, prompt, 0,
-                                device="cpu")["tokens"]
+    full = data.synthetic_batch(cfg, BATCH, prompt, 0, device="cpu")
+    prompts = {k: full[k] for k in ("tokens", "patch_emb") if k in full}
     jprefill = jax.jit(jlm.make_prefill_step(jcfg, cache_len=cache_len))
     jdecode = jax.jit(jlm.make_decode_step(jcfg))
-    logits, state = jprefill(params, {"tokens": jnp.asarray(toks.numpy())})
+    logits, state = jprefill(params, {k: jnp.asarray(v.numpy())
+                                      for k, v in prompts.items()})
     run = [(np.asarray(logits), jax.tree.map(np.asarray, state))]
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
     tokens = []
@@ -147,7 +156,7 @@ def _setup(case):
                                 jnp.int32(prompt + i))
         run.append((np.asarray(logits), jax.tree.map(np.asarray, state)))
         tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
-    return cfg, jcfg, params, model, toks, cache_len, run, tokens
+    return cfg, jcfg, params, model, prompts, prompt, cache_len, run, tokens
 
 
 # ---------------------------------------------------------------------------
@@ -237,15 +246,16 @@ def test_init_decode_state_layout_by_family(arch):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_prefill_state_matches_jax(case):
-    cfg, _, _, model, toks, cache_len, run, _ = _setup(case)
-    logits, state = lm.make_prefill_step(cfg, cache_len)(model,
-                                                        {"tokens": toks})
-    assert logits.shape == (BATCH, 1, cfg.vocab)
+    cfg, _, _, model, prompts, _, cache_len, run, _ = _setup(case)
+    logits, state = lm.make_prefill_step(cfg, cache_len)(model, prompts)
+    assert logits.shape == (BATCH, 1) + ((cfg.n_codebooks,) if cfg.frontend
+                                         == "audio_stub" else ()) + (
+                                             cfg.vocab,)
     _logits_close(logits, run[0][0])
     _state_close(state, run[0][1])
     # The prefill's logits are the plain forward's.
     with torch.no_grad():
-        plain = model({"tokens": toks})[0][:, -1:]
+        plain = model(prompts)[0][:, -1:]
     assert torch.equal(logits, plain)
 
 
@@ -254,11 +264,9 @@ def test_prefill_state_matches_jax(case):
 def test_decode_steps_match_jax(case, source):
     """Teacher-forced on the JAX greedy tokens, from the port's own
     prefill or from the JAX prefill's state carried across."""
-    cfg, _, _, model, toks, cache_len, run, tokens = _setup(case)
-    prompt = toks.shape[1]
+    cfg, _, _, model, prompts, prompt, cache_len, run, tokens = _setup(case)
     if source == "port":
-        _, state = lm.make_prefill_step(cfg, cache_len)(model,
-                                                       {"tokens": toks})
+        _, state = lm.make_prefill_step(cfg, cache_len)(model, prompts)
     else:
         state = convert.lm_state_from_reference(run[0][1], device="cpu")
     step = lm.make_decode_step(cfg)
@@ -279,9 +287,9 @@ def test_greedy_decode_tokens_equal(case):
     """The greedy tokens equal the JAX loop's; every step's top-2 logit
     gap clears the logits' tolerance on both sides, so equal tokens are
     what the tolerance implies and not a coin toss."""
-    cfg, jcfg, params, model, toks, cache_len, run, tokens = _setup(case)
-    prompt = toks.shape[1]
-    _, state = lm.make_prefill_step(cfg, cache_len)(model, {"tokens": toks})
+    (cfg, jcfg, params, model, prompts, prompt, cache_len, run,
+     tokens) = _setup(case)
+    _, state = lm.make_prefill_step(cfg, cache_len)(model, prompts)
     first = torch.from_numpy(tokens[0])
     got, _ = lm.greedy_decode(cfg, model, state, first, prompt,
                               len(tokens) - 1)
@@ -293,7 +301,7 @@ def test_greedy_decode_tokens_equal(case):
     np.testing.assert_array_equal(got.numpy(),
                                   np.concatenate(tokens[1:], axis=1))
     for logits, _ in run:
-        top = np.sort(logits.reshape(BATCH, -1), axis=1)
+        top = np.sort(logits.reshape(-1, logits.shape[-1]), axis=1)
         tol = 1e-5 * np.abs(logits).max()
         assert (top[:, -1] - top[:, -2] > 2 * tol).all()
 
@@ -313,6 +321,28 @@ def test_serve_driver_runs_on_the_cpu(capsys):
     logits, state = lm.make_prefill_step(cfg, 17)(model, {"tokens": toks})
     first = torch.argmax(logits, dim=-1).to(torch.int32)
     rest, _ = lm.greedy_decode(cfg, model, state, first, 12, 4)
+    np.testing.assert_array_equal(
+        out["tokens"], torch.cat([first, rest], dim=1).numpy())
+
+
+@pytest.mark.parametrize("arch", ["phi3_vision_4_2b", "musicgen_large"])
+def test_serve_driver_serves_the_frontends(arch):
+    """The driver's vision prompt is its 8 patches then 4 text tokens,
+    decoded from position 12; audio's tokens are [B, steps, nc].  Its
+    tokens are ``greedy_decode``'s on its model and prompts."""
+    out = launch_serve.main(["--arch", arch, "--reduced", "--requests", "2",
+                             "--prompt-len", "12", "--max-new", "4",
+                             "--device", "cpu"])
+    cfg = configs.get_reduced(arch)
+    nc = (cfg.n_codebooks,) if cfg.frontend == "audio_stub" else ()
+    assert out["tokens"].shape == (2, 4) + nc
+    model = M.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    full = data.synthetic_batch(cfg, 2, 12, 0, device="cpu")
+    prompts = {k: full[k] for k in ("tokens", "patch_emb") if k in full}
+    logits, state = lm.make_prefill_step(cfg, 16)(model, prompts)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    rest, _ = lm.greedy_decode(cfg, model, state, first, 12, 3)
     np.testing.assert_array_equal(
         out["tokens"], torch.cat([first, rest], dim=1).numpy())
 
@@ -337,9 +367,3 @@ def test_entry_points_default_to_the_card():
         convert.lm_state_from_reference(
             M.init_decode_state(cfg, BATCH, 16, device="cpu"))
 
-
-@pytest.mark.parametrize("arch", ["phi3_vision_4_2b", "musicgen_large"])
-def test_unported_decode_states_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        M.init_decode_state(configs.get_reduced(arch), BATCH, 16,
-                            device="cpu")

@@ -3,7 +3,9 @@
 the CPU at ``get_reduced("qwen3_1_7b")``, B = 2, L = 32, on the same
 numpy parameters, gradients and optimizer state; the loss and gradients
 also at the reduced MoE (arctic, llama4), Mamba-1 (falcon-mamba) and
-hybrid (zamba2) configs, the MoE loss with its load-balancing term.
+hybrid (zamba2) configs, the MoE loss with its load-balancing term, and
+at the two frontends' (phi-3-vision's loss masked over its patches,
+through ``vision_proj``; musicgen's the mean over its codebooks).
 
 AdamW's first step moves a weight by about ``lr·sign(g)``, so a
 gradient that is +1e-9 in one package and -1e-9 in the other moves it by
@@ -36,6 +38,7 @@ from repro_torch.runtime.fault import (FaultTolerantLoop, Preemption,
                                        StragglerMonitor)
 from repro_torch.train import curated, optimizer, train_step
 from repro_torch.train import synthetic_batch
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARCH = "qwen3_1_7b"
 BATCH, SEQ = 2, 32
@@ -157,7 +160,7 @@ def _jax_grads(jcfg, params, batch, microbatches):
 
 
 FAMILIES = ("arctic_480b", "llama4_scout_17b", "falcon_mamba_7b",
-            "zamba2_2_7b")
+            "zamba2_2_7b", "phi3_vision_4_2b", "musicgen_large")
 
 
 @pytest.mark.parametrize("microbatches,arch", [

@@ -19,17 +19,7 @@ from repro.core import datasets as jdatasets
 from repro.core import distances as jdistances
 from repro_torch.api import KMedoids
 from repro_torch.core import BanditPAM, distances, engine
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: these tests run many small ops, and with
-    several pytest workers sharing the cores, OpenMP's idle threads
-    multiply their time tens of times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cheb(x, y):

@@ -23,6 +23,7 @@ from repro.models import model as JM
 from repro.models import moe as jmoe
 from repro_torch import configs
 from repro_torch.models import moe
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BATCH, SEQ = 2, 32
 RTOL, ATOL = 1e-5, 1e-6

@@ -34,21 +34,11 @@ from repro.kernels import ops as jops
 from repro_torch.api import KMedoids, available_batch_solvers
 from repro_torch.core import BanditPAM, datasets, engine
 from repro_torch.kernels import ops
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 K = 3
 RAGGED = [180, 240, 300, 210]
 UNIFORM = [200, 200, 200]
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: the fits run many small ops, and with several
-    pytest workers sharing the cores, OpenMP's idle threads multiply their
-    time tens of times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _batch(ns, seed0=0):

@@ -24,6 +24,7 @@ from repro.core.pam import pam as jpam
 from repro_torch.api import KMedoids
 from repro_torch.core import engine, pam
 from test_torch_banditpam import FIXTURES
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _atol(metric, dmax, d):

@@ -37,6 +37,7 @@ from repro_torch.api import KMedoids
 from repro_torch.core import BanditPAM, banditpam, engine, pic_cache, rng
 from repro_torch.kernels import ops
 from test_torch_banditpam import FIXTURES
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 B = 100
 

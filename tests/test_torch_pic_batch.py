@@ -31,20 +31,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import BanditPAM, banditpam, batch, datasets, engine
 from repro_torch.kernels import ops
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 K = 3
 RING = dict(reuse="pic", batch_size=20, cache_width=200)
 LANE_ROWS = [130, 77, 101]
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread, as ``tests/test_torch_multifit.py`` runs its
-    fits (many small ops under several pytest workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):

@@ -4,9 +4,11 @@ rules (see that module's docstring).  A file of its own, so that the
 parity matrix is spread over the test workers."""
 
 import pytest
+import torch
 
 from test_torch_banditpam import FIXTURES
 from test_torch_pic import MODES, check_mode_against_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("mode", list(MODES))

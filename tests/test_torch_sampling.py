@@ -30,6 +30,7 @@ from repro.core import datasets as jdatasets
 from repro_torch import convert
 from repro_torch.core import BanditPAM, engine, rng
 from test_torch_banditpam import FIXTURES, jax_draws, jax_layouts
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 MODES = {
     "replacement": {"sampling": "replacement"},

@@ -26,6 +26,7 @@ from repro.api import KMedoids as JKMedoids
 from repro.core import datasets as jdatasets
 from repro_torch.api import KMedoids
 from test_torch_banditpam import FIXTURES
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 MODES = {"permutation": {}, "replacement": {"sampling": "replacement"},
          "pic": {"reuse": "pic"}, "cache_cols": {"cache_cols": 200}}
@@ -35,17 +36,6 @@ B = 100
 # permutation), -750 (swap, replacement), -100 (build_cached, pic) and
 # -100 (build, cache_cols).
 MARGIN_CASES = {(650, 5, "l2", mode, 1) for mode in MODES}
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: these tests run many small ops, and with
-    several pytest workers sharing the cores, OpenMP's idle threads
-    multiply their time tens of times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

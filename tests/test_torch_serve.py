@@ -46,6 +46,7 @@ from repro_torch.serve import (DriftMonitor, IngestResult, MedoidService,
                                Reservoir)
 from repro_torch.serve import reservoir as reservoir_mod
 from repro_torch.serve.service import _REFIT_SEED_STRIDE
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 K, D, B = 5, 20, 100
 LEADER_SLACK = 4 * B
@@ -55,15 +56,6 @@ EDGE_SEED = 2 ** 31 - _REFIT_SEED_STRIDE + 5
 # them by at most 0.8, so no row is longer than 1.8·sqrt(d).
 XMAX = 1.8 * np.sqrt(D)
 LOSS_SLACK = 2 * K * np.sqrt(2 * D * 2.0 ** -24) * XMAX
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: many small ops, several pytest workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _base(n=500, seed=0):

@@ -27,6 +27,7 @@ from repro.models import model as JM
 from repro.models import ssm as jssm
 from repro_torch import configs
 from repro_torch.models import ssm
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BATCH = 2
 DECODE_STEPS = 4

@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 METRICS = ["l2", "l2sq", "l1", "cosine"]
 M, R, D = 130, 600, 33

@@ -1,7 +1,8 @@
 """The port's threefry (``repro_torch.core.threefry``) against
 ``jax.random`` on the CPU, bit for bit: keys from seeds (negative, 0,
 past 2**32), ``split``, ``fold_in``, ``random_bits``, ``randint``,
-``permutation``, ``choice`` and ``uniform``, over sizes n = 1, 2, 100,
+``permutation``, ``choice``, ``uniform`` and ``normal`` (with
+``erf_inv``), over sizes n = 1, 2, 100,
 4,097 and 60,000 and several shapes; ``fold_in`` and ``uniform`` also
 over tensors of data words (the serving reservoir's draws).
 
@@ -17,23 +18,13 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro_torch.core import rng, threefry
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SEEDS = st.one_of(st.integers(-2 ** 63, 2 ** 63 - 1),
                   st.sampled_from([0, 1, -1, 2 ** 32, 2 ** 32 + 5,
                                    -2 ** 31 - 1, 2 ** 63 - 1]))
 SIZES = st.sampled_from([1, 2, 100, 4097, 60000])
 CASES = settings(max_examples=12, deadline=None)
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: these tests run many small ops, and with
-    several pytest workers sharing the cores, OpenMP's idle threads
-    multiply their time tens of times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jkey(seed):
@@ -160,6 +151,49 @@ def test_uniform(seed, shape, bounds):
                                          maxval=hi))
     got = _np(threefry.uniform(threefry.PRNGKey(seed), shape, lo, hi))
     assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@CASES
+@given(seed=SEEDS, shape=st.sampled_from([(1,), (8,), (3, 5), (2, 8, 64),
+                                          (4097,)]))
+def test_normal(seed, shape):
+    """``jax.random.normal`` bit for bit: the uniform on (nextafter(-1,
+    0), 1) and XLA's float32 ``erf_inv`` (its ``log1p`` and ``log``
+    polynomials with every multiply-add fused), times sqrt(2)."""
+    want = np.asarray(jax.random.normal(_jkey(seed), shape))
+    got = _np(threefry.normal(threefry.PRNGKey(seed), shape))
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_normal_at_two_million_draws():
+    """2,000,000 draws, all bits equal; ``torch.erfinv`` of the same
+    uniforms differs from ``lax.erf_inv`` in most of them (why the port
+    carries XLA's polynomial)."""
+    key = threefry.PRNGKey(3)
+    want = np.asarray(jax.random.normal(_jkey(3), (2_000_000,)))
+    got = _np(threefry.normal(key, (2_000_000,)))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = threefry.uniform(key, (2_000_000,), lo, 1.0)
+    plain = _np(np.float32(np.sqrt(2.0)) * torch.erfinv(u))
+    assert (plain.view(np.int32) != want.view(np.int32)).mean() > 0.5
+
+
+def test_erf_inv_over_its_domain():
+    """Both branches (w < 5 and the tail), both ``log1p`` routes
+    (|x²| below and above sqrt(2) − 1), ±0, the uniform's extremes, the
+    last floats below 1 and ±1 (±inf), bit for bit."""
+    edge = np.float32([0.0, -0.0, 1.0, -1.0, 1e-30, -1e-38, 0.5, 0.99,
+                       np.nextafter(np.float32(1), np.float32(0)),
+                       np.nextafter(np.float32(-1), np.float32(0)),
+                       0.6435942529055827, 0.9966158])
+    x = np.concatenate([np.linspace(-1, 1, 400_001, dtype=np.float32), edge,
+                        1 - np.float32(2.0) ** -np.arange(1, 24,
+                                                        dtype=np.float32)])
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(x))
+    got = _np(threefry.erf_inv(torch.from_numpy(x)))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
