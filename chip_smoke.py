@@ -340,6 +340,24 @@ Phases, each of which raises (exit code != 0) on any failure:
    parameters, residuals and moments equal bit for bit after each of 4
    steps.  All raising; the phase
    launches none of the hand-written kernels.
+17. the mesh layer (ROADMAP A17f; ``[mesh]`` lines): (a)
+   ``launch.train.main`` at qwen3-1.7B's full width cut to 2 layers (a
+   call may write 45 GiB to the machine's disk; a whole float32
+   checkpoint is 24.4 GB) on one rank (no mesh, float32), 8 x 64, 6
+   steps checkpointed every 2, then a second
+   call resuming from step 4 after the last checkpoint is removed: the
+   resumed losses equal the straight run's bit for bit; step wall p50,
+   tokens/s and peak memory of each call; (b) the same train step with
+   the parameters, the optimizer state and the batch as DTensors placed
+   by ``launch.specs`` on a (1, 1) mesh over a world size 1 ``nccl``
+   group, beside the plain step in this process: step walls side by
+   side, losses within rtol 1e-4 and whether their bits are equal; (c)
+   in a part of its own (``PARTS``, beside phase 11 (a)), the dry run
+   (``launch.dryrun``, a fake group of 512 ranks, meta tensors) of
+   qwen3-1.7B x train_4k on 16 x 16 and llama4-scout x decode_32k on
+   2 x 16 x 16: status ``ok``, per-device bytes, FLOPs, collectives by
+   kind and seconds.  All raising; the phase launches none of the
+   hand-written kernels (the JAX mesh layer runs no Pallas kernel).
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -474,7 +492,7 @@ def smi() -> str:
 # runs (``start_parts`` / ``finish_parts``): each is a check that needs no
 # state of this process and whose figures are not times, so a concurrent
 # fit does not change them (peak temporaries are per process).
-PARTS = ("solver_parity", "dist_ranks", "budgets")
+PARTS = ("solver_parity", "dist_ranks", "budgets", "dryrun")
 
 
 def run_part(name: str) -> int:
@@ -495,6 +513,8 @@ def run_part(name: str) -> int:
         dist_ranks(torch, mnist_like(N_FIT + N_QUERY, seed=0))
     elif name == "budgets":
         guard_budgets(torch, dev, smi())
+    elif name == "dryrun":
+        mesh_dryrun()
     else:
         raise ValueError(f"no part {name!r}")
     log(f"[part] {name}: {time.perf_counter() - t0:.1f} s in its own "
@@ -4729,6 +4749,198 @@ def lm_frontends(torch, dev, card):
     log(f"[lm-frontend] phase 16 wall {time.perf_counter() - t0:.1f} s")
 
 
+MESH_STEPS = 6          # (a): the straight run; its checkpoints every 2
+MESH_RESUME = 4         # (a): the second call resumes from this step
+# (a): qwen3-1.7B's width at 2 layers.  A chip call may write 45 GiB to
+# its disk, freed blocks included; a float32 checkpoint of the whole
+# model with its moments is 24.4 GB, at 2 layers 4.9 GB (the tied
+# [151,936 x 2,048] embedding is most of it), 5 of them 24.6 GB.
+MESH_LAYERS = 2
+MESH_DT_STEPS = 4       # (b): steps of each of the two train steps
+MESH_DRYRUN = (("qwen3_1_7b", "train_4k", "16x16"),
+               ("llama4_scout_17b", "decode_32k", "2x16x16"))
+
+
+def mesh_train_resume(torch, dev, card, arch=LM_ARCH, extra=(),
+                      layers=MESH_LAYERS):
+    """Phase 17 (a): ``launch.train.main`` at ``arch`` (qwen3-1.7B at
+    full width, cut to ``layers`` layers: one rank, no mesh, float32),
+    ``LM_BATCH`` x ``LM_SEQ``, ``MESH_STEPS`` steps checkpointed every 2
+    (and at step 0); then the last checkpoint is removed and a second
+    call resumes from step ``MESH_RESUME``: its losses must equal the
+    straight run's bit for bit.  Prints each call's step wall p50,
+    tokens/s and peak memory and its whole wall (the checkpoints' writes
+    and read included); the checkpoints are removed after.  Raising."""
+    import dataclasses
+    import shutil
+    import signal
+    import numpy as np
+    from repro_torch.launch import train
+    get_config, get_reduced = train.get_config, train.get_reduced
+    ck = os.path.join(ROOT, "build", "mesh_train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    args = ["--arch", arch, "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+            "--save-every", "2", "--steps", str(MESH_STEPS), "--ckpt-dir",
+            ck, *extra]
+    handler = signal.getsignal(signal.SIGTERM)
+    runs, walls = {}, {}
+    # The driver's config, depth cut (MESH_LAYERS).
+    train.get_config = lambda a: dataclasses.replace(get_config(a),
+                                                     n_layers=layers)
+    train.get_reduced = lambda a: dataclasses.replace(get_reduced(a),
+                                                      n_layers=layers)
+    try:
+        for name in ("straight", "resumed"):
+            if name == "resumed":
+                shutil.rmtree(os.path.join(ck, f"step_{MESH_STEPS:08d}"))
+            t0 = time.perf_counter()
+            runs[name] = train.main(args)
+            walls[name] = time.perf_counter() - t0
+    finally:
+        train.get_config, train.get_reduced = get_config, get_reduced
+        signal.signal(signal.SIGTERM, handler)
+        shutil.rmtree(ck, ignore_errors=True)
+    for name, r in runs.items():
+        peak = r["peak_bytes"]
+        log(f"[mesh] (a) {card}: launch.train.main {arch} at {layers} "
+            f"layers, {name} from step "
+            f"{r['start']}, {LM_BATCH}x{LM_SEQ}, {r['device']}, mesh "
+            f"{r['mesh']}: losses {r['losses']}; step wall p50 "
+            f"{r['p50_s'] * 1e3:.2f} ms ({[round(x * 1e3, 2) for x in r['step_s']]}"
+            f" ms); {r['tokens_per_s']:.0f} tokens/s at p50; peak "
+            + ("n/a" if peak is None else f"{peak} B ({peak / 2**30:.2f} GiB)")
+            + f"; call wall {walls[name]:.1f} s (checkpoints included)")
+    want = runs["straight"]["losses"][MESH_RESUME:]
+    got = runs["resumed"]["losses"]
+    same = (runs["resumed"]["start"] == MESH_RESUME and len(got) == len(want)
+            and all(np.float32(a).tobytes() == np.float32(b).tobytes()
+                    for a, b in zip(got, want)))
+    log(f"[mesh] (a) resumed at step {runs['resumed']['start']}: losses "
+        f"{got} against the straight run's {want}: equal bit for bit {same}")
+    if not same or not all(math.isfinite(x)
+                           for x in runs["straight"]["losses"]):
+        raise AssertionError("(a) the resumed run differs from the straight "
+                             "run")
+
+
+def mesh_dtensor_step(torch, dev, card, cfg=None):
+    """Phase 17 (b): the train step (``train.make_train_step``, the
+    driver's optimizer) at qwen3-1.7B's width, float32, ``LM_BATCH`` x
+    ``LM_SEQ``, ``MESH_DT_STEPS`` steps from the same seeded weights,
+    first on plain tensors, then with the parameters, the optimizer state
+    and every batch DTensors placed by ``launch.specs`` on a (1, 1)
+    ``("data", "model")`` mesh over a world size 1 ``nccl`` group (the
+    mesh set): step walls side by side (the difference is DTensor's host
+    dispatch), losses within rtol 1e-4 (the CPU tests' train bound;
+    raising) and whether their bits are equal.  The group is made here
+    when none is, and destroyed after."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import specs
+    from repro_torch.models import model as M
+    from repro_torch.train import (OptConfig, init_opt_state,
+                                   make_train_step, synthetic_batch)
+    cfg = cfg or get_config(LM_ARCH)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=20, moment_dtype=cfg.moment_dtype)
+    shape = ShapeConfig("train", LM_SEQ, LM_BATCH, "train")
+    own = not dist.is_initialized()
+    if own:
+        _dist_world1()
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        losses, walls = {}, {}
+        for mode in ("plain", "dtensor"):
+            model = M.init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(0), device=dev)
+            opt = init_opt_state(M.params_of(model), ocfg)
+            if mode == "dtensor":
+                sharding.set_mesh(mesh)
+                specs.place_model(model, specs.param_shardings(cfg, model,
+                                                               mesh))
+                opt = specs.place_tree(opt, specs.opt_shardings(cfg, opt,
+                                                                mesh))
+            step = make_train_step(cfg, ocfg)
+            losses[mode], walls[mode] = [], []
+            try:
+                for i in range(MESH_DT_STEPS):
+                    batch = synthetic_batch(cfg, LM_BATCH, LM_SEQ, i,
+                                            device=dev)
+                    if mode == "dtensor":
+                        batch = specs.place_tree(batch, specs.batch_shardings(
+                            cfg, shape, batch, mesh))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, opt, m = step(model, opt, batch)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize()
+                    walls[mode].append(time.perf_counter() - t0)
+                    losses[mode].append(float(sharding.to_local_full(
+                        m["loss"])))
+            finally:
+                sharding.clear()
+            del model, opt, step, batch, m
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        p50 = {k: float(np.median(v[1:])) for k, v in walls.items()}
+        for mode in ("plain", "dtensor"):
+            log(f"[mesh] (b) {card}: {cfg.name} train step, {mode}, "
+                f"{LM_BATCH}x{LM_SEQ}, float32, world size "
+                f"{dist.get_world_size()} on {dist.get_backend()}: losses "
+                f"{losses[mode]}; step walls "
+                f"{[round(x * 1e3, 2) for x in walls[mode]]} ms, p50 of "
+                f"steps 2- {p50[mode] * 1e3:.2f} ms")
+        bits = losses["plain"] == losses["dtensor"]
+        log(f"[mesh] (b) DTensor on the (1, 1) mesh against plain tensors: "
+            f"step p50 {p50['dtensor'] * 1e3:.2f} ms against "
+            f"{p50['plain'] * 1e3:.2f} ms ({p50['dtensor'] / p50['plain']:.3f}"
+            f"x); losses equal bit for bit {bits}")
+        np.testing.assert_allclose(losses["dtensor"], losses["plain"],
+                                   rtol=1e-4)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def mesh_dryrun(cells=MESH_DRYRUN, reduced=False):
+    """Phase 17 (c), a part of its own (``PARTS``): ``launch.dryrun``'s
+    cells ``cells`` on a fake group of 512 ranks (meta tensors; no card
+    needed): status ``ok`` (raising otherwise), per-device argument
+    bytes, FLOPs and collectives by kind, and each cell's seconds."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    dryrun.init_fake_group(512)
+    try:
+        for arch, shape, mesh in cells:
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, mesh, reduced=reduced)
+            rec.pop("trace", None)
+            log(f"[mesh] (c) dry run {arch} x {shape} on {mesh}: "
+                f"{json.dumps(rec)}; {time.perf_counter() - t0:.1f} s")
+            if rec["status"] != "ok":
+                raise AssertionError(f"(c) dry run {arch} {shape} {mesh}: "
+                                     f"{rec.get('error')}")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_paths(torch, dev, card):
+    """Phase 17: the mesh layer, (a) and (b); (c) runs beside phase 11
+    (a) as a part."""
+    t0 = time.perf_counter()
+    mesh_train_resume(torch, dev, card)
+    log(f"[mesh] (a) wall {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    mesh_dtensor_step(torch, dev, card)
+    log(f"[mesh] (b) wall {time.perf_counter() - t1:.1f} s")
+    log(f"[mesh] phase 17 wall {time.perf_counter() - t0:.1f} s (its (c) "
+        f"runs beside phase 11)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4797,6 +5009,7 @@ def main() -> int:
     data_rows = data_paths(torch, dev, card)
     lm_families(torch, dev, card)
     lm_frontends(torch, dev, card)
+    mesh_paths(torch, dev, card)
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the

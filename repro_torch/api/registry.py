@@ -35,6 +35,8 @@ WORLD group once ``torch.distributed`` is initialised, else one shard);
 it draws its own stratified batches and refuses ``layouts=``, and
 ``fused=False`` puts it on the stepped loop (its other params, such as
 ``reuse`` and ``cache_width``, reach it the same way).
+``mesh=`` a ``DeviceMesh`` instead of ``group=`` shards over its
+``pod`` / ``data`` axes (``core.distributed.data_group``).
 ``banditpam`` and ``banditpam_pp`` have batched entry points; the
 sharded fit has none, as in the JAX package.
 """

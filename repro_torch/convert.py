@@ -59,6 +59,7 @@ import torch
 
 from .core import rng
 from .core.device import DeviceLike, resolve_device
+from .models.model import LAYER_LEAVES
 from .serve import MedoidService
 
 # The JAX package's stats backends and the port's counterparts.
@@ -103,43 +104,6 @@ def service_from_reference(state_tree, config, refits=(),
     return MedoidService.from_state(cfg, state_tree, refits, device)
 
 
-# A layer's JAX leaves (and the shared block's) and their names in
-# ``models.model``; True where the leaf is an ``x @ w`` matrix
-# (transposed).  A layer has the leaves of its kind.
-_LAYER_LEAVES = (
-    (("ln1",), "ln1.weight", False),
-    (("ln2",), "ln2.weight", False),
-    (("attn", "wq"), "attn.wq.weight", True),
-    (("attn", "wk"), "attn.wk.weight", True),
-    (("attn", "wv"), "attn.wv.weight", True),
-    (("attn", "wo"), "attn.wo.weight", True),
-    (("attn", "q_norm"), "attn.q_norm.weight", False),
-    (("attn", "k_norm"), "attn.k_norm.weight", False),
-    (("mlp", "wi"), "mlp.wi.weight", True),
-    (("mlp", "wg"), "mlp.wg.weight", True),
-    (("mlp", "wo"), "mlp.wo.weight", True),
-    (("dense", "wi"), "dense.wi.weight", True),
-    (("dense", "wg"), "dense.wg.weight", True),
-    (("dense", "wo"), "dense.wo.weight", True),
-    (("moe", "router"), "moe.router", False),
-    (("moe", "wi"), "moe.wi", False),
-    (("moe", "wg"), "moe.wg", False),
-    (("moe", "wo"), "moe.wo", False),
-    (("ln",), "ln.weight", False),
-    (("m", "in_x"), "m.in_x.weight", True),
-    (("m", "in_z"), "m.in_z.weight", True),
-    (("m", "in_xbc"), "m.in_xbc.weight", True),
-    (("m", "in_dt"), "m.in_dt.weight", True),
-    (("m", "conv_w"), "m.conv_w", False),
-    (("m", "conv_b"), "m.conv_b", False),
-    (("m", "x_proj"), "m.x_proj.weight", True),
-    (("m", "dt_proj"), "m.dt_proj.weight", True),
-    (("m", "dt_bias"), "m.dt_bias", False),
-    (("m", "A_log"), "m.A_log", False),
-    (("m", "D"), "m.D", False),
-    (("m", "norm_w"), "m.norm_w", False),
-    (("m", "out_proj"), "m.out_proj.weight", True),
-)
 _TOP_LEAVES = {"embed", "lm_head", "vision_proj", "final_norm", "groups",
                "shared_attn"}
 
@@ -166,12 +130,12 @@ def _block_leaves(block: Mapping[str, Any], index, prefix: str,
     """``block``'s leaves (their entry ``index`` where stacked, all of
     them where ``index`` is None) under the port's names after
     ``prefix``; raising on a leaf the table lacks."""
-    known = {path for path, _, _ in _LAYER_LEAVES}
+    known = {path for path, _, _ in LAYER_LEAVES}
     extra = set(_paths(block)) - known
     if extra:
         raise ValueError(f"unknown LM layer leaves {sorted(extra)}")
     out = {}
-    for path, name, matrix in _LAYER_LEAVES:
+    for path, name, matrix in LAYER_LEAVES:
         node = block
         for key in path:
             node = node.get(key) if isinstance(node, Mapping) else None

@@ -2,7 +2,9 @@
 
 ``device=None`` means the card (``"cuda"``).  Without one the entry
 points raise; they never move to the CPU on their own.  Tests and CPU
-callers pass ``device="cpu"`` explicitly.
+callers pass ``device="cpu"`` explicitly.  ``"meta"`` (shapes and
+dtypes, no storage) is for the dry run's stand-ins
+(``launch/specs.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -104,8 +104,8 @@ from .pic_cache import (cache_advance, carry_valid, make_cache,
 from .report import FitReport
 
 __all__ = ["DistributedBanditPAM", "MedoidCurator", "RankFit",
-           "allreduce_counts", "default_group", "reset_allreduce_counts",
-           "spawn_fits"]
+           "allreduce_counts", "data_group", "default_group",
+           "reset_allreduce_counts", "spawn_fits"]
 
 _BUILD_TAG = 0x5EED
 _SWAP_TAG = 0x50A9
@@ -126,6 +126,21 @@ def allreduce_counts() -> Dict[str, int]:
 
 def reset_allreduce_counts() -> None:
     _ALLREDUCES.clear()
+
+
+def data_group(mesh):
+    """The group of a ``DeviceMesh``'s data shards for this rank: its
+    ``pod`` and ``data`` dimensions flattened, pod major (the flat order
+    above); the ranks along ``model`` each get a group of their own, so
+    they hold the same shard (the JAX ``_data_axes``)."""
+    names = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    if not names:
+        raise ValueError(f"mesh has no data axes; axis names must include "
+                         f"'data' (and optionally 'pod'), got "
+                         f"{mesh.mesh_dim_names}")
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    return mesh[names]._flatten().get_group()
 
 
 def default_group():
@@ -211,8 +226,9 @@ class DistributedBanditPAM:
     """BanditPAM over a sharded reference set (see the module docstring).
 
     ``group`` is the process group whose ranks are the shards (default:
-    :func:`default_group`); every rank calls :meth:`fit` with the same
-    data.  ``batch_size`` (B, default 128) is rounded up to a multiple of
+    :func:`default_group`), or ``mesh=`` a ``DeviceMesh`` whose data
+    axes are (:func:`data_group`); every rank calls :meth:`fit` with the
+    same data.  ``batch_size`` (B, default 128) is rounded up to a multiple of
     the shard count.  ``device=None`` is the card (each rank's current
     CUDA device); ``device="cpu"`` runs the plain path.  ``backend`` is a
     stats backend (``"auto"``, ``"cuda"``, ``"torch"``); ``reuse="pic"``
@@ -228,9 +244,13 @@ class DistributedBanditPAM:
                  max_swaps: Optional[int] = None, seed: int = 0,
                  backend: str = "auto", reuse: str = "none",
                  cache_width: Optional[int] = None, fused: bool = True,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         if reuse not in ("none", "pic"):
             raise ValueError(f"unknown reuse mode {reuse!r}")
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("pass a group or a mesh, not both")
+            group = data_group(mesh)
         self.k = int(k)
         self.group = default_group() if group is None else group
         if self.group is None:
@@ -590,14 +610,19 @@ class MedoidCurator:
     """Embedding-space curation (the JAX package's LM-stack entry point):
     cluster an embedding table, return medoid indices and assignments.
 
-    The sharded path is taken when ``group`` has more than one rank;
-    otherwise (no group, or a one-rank group) the single-device
-    ``BanditPAM(..., baseline="leader")`` runs.  Every rank of the group
-    calls :meth:`curate` with the same embeddings."""
+    The sharded path is taken when ``group`` (or ``mesh=``'s data group,
+    :func:`data_group`) has more than one rank; otherwise (no group, or a
+    one-rank group) the single-device ``BanditPAM(..., baseline="leader")``
+    runs.  Every rank of the group calls :meth:`curate` with the same
+    embeddings."""
 
     def __init__(self, k: int, group=None, metric: str = "cosine",
                  seed: int = 0, backend: str = "auto",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("pass a group or a mesh, not both")
+            group = data_group(mesh)
         self.k, self.group, self.metric, self.seed = k, group, metric, seed
         self.backend = backend
         self.device = device

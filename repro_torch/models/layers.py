@@ -20,6 +20,7 @@ rolling) KV cache, masked by the cache entries' absolute positions.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -27,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import DeviceLike, resolve_device
+from ..distributed.sharding import like, per_shard, shard, splittable
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -47,8 +49,8 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     freqs = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
                       / half)
     ang = pos.to(F32)[:, None] * freqs[None, :]            # [L, half]
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    cos = like(torch.cos(ang)[None, :, None, :], x)
+    sin = like(torch.sin(ang)[None, :, None, :], x)
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
@@ -106,7 +108,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kv_chunk: int = 2048) -> torch.Tensor:
     """Self-attention for prefill/train (Lq == Lk, q offset 0).
 
-    q: [B, L, H, Dh]; k, v: [B, L, KVH, Dh] -> [B, L, H, Dh].
+    q: [B, L, H, Dh]; k, v: [B, L, KVH, Dh] -> [B, L, H, Dh].  On a mesh
+    each rank attends over its own batch rows and heads (``per_shard``;
+    the keys and values placed as the queries are): no collective, and
+    each score and sum in the one-process order.
     """
     b, lq, h, dh = q.shape
     lk, kvh = k.shape[1], k.shape[2]
@@ -116,6 +121,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # (repeat_interleave's order), as a view whose gradient is a sum.
         k = k[:, :, :, None].expand(b, lk, kvh, g, dh).reshape(b, lk, h, dh)
         v = v[:, :, :, None].expand(b, lk, kvh, g, dh).reshape(b, lk, h, dh)
+    return per_shard(functools.partial(
+        _attention, kind=kind, window=window, q_chunk=q_chunk,
+        kv_chunk=kv_chunk), 1, q, q, k, v)[0]
+
+
+def _attention(q, k, v, *, kind, window, q_chunk, kv_chunk):
+    """:func:`attention` on plain tensors, k and v with H heads; a
+    1-tuple."""
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
     qh = q.movedim(2, 1)                    # [B, H, L, Dh]
     kh = k.movedim(2, 1)
     vh = v.movedim(2, 1)
@@ -141,7 +156,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m, l, acc = _sdpa_chunk(qblk, kc, vc, m, l, acc, msk)
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
     out = torch.cat(outs, dim=2)                          # [B, H, L, Dh]
-    return out.movedim(1, 2).to(q.dtype)
+    return (out.movedim(1, 2).to(q.dtype),)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -168,7 +183,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     elif kind == "chunked":
         valid &= torch.div(entry_pos, window, rounding_mode="floor") == (
             torch.div(pos, window, rounding_mode="floor"))
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    s = torch.where(like(valid[:, None, None, :], s), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(F32))
     return o.reshape(b, 1, h, dh).to(q.dtype)
@@ -224,7 +239,7 @@ class Attention(nn.Module):
 def attn_qkv(p: Attention, x: torch.Tensor, pos: torch.Tensor, *,
              n_heads: int, n_kv: int, hd: int, theta: float, qk_norm: bool):
     b, l, _ = x.shape
-    q = p.wq(x).reshape(b, l, n_heads, hd)
+    q = splittable(p.wq(x), -1, n_heads).reshape(b, l, n_heads, hd)
     k = p.wk(x).reshape(b, l, n_kv, hd)
     v = p.wv(x).reshape(b, l, n_kv, hd)
     if qk_norm:
@@ -232,6 +247,9 @@ def attn_qkv(p: Attention, x: torch.Tensor, pos: torch.Tensor, *,
         k = p.k_norm(k)
     q = rope(q, pos, theta)
     k = rope(k, pos, theta)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -252,4 +270,5 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(p.wg(x)) * p.wi(x)
+    h = shard(h, "batch", "seq", "ff")
     return p.wo(h)

@@ -64,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import DeviceLike, resolve_device
+from ..distributed.sharding import get_mesh, like, shard, unsharded
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (F32, MLP, Attention, RMSNorm, attention, attn_qkv,
@@ -199,7 +200,7 @@ class Decoder(nn.Module):
         pos = torch.arange(l, device=h.device)
         per = len(cfg.layer_pattern)
         s_cache = cache_len if cache_len is not None else l
-        aux = torch.zeros((), dtype=F32, device=h.device)
+        aux = like(torch.zeros((), dtype=F32, device=h.device), h)
         entries: List[List[Tuple[torch.Tensor, torch.Tensor]]] = [
             [] for _ in state_kinds(cfg)]     # an entry's groups
         for g in range(cfg.n_groups):
@@ -265,6 +266,7 @@ def _group_body(cfg: ArchConfig, group, shared, h, x0, pos, aux,
             if s_cache is not None:
                 states.append(_fill_kv_cache(
                     kv, _cache_len(cfg, "global", s_cache), l))
+        h = shard(h, "batch", "seq", "d_model")
     if s_cache is not None:
         return h, aux, states
     return h, aux
@@ -276,6 +278,72 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     drawn from ``generator`` (on ``device``, the card by default): N(0,
     1/fan_in) matrices, unit norms and the SSM blocks' fixed leaves."""
     return Decoder(cfg, generator, device, dtype)
+
+
+# A layer's JAX leaves (and the shared block's) and their names in
+# this module; True where the leaf is an ``x @ w`` matrix
+# (transposed).  A layer has the leaves of its kind.
+LAYER_LEAVES = (
+    (("ln1",), "ln1.weight", False),
+    (("ln2",), "ln2.weight", False),
+    (("attn", "wq"), "attn.wq.weight", True),
+    (("attn", "wk"), "attn.wk.weight", True),
+    (("attn", "wv"), "attn.wv.weight", True),
+    (("attn", "wo"), "attn.wo.weight", True),
+    (("attn", "q_norm"), "attn.q_norm.weight", False),
+    (("attn", "k_norm"), "attn.k_norm.weight", False),
+    (("mlp", "wi"), "mlp.wi.weight", True),
+    (("mlp", "wg"), "mlp.wg.weight", True),
+    (("mlp", "wo"), "mlp.wo.weight", True),
+    (("dense", "wi"), "dense.wi.weight", True),
+    (("dense", "wg"), "dense.wg.weight", True),
+    (("dense", "wo"), "dense.wo.weight", True),
+    (("moe", "router"), "moe.router", False),
+    (("moe", "wi"), "moe.wi", False),
+    (("moe", "wg"), "moe.wg", False),
+    (("moe", "wo"), "moe.wo", False),
+    (("ln",), "ln.weight", False),
+    (("m", "in_x"), "m.in_x.weight", True),
+    (("m", "in_z"), "m.in_z.weight", True),
+    (("m", "in_xbc"), "m.in_xbc.weight", True),
+    (("m", "in_dt"), "m.in_dt.weight", True),
+    (("m", "conv_w"), "m.conv_w", False),
+    (("m", "conv_b"), "m.conv_b", False),
+    (("m", "x_proj"), "m.x_proj.weight", True),
+    (("m", "dt_proj"), "m.dt_proj.weight", True),
+    (("m", "dt_bias"), "m.dt_bias", False),
+    (("m", "A_log"), "m.A_log", False),
+    (("m", "D"), "m.D", False),
+    (("m", "norm_w"), "m.norm_w", False),
+    (("m", "out_proj"), "m.out_proj.weight", True),
+)
+
+
+def reference_path(cfg: ArchConfig, name: str) -> Tuple[str, bool, bool]:
+    """Where parameter ``name`` sits in the JAX tree: ``(path, stacked,
+    transposed)``, ``path`` the leaf's ``jax.tree_util.keystr`` (a
+    decoder layer's under ``['groups'][j]``, ``j`` its pattern
+    position), ``stacked`` where the leaf stacks the layers of that
+    position ``[n_groups, ...]`` and ``transposed`` where the JAX leaf is
+    this tensor's transpose (an ``nn.Linear`` weight of an ``x @ w``
+    matrix, the 2-D ``lm_head`` and ``vision_proj``)."""
+    head, _, rest = name.partition(".")
+    if head in ("embed", "lm_head", "vision_proj", "final_norm"):
+        matrix = head == "vision_proj" or (
+            head == "lm_head" and cfg.frontend != "audio_stub")
+        return f"[{head!r}]", False, matrix
+    if head == "layers":
+        i, _, rest = rest.partition(".")
+        prefix = f"['groups'][{int(i) % len(cfg.layer_pattern)}]"
+    elif head == "shared_attn":
+        prefix = "['shared_attn']"
+    else:
+        raise KeyError(name)
+    for path, leaf, matrix in LAYER_LEAVES:
+        if leaf == rest:
+            return (prefix + "".join(f"[{k!r}]" for k in path),
+                    head == "layers", matrix)
+    raise KeyError(name)
 
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
@@ -333,28 +401,34 @@ def embed_inputs(cfg: ArchConfig, model: Decoder, batch) -> torch.Tensor:
     """The stack's input [B, L, d]: the tokens' embeddings; for audio
     their sum over codebooks, for a vision batch that holds
     ``patch_emb`` the projected patches before them."""
-    w = model.embed.weight
+    # On a mesh the table is gathered whole over the axes that shard its
+    # vocabulary first: DTensor's lookup in a row-sharded table makes a
+    # masked partial sum whose gradient it cannot redistribute.
+    w = unsharded(model.embed.weight, model.embed.weight.ndim - 2)
     if cfg.frontend == "audio_stub":
         codes = batch["tokens"]                              # [B, L, nc]
         h = F.embedding(codes[:, :, 0], w[0])
         for c in range(1, cfg.n_codebooks):
             h = h + F.embedding(codes[:, :, c], w[c])
-        return h
-    tok = F.embedding(batch["tokens"], w)
-    if cfg.frontend == "vision_stub" and "patch_emb" in batch:
-        patch = model.vision_proj(batch["patch_emb"].to(tok.dtype))
-        return torch.cat([patch, tok], dim=1)
-    return tok
+    else:
+        h = F.embedding(batch["tokens"], w)
+        if cfg.frontend == "vision_stub" and "patch_emb" in batch:
+            patch = model.vision_proj(batch["patch_emb"].to(h.dtype))
+            h = torch.cat([patch, h], dim=1)
+    return shard(h, "batch", "seq", "d_model")
 
 
 def unembed(cfg: ArchConfig, model: Decoder, h: torch.Tensor
             ) -> torch.Tensor:
     """The logits [B, L, V]; audio [B, L, nc, V], one head a codebook."""
     if cfg.frontend == "audio_stub":
-        return torch.einsum("bld,cdv->blcv", h, model.lm_head.weight)
+        logits = torch.einsum("bld,cdv->blcv", h, model.lm_head.weight)
+        return shard(logits, "batch", "seq", "codebooks", "vocab")
     if cfg.tie_embeddings:
-        return h @ model.embed.weight.T
-    return model.lm_head(h)
+        logits = h @ model.embed.weight.T
+    else:
+        logits = model.lm_head(h)
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _apply_ffn(cfg: ArchConfig, lp: DecoderLayer, h):
@@ -466,14 +540,17 @@ def _decode_attn(cfg: ArchConfig, ap: Attention, h_in, kv_cache, pos, kind,
     q, k, v = attn_qkv(ap, h_in, pos[None], n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv_heads, hd=cfg.hd, theta=cfg.rope_theta,
                        qk_norm=cfg.qk_norm)
-    slot_mask = (torch.arange(s_c, device=pos.device)
-                 == pos % s_c)[None, :, None, None]
+    q = shard(q, "batch", None, None, None)
+    slot_mask = like((torch.arange(s_c, device=pos.device)
+                      == pos % s_c)[None, :, None, None], k_c)
     if out is None:
         k_c = torch.where(slot_mask, k.to(k_c.dtype), k_c)
         v_c = torch.where(slot_mask, v.to(v_c.dtype), v_c)
     else:
         k_c = torch.where(slot_mask, k.to(k_c.dtype), k_c, out=out[0])
         v_c = torch.where(slot_mask, v.to(v_c.dtype), v_c, out=out[1])
+    k_c = shard(k_c, "batch", "kv_seq", "kv_heads", "head_dim")
+    v_c = shard(v_c, "batch", "kv_seq", "kv_heads", "head_dim")
     epos = _entry_positions(s_c, pos)[None, :]
     o = decode_attention(q, k_c, v_c, epos, pos, kind=kind, window=cfg.window)
     b = h_in.shape[0]
@@ -486,38 +563,56 @@ def decode_step(cfg: ArchConfig, model: Decoder, state, batch, pos):
     device (an int is copied there), counting a vision prompt's patches.
     Returns (logits [B, 1, V] (audio [B, 1, nc, V]), new_state); ``state``
     is left as it was.  An MoE layer routes the step's B tokens at the
-    capacity of B tokens (the JAX semantics)."""
+    capacity of B tokens (the JAX semantics).  Under a mesh the new state
+    is stacked from each group's (a sharded cache is not written through
+    views); without one each group writes into the state's new tensors."""
     h = embed_inputs(cfg, model, batch)
     x0 = h
     pos = torch.as_tensor(pos, device=h.device)
     per = len(cfg.layer_pattern)
     shared = model.shared_attn
-    new = tuple((torch.empty_like(a), torch.empty_like(b)) for a, b in state)
+    stacked = get_mesh() is not None
+    new = None if stacked else tuple(
+        (torch.empty_like(a), torch.empty_like(b)) for a, b in state)
+    parts = [([], []) for _ in state]
+
+    def slot(ci, g):
+        """(the entry's current state, where its new state goes)."""
+        cur = (state[ci][0][g], state[ci][1][g])
+        return cur, None if stacked else (new[ci][0][g], new[ci][1][g])
+
+    def keep(ci, st):
+        if stacked:
+            parts[ci][0].append(st[0])
+            parts[ci][1].append(st[1])
+
     for g in range(cfg.n_groups):
         ci = 0
         for j in range(per):
             lp = model.layers[g * per + j]
             bk = base_kind(lp.kind)
-            cur = (state[ci][0][g], state[ci][1][g])
-            out = (new[ci][0][g], new[ci][1][g])
+            cur, out = slot(ci, g)
             if is_attn_kind(bk):
-                o, _ = _decode_attn(cfg, lp.attn, lp.ln1(h), cur, pos, bk,
-                                    lp.attn.wo, out=out)
+                o, st = _decode_attn(cfg, lp.attn, lp.ln1(h), cur, pos, bk,
+                                     lp.attn.wo, out=out)
                 h, _ = _apply_ffn(cfg, lp, h + o)
             else:
                 dec = (ssm_mod.mamba1_decode if bk == "mamba1"
                        else ssm_mod.mamba2_decode)
-                y, _ = dec(lp.m, lp.ln(h), cur, out=out)
+                y, st = dec(lp.m, lp.ln(h), cur, out=out)
                 h = h + y
+            keep(ci, st)
             ci += 1
             if "shared_attn" in lp.kind:
                 a_in = shared.ln1(torch.cat([h, x0], dim=-1))
-                o, _ = _decode_attn(cfg, shared.attn, a_in,
-                                    (state[ci][0][g], state[ci][1][g]), pos,
-                                    "global", shared.attn.wo,
-                                    out=(new[ci][0][g], new[ci][1][g]))
+                cur, out = slot(ci, g)
+                o, st = _decode_attn(cfg, shared.attn, a_in, cur, pos,
+                                     "global", shared.attn.wo, out=out)
+                keep(ci, st)
                 h = h + o
                 h = h + mlp(shared.mlp, shared.ln2(h))
                 ci += 1
+    if stacked:
+        new = tuple((torch.stack(a), torch.stack(b)) for a, b in parts)
     h = model.final_norm(h)
     return unembed(cfg, model, h), new

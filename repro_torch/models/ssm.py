@@ -34,6 +34,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import DeviceLike, resolve_device
+from ..distributed.sharding import like, shard
 from .layers import _linear
 
 F32 = torch.float32
@@ -42,7 +43,8 @@ F32 = torch.float32
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``log(1 + exp(x))`` as ``logaddexp(x, 0)``,
     with no linear cut-off (``F.softplus`` switches to ``x`` past 20)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return torch.logaddexp(x, like(torch.zeros((), dtype=x.dtype,
+                                               device=x.device), x))
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -132,6 +134,7 @@ def _mamba1_inner(p: Mamba1, xc, dt, Bm, Cm):
 
 def _mamba1_fwd(p: Mamba1, x: torch.Tensor):
     xin, z = p.in_x(x), p.in_z(x)
+    xin = shard(xin, "batch", "seq", "d_inner")
     xc = F.silu(_causal_conv(xin, p.conv_w, p.conv_b))
     proj = p.x_proj(xc)
     dtr = p.dt_proj.weight.shape[1]
@@ -240,7 +243,7 @@ def _ssd_chunked(xh, Bm, Cm, loga, chunk: int):
     g = torch.einsum("bcis,bcjs->bcij", C_, B_)                  # [b,nc,t,t]
     decay = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]   # [b,nc,i,j,nh]
     ar = torch.arange(t, device=xh.device)
-    mask = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
+    mask = like((ar[:, None] >= ar[None, :])[None, None, :, :, None], xh)
     w = torch.where(mask, torch.exp(decay), 0.0) * g[..., None]
     y_intra = torch.einsum("bcijh,bcjhd->bcihd", w, xh_)
     # chunk states: S_c = Σ_j exp(lcum_T − lcum_j)·B_j ⊗ x_j
@@ -249,7 +252,8 @@ def _ssd_chunked(xh, Bm, Cm, loga, chunk: int):
     S = torch.einsum("bcjs,bcjhd->bchds", B_, xw)        # [b,nc,nh,hd,st]
     # inter-chunk scan: the state entering chunk c
     total = torch.exp(lcum[:, :, -1, :])                         # [b,nc,nh]
-    carry = torch.zeros((b, nh, hd, st), dtype=F32, device=xh.device)
+    carry = like(torch.zeros((b, nh, hd, st), dtype=F32, device=xh.device),
+                 xh)
     s_in = []
     for c in range(nc):
         s_in.append(carry)
@@ -279,6 +283,7 @@ def _mamba2_fwd(p: Mamba2, x: torch.Tensor, chunk: int):
     z = p.in_z(x)
     xbc = p.in_xbc(x)
     dt_in = p.in_dt(x)
+    xbc = shard(xbc, "batch", "seq", "d_inner")
     xbc_conv = F.silu(_causal_conv(xbc, p.conv_w, p.conv_b))
     xin, Bm, Cm = torch.split(xbc_conv, [di, st, st], dim=-1)
     dt = softplus(dt_in.to(F32) + p.dt_bias[None, None])

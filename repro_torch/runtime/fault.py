@@ -58,6 +58,8 @@ class FaultTolerantLoop:
         self.max_retries = max_retries
         self.monitor = StragglerMonitor()
         self._preempted = False
+        self._found: Optional[int] = None    # restore_or's latest step
+        self._looked = False
         if install_sigterm:
             try:
                 signal.signal(signal.SIGTERM, self._on_sigterm)
@@ -68,13 +70,19 @@ class FaultTolerantLoop:
         self._preempted = True
 
     # -- state = {"params": ..., "opt": ..., } --------------------------------
-    def restore_or(self, state: Any):
+    def restore_or(self, state: Any, shardings: Any = None):
         """Resume from the latest checkpoint if one exists: ``(state,
-        step)``, each leaf on its template's device."""
+        step)``, each leaf on its template's device, or placed by
+        ``shardings`` (``checkpoint.restore``) where given."""
         step = ckpt.latest_step(self.ckpt_dir)
+        self._found, self._looked = step, True
+        # On a mesh every rank looks before any writes (run's first
+        # checkpoint), so that all of them see the same directory.
+        ckpt.sync(state)
         if step is None:
             return state, 0
-        restored, meta = ckpt.restore(self.ckpt_dir, state, step=step)
+        restored, meta = ckpt.restore(self.ckpt_dir, state, step=step,
+                                      shardings=shardings)
         return restored, meta["step"]
 
     def run(self, state: Any, step_fn: Callable[[Any, int], Any],
@@ -84,13 +92,16 @@ class FaultTolerantLoop:
 
         Transient exceptions retry from the last checkpoint
         (deterministic data ⇒ bit-exact replay); with none in the
-        directory, one is written at ``start_step`` first, so a step that
+        directory (as ``restore_or`` found it, where it was called), one
+        is written at ``start_step`` first, so a step that
         failed part-way through its in-place update is never replayed on
         top of it.  SIGTERM checkpoints and raises Preemption.
         """
         step = start_step
         retries = 0
-        if ckpt.latest_step(self.ckpt_dir) is None:
+        found = (self._found if self._looked
+                 else ckpt.latest_step(self.ckpt_dir))
+        if found is None:
             ckpt.save(self.ckpt_dir, step, state)
         while step < n_steps:
             if self._preempted:

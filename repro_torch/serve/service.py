@@ -55,6 +55,7 @@ from ..core.distances import resolve_metric
 from ..core.engine import host_stage
 from ..core.onebatch import onebatchpam
 from ..core.report import FitReport
+from ..distributed.sharding import to_local_full
 from ..runtime import checkpoint as ckpt
 from .drift import DriftMonitor
 from .reservoir import Reservoir
@@ -393,9 +394,14 @@ class MedoidService:
 
     @classmethod
     def restore(cls, ckpt_dir: str, step: Optional[int] = None,
-                device: DeviceLike = None) -> "MedoidService":
+                device: DeviceLike = None, shardings=None
+                ) -> "MedoidService":
         """Rebuild a service from a snapshot, its medoids on ``device``
-        (``None``: the card); the host leaves come back as exact numpy."""
+        (``None``: the card); the host leaves come back as exact numpy.
+        ``shardings`` (optional) is a tree like :meth:`_state_tree`: a
+        ``NamedSharding`` for ``medoid_points`` reads it onto a mesh
+        (each rank its own shard, then gathered: the service's kernels
+        take the whole table), ``None`` for the host leaves."""
         extra = ckpt.read_extra(ckpt_dir, step=step)
         cfg = extra["service"]
         capacity, d = int(cfg["reservoir_size"]), int(cfg["d"])
@@ -406,5 +412,7 @@ class MedoidService:
             "counters": {"n_refits": np.int64(0), "fresh": np.int64(0),
                          "cached": np.int64(0)}}
         tree, _ = ckpt.restore(ckpt_dir, template, step=step,
-                               device=resolve_device(device))
+                               device=resolve_device(device),
+                               shardings=shardings)
+        tree["medoid_points"] = to_local_full(tree["medoid_points"])
         return cls.from_state(cfg, tree, extra.get("refits", []), device)

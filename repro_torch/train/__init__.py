@@ -3,7 +3,8 @@ step-indexed synthetic data, AdamW, the loss and the train step, and
 the curation driver (``curated``).  ``__all__`` is the JAX package's
 ``repro.train.__all__``; the cross-pod compressed step is
 ``train.compressed``, imported explicitly as in the JAX package.  The
-multi-card train driver (the JAX ``launch/train.py``) is ROADMAP A17f."""
+train driver, on one card or a mesh of several, is
+``launch.train``."""
 
 from .data import DataConfig, DataPipeline, synthetic_batch
 from .optimizer import OptConfig, apply_updates, init_opt_state

@@ -18,6 +18,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import like, shard
 from ..models.model import Decoder, params_of
 from .optimizer import OptConfig, apply_updates
 
@@ -30,7 +31,12 @@ def lm_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor,
     """Next-token CE in f32; audio: mean over codebooks ([..., nc, V])."""
     logits = logits.to(F32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    # The label's logit as a masked sum over the vocabulary (every other
+    # term an exact zero, so the same bits as a gather): on a mesh the
+    # vocabulary is sharded and the sum reduces over it, where DTensor's
+    # gather along a sharded dim fails.
+    vocab = like(torch.arange(logits.shape[-1], device=labels.device), labels)
+    gold = torch.where(labels[..., None] == vocab, logits, 0.0).sum(-1)
     nll = logz - gold
     if cfg.frontend == "audio_stub":
         nll = nll.mean(-1)                         # [B, L, nc] -> [B, L]
@@ -57,12 +63,23 @@ def value_and_grad(cfg: ArchConfig, model: Decoder, batch):
 
 
 def _split_mb(batch: Mapping[str, torch.Tensor], microbatches: int):
-    def r(x):
-        b = x.shape[0]
-        assert b % microbatches == 0, (b, microbatches)
-        return x.reshape(microbatches, b // microbatches, *x.shape[1:])
-    split = {k: r(x) for k, x in batch.items()}
-    return [{k: x[i] for k, x in split.items()} for i in range(microbatches)]
+    """The microbatches: consecutive rows, sliced (the rows of the JAX
+    ``reshape(M, B/M, ...)``).  On a mesh each is sharded over the data
+    axes again, as the model's input constraint places the JAX scan's
+    microbatch (a reshape of a batch sharded over two mesh axes would
+    leave a strided sharding, whose redistribution DTensor plans by a
+    search that does not finish on a three-axis mesh)."""
+    out = []
+    for i in range(microbatches):
+        mb = {}
+        for k, x in batch.items():
+            b = x.shape[0]
+            assert b % microbatches == 0, (b, microbatches)
+            n = b // microbatches
+            mb[k] = shard(x[i * n:(i + 1) * n], "batch",
+                          *([None] * (x.ndim - 1)))
+        out.append(mb)
+    return out
 
 
 def accumulate_grads(cfg: ArchConfig, model: Decoder, batch,
@@ -73,13 +90,14 @@ def accumulate_grads(cfg: ArchConfig, model: Decoder, batch,
     if microbatches == 1:
         (loss, aux), grads = value_and_grad(cfg, model, batch)
         return loss, aux, grads
-    g_sum = {n: torch.zeros(p.shape, dtype=F32, device=p.device)
+    g_sum = {n: torch.zeros_like(p, dtype=F32)
              for n, p in params_of(model).items()}
-    l_sum = torch.zeros((), dtype=F32,
-                        device=next(iter(g_sum.values())).device)
+    l_sum = None
     for mb in _split_mb(batch, microbatches):
         (l, _), g = value_and_grad(cfg, model, mb)
         g_sum = {n: g_sum[n] + g[n] for n in g_sum}
+        if l_sum is None:
+            l_sum = like(torch.zeros((), dtype=F32, device=l.device), l)
         l_sum = l_sum + l
     loss = l_sum / microbatches
     return (loss, {"ce": loss, "aux": torch.zeros_like(loss)},

@@ -348,11 +348,17 @@ def test_serve_driver_serves_the_frontends(arch):
 
 
 def test_serve_driver_refuses_a_mesh(monkeypatch):
-    monkeypatch.setattr(launch_serve, "resolve_device",
-                        lambda device: torch.device("cuda"))
+    """The driver no longer refuses several visible cards: its mesh comes
+    from the ranks of the process group, and with one rank (no group)
+    it serves as it does with one card (the mesh path runs on 4 gloo
+    ranks in ``tests/test_torch_mesh_ranks.py``)."""
+    argv = ["--arch", "qwen3_1_7b", "--reduced", "--device", "cpu",
+            "--requests", "2", "--prompt-len", "8", "--max-new", "3"]
+    want = launch_serve.main(argv)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A17f"):
-        launch_serve.main(["--arch", "qwen3_1_7b", "--reduced"])
+    got = launch_serve.main(argv)
+    assert got["tokens"].shape == (2, 3)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
 def test_entry_points_default_to_the_card():
