@@ -358,6 +358,20 @@ Phases, each of which raises (exit code != 0) on any failure:
    2 x 16 x 16: status ``ok``, per-device bytes, FLOPs, collectives by
    kind and seconds.  All raising; the phase launches none of the
    hand-written kernels (the JAX mesh layer runs no Pallas kernel).
+18. the graph contracts of the hot entry points (``graph_paths``,
+   ``repro_torch/analysis/graph/``, ROADMAP A32; ``[graph]`` lines): the
+   whole registry (``python -m repro_torch.analysis.graph``'s 17 specs,
+   the JAX registry's names) run once each on the card with
+   ``backend="cuda"`` at the canonical small shapes, the two sharded
+   specs on a world size 1 ``nccl`` group, every launch in the pinned
+   tile config: one line for each entry with its kernel launches by
+   name, its transfers, collectives and narrowing casts, its ops and its
+   wall.  Raising on any finding of GRC000 (drift against the committed
+   golden for this torch and ``cuda``, which must exist), GRC002-GRC006;
+   GRC001 is phase 11 (b)'s budgets part, which measured the 11 budget
+   keys (the phase counts its passing ``[budget]`` lines, and raises
+   unless all 11 passed).  Raising unless the union of the census
+   launches all seven kernels.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -550,9 +564,10 @@ def stop_parts(started) -> None:
 def finish_parts(started, timeout: float = 600.0):
     """Wait for the parts, print each one's output in ``PARTS``' order,
     and raise if one failed or ran past ``timeout`` s; every process is
-    ended before returning."""
+    ended before returning.  Returns each part's output lines."""
     procs, t0 = started
     failed = []
+    lines = {}
     try:
         for name in PARTS:
             p, out = procs[name]
@@ -564,7 +579,8 @@ def finish_parts(started, timeout: float = 600.0):
                 p.wait()
                 failed.append(f"{name} (past {timeout} s)")
             out.seek(0)
-            for line in out.read().splitlines():
+            lines[name] = out.read().splitlines()
+            for line in lines[name]:
                 log(line)
             if p.returncode:
                 failed.append(f"{name} (exit {p.returncode})")
@@ -574,6 +590,7 @@ def finish_parts(started, timeout: float = 600.0):
         f"after their start")
     if failed:
         raise AssertionError(f"parts failed: {failed}")
+    return lines
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -3572,7 +3589,7 @@ def guard_budgets(torch, dev, card):
 def guard_paths(torch, dev, Xnp, card, dist_reports):
     """Phase 11: (a) in this process while the parts of ``PARTS`` (phase
     6 (c) and (d), phase 9 (c) and phase 11 (b)) run in processes of
-    their own beside it."""
+    their own beside it.  Returns the parts' output lines."""
     t0 = time.perf_counter()
     started = start_parts()
     try:
@@ -3581,9 +3598,10 @@ def guard_paths(torch, dev, Xnp, card, dist_reports):
         stop_parts(started)
         raise
     log(f"[guard] (a) wall {time.perf_counter() - t0:.1f} s")
-    finish_parts(started)
+    lines = finish_parts(started)
     log(f"[guard] phase 11 wall {time.perf_counter() - t0:.1f} s (with the "
         f"parts)")
+    return lines
 
 
 # Phase 12: the LM curation path (ROADMAP A17a) at qwen3-1.7B's width.
@@ -4941,6 +4959,69 @@ def mesh_paths(torch, dev, card):
         f"runs beside phase 11)")
 
 
+# Phase 18: the graph contracts of the hot entry points (ROADMAP A32).
+GRAPH_KERNELS = ("pairwise", "build_g", "swap_g", "swap_g_from_cache",
+                 "stream_build_g", "stream_swap_g", "top2")
+
+
+def budgets_held(budget_lines) -> int:
+    """The budget keys phase 11 (b) measured under their bounds (its
+    ``[budget]`` lines that say so)."""
+    return sum(1 for ln in budget_lines
+               if ln.startswith("[budget] ") and "under the bound: True; "
+               "materialised over it: True" in ln)
+
+
+def graph_paths(torch, dev, card, budget_lines):
+    """Phase 18: the graph registry on the card (``backend="cuda"``),
+    raising on any finding, on a missing golden for this key, on fewer
+    than every budget key held by phase 11 (b), and unless the census
+    launches all seven kernels."""
+    from repro_torch.analysis import budgets
+    from repro_torch.analysis.graph import rules, survey
+    t0 = time.perf_counter()
+    golden = survey.load_golden(survey.default_golden_path())
+    key = survey.golden_key(dev)
+    if survey.golden_for_key(golden, key) is None:
+        raise AssertionError(f"no committed graph golden for {key}; "
+                             f"have {sorted(golden['goldens'])}")
+    # backend "cuda" on the card (the plain "torch" where a rehearsal
+    # runs it on the CPU)
+    report, prints = rules.analyze(device=dev,
+                                   backend=rules.default_backend(dev),
+                                   golden_doc=golden, with_budgets=False)
+    launched = {}
+    for name in report.entrypoints:
+        d = report.details[name]
+        for kn, v in d["launches"].items():
+            launched[kn] = launched.get(kn, 0) + v
+        counts = ", ".join(f"{kn} {v}"
+                           for kn, v in sorted(d["launches"].items()))
+        log(f"[graph] {name}: launches {counts or 'none'}"
+            + f"; transfers {d['transfers']}; collectives "
+            f"{d['collectives'] or 'none'}; narrowing casts "
+            f"{d['narrowing']}; ops {d['ops']}; hash "
+            f"{prints[name]['hash']}; wall {d['wall_s']:.3f} s")
+    for note in report.notes:
+        log(f"[graph] note: {note}")
+    held = budgets_held(budget_lines)
+    n_keys = len(budgets.budget_names())
+    log(f"[graph] GRC001: phase 11 (b) measured {held} of {n_keys} budget "
+        f"keys under their bounds (the budgets part)")
+    log(f"[graph] census launches over the registry: "
+        + ", ".join(f"{kn} {launched.get(kn, 0)}" for kn in GRAPH_KERNELS))
+    if report.findings:
+        raise AssertionError("graph findings:\n"
+                             + rules.format_human(report))
+    if held != n_keys:
+        raise AssertionError(f"GRC001: {held} of {n_keys} budget keys held")
+    missing = [kn for kn in GRAPH_KERNELS if not launched.get(kn)]
+    if missing:
+        raise AssertionError(f"the registry launched no {missing}")
+    log(f"[graph] 0 findings across {len(report.entrypoints)} entrypoints "
+        f"({key}; {card}); phase 18 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5004,12 +5085,13 @@ def main() -> int:
     counts_dist, dist_reports = dist_paths(torch, X, dev, Xnp, pam_fit)
     log(f"[dist] phase 9 wall {time.perf_counter() - t9:.1f} s")
     tile_paths(torch, X, dev, Xnp, card)
-    guard_paths(torch, dev, Xnp, card, dist_reports)
+    part_lines = guard_paths(torch, dev, Xnp, card, dist_reports)
     lm_rows = lm_paths(torch, dev, card)
     data_rows = data_paths(torch, dev, card)
     lm_families(torch, dev, card)
     lm_frontends(torch, dev, card)
     mesh_paths(torch, dev, card)
+    graph_paths(torch, dev, card, part_lines["budgets"])
     # Each kernel's launches come from one run of its own path: the
     # default fit + predict, (streaming kernels) the replacement + leader
     # fit, or (swap_g_from_cache) the full-ring PIC fit; PAM's and the

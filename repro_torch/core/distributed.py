@@ -682,18 +682,21 @@ def _rank_main(rank, cases, world, init, timeout, device, queue):
         dist.destroy_process_group()
 
 
-def spawn_fits(cases, world_size: int, *, device: str = "cpu",
+def spawn_fits(cases, world_size: int, *, device: DeviceLike = None,
                timeout: float = 600.0) -> List[List[RankFit]]:
     """Fit ``DistributedBanditPAM(k, **params).fit(data)`` for each
     ``(data, k, params)`` of ``cases`` on ``world_size`` ranks of a
     ``gloo`` group, each a new process of this host (one set of
     processes for every case; address ``tcp://127.0.0.1:<free port>``,
-    collective timeout ``timeout`` s).  ``device="cuda"`` puts rank r on
-    card ``r mod device_count``: gloo takes CUDA tensors, so several
-    ranks may share one card.  Returns, for each case, every rank's
+    collective timeout ``timeout`` s).  ``device=None`` is the card, as
+    for every entry point (``core.device``): it raises without one, and
+    CPU callers pass ``device="cpu"``.  On the card rank r takes card
+    ``r mod device_count``: gloo takes CUDA tensors, so several ranks may
+    share one card.  Returns, for each case, every rank's
     :class:`RankFit` in rank order.  A rank that raises, or a run past
     ``timeout`` seconds, stops every rank and raises; every process is
     ended before returning."""
+    device = resolve_device(device).type
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.SimpleQueue()
     init = f"tcp://127.0.0.1:{_free_port()}"

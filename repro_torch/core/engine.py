@@ -148,7 +148,10 @@ def _swap_batch_stats(dxy, d1_b, d2_b, a_b, w, k: int, lead_g=None):
     """
     base, corr = _swap_terms(dxy, d1_b, d2_b)
     base = base * w[None, :]
-    onehot = (torch.nn.functional.one_hot(a_b.long(), k).to(dxy.dtype)
+    # The one-hot rows by an equality (one_hot reads its input's range to
+    # the host on every device but the card).
+    arms = torch.arange(k, device=a_b.device)
+    onehot = ((a_b.long()[:, None] == arms[None, :]).to(dxy.dtype)
               * w[:, None])                                       # [B, k]
     sums = torch.sum(base, dim=1)[None, :] + (corr @ onehot).T    # [k, n]
     sq_cross = 2.0 * base * corr + corr * corr
@@ -190,12 +193,18 @@ def _stream_walk(x, y, w, tile_fn, out_shape, tile: int = _EXACT_CHUNK):
         wt = wt * w[idx]
     outs = [torch.empty(out_shape(m), dtype=torch.float32, device=x.device)
             for _ in range(3)]
+    # tracecheck: ignore[TRC002] -- the plain exact pass's row strips, a count
+    # fixed by n (the "cuda" backend runs the whole walk as one stream kernel
+    # launch)
     for r0 in range(0, m, _STREAM_ROWS):
         xt = x[r0:r0 + _STREAM_ROWS]
         acc = None
+        # tracecheck: ignore[TRC002] -- the plain walk's reference tiles, fixed
+        # by n / 512
         for c in range(idx.shape[0]):
             part = tile_fn(xt, idx[c], wt[c])
             acc = part if acc is None else [a + p for a, p in zip(acc, part)]
+        # tracecheck: ignore[TRC002] -- the three statistics' outputs
         for o, a in zip(outs, acc):
             o[..., r0:r0 + _STREAM_ROWS] = a
     return tuple(outs)
@@ -226,8 +235,12 @@ def _stream_swap_stats(x, y, d1, d2, assign, w, k: int, lead_g,
 def _skipped_on_host(run: Optional[torch.Tensor]) -> bool:
     """A run flag of 0 on the CPU, where the host reads it without waiting
     for a device: the plain pass it guards is skipped there.  A flag on
-    a device is never read; its kernels return at once instead."""
-    return run is not None and run.device.type == "cpu" and not bool(run)
+    a device is never read; its kernels return at once instead.  The read
+    is made on purpose, so it runs inside :func:`syncs_allowed`."""
+    if run is None or run.device.type != "cpu":
+        return False
+    with syncs_allowed(run.device):
+        return not bool(run)
 
 
 def exact_build_means(be, data, dnear, *, metric: str,
@@ -300,6 +313,8 @@ def _stream_top2(x, med_pts, metric: str, tile: int = _EXACT_CHUNK):
     d1 = torch.empty((n,), dtype=torch.float32, device=x.device)
     d2 = torch.empty_like(d1)
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
+    # tracecheck: ignore[TRC002] -- the plain top-2's row tiles, fixed by n /
+    # 512 (the "cuda" backend: one top2 launch)
     for lo in range(0, n, tile):
         d1[lo:lo + tile], d2[lo:lo + tile], assign[lo:lo + tile] = (
             _top2_block(pairwise(x[lo:lo + tile], med_pts, metric=metric)))
@@ -497,8 +512,11 @@ def _lane_out(lanes: LaneData, parts, arms: int):
     L, n_pad = len(lanes.ns), lanes.n_pad
     dev = lanes.data.device
     outs = []
+    # tracecheck: ignore[TRC002] -- the three statistics' outputs
     for q in range(3):
         o = torch.zeros((L, arms, n_pad), dtype=torch.float32, device=dev)
+        # tracecheck: ignore[TRC002] -- the plain backend's lanes, fixed by the
+        # batch (the "cuda" backend launches once for every lane)
         for i, n in enumerate(lanes.ns):
             o[i, :, :n] = parts[i][q].view(arms, n)
         outs.append(o.view(L, arms * n_pad))
@@ -520,6 +538,9 @@ class _LaneLoop:
     def swap_stats_lanes(self, lanes, ref_idx, d1_b, d2_b, assign_b, w, k,
                          lead, *, metric, run=None):
         parts = []
+        # tracecheck: ignore[TRC002] -- the plain backend's lane form: the
+        # single form once a lane, fixed by the batch (the "cuda" backend
+        # launches once)
         for i, n in enumerate(lanes.ns):
             lead_i = None
             if lead is not None:
@@ -541,6 +562,9 @@ class _LaneLoop:
         zero = (torch.zeros((k * n,), dtype=torch.float32,
                             device=lanes.data.device) for n in lanes.ns)
         parts = []
+        # tracecheck: ignore[TRC002] -- the plain backend's lane form: the
+        # single form once a lane, fixed by the batch (the "cuda" backend
+        # launches once)
         for i, (n, z) in enumerate(zip(lanes.ns, zero)):
             if _skipped_on_host(None if run is None else run[i:i + 1]):
                 parts.append((z, z, z))
@@ -559,6 +583,9 @@ class _LaneLoop:
         d1 = torch.zeros((L, n_pad), dtype=torch.float32, device=dev)
         d2 = torch.zeros_like(d1)
         assign = torch.zeros((L, n_pad), dtype=torch.int32, device=dev)
+        # tracecheck: ignore[TRC002] -- the plain backend's lane form: the
+        # single form once a lane, fixed by the batch (the "cuda" backend
+        # launches once)
         for i, n in enumerate(lanes.ns):
             x = lanes.lane(i)
             d1[i, :n], d2[i, :n], assign[i, :n] = self.top2(
@@ -750,6 +777,8 @@ class CudaStatsBackend:
         L, b = y.shape[0], y.shape[1]
         pts = lanes.flat.index_select(0, lead_rows + lanes.base)
         out = []
+        # tracecheck: ignore[TRC002] -- one pairwise launch a group of
+        # LEAD_GROUP = 64 lanes, a count fixed by the batch
         for lo in range(0, L, self.LEAD_GROUP):
             hi = min(lo + self.LEAD_GROUP, L)
             blk = ops.pairwise_distance(
@@ -812,6 +841,8 @@ class CudaStatsBackend:
             return sums, sq, torch.zeros_like(sums)
         lg = g.gather(1, lead.view(-1, 1, 1).expand(-1, 1, g.shape[2]))
         cross = torch.zeros_like(sums)
+        # tracecheck: ignore[TRC002] -- one matrix-vector product a lane (the
+        # single form's bits), a count fixed by the batch
         for i, n in enumerate(lanes.ns):
             torch.mv(g[i, :n], lg[i, 0], out=cross[i, :n])
         return sums, sq, cross

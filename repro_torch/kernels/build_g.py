@@ -72,9 +72,12 @@ def build_g_lanes_torch(x, y, dnear_b, w, lead_g, rows, metric: str,
     lanes, n_pad = x.shape[0], x.shape[1]
     outs = [torch.zeros((lanes, n_pad), dtype=torch.float32,
                         device=x.device) for _ in range(3)]
+    # tracecheck: ignore[TRC002] -- the plain lane version (CPU tensors only):
+    # the single form once a lane
     for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
         part = build_g_torch(x[i, :n], y[i], dnear_b[i], w[i], lead_g[i],
                              metric)
+        # tracecheck: ignore[TRC002] -- the three outputs
         for o, v in zip(outs, part):
             o[i, :n] = v
     return tuple(outs)

@@ -96,6 +96,8 @@ def _on_cuda(what: str, metric: Optional[str],
         raise ValueError(f"{what}: metric {metric!r} has no kernel "
                          f"(kernel metrics: {list(KERNEL_METRICS)})")
     dev = tensors[0].device
+    # tracecheck: ignore[TRC002] -- validates the call's argument tensors on
+    # the host; no launch
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
@@ -211,6 +213,8 @@ def _cached_shape(what: str, tm: Optional[int]) -> int:
 
 
 def _f32(what: str, *tensors: torch.Tensor) -> None:
+    # tracecheck: ignore[TRC002] -- checks the call's argument dtypes on the
+    # host; no launch
     for t in tensors:
         _check(t.dtype == torch.float32, what, f"expects float32, got {t.dtype}")
 

@@ -47,14 +47,24 @@ METRIC_IDS = {"l2": 0, "l2sq": 1, "cosine": 2, "l1": 3}
 launches = 0
 lane_launches = 0
 
-__all__ = ["METRIC_IDS", "lane_rows", "launch", "launch_lanes", "launches",
-           "lane_launches", "pairwise_lanes_plain", "pairwise_plain",
-           "pairwise_torch"]
+__all__ = ["METRIC_IDS", "host_ints", "lane_rows", "launch", "launch_lanes",
+           "launches", "lane_launches", "pairwise_lanes_plain",
+           "pairwise_plain", "pairwise_torch"]
+
+
+def host_ints(t: torch.Tensor):
+    """A lane tensor's entries as host ints, in one read: the plain lane
+    versions' deliberate read of the counts, column offsets and flags
+    that the lane kernels read on the card, so it runs inside
+    ``engine.syncs_allowed``."""
+    from ..core.engine import syncs_allowed
+    with syncs_allowed(t.device):
+        return [int(v) for v in t.tolist()]
 
 
 def lane_rows(rows, lanes: int, n_pad: int):
     """Each lane's row count as host ints (``rows`` a CPU tensor or None)."""
-    return [n_pad] * lanes if rows is None else [int(v) for v in rows]
+    return [n_pad] * lanes if rows is None else host_ints(rows)
 
 
 def pairwise_plain(x, y, metric: str, out=None, run=None):
@@ -102,11 +112,15 @@ def pairwise_lanes_plain(x, y, metric: str, out=None, col=None, xrows=None,
     if out is None:
         out = torch.zeros((lanes, m, r), dtype=torch.float32,
                           device=x.device)
-    cols = [0] * lanes if col is None else [int(c) for c in col]
+    cols = [0] * lanes if col is None else host_ints(col)
+    flags = (host_ints(run) if run is not None and run.device.type == "cpu"
+             else None)
+    # tracecheck: ignore[TRC002] -- the plain lane version (CPU tensors only):
+    # the single form once a lane
     for i, (mi, ri) in enumerate(zip(lane_rows(xrows, lanes, m),
                                      lane_rows(yrows, lanes, r))):
         flag = None if run is None else run[i:i + 1]
-        if flag is not None and flag.device.type == "cpu" and not bool(flag):
+        if flags is not None and not flags[i]:
             continue
         pairwise_plain(x[i, :mi], y[i, :ri], metric,
                        out[i, :mi, cols[i]:cols[i] + ri], flag)

@@ -159,6 +159,8 @@ def top2_lanes_torch(x, med, rows, metric: str):
     d1 = torch.zeros((lanes, n_pad), dtype=torch.float32, device=x.device)
     d2 = torch.zeros_like(d1)
     assign = torch.zeros((lanes, n_pad), dtype=torch.int32, device=x.device)
+    # tracecheck: ignore[TRC002] -- the plain lane version (CPU tensors only):
+    # the single form once a lane
     for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
         if n:
             d1[i, :n], d2[i, :n], assign[i, :n] = top2_torch(x[i, :n], med[i],

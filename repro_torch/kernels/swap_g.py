@@ -64,7 +64,7 @@ import torch
 from ..core.distances import pairwise
 from ..core.engine import _swap_batch_stats
 from . import build as _build
-from .pairwise import METRIC_IDS, lane_rows
+from .pairwise import METRIC_IDS, host_ints, lane_rows
 
 launches = 0
 cached_launches = 0
@@ -169,9 +169,12 @@ def swap_g_lanes_torch(x, y, d1_b, d2_b, assign_b, w, k: int, lead_g, rows,
     lanes, n_pad = x.shape[0], x.shape[1]
     outs = [torch.zeros((lanes, k, n_pad), dtype=torch.float32,
                         device=x.device) for _ in range(3)]
+    # tracecheck: ignore[TRC002] -- the plain lane version (CPU tensors only):
+    # the single form once a lane
     for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
         part = swap_g_torch(x[i, :n], y[i], d1_b[i], d2_b[i], assign_b[i],
                             w[i], k, lead_g[i], metric)
+        # tracecheck: ignore[TRC002] -- the three outputs
         for o, v in zip(outs, part):
             o[i, :, :n] = v
     return tuple(outs)
@@ -207,13 +210,16 @@ def swap_g_from_cache_lanes_torch(dxy, d1_b, d2_b, assign_b, w, k: int,
     ``[L, k, n_pad]`` zeros; every lane is computed whatever its flag."""
     lanes, n_pad = dxy.shape[0], dxy.shape[1]
     b = d1_b.shape[1]
-    cols = [0] * lanes if col is None else [int(c) for c in col]
+    cols = [0] * lanes if col is None else host_ints(col)
     outs = [torch.zeros((lanes, k, n_pad), dtype=torch.float32,
                         device=dxy.device) for _ in range(3)]
+    # tracecheck: ignore[TRC002] -- the plain lane version (CPU tensors only):
+    # the single form once a lane
     for i, n in enumerate(lane_rows(rows, lanes, n_pad)):
         part = swap_g_from_cache_torch(dxy[i, :n, cols[i]:cols[i] + b],
                                        d1_b[i], d2_b[i], assign_b[i], w[i], k,
                                        lead_g[i])
+        # tracecheck: ignore[TRC002] -- the three outputs
         for o, v in zip(outs, part):
             o[i, :, :n] = v
     return tuple(outs)

@@ -286,15 +286,18 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_reference_package():
     """Nor ``msgpack``, which the card's machine does not have (the
     port's checkpoint manifest is JSON)."""
-    files = sorted((ROOT / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-        ROOT / "chip_sync_probe.py", ROOT / "chip_lm_spread.py"]
+    files = (sorted((ROOT / "repro_torch").rglob("*.py"))
+             + sorted(ROOT.glob("chip_*.py")))
     assert len(files) > 15
+    for script in ("chip_smoke.py", "chip_ab.py", "chip_sync_probe.py",
+                   "chip_lm_spread.py", "chip_fit_ab.py", "chip_logdiff.py"):
+        assert ROOT / script in files
     assert ROOT / "repro_torch" / "core" / "batch.py" in files
     assert ROOT / "repro_torch" / "core" / "distributed.py" in files
     assert ROOT / "repro_torch" / "core" / "tuning.py" in files
     assert ROOT / "repro_torch" / "analysis" / "guard.py" in files
     assert ROOT / "repro_torch" / "analysis" / "budgets.py" in files
+    assert ROOT / "repro_torch" / "analysis" / "graph" / "survey.py" in files
     for lm in ("configs/base.py", "configs/qwen3_1_7b.py", "models/layers.py",
                "models/model.py", "models/moe.py", "models/ssm.py",
                "train/data.py", "train/optimizer.py",

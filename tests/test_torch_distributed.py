@@ -148,7 +148,8 @@ def _spawn(cases, shards):
     (the spawned processes read ``OMP_NUM_THREADS``)."""
     with pytest.MonkeyPatch.context() as m:
         m.setenv("OMP_NUM_THREADS", "1")
-        return tdist.spawn_fits(cases, shards, timeout=TIMEOUT)
+        return tdist.spawn_fits(cases, shards, device="cpu",
+                                timeout=TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -532,3 +533,16 @@ def test_a_rank_that_raises_ends_the_ranks():
     (each group also has a collective timeout)."""
     with pytest.raises(Exception, match="need n > k"):
         _spawn([(datasets.mnist_like(3, seed=0), 3, {})], 2)
+
+
+def test_spawn_fits_defaults_to_the_card(monkeypatch):
+    """``spawn_fits`` without ``device`` targets the card, as every entry
+    point does (``core.device``): without one it raises before it starts
+    a rank; it never moves to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(torch.multiprocessing, "start_processes",
+                        lambda *a, **kw: started.append(a))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tdist.spawn_fits([(datasets.mnist_like(10, seed=0), 3, {})], 2)
+    assert started == []
