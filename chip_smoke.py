@@ -371,7 +371,17 @@ Phases, each of which raises (exit code != 0) on any failure:
    GRC001 is phase 11 (b)'s budgets part, which measured the 11 budget
    keys (the phase counts its passing ``[budget]`` lines, and raises
    unless all 11 passed).  Raising unless the union of the census
-   launches all seven kernels.
+   launches all seven kernels.  (a) The registry runs through
+   ``rules.analyze()`` with no device argument, and
+   ``engine.total_loss`` through one ``python -m
+   repro_torch.analysis.graph`` subprocess without ``--device``:
+   raising unless both reports' key is this torch's and ``cuda``.
+   (b) GRC005 on the card, where the caching allocator gives a freed
+   block to the next request of its size: the out-of-place ring write
+   (the ring cloned after every round) of ``core._build_fused[pic]`` 20
+   times in the process, and a ring replaced twice by ``torch.roll`` (no
+   copy-class op); raising unless every run finds the ring "was
+   replaced".  One ``[graph] GRC005`` line with the counts.
 
 The ``kernels`` line takes the lane kernels' launches from phase 8's
 ragged batch (b) (``pairwise_lanes`` and ``swap_g_from_cache_lanes``
@@ -4974,9 +4984,11 @@ def budgets_held(budget_lines) -> int:
 
 def graph_paths(torch, dev, card, budget_lines):
     """Phase 18: the graph registry on the card (``backend="cuda"``),
-    raising on any finding, on a missing golden for this key, on fewer
-    than every budget key held by phase 11 (b), and unless the census
-    launches all seven kernels."""
+    with no device argument, raising on any finding, on a missing golden
+    for this key, on a report keyed to another device, on fewer than
+    every budget key held by phase 11 (b), and unless the census
+    launches all seven kernels; then (a) the CLI's default device and
+    (b) GRC005's out-of-place writes (the module docstring)."""
     from repro_torch.analysis import budgets
     from repro_torch.analysis.graph import rules, survey
     t0 = time.perf_counter()
@@ -4985,11 +4997,11 @@ def graph_paths(torch, dev, card, budget_lines):
     if survey.golden_for_key(golden, key) is None:
         raise AssertionError(f"no committed graph golden for {key}; "
                              f"have {sorted(golden['goldens'])}")
-    # backend "cuda" on the card (the plain "torch" where a rehearsal
-    # runs it on the CPU)
-    report, prints = rules.analyze(device=dev,
-                                   backend=rules.default_backend(dev),
-                                   golden_doc=golden, with_budgets=False)
+    report, prints = rules.analyze(golden_doc=golden, with_budgets=False)
+    got = rules.report_to_json(report)["key"]
+    if got != key:
+        raise AssertionError(f"the registry with no device ran as {got}, "
+                             f"not {key}")
     launched = {}
     for name in report.entrypoints:
         d = report.details[name]
@@ -5019,7 +5031,76 @@ def graph_paths(torch, dev, card, budget_lines):
     if missing:
         raise AssertionError(f"the registry launched no {missing}")
     log(f"[graph] 0 findings across {len(report.entrypoints)} entrypoints "
-        f"({key}; {card}); phase 18 wall {time.perf_counter() - t0:.1f} s")
+        f"({key}, no device argument; {card}); registry wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    ta = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.graph",
+         "--entrypoints", "engine.total_loss", "--skip-budgets",
+         "--format", "json"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError("the graph CLI with no --device failed:\n"
+                             + proc.stdout[-2000:] + proc.stderr[-2000:])
+    got = json.loads(proc.stdout)["key"]
+    if got != key:
+        raise AssertionError(f"the graph CLI with no --device ran as {got}, "
+                             f"not {key}")
+    log(f"[graph] (a) the CLI with no --device: engine.total_loss clean, key "
+        f"{got}; wall {time.perf_counter() - ta:.1f} s")
+    tb = time.perf_counter()
+    ring_hits, roll_msgs = grc005_out_of_place(torch, dev, rules)
+    log(f"[graph] GRC005 out-of-place ring writes on the card: "
+        f"core._build_fused[pic] replaced in {ring_hits} of "
+        f"{GRC005_RUNS} runs; torch.roll twice: "
+        f"{'replaced' if roll_msgs else 'missed'}; wall "
+        f"{time.perf_counter() - tb:.1f} s")
+    if ring_hits != GRC005_RUNS or not roll_msgs:
+        raise AssertionError("GRC005 missed an out-of-place ring write")
+    log(f"[graph] phase 18 wall {time.perf_counter() - t0:.1f} s ({card})")
+
+
+GRC005_RUNS = 20
+
+
+def grc005_out_of_place(torch, dev, rules):
+    """Phase 18 (b): how many of ``GRC005_RUNS`` surveys of
+    ``core._build_fused[pic]`` with the ring cloned after every round
+    find it "was replaced", and the finding of a ring replaced twice a
+    call by ``torch.roll`` (empty if none)."""
+    from repro_torch.analysis.graph import entrypoints as ep
+    from repro_torch.core import banditpam
+
+    def replaced(spec):
+        report, _ = rules.analyze([spec], with_budgets=False)
+        return [f.message for f in report.findings
+                if f.rule == "GRC005" and "was replaced" in f.message]
+
+    orig = banditpam.search_read_or_write
+
+    def out_of_place(be, data, ref_idx, *, cache, **kw):
+        out = orig(be, data, ref_idx, cache=cache, **kw)
+        cache.cols = cache.cols.clone()
+        return out
+    banditpam.search_read_or_write = out_of_place
+    try:
+        spec = ep.by_name()["core._build_fused[pic]"]
+        hits = sum(bool(replaced(spec)) for _ in range(GRC005_RUNS))
+    finally:
+        banditpam.search_read_or_write = orig
+
+    def rolled_twice(d, backend):
+        holder = {"cols": torch.zeros((ep.N, ep.WIDTH), device=d)}
+
+        def call():
+            for _ in range(2):
+                holder["cols"] = torch.roll(holder["cols"], ep.B, dims=1)
+            return holder["cols"]
+        return ep.Prepared(call, carried=lambda: (holder["cols"],),
+                           cleanup=holder.clear)
+    roll = ep.GraphSpec(name="smoke.rolled_twice", build=rolled_twice,
+                        tags=frozenset({"hot"}))
+    return hits, replaced(roll)
 
 
 def main() -> int:

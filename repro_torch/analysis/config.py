@@ -213,9 +213,6 @@ def default_config() -> Config:
             # The serving reservoir: one fixed key, draws fold in the
             # stream index.
             "Reservoir.__init__",
-            # A seeded torch.Generator as a layout source: kept for the
-            # tests that replay other draws until ROADMAP A19 deletes it.
-            "from_generator", "GeneratorLayouts",
         ),
         sanctioned_chain_paths=(
             # The threefry functions are the chain itself.

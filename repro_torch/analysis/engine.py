@@ -101,7 +101,7 @@ class FuncInfo:
 
 def qual_matches(qualname: str, name: str) -> bool:
     """True if ``name``'s dotted parts are a window of ``qualname``'s: a
-    method ``"Reservoir.__init__"``, a class ``"GeneratorLayouts"``, a
+    method ``"Reservoir.__init__"``, a class ``"SeedLayouts"``, a
     function ``"from_seed"``."""
     parts, want = qualname.split("."), name.split(".")
     return any(parts[i:i + len(want)] == want

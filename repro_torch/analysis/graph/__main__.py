@@ -4,17 +4,18 @@
 Examples::
 
     python -m repro_torch.analysis.graph --device cpu
-    python -m repro_torch.analysis.graph --device cuda --format json
+    python -m repro_torch.analysis.graph --format json
     python -m repro_torch.analysis.graph --entrypoints engine.total_loss
     python -m repro_torch.analysis.graph --rules GRC003,GRC004 --skip-budgets
     REGEN_GOLDEN=1 python -m repro_torch.analysis.graph --device cpu
-    python -m repro_torch.analysis.graph --golden-diff
+    python -m repro_torch.analysis.graph --device cpu --golden-diff
 
 Exit codes: 0 clean, 1 findings, 2 usage error.  Unlike tracecheck this
 CLI imports torch: it runs every registered entry point once, on the
-CPU's plain versions (``--device cpu``, the default backend ``"torch"``)
-or on the card's kernels (``--device cuda``, backend ``"cuda"``, where
-GRC001 measures each budget unless ``--skip-budgets``).
+card's kernels by default (backend ``"cuda"``, where GRC001 measures
+each budget unless ``--skip-budgets``; without a card it raises, as
+every entry point of the port does) or on the CPU's plain versions
+(``--device cpu``, backend ``"torch"``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.analysis.graph",
         description="graphcheck: graph contract analyzer of the port's hot "
                     "entry points, with golden op-census fingerprints")
-    parser.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    parser.add_argument("--device", choices=("cpu", "cuda"), default=None,
+                        help="default: the card (cuda)")
     parser.add_argument("--format", choices=("human", "json"),
                         default="human")
     parser.add_argument("--output", metavar="FILE",

@@ -32,7 +32,9 @@ the registered entry point at the canonical shapes (``survey``: the ops a
   (the PIC rings) are written in place: their storage is the same after
   the call, and no copy-class op (``clone``, ``cat``, ``_to_copy``, an
   out-of-place scatter, ...) makes a fresh tensor of their shape and
-  dtype.
+  dtype.  The check holds each buffer's storage through the call, so
+  the allocator cannot hand its block to a replacement, and a new
+  storage shows as a new address.
 * GRC006 dtype discipline: more narrowing float casts than the spec's
   audited allowance.
 """
@@ -45,6 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ...core.device import resolve_device
 from . import survey as sv_mod
 from .entrypoints import GraphSpec, Prepared, pinned_tiles, registry
 
@@ -166,16 +169,20 @@ def _check_run_rules(spec: GraphSpec, prep: Prepared, sv: sv_mod.Survey,
             f"{spec.allowed_narrowing}"))
 
 
-def _carried(prep: Prepared) -> List[Tuple[int, Tuple[int, ...], str]]:
-    """(storage address, shape, dtype) of each carried buffer now."""
-    return [(t.untyped_storage().data_ptr(), tuple(t.shape), str(t.dtype))
+def _carried(prep: Prepared
+             ) -> List[Tuple[torch.UntypedStorage, Tuple[int, ...], str]]:
+    """(storage, shape, dtype) of each carried buffer now.  Holding the
+    storage keeps its block allocated until the caller drops the list, so
+    no tensor made meanwhile can take its address."""
+    return [(t.untyped_storage(), tuple(t.shape), str(t.dtype))
             for t in (prep.carried() if prep.carried else ())]
 
 
 def _check_donation(spec: GraphSpec, prep: Prepared, sv: sv_mod.Survey,
                     before, findings: List[Finding]) -> None:
-    for t, (ptr0, shape, dtype) in zip(prep.carried() if prep.carried
-                                       else (), before):
+    for t, (st0, shape, dtype) in zip(prep.carried() if prep.carried
+                                      else (), before):
+        ptr0 = st0.data_ptr()
         if t.untyped_storage().data_ptr() != ptr0:
             findings.append(Finding(
                 "GRC005", spec.name,
@@ -221,15 +228,15 @@ def _check_drift(spec: GraphSpec, doc: Dict, golden_doc, key: str,
 
 
 def analyze(specs: Optional[Sequence[GraphSpec]] = None, *,
-            device="cpu", backend: Optional[str] = None,
+            device=None, backend: Optional[str] = None,
             golden_doc: Optional[Dict] = None,
             rules: Optional[Sequence[str]] = None,
             with_budgets: bool = True) -> "tuple[Report, Dict[str, Dict]]":
-    """Run every spec once on ``device`` (its ``backend``, by default
-    :func:`default_backend`) and the rules; returns (report,
-    fingerprints by name)."""
+    """Run every spec once on ``device`` (None: the card, raising without
+    one; its ``backend``, by default :func:`default_backend`) and the
+    rules; returns (report, fingerprints by name)."""
     specs = registry() if specs is None else specs
-    dev = torch.device(device)
+    dev = resolve_device(device)
     backend = backend or default_backend(dev)
     active = set(ALL_RULES if rules is None else rules)
     key = sv_mod.golden_key(dev)
@@ -260,6 +267,7 @@ def analyze(specs: Optional[Sequence[GraphSpec]] = None, *,
                 _check_run_rules(spec, prep, sv, ruled)
                 _check_donation(spec, prep, sv, before, ruled)
             finally:
+                before = None  # the held storages go with the spec's state
                 if prep.cleanup is not None:
                     prep.cleanup()
         doc = sv_mod.fingerprint(sv)
@@ -303,7 +311,7 @@ def format_human(report: Report) -> str:
 
 
 def report_to_json(report: Report, prints: Optional[Dict] = None,
-                   device="cpu") -> Dict:
+                   device=None) -> Dict:
     doc = {
         "tool": "graphcheck",
         "version": 1,

@@ -50,6 +50,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ...core.device import resolve_device
+
 __all__ = ["Survey", "survey", "fingerprint", "diff_fingerprints",
            "load_golden", "merge_golden", "golden_for_key", "golden_key",
            "default_golden_path", "dump_golden", "GOLDEN_ENV"]
@@ -264,8 +266,9 @@ def diff_fingerprints(old: Dict, new: Dict) -> str:
 # -- golden artifact io -----------------------------------------------------
 
 def golden_key(device=None) -> str:
-    """The running key: the PyTorch version and the device type."""
-    dev = torch.device("cpu" if device is None else device)
+    """The running key: the PyTorch version and the device type (None:
+    the card's, raising without one)."""
+    dev = resolve_device(device)
     return f"{torch.__version__}|{dev.type}"
 
 

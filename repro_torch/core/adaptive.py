@@ -79,10 +79,7 @@ One round is one function (``_Search.round``) that two loops share:
 In both loops the leader is a 0-d device index from the pilot round on.
 
 Both loops run the same arithmetic on the same values, so they return
-the same result bit for bit.  The caller keeps one source on the
-stepped loop: draws from one generator in consumption order
-(``rng.from_generator``), where a round enqueued past the stop would use
-up draws of the searches after it (``BanditPAM._fit``).
+the same result bit for bit.
 
 Cache-seeded searches (BanditPAM++ and the paper's App 2.2 warm block),
 permutation sampling over a FIXED permutation shared by every search:

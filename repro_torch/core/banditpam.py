@@ -66,10 +66,7 @@ write its slot, and the host learns each search's round count with the
 flag's reads (a BUILD search that ran to its budget while the window
 could still grow is read once more), with BUILD's end read, or with the
 SWAP iteration's read.  ``fused=False`` runs the stepped
-searches (one read per round), and so, by one rule, does a replacement
-fit whose draws come from ``rng.from_generator``: it draws in
-consumption order, so a round enqueued past a search's stop would shift
-every later search's draws.  The two give identical reports.
+searches (one read per round).  The two give identical reports.
 
 ``fit_batch`` fits many independent datasets in one call
 (``core/batch.py``): every lane advances one bandit round at a time,
@@ -85,7 +82,7 @@ replacement mode its per-round batches, from a layout source
 (``repro_torch.core.rng``).  The default replays the JAX package's
 threefry chain for ``seed`` (``rng.from_seed``), so the same seed gives
 the JAX fit's draws and hence its medoids; ``layouts=`` replaces the
-source (``rng.from_generator``, or given draws through
+source (given draws through ``rng.from_numpy`` or
 ``repro_torch.convert``).
 """
 
@@ -553,16 +550,9 @@ class BanditPAM:
         ctx = self._make_context(data, be_name, layouts, res)
         phase_sync(dev)
         t0 = time.perf_counter()
-        # The device-resident searches run every mode but one: replacement
-        # draws taken from one generator in consumption order, where a
-        # round enqueued past a search's stop would use up the draws of
-        # the searches after it.
-        resident = self.fused and not (
-            self.sampling == "replacement"
-            and isinstance(layouts, _rng.GeneratorLayouts))
         if ws is None:
             medoids, med_t, med_mask = self._build(data, ctx, layouts, res,
-                                                   resident)
+                                                   self.fused)
         else:
             medoids = ws.tolist()
             with host_stage("the warm-start medoids"):
@@ -574,7 +564,7 @@ class BanditPAM:
         res.wall_by_phase["build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         medoids, loss, converged = self._swap(data, medoids, med_t, med_mask,
-                                              ctx, layouts, res, resident)
+                                              ctx, layouts, res, self.fused)
         phase_sync(dev)
         res.wall_by_phase["swap"] = time.perf_counter() - t0
         res.medoids = np.asarray(medoids, np.int64)

@@ -36,10 +36,6 @@ the draws come from:
   Every search owns its key, so the searches may ask in any order, and a
   replacement search computes all of its rounds' batches at its first
   request;
-* :func:`from_generator` draws ``torch.randperm(n)`` or
-  ``torch.randint(0, n, (B,))`` from one seeded ``torch.Generator`` on
-  the fit's device, in the order the fit consumes them (not the JAX
-  package's draws);
 * :func:`from_numpy` replays given ``[k, n]`` BUILD and ``[T, n]`` SWAP
   permutations and/or ``[k, R, B]`` BUILD and ``[T, R, B]`` SWAP draws
   and/or the ``[n]`` fixed permutation, e.g. draws a test chose itself.
@@ -132,73 +128,6 @@ class SeedLayouts:
                 device: torch.device) -> torch.Tensor:
         """``{phase}_draw(i, rnd, n, b)`` on ``device``: a row of the
         search's batches, already there, so no copy and no read."""
-        return self._draw(phase, i, rnd, n, b).to(device)
-
-
-class GeneratorLayouts:
-    """Draws from one seeded ``torch.Generator``.  Draws are sequential,
-    so the searches must ask in the fit's order: every search once, BUILD
-    before SWAP, and a replacement search round by round."""
-
-    def __init__(self, seed: int, device: torch.device):
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
-        self.drawn = {"fixed": 0, "build": 0, "swap": 0}
-        self._round = None   # (phase, search, last round) of the open search
-
-    def _open(self, phase: str, i: int) -> None:
-        # The fixed permutation first, then every BUILD search before the
-        # first SWAP search, each in order.
-        later = {"fixed": ("build", "swap"), "build": ("swap",),
-                 "swap": ()}[phase]
-        if i != self.drawn[phase] or any(self.drawn[p] for p in later):
-            raise ValueError(f"layouts must be drawn in fit order; asked "
-                             f"for {phase}[{i}] after {self.drawn}")
-        self.drawn[phase] += 1
-
-    def fixed_perm(self, n: int) -> torch.Tensor:
-        """The cache-seeded fit's one permutation; drawn at most once,
-        before anything else."""
-        return self._perm("fixed", 0, n)
-
-    def _perm(self, phase: str, i: int, n: int) -> torch.Tensor:
-        self._open(phase, i)
-        self._round = None
-        return torch.randperm(n, generator=self.gen, device=self.device)
-
-    def _draw(self, phase: str, i: int, rnd: int, n: int,
-              b: int) -> torch.Tensor:
-        if rnd == 0:
-            self._open(phase, i)
-        elif self._round != (phase, i, rnd - 1):
-            raise ValueError(f"layouts must be drawn in fit order; asked "
-                             f"for {phase}[{i}] round {rnd} after "
-                             f"{self._round}")
-        self._round = (phase, i, rnd)
-        return torch.randint(0, n, (b,), generator=self.gen,
-                             device=self.device)
-
-    def build_perm(self, i: int, n: int) -> torch.Tensor:
-        return self._perm("build", i, n)
-
-    def perm_on(self, phase: str, i: int, n: int,
-                device: torch.device) -> torch.Tensor:
-        """``{phase}_perm(i, n)`` on ``device`` (drawn there)."""
-        return self._perm(phase, i, n).to(device)
-
-    def swap_perm(self, t: int, n: int) -> torch.Tensor:
-        return self._perm("swap", t, n)
-
-    def build_draw(self, i: int, rnd: int, n: int, b: int) -> torch.Tensor:
-        return self._draw("build", i, rnd, n, b)
-
-    def swap_draw(self, t: int, rnd: int, n: int, b: int) -> torch.Tensor:
-        return self._draw("swap", t, rnd, n, b)
-
-    def draw_on(self, phase: str, i: int, rnd: int, n: int, b: int,
-                device: torch.device) -> torch.Tensor:
-        """``{phase}_draw(i, rnd, n, b)`` on ``device`` (drawn there)."""
         return self._draw(phase, i, rnd, n, b).to(device)
 
 
@@ -314,10 +243,6 @@ def from_seed(seed: int, device, k: int) -> SeedLayouts:
     searches that precede the first SWAP search (the fit's k; 0 for a
     warm-started fit)."""
     return SeedLayouts(seed, device, k)
-
-
-def from_generator(seed: int, device) -> GeneratorLayouts:
-    return GeneratorLayouts(seed, device)
 
 
 def from_numpy(build_perms=None, swap_perms=None, build_draws=None,

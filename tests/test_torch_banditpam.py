@@ -250,16 +250,24 @@ def test_unported_entry_points_raise():
         KMedoids(k=2, solver="nope", device="cpu").fit_batch([X, X])
 
 
-def test_generator_layouts_are_seeded_and_ordered():
+def test_seed_layouts_are_seeded_permutations_in_any_order():
     X = datasets.mnist_like(220, seed=0, d=16)
     a = BanditPAM(3, seed=5, device="cpu").fit(X)
     b = BanditPAM(3, seed=5, device="cpu").fit(X)
     assert a.medoids.tolist() == b.medoids.tolist()
     assert a.evals_by_phase == b.evals_by_phase
-    src = rng.from_generator(0, "cpu")
-    src.build_perm(0, 10)
-    with pytest.raises(ValueError, match="fit order"):
-        src.build_perm(2, 10)
+    # Every search owns its key: a permutation of [0, n), the same
+    # whichever search asks first.
+    src = rng.from_seed(0, "cpu", 3)
+    late = src.build_perm(2, 10).tolist()
+    assert sorted(late) == list(range(10))
+    again = rng.from_seed(0, "cpu", 3)
+    firsts = [again.build_perm(i, 10).tolist() for i in range(3)]
+    assert firsts[2] == late
+    assert all(sorted(p) == list(range(10)) for p in firsts)
+    assert src.swap_perm(0, 10).tolist() == again.swap_perm(0, 10).tolist()
+    with pytest.raises(ValueError, match="3 BUILD searches"):
+        src.build_perm(3, 10)
 
 
 def test_array_layouts_validate():

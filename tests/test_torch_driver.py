@@ -165,28 +165,28 @@ def _check_read_bounds(kw, monkeypatch):
     assert reads["swap"] < stepped.host_reads_by_phase["swap"]
 
 
-def test_generator_replacement_fit_keeps_the_stepped_loop():
-    """Draws from one generator in consumption order
-    (``rng.from_generator``) keep a replacement fit on the stepped loop
-    under ``fused=True``, by the rule in ``BanditPAM._fit``: a round
-    enqueued past a search's stop would use up the draws of the searches
-    after it.  So the fused fit reads as often as the stepped one, once a
-    round, and consumes the same draws: the same report, and the
-    generator left in the same state."""
-    n, k = 300, 3
+def test_given_replacement_draws_run_resident():
+    """A replacement + leader fit on given draws (``rng.from_numpy``,
+    every round of every search a fit may run) takes the device-resident
+    loop under ``fused=True``: each search reads its draws by (search,
+    round), so a round enqueued past a search's stop uses nothing of a
+    later search's.  It equals its stepped twin bit for bit and reads
+    less in BUILD than it runs rounds."""
+    n, k, b = 300, 3, 20
     X = jdatasets.mnist_like(n, seed=3, d=32)
-    kw = dict(device="cpu", batch_size=20, sampling="replacement",
+    kw = dict(device="cpu", batch_size=b, sampling="replacement",
               baseline="leader")
-    srcs = {f: rng.from_generator(7, "cpu") for f in (True, False)}
-    fits = {f: BanditPAM(k, fused=f, **kw).fit(X, layouts=srcs[f])
-            for f in (True, False)}
+    R, T = -(-n // b), BanditPAM(k, **kw).max_swaps
+    gen = np.random.default_rng(7)
+    draws = {"build_draws": gen.integers(0, n, (k, R, b)),
+             "swap_draws": gen.integers(0, n, (T, R, b))}
+    fits = {f: BanditPAM(k, fused=f, **kw).fit(
+        X, layouts=rng.from_numpy(**draws)) for f in (True, False)}
     assert _fields(fits[True]) == _fields(fits[False])
-    assert (fits[True].host_reads_by_phase
-            == fits[False].host_reads_by_phase)
+    assert (fits[False].host_reads_by_phase["build"]
+            >= sum(fits[False].build_rounds))
     assert (fits[True].host_reads_by_phase["build"]
-            >= sum(fits[True].build_rounds))
-    assert torch.equal(srcs[True].gen.get_state(),
-                       srcs[False].gen.get_state())
+            < sum(fits[True].build_rounds))
     # The same seed's threefry draws run device-resident and read less.
     seeded = BanditPAM(k, fused=True, **kw).fit(X)
     assert (seeded.host_reads_by_phase["build"]

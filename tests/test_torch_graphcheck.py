@@ -8,7 +8,8 @@ a contract.
 * The shipped registry: ``python -m repro_torch.analysis.graph --device
   cpu`` exits 0 and matches the committed golden for this torch's key;
   an in-process run gives the same fingerprints (the census of an eager
-  run is deterministic at fixed seeds).
+  run is deterministic at fixed seeds).  With no device the analyzer,
+  its CLI and its report's key target the card, and raise here.
 * The survey sees a one-rank ``gloo`` ``all_reduce`` as
   ``c10d.allreduce_.default``, and the sharded specs' census equals
   their own ``allreduce_counts()``.
@@ -16,12 +17,14 @@ a contract.
   synthetic spec (the package is never edited): a materialised
   ``total_loss`` ([n, n] through the plain distances) fires GRC002, an
   ``all_reduce`` in a single-device spec GRC003, a ``.item()`` in a hot
-  entry GRC004, an out-of-place write to the ring GRC005, a cast to
-  bfloat16 GRC006, a perturbed golden GRC000; GRC001 is skipped on the
-  CPU with a note.
+  entry GRC004, an out-of-place write to the ring GRC005 (also where the
+  replacement lands at the ring's old address), a cast to bfloat16
+  GRC006, a perturbed golden GRC000; GRC001 is skipped on the CPU with a
+  note.
 * The ``gpu``-marked twins (``python -m pytest --noconftest -m gpu
   tests/test_torch_graphcheck.py`` on the card): the registry on
-  ``cuda`` is clean and launches all seven kernels.
+  ``cuda`` is clean and launches all seven kernels, and with no device
+  argument the analyzer and its CLI report the card's key.
 """
 
 import dataclasses
@@ -154,6 +157,27 @@ def test_cli_lists_and_usage_errors():
     assert cli("--entrypoints", "no.such").returncode == 2
 
 
+def test_graph_analyzer_defaults_to_the_card():
+    """With no device the analyzer targets the card, as every entry point
+    of the port does: here, with none, it raises and names the CPU's
+    spelling."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the gpu twin checks the key")
+    spec = ep.by_name()["engine.total_loss"]
+    for call in (lambda: rules.analyze([spec], with_budgets=False),
+                 lambda: rules.report_to_json(rules.Report([], [], [])),
+                 lambda: sv_mod.golden_key()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.graph",
+         "--entrypoints", "engine.total_loss"],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
+    assert r.returncode != 0
+    assert "RuntimeError" in r.stderr and "device='cpu'" in r.stderr
+
+
 def test_golden_diff_detects_drift(tmp_path):
     golden = sv_mod.load_golden(GOLDEN)
     key = sv_mod.golden_key("cpu")
@@ -168,7 +192,8 @@ def test_golden_diff_detects_drift(tmp_path):
     def diff(*argv):
         return subprocess.run(
             [sys.executable, "-m", "repro_torch.analysis.graph",
-             "--entrypoints", "engine.total_loss", "--golden-diff", *argv],
+             "--device", "cpu", "--entrypoints", "engine.total_loss",
+             "--golden-diff", *argv],
             capture_output=True, text=True, cwd=REPO, timeout=300,
             env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"})
     r = diff("--golden", str(bad_path))
@@ -280,6 +305,34 @@ def test_seeded_out_of_place_ring_write_fires_grc005(monkeypatch):
     assert got and "replaced" in got[0].message
 
 
+def _rolled_twice(dev):
+    """A carried ring replaced twice a call by ``torch.roll``, which is no
+    copy-class op: the second roll's output may land at the address the
+    first roll freed, the ring's own before the call."""
+    holder = {"cols": torch.zeros((ep.N, ep.WIDTH), device=dev)}
+
+    def call():
+        for _ in range(2):
+            holder["cols"] = torch.roll(holder["cols"], ep.B, dims=1)
+        return holder["cols"]
+    return ep.Prepared(call, carried=lambda: (holder["cols"],),
+                       cleanup=holder.clear)
+
+
+def test_grc005_sees_a_replacement_at_a_reused_address():
+    """GRC005 holds the ring's storage through the call, so an
+    out-of-place write is "replaced" wherever the allocator puts the new
+    one: in each of 20 runs in one process."""
+    spec = _spec(None, prep=_rolled_twice)
+    missed = []
+    for run in range(20):
+        report, _ = _analyze(spec)
+        msgs = [f.message for f in report.findings if f.rule == "GRC005"]
+        if not any("was replaced" in m for m in msgs):
+            missed.append((run, msgs))
+    assert missed == [], f"{len(missed)} of 20 runs missed: {missed}"
+
+
 def test_grc005_flags_a_fresh_copy_of_the_ring_shape():
     ring = torch.zeros((ep.N, ep.WIDTH))
     holder = {"cols": ring}
@@ -344,3 +397,19 @@ def test_registry_on_cuda_is_clean_and_launches_every_kernel(cuda):
     for d in report.details.values():
         launched.update(k for k, v in d["launches"].items() if v)
     assert set(KERNELS) <= launched, launched
+
+
+@pytest.mark.gpu
+def test_graph_analyzer_defaults_to_the_card_on_cuda(cuda):
+    spec = ep.by_name()["engine.total_loss"]
+    report, _ = rules.analyze([spec], with_budgets=False)
+    doc = rules.report_to_json(report)
+    assert doc["key"] == sv_mod.golden_key(cuda) == sv_mod.golden_key()
+    assert doc["key"].endswith("|cuda") and report.findings == []
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.graph",
+         "--entrypoints", "engine.total_loss", "--skip-budgets",
+         "--format", "json"], capture_output=True, text=True, cwd=REPO,
+        timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert json.loads(r.stdout)["key"] == doc["key"]

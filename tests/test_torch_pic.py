@@ -354,20 +354,21 @@ def test_replacement_sampling_ignores_the_warm_block():
     assert a.medoids.tolist() == b.medoids.tolist()
 
 
-def test_generator_draws_the_fixed_permutation_first():
+def test_seed_layouts_fixed_permutation_is_a_permutation():
     X = jdatasets.mnist_like(260, seed=0, d=16)
     a = BanditPAM(3, reuse="pic", seed=5, device="cpu").fit(X)
     b = BanditPAM(3, reuse="pic", seed=5, device="cpu").fit(X)
     assert a.medoids.tolist() == b.medoids.tolist()
     assert a.evals_by_phase == b.evals_by_phase
-    src = rng.from_generator(0, "cpu")
+    # The fixed permutation comes from the chain's ``ckey``: a
+    # permutation of [0, n), the same before or after the searches draw,
+    # and for a warm fit (no BUILD searches).
+    src = rng.from_seed(0, "cpu", 3)
+    fixed = src.fixed_perm(10).tolist()
+    assert sorted(fixed) == list(range(10))
     src.build_perm(0, 10)
-    with pytest.raises(ValueError, match="fit order"):
-        src.fixed_perm(10)
-    src = rng.from_generator(0, "cpu")
-    assert sorted(src.fixed_perm(10).tolist()) == list(range(10))
-    with pytest.raises(ValueError, match="fit order"):
-        src.fixed_perm(10)
+    assert src.fixed_perm(10).tolist() == fixed
+    assert rng.from_seed(0, "cpu", 0).fixed_perm(10).tolist() == fixed
 
 
 def test_fixed_permutation_layouts_validate():

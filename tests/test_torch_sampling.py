@@ -139,21 +139,25 @@ def test_stepped_loop_gives_the_fused_report(kw):
     assert a.medoids.tolist() == b.medoids.tolist()
 
 
-def test_generator_draws_are_seeded_and_ordered():
+def test_seed_draws_are_seeded_and_in_range():
     X = jdatasets.mnist_like(220, seed=0, d=16)
     kw = {"sampling": "replacement", "baseline": "leader"}
     a = BanditPAM(3, seed=5, device="cpu", **kw).fit(X)
     b = BanditPAM(3, seed=5, device="cpu", **kw).fit(X)
     assert a.medoids.tolist() == b.medoids.tolist()
     assert a.evals_by_phase == b.evals_by_phase
-    src = rng.from_generator(0, "cpu")
-    assert src.build_draw(0, 0, 10, 4).shape == (4,)
-    src.build_draw(0, 1, 10, 4)
-    with pytest.raises(ValueError, match="fit order"):
-        src.build_draw(0, 3, 10, 4)
-    src.swap_draw(0, 0, 10, 4)
-    with pytest.raises(ValueError, match="fit order"):
-        src.build_draw(1, 0, 10, 4)
+    # A round's batch: B draws in [0, n); R = ceil(n/B) rounds a search,
+    # the same in any order of requests.
+    src = rng.from_seed(0, "cpu", 3)
+    late = src.swap_draw(0, 2, 10, 4)
+    assert late.shape == (4,)
+    for rnd in range(3):
+        row = src.build_draw(1, rnd, 10, 4)
+        assert row.shape == (4,) and 0 <= row.min() and row.max() < 10
+    with pytest.raises(ValueError, match="at most 3"):
+        src.build_draw(1, 3, 10, 4)
+    assert torch.equal(rng.from_seed(0, "cpu", 3).swap_draw(0, 2, 10, 4),
+                       late)
 
 
 def test_array_draws_validate():
